@@ -1,0 +1,36 @@
+"""stateright_tpu_torch: the PyTorch/CUDA port of stateright_tpu.
+
+Exhaustive batched BFS over a `TensorModel` on an NVIDIA H100, through
+hand-written Hopper kernels for fingerprinting, compaction, in-batch
+dedup and the visited-set insert (kernels/csrc). It imports torch and
+numpy, never jax and nothing of the JAX package, and keeps its own copy
+of the host layers it needs.
+
+    from stateright_tpu_torch import TensorModelAdapter
+    from stateright_tpu_torch.models import TwoPhaseTensor
+
+    c = TensorModelAdapter(TwoPhaseTensor(7)).checker().spawn_gpu_bfs().join()
+    c.assert_properties()
+
+Engines run on `cuda` unless the caller passes `device="cpu"`, which runs
+each kernel's plain torch version instead.
+"""
+
+from .checker import Checker, CheckerBuilder
+from .core import Expectation, Model, Property
+from .has_discoveries import HasDiscoveries
+from .path import Path
+from .tensor import TensorModel, TensorModelAdapter, TensorProperty
+
+__all__ = [
+    "Checker",
+    "CheckerBuilder",
+    "Expectation",
+    "HasDiscoveries",
+    "Model",
+    "Path",
+    "Property",
+    "TensorModel",
+    "TensorModelAdapter",
+    "TensorProperty",
+]

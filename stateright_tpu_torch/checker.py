@@ -1,0 +1,205 @@
+"""CheckerBuilder / Checker for the port (the counterpart of
+`stateright_tpu/checker.py`, reference src/checker.rs:65-578).
+
+The builder carries the model and the options this slice supports —
+`finish_when`, `target_state_count`, `target_max_depth`, `coverage` —
+and spawns the device BFS engine with `spawn_gpu_bfs(**kw)`, the
+counterpart of `spawn_tpu_bfs`. Options that later slices port raise
+`NotImplementedError` naming the slice; sampling is off until it is
+ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+from .core import Expectation, Model
+from .has_discoveries import HasDiscoveries
+from .path import Path
+
+# Later slices of the port, numbered as in ROADMAP.md Queue 1.
+SLICE_SAMPLING = "slice 2 (bottom-k sampling and symmetry)"
+SLICE_CHECKPOINTS = "slice 4 (spill tiers and checkpoints)"
+SLICE_PIPELINE = "slice 5 (pipelined and CUDA-graph eras)"
+
+
+def not_ported(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch/CUDA engine yet; it comes "
+        f"with {slice_name}"
+    )
+
+
+class DiscoveryClassification:
+    EXAMPLE = "example"
+    COUNTEREXAMPLE = "counterexample"
+
+
+class CheckerBuilder:
+    """Fluent options builder (reference checker.rs:65-288)."""
+
+    def __init__(self, model: Model):
+        self.model = model
+        self.target_state_count_: Optional[int] = None
+        self.target_max_depth_: Optional[int] = None
+        self.finish_when_: HasDiscoveries = HasDiscoveries.ALL
+        self.coverage_: bool = True
+
+    def finish_when(self, has_discoveries: HasDiscoveries) -> "CheckerBuilder":
+        self.finish_when_ = has_discoveries
+        return self
+
+    def target_state_count(self, count: int) -> "CheckerBuilder":
+        self.target_state_count_ = count if count > 0 else None
+        return self
+
+    def target_max_depth(self, depth: int) -> "CheckerBuilder":
+        self.target_max_depth_ = depth if depth > 0 else None
+        return self
+
+    def coverage(self, enable: bool = True) -> "CheckerBuilder":
+        """Per-action fire counts, the per-depth unique-state histogram and
+        per-property evaluation/hit counts (obs/coverage.py), kept on the
+        card by the step loop and read once per era."""
+        self.coverage_ = enable
+        return self
+
+    def sample(self, enable: bool = True, k: int = 64) -> "CheckerBuilder":
+        if enable:
+            raise not_ported("bottom-k state sampling", SLICE_SAMPLING)
+        return self
+
+    def symmetry(self) -> "CheckerBuilder":
+        raise not_ported("symmetry reduction", SLICE_SAMPLING)
+
+    def symmetry_fn(self, representative) -> "CheckerBuilder":
+        raise not_ported("symmetry reduction", SLICE_SAMPLING)
+
+    def pipeline(self, enable: bool = True, depth=None, fuse=None) -> "CheckerBuilder":
+        if enable or depth is not None or fuse is not None:
+            raise not_ported("speculative and fused era pipelining", SLICE_PIPELINE)
+        return self
+
+    def threads(self, thread_count: int) -> "CheckerBuilder":
+        if thread_count != 1:
+            raise not_ported("threaded host engines", "a later slice (host engines)")
+        return self
+
+    def visitor(self, visitor) -> "CheckerBuilder":
+        raise not_ported("checker visitors", "a later slice (host engines)")
+
+    def timeout(self, seconds: float) -> "CheckerBuilder":
+        raise not_ported("run timeouts (adaptive era budgets)", SLICE_PIPELINE)
+
+    def spawn_gpu_bfs(self, **kw) -> "Checker":
+        """Exhaustive BFS over a TensorModel on the card (or, with
+        device="cpu", through the kernels' plain versions on the CPU)."""
+        from .engines.gpu_bfs import GpuBfsChecker
+
+        return GpuBfsChecker(self, **kw)
+
+
+class Checker:
+    """Query interface over a (possibly still running) checking run
+    (reference checker.rs:294-578)."""
+
+    def model(self) -> Model:
+        return self._model  # type: ignore[attr-defined]
+
+    def state_count(self) -> int:
+        raise NotImplementedError
+
+    def unique_state_count(self) -> int:
+        raise NotImplementedError
+
+    def max_depth(self) -> int:
+        raise NotImplementedError
+
+    def discoveries(self) -> Dict[str, Path]:
+        raise NotImplementedError
+
+    def is_done(self) -> bool:
+        raise NotImplementedError
+
+    def join(self) -> "Checker":
+        return self
+
+    def coverage(self) -> Dict[str, Any]:
+        return {}
+
+    def discovery(self, name: str) -> Optional[Path]:
+        return self.discoveries().get(name)
+
+    def discovery_classification(self, name: str) -> str:
+        prop = self.model().property(name)
+        if prop.expectation in (Expectation.ALWAYS, Expectation.EVENTUALLY):
+            return DiscoveryClassification.COUNTEREXAMPLE
+        return DiscoveryClassification.EXAMPLE
+
+    def assert_properties(self) -> None:
+        for p in self.model().properties():
+            if p.expectation in (Expectation.ALWAYS, Expectation.EVENTUALLY):
+                self.assert_no_discovery(p.name)
+            else:
+                self.assert_any_discovery(p.name)
+
+    def assert_any_discovery(self, name: str) -> Path:
+        found = self.discovery(name)
+        if found is not None:
+            return found
+        if not self.is_done():
+            raise AssertionError(
+                f'Discovery for "{name}" not found, but model checking is incomplete.'
+            )
+        raise AssertionError(f'Discovery for "{name}" not found.')
+
+    def assert_no_discovery(self, name: str) -> None:
+        found = self.discovery(name)
+        if found is not None:
+            raise AssertionError(
+                f'Unexpected "{name}" {self.discovery_classification(name)} '
+                f"{found}Last state: {found.last_state()!r}\n"
+            )
+        if not self.is_done():
+            raise AssertionError(
+                f'Discovery for "{name}" not found, but model checking is incomplete.'
+            )
+
+    def assert_discovery(self, name: str, actions: List[Any]) -> None:
+        """Assert `actions` forms a valid discovery for property `name`
+        (reference checker.rs:519-577)."""
+        additional_info: List[str] = []
+        found = self.assert_any_discovery(name)
+        model = self.model()
+        for init_state in model.init_states():
+            path = Path.from_actions(model, init_state, actions)
+            if path is None:
+                continue
+            prop = model.property(name)
+            if prop.expectation == Expectation.ALWAYS:
+                if not prop.condition(model, path.last_state()):
+                    return
+            elif prop.expectation == Expectation.EVENTUALLY:
+                states = path.into_states()
+                is_liveness_satisfied = any(
+                    prop.condition(model, s) for s in states
+                )
+                last_actions: List[Any] = []
+                model.actions(states[-1], last_actions)
+                is_path_terminal = not last_actions
+                if not is_liveness_satisfied and is_path_terminal:
+                    return
+                if is_liveness_satisfied:
+                    additional_info.append(
+                        "incorrect counterexample satisfies eventually property"
+                    )
+                if not is_path_terminal:
+                    additional_info.append("incorrect counterexample is nonterminal")
+            else:  # SOMETIMES
+                if prop.condition(model, path.last_state()):
+                    return
+        extra = f" ({'; '.join(additional_info)})" if additional_info else ""
+        raise AssertionError(
+            f'Invalid discovery for "{name}"{extra}, but a valid one was found. '
+            f"found={found.into_actions()!r}"
+        )

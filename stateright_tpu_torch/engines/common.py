@@ -1,0 +1,82 @@
+"""The lean part of `stateright_tpu/engines/common.py HostEngineBase`: the
+run thread, join, counters, coverage and discovery bookkeeping that the
+port's device engine needs.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional
+
+from ..checker import Checker, CheckerBuilder
+from ..obs.coverage import Coverage
+
+
+class HostEngineBase(Checker):
+    """Runs `_run` on a background thread; exceptions surface at join()."""
+
+    def __init__(self, builder: CheckerBuilder, model=None):
+        self._model = model if model is not None else builder.model
+        self._properties = self._model.properties()
+        self._target_state_count = builder.target_state_count_
+        self._target_max_depth = builder.target_max_depth_
+        self._finish_when = builder.finish_when_
+
+        self._state_count = 0
+        self._max_depth = 0
+        # Run counters (eras, steps, table growths, ...), read by
+        # telemetry().
+        self._counters: Dict[str, int] = {}
+        self._coverage = Coverage(enabled=builder.coverage_)
+        self._coverage.register_properties(p.name for p in self._properties)
+        tm = getattr(self._model, "tm", None)
+        if tm is not None:
+            self._coverage.register_actions(
+                tm.format_action(a) for a in range(tm.max_actions)
+            )
+        self._done = threading.Event()
+        self._error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def _start(self) -> None:
+        self._thread = threading.Thread(target=self._run_guarded, daemon=True)
+        self._thread.start()
+
+    def _run_guarded(self) -> None:
+        try:
+            self._run()
+        except BaseException as e:  # surfaces at join(), like a Rust panic
+            self._error = e
+        finally:
+            self._done.set()
+
+    def _run(self) -> None:
+        raise NotImplementedError
+
+    def join(self) -> "HostEngineBase":
+        if self._thread is not None:
+            self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self
+
+    def is_done(self) -> bool:
+        return self._done.is_set()
+
+    def state_count(self) -> int:
+        return self._state_count
+
+    def max_depth(self) -> int:
+        return self._max_depth
+
+    def coverage(self) -> Dict[str, Any]:
+        return self._coverage.snapshot()
+
+    def telemetry(self) -> Dict[str, Any]:
+        return dict(self._counters)
+
+    def _inc(self, name: str, n: int = 1) -> None:
+        self._counters[name] = self._counters.get(name, 0) + int(n)
+
+    def _finish_matched(self, discoveries: Dict[str, Any]) -> bool:
+        return self._finish_when.matches(set(discoveries), self._properties)

@@ -1,0 +1,408 @@
+"""Exhaustive batched BFS on the card: the port of
+`stateright_tpu/engines/tpu_bfs.py` (serial eras, no sampling, no
+symmetry, no spill).
+
+One BFS step pops a chunk of C states from a ring queue on the device and
+runs, at fixed widths so that no step waits on the host mid-way:
+
+  1. ring pop (torch indexing)
+  2. fingerprints of the popped rows          K1 hash_lanes     (kernel)
+  3. property evaluation + successors         K11 expand        (torch, model code)
+  4. validity compaction to vcap              K2 compact_ids    (kernel)
+  5. fingerprints of the candidates           K1 hash_lanes     (kernel)
+  6. in-batch dedup                           K3 claim_dedup    (kernel)
+  7. compaction to rcap distinct candidates   K2 compact_ids    (kernel)
+  8. visited-set insert                       K4 insert         (kernel)
+  9. ring append of the new states            K7 via K2 positions
+ 10. discovery snapshots and coverage counts  (torch)
+
+then reads back ONE small vector of counts, and the host applies the JAX
+era program's rules to it (`_build_loop`, tpu_bfs.py:428-703): an
+overflow (more than vcap valid or rcap distinct candidates, or an
+unresolved insert) commits the inserted prefix, consumes nothing and
+halves `take_cap`, which regrows by chunk/16 after each clean step. An
+era runs steps until the JAX gate closes (tpu_bfs.py:403): empty
+frontier, ring past its high-water mark, table past its growth limit,
+step budget spent, a probe error, or the finish policy met. Eras end
+exactly where the JAX engine's serial eras do, because discoveries are
+extracted per era (the shallowest first hit at the lowest chunk
+position, tpu_bfs.py:781-810), so the results — counts, discovery
+fingerprints, coverage — are the JAX engine's, bit for bit.
+
+On `device="cpu"` every kernel call runs its plain torch version; that is
+the only place the plain versions run on this path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..checker import SLICE_CHECKPOINTS, CheckerBuilder, not_ported
+from ..core import Expectation
+from ..fingerprint import combine64, hash_lanes, split64
+from ..obs.coverage import DEPTH_CAP
+from ..ops import frontier as fr
+from ..ops import visited_set as vs
+from ..ops.expand import build_expand_lean
+from ..path import Path
+from ..tensor import TensorModel, TensorModelAdapter
+from ..xp import TorchXP
+from .common import HostEngineBase
+
+U32_MAX = 0xFFFFFFFF
+
+
+def widths(A: int, chunk: int):
+    """(vcap, rcap, dedup_cap) of the step: the compacted candidate width
+    (tpu_bfs.py:162 `_vcap`, divisor 3), the distinct-candidate width and
+    the dedup scratch (tpu_bfs.py:353-357)."""
+    vcap = min(chunk * A, max(128 * A, (chunk * A) // 3))
+    rcap = max(128 * A, (2 * vcap) // 5)
+    dedup_cap = 1 << max(1, (4 * vcap - 1).bit_length())
+    return vcap, rcap, dedup_cap
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device: CUDA unless the caller asks for the CPU. No
+    card and no explicit CPU request is an error, never a silent CPU run."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "kernels' plain versions on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class GpuBfsChecker(HostEngineBase):
+    """Batched BFS over a TensorModel on one CUDA device."""
+
+    _NOT_PORTED = (
+        "checkpoint_path", "checkpoint_every", "resume_from",
+        "keep_checkpoints", "compiled",
+    )
+
+    def __init__(
+        self,
+        builder: CheckerBuilder,
+        *,
+        chunk_size: int = 8192,
+        queue_capacity: int = 1 << 20,
+        table_capacity: int = 1 << 22,
+        sync_steps: int = 4096,
+        device=None,
+        **kw,
+    ):
+        for name in kw:
+            if name in self._NOT_PORTED:
+                raise not_ported(f"{name}=", SLICE_CHECKPOINTS)
+            raise TypeError(f"unexpected keyword argument {name!r}")
+        model = builder.model
+        if isinstance(model, TensorModel):
+            model = TensorModelAdapter(model)
+        if not isinstance(model, TensorModelAdapter):
+            raise TypeError("spawn_gpu_bfs requires a TensorModel (or its adapter)")
+        super().__init__(builder, model=model)
+        self.device = resolve_device(device)
+        self.tm: TensorModel = model.tm
+        self._tprops = self.tm.tensor_properties()
+        n_event = sum(
+            1 for p in self._tprops if p.expectation == Expectation.EVENTUALLY
+        )
+        if n_event > 32 or len(self._tprops) > 32:
+            raise ValueError("at most 32 tensor properties supported")
+        if queue_capacity & (queue_capacity - 1):
+            raise ValueError("queue_capacity must be a power of two")
+        # qcap >= 2*C*A keeps the ring append from wrapping over
+        # unconsumed rows while count <= high_water (tpu_bfs.py:1429).
+        self._chunk = min(
+            chunk_size, queue_capacity // (2 * max(1, self.tm.max_actions))
+        )
+        if self._chunk == 0:
+            raise ValueError("queue_capacity too small for this model's fanout")
+        self._qcap = queue_capacity
+        self._tcap = table_capacity
+        self._max_sync_steps = sync_steps
+        self._cov = self._coverage.enabled
+        self._unique = 0
+        self._discovery_fps: Dict[str, int] = {}
+        self._table = None
+        self._table_np = None
+        self._init_ebits = 0
+        e = 0
+        for p in self._tprops:
+            if p.expectation == Expectation.EVENTUALLY:
+                self._init_ebits |= 1 << e
+                e += 1
+        self._start()
+
+    # -- the run -------------------------------------------------------------
+
+    def _run(self) -> None:
+        tm = self.tm
+        dev = self.device
+        S, A, C, P = tm.state_width, tm.max_actions, self._chunk, len(self._tprops)
+        W = S + 2  # ring lanes: state | ebits | depth
+        qmask = self._qcap - 1
+        vcap, rcap, dedup_cap = widths(A, C)
+        high_water = self._qcap - C * A
+        depth_limit = (
+            self._target_max_depth if self._target_max_depth is not None else U32_MAX
+        )
+        fin_any, fin_all, fin_all_en = self._finish_when.device_masks(self._tprops)
+        expand = build_expand_lean(tm, self._tprops, C, TorchXP(dev))
+        arange_c = torch.arange(C, device=dev)
+
+        inits = np.asarray(tm.init_states_array(), dtype=np.uint32)
+        inb = np.asarray(
+            tm.within_boundary_lanes(np, tuple(inits[:, i] for i in range(S))),
+            dtype=bool,
+        )
+        inits = inits[inb]
+        n_init = len(inits)
+        self._state_count = n_init
+        if n_init == 0:
+            return
+        if self._cov:
+            self._coverage.record_depth(1, len(np.unique(inits, axis=0)))
+        if n_init > self._qcap:
+            raise ValueError("more initial states than queue capacity")
+        while n_init + vcap > vs.MAX_LOAD * self._tcap:
+            self._tcap *= 2
+
+        # Seed (tpu_bfs.py:1080 _build_seed): K1 + K4 over the inits; every
+        # init row is enqueued, the table keeps one per fingerprint.
+        table = vs.empty_table(self._tcap, dev)
+        init_t = torch.from_numpy(inits.T.astype(np.int64)).to(dev).contiguous()
+        h1, h2 = hash_lanes(init_t)
+        zero = torch.zeros(n_init, dtype=torch.int64, device=dev)
+        is_new, unres = vs.insert(
+            table, h1, h2, zero, zero, torch.ones(n_init, dtype=torch.bool, device=dev)
+        )
+        if int(unres.sum()):
+            raise RuntimeError(
+                "init-state seeding exhausted the visited-table probe budget; "
+                "raise table_capacity"
+            )
+        ring = fr.empty_ring(W, self._qcap, dev)
+        ring[:S, :n_init] = init_t
+        ring[S, :n_init] = self._init_ebits
+        ring[S + 1, :n_init] = 1
+        self._unique = int(is_new.sum())
+
+        head, count, take_cap = 0, n_init, C
+        rec_bits = 0
+        budget = self._max_sync_steps
+
+        first = True
+        while first or count > 0:
+            if not first:
+                while self._unique + vcap > vs.MAX_LOAD * self._tcap:
+                    table = self._grow(table)
+            first = False
+            grow_limit = max(0, int(vs.MAX_LOAD * self._tcap) - vcap)
+            max_steps = budget
+            if self._target_state_count is not None:
+                # Bound the overshoot past the target: a step generates at
+                # most C*A states (tpu_bfs.py:2079). The clamped budget
+                # carries to the next era, as the device-emitted budget does.
+                remaining = max(0, self._target_state_count - self._state_count)
+                max_steps = max(1, min(max_steps, 1 + remaining // (C * A)))
+            budget = max_steps
+
+            # ---- one era (tpu_bfs.py:361 loop) ----
+            self._inc("eras")
+            steps = gen = err_cnt = expanded = 0
+            rec_acc = rec_bits
+            hseen = torch.zeros((P, C), dtype=torch.bool, device=dev)
+            facc1 = torch.zeros((P, C), dtype=torch.int64, device=dev)
+            facc2 = torch.zeros_like(facc1)
+            faccd = torch.zeros_like(facc1)
+            act = torch.zeros(A, dtype=torch.int64, device=dev)
+            dhist = torch.zeros(DEPTH_CAP, dtype=torch.int64, device=dev)
+            covp = [0] * P
+            while True:
+                fin_hit = (rec_acc & fin_any) != 0 or (
+                    fin_all_en and (rec_acc & fin_all) == fin_all
+                )
+                if not (
+                    0 < count <= high_water
+                    and self._unique <= grow_limit
+                    and steps < max_steps
+                    and err_cnt == 0
+                    and not fin_hit
+                ):
+                    break
+                # ---- one step (tpu_bfs.py:428 body) ----
+                take = min(count, C, take_cap)
+                active = arange_c < take
+                popped, _idx = fr.ring_gather(ring, head, C)
+                rows = popped[:S]
+                ebits = popped[S]
+                depth = popped[S + 1]
+                row_h1, row_h2 = hash_lanes(rows)
+                ex = expand(rows, ebits, depth, active, depth_limit)
+                vids, vvalid, n_val = vs.compact_ids(ex.valid, vcap)
+                cl = ex.flat.index_select(1, vids)
+                ch1, ch2 = hash_lanes(cl)
+                reps = fr.claim_dedup(ch1, ch2, vvalid, dedup_cap)
+                dids, dvalid, n_d = vs.compact_ids(reps, rcap)
+                src = vids.index_select(0, dids) % C  # candidate a*C + c has parent row c
+                dp1 = torch.where(dvalid, row_h1.index_select(0, src), 0)
+                dp2 = torch.where(dvalid, row_h2.index_select(0, src), 0)
+                ddepth = depth.index_select(0, src) + 1
+                c_new, unresolved = vs.insert(
+                    table, ch1.index_select(0, dids), ch2.index_select(0, dids),
+                    dp1, dp2, dvalid,
+                )
+                # The inserted prefix is enqueued even on an overflow step:
+                # inserts are idempotent and enqueue == inserted keeps every
+                # state exactly once in the ring.
+                fr.ring_scatter(
+                    ring, (head + count) & qmask,
+                    torch.cat([
+                        cl.index_select(1, dids),
+                        ex.ebits.index_select(0, src)[None], ddepth[None],
+                    ]),
+                    c_new,
+                )
+                stats = [n_val, n_d, unresolved.sum(), c_new.sum(), ex.generated]
+                if P:
+                    hits = torch.stack(ex.prop_hits)
+                    new_hit = hits & ~hseen
+                    facc1 = torch.where(new_hit, row_h1, facc1)
+                    facc2 = torch.where(new_hit, row_h2, facc2)
+                    faccd = torch.where(new_hit, depth, faccd)
+                    hseen |= hits
+                    stats.append(hits.sum(1))
+                if self._cov:
+                    pa = ex.valid.view(A, C).sum(1)
+                    dhist.index_add_(
+                        0, ddepth.clamp(max=DEPTH_CAP - 1), c_new.to(torch.int64)
+                    )
+                vals = torch.cat([s.view(-1) for s in stats]).tolist()  # the one sync
+                n_val, n_d, unres_n, new_count, generated = vals[:5]
+                hs = vals[5:]
+
+                if take <= 1:
+                    err_cnt += unres_n
+                ovf = n_val > vcap or n_d > rcap or unres_n > 0
+                consumed = 0 if ovf else take
+                head = (head + consumed) & qmask
+                count = count - consumed + new_count
+                self._unique += new_count
+                if ovf:
+                    self._inc("partial_steps")
+                    take_cap = max(take >> 1, 1)
+                else:
+                    gen += generated
+                    steps += 1
+                    take_cap = min(take_cap + max(1, C // 16), C)
+                    if self._cov:
+                        act += pa
+                        for i in range(P):
+                            covp[i] += hs[i]
+                expanded += consumed
+                for i in range(P):
+                    if hs[i]:
+                        rec_acc |= 1 << i
+
+            # ---- era epilogue (tpu_bfs.py:781-810) ----
+            self._inc("steps", steps)
+            if err_cnt:
+                raise RuntimeError(
+                    "visited-table probe budget exhausted despite headroom"
+                )
+            if P:
+                found = hseen.any(1).tolist()
+                sel = torch.where(hseen, faccd, U32_MAX).argmin(1)  # shallowest, lowest position
+                pidx = torch.arange(P, device=dev)
+                fp1 = facc1[pidx, sel].tolist()
+                fp2 = facc2[pidx, sel].tolist()
+                for i, p in enumerate(self._tprops):
+                    if found[i] and not (rec_bits >> i) & 1:
+                        if p.name not in self._discovery_fps:
+                            self._discovery_fps[p.name] = combine64(fp1[i], fp2[i])
+                        rec_bits |= 1 << i
+            if steps > 0:
+                self._max_depth = max(
+                    self._max_depth, int(ring[S + 1, (head - 1) & qmask])
+                )
+            self._state_count += gen
+            self._inc("states_generated", gen)
+            if self._cov:
+                cov = self._coverage
+                cov.record_action_counts(act.tolist())
+                for i, p in enumerate(self._tprops):
+                    cov.record_property_eval(p.name, expanded)
+                    cov.record_property_hit(p.name, covp[i])
+                cov.record_depth_counts(dhist.tolist())
+
+            if count > high_water:
+                raise RuntimeError(
+                    f"the frontier ({count} states) outgrew queue_capacity="
+                    f"{self._qcap}: spilling the ring to the host is not "
+                    "ported yet; raise queue_capacity"
+                )
+            if self._finish_matched(self._discovery_fps):
+                break
+            if (
+                self._target_state_count is not None
+                and self._state_count >= self._target_state_count
+            ):
+                break
+        self._table = table
+
+    def _grow(self, table):
+        """Double the table and rehash on the device (K5 = K4 over the
+        occupied rows)."""
+        new = vs.empty_table(table.capacity * 2, self.device)
+        if vs.rehash(table, new):
+            raise RuntimeError("rehash failed; table pathologically full")
+        self._tcap = new.capacity
+        self._inc("table_growths")
+        return new
+
+    # -- accessors -----------------------------------------------------------
+
+    def unique_state_count(self) -> int:
+        return self._unique
+
+    def telemetry(self):
+        tel = super().telemetry()
+        tel.update(table_capacity=self._tcap, chunk=self._chunk)
+        return tel
+
+    def discoveries(self) -> Dict[str, Path]:
+        self.join()
+        return {
+            name: self._reconstruct(fp)
+            for name, fp in list(self._discovery_fps.items())
+        }
+
+    def _reconstruct(self, fp64: int) -> Path:
+        """Walk the table's parent fingerprints on a host copy, then
+        re-execute the model along the chain (tpu_bfs.py:2686)."""
+        if self._table_np is None:
+            self._table_np = vs.table_to_lanes(self._table)
+        chain = [fp64]
+        cur = fp64
+        while True:
+            h1, h2 = split64(cur)
+            found, p1, p2 = vs.lookup_parent_np(self._table_np, h1, h2)
+            if not found:
+                raise RuntimeError(
+                    f"fingerprint {cur} missing from visited table during "
+                    "path reconstruction"
+                )
+            if p1 == 0 and p2 == 0:
+                break
+            cur = combine64(p1, p2)
+            chain.append(cur)
+        chain.reverse()
+        return Path.from_fingerprints(self._model, chain)

@@ -1,0 +1,190 @@
+"""Hand-written Hopper kernels: build, load, launch and count.
+
+Each kernel source in ``csrc/`` is compiled on first use with
+``nvcc -arch=sm_90a`` into its own shared library with a plain C
+interface, and bound with ``ctypes`` (no PyTorch headers, so a build
+takes seconds, not minutes). The libraries land in ``_build/`` beside
+this file, named by a digest of their source, so an unchanged source is
+never rebuilt and an edited one never loads a stale binary.
+
+Every C entry point takes device pointers, sizes and the CUDA stream as
+plain integers, launches on that stream without synchronising, and
+returns ``cudaGetLastError()`` (0 = launched). `Kernel.launch` raises on
+anything else and then adds one to the kernel's ``launches`` count — the
+count a run reads to show its main path went through the kernel.
+
+Nothing here builds or loads at import: the CPU tests import every
+module on machines with no CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+ARCH = "sm_90a"
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_U64 = ctypes.c_ulonglong
+
+
+class Kernel:
+    """One kernel library: its source, C symbol, argument types and the
+    count of launches made through `launch`."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes, replaces: str):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [_P]  # + stream
+        self.replaces = replaces
+        self.launches = 0
+        self._fn = None
+
+    @property
+    def source_path(self) -> str:
+        return os.path.join(_CSRC, self.source)
+
+    def launch(self, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = _load(self)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"kernel {self.name} failed to launch: cudaError {err}"
+            )
+        self.launches += 1
+
+
+HASH_LANES = Kernel(
+    "hash_lanes", "hash_lanes.cu", "srt_hash_lanes",
+    [_P, _I64, _I32, _P, _P],
+    "stateright_tpu/fingerprint.py:262",
+)
+COMPACT_IDS = Kernel(
+    "compact_ids", "compact_ids.cu", "srt_compact_ids",
+    [_P, _I64, _I64, _P, _P, _P, _P],
+    "stateright_tpu/ops/visited_set.py:250",
+)
+CLAIM_DEDUP = Kernel(
+    "claim_dedup", "claim_dedup.cu", "srt_claim_dedup",
+    [_P, _P, _P, _I64, _P, _I64, _P],
+    "stateright_tpu/ops/frontier.py:20",
+)
+VISITED_INSERT = Kernel(
+    "visited_insert", "visited_insert.cu", "srt_visited_insert",
+    [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _I64, _P, _P, _P],
+    "stateright_tpu/ops/visited_set.py:335",
+)
+
+KERNELS = (HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on a CUDA device (launch the kernel),
+    False when every one lies on the CPU (run the plain version); raises
+    on a mix or on any other device — never a silent fallback."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors on unsupported or mixed devices: {sorted(kinds)}")
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def _lib_path(k: Kernel) -> str:
+    with open(k.source_path, "rb") as f:
+        digest = hashlib.sha256(f.read() + ARCH.encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"{os.path.splitext(k.source)[0]}_{digest}.so")
+
+
+def _nvcc_cmd(k: Kernel, out: str) -> list:
+    return [
+        _nvcc(), f"-arch={ARCH}", "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-o", out, k.source_path,
+    ]
+
+
+def build_all(kernels=KERNELS, verbose: bool = False) -> float:
+    """Compile every stale kernel library, one `nvcc` per source, all
+    started together; returns the wall seconds the build took."""
+    t0 = time.monotonic()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for k in kernels:
+        out = _lib_path(k)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = _nvcc_cmd(k, tmp)
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((k, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for k, out, tmp, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{k.source}:\n{log}")
+            continue
+        if verbose and log.strip():
+            print(f"[nvcc {k.source}] {log.strip()}")
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.monotonic() - t0
+
+
+def _load(k: Kernel):
+    with _lock:
+        path = _lib_path(k)
+        lib = _libs.get(path)
+        if lib is None:
+            if not os.path.exists(path):
+                build_all([k])
+            lib = _libs[path] = ctypes.CDLL(path)
+        fn = getattr(lib, k.symbol)
+        fn.argtypes = k.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def ptr(t: torch.Tensor) -> int:
+    """Device pointer of a contiguous tensor."""
+    if not t.is_contiguous():
+        raise ValueError("kernel arguments must be contiguous")
+    return t.data_ptr()

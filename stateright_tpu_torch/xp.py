@@ -1,0 +1,61 @@
+"""The torch array namespace that model code receives as ``xp``.
+
+A `TensorModel` writes its transition function once, against an array
+namespace ``xp`` (numpy on the host, jax.numpy in the JAX package). This
+module is that namespace for torch.
+
+Lanes are int64 tensors holding uint32 values, not ``torch.uint32``
+tensors: torch has no ``add``, ``<<``, ``>>``, ``minimum``, ``index_put``
+or ``scatter_`` for ``uint32`` on the CPU. ``xp.uint32(c)`` is a plain
+Python int in [0, 2^32), so ``~xp.uint32(3)`` is -4, and ``&``, ``|``,
+``<<`` and ``>>`` against int64 lanes give the same low 32 bits as numpy's
+uint32 arithmetic. Results may carry high bits (``~lane``); the engine
+masks successor lanes to 32 bits before it hashes or stores them.
+
+The namespace holds what the ported models call; a model ported later
+adds what it needs (ROADMAP P2 lists the calls of the bundled models).
+"""
+
+from __future__ import annotations
+
+import torch
+
+M32 = 0xFFFFFFFF
+
+
+class TorchXP:
+    """`xp` bound to one device (array constructors need to know where)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    @staticmethod
+    def uint32(c):
+        """A uint32 constant (Python int), or a tensor masked to 32 bits."""
+        if isinstance(c, torch.Tensor):
+            return c.to(torch.int64) & M32
+        return int(c) & M32
+
+    def _dtype(self, dtype):
+        if dtype is None or dtype is TorchXP.uint32:
+            return torch.int64
+        if dtype is bool:
+            return torch.bool
+        raise TypeError(f"unsupported lane dtype {dtype!r}")
+
+    def zeros(self, shape, dtype=None):
+        return torch.zeros(shape, dtype=self._dtype(dtype), device=self.device)
+
+    def ones(self, shape, dtype=None):
+        return torch.ones(shape, dtype=self._dtype(dtype), device=self.device)
+
+    def _t(self, x):
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.as_tensor(x, dtype=torch.int64, device=self.device)
+
+    def minimum(self, a, b):
+        return torch.minimum(self._t(a), self._t(b))
+
+    def maximum(self, a, b):
+        return torch.maximum(self._t(a), self._t(b))

@@ -1,0 +1,35 @@
+"""The port stands alone: importing every module of it and
+`chip_smoke.py`, and running a BFS, loads neither jax nor any module of
+the JAX package."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import stateright_tpu_torch
+for mod in pkgutil.walk_packages(stateright_tpu_torch.__path__, "stateright_tpu_torch."):
+    importlib.import_module(mod.name)
+import chip_smoke
+from stateright_tpu_torch import TensorModelAdapter
+from stateright_tpu_torch.models import TwoPhaseTensor
+c = TensorModelAdapter(TwoPhaseTensor(2)).checker().spawn_gpu_bfs(
+    device="cpu", chunk_size=16, queue_capacity=1 << 10, table_capacity=1 << 10).join()
+assert c.unique_state_count() > 1
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "stateright_tpu" or m.startswith("stateright_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
