@@ -2,24 +2,36 @@
 """Smoke test of the PyTorch/CUDA port (stateright_tpu_torch) on one card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
+    python3 chip_smoke.py --skip-full   # without the 2pc-10 phases
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
 
   0. environment: torch, CUDA, nvcc, the card's name and power limit;
   1. build: every kernel from kernels/csrc with nvcc, in parallel;
-  2. kernel parity: each hand-written kernel against its plain torch
-     version on the same card tensors, at the 2pc-7 bench widths
-     (C=6144, A=37), compared bit for bit, with CUDA-event timings;
-  3. a small engine run (2pc-5) on cuda and on the cpu: equal results;
-  4. the headline: 2pc-7 exhaustive at the bench options, with and
-     without table growth; the launch counts of that run show the main
-     path went through every kernel;
-  5. full size: 2pc-10 exhaustive (61,515,776 states).
+  2. kernel parity: each of the eight hand-written kernels against its
+     plain torch version on the same card tensors, compared bit for bit,
+     with CUDA-event timings, at the 2pc-7 bench widths (C=6144, A=37)
+     and at the paxos-3 widths (C=16384, A=21); beside them the times of
+     K5 rehash, K10 seed and K11 expand, which run through those kernels
+     and torch;
+  3. small engine runs (2pc-5, sampling on, and 2pc-5 with .symmetry())
+     on cuda and on the cpu: equal results, sample and paths included;
+  4. the headline: 2pc-7 exhaustive at the bench options with sampling
+     on (the default), with and without table growth, and its time with
+     sampling off; the launch counts of that run show the main path went
+     through every kernel;
+  5. paxos-3 exhaustive (1,194,428 states) at bench.py's options, every
+     discovery path and the sample rows walked through K6;
+  6. abd-ordered-3 exhaustive (46,516 states);
+  7. full size: 2pc-10 exhaustive (61,515,776 states) and 2pc-10 with
+     .symmetry() (265,719 representatives).
 
-Before the last line it prints the `kernels` JSON line and the card's
-name and power limit; the last line is the JSON result. It imports
-nothing of JAX or of the JAX package.
+Every engine phase resets the kernels' launch counts just before its run
+and checks, just after, that each kernel of its path was launched. Before
+the last line it prints the `kernels` JSON line and the card's name and
+power limit; the last line is the JSON result. It imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
@@ -37,7 +49,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH7 = dict(chunk_size=6144, queue_capacity=1 << 20, table_capacity=1 << 22)
 TEST_OPTS = dict(chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 11, sync_steps=4)
 FULL10 = dict(chunk_size=12288, queue_capacity=1 << 26, table_capacity=1 << 28)
+# 2pc-10 with symmetry (bench.py:1267-1272), paxos-3 (bench.py:1305-1307,
+# serial eras) and abd-ordered-3 (bench.py:1159-1161).
+SYM10 = dict(chunk_size=8192, queue_capacity=1 << 21, table_capacity=1 << 24, sync_steps=128)
+PAXOS3 = dict(chunk_size=16384, queue_capacity=1 << 21, table_capacity=1 << 26)
+ABDO3 = dict(chunk_size=2048, queue_capacity=1 << 15, table_capacity=1 << 18)
 GOLDEN = {5: 8_832, 7: 296_448, 10: 61_515_776}
+SYM_CLOSURE = {5: 1_092, 10: 265_719}
+PAXOS3_GOLDEN = 1_194_428
+ABDO3_GOLDEN = 46_516
 
 # 3-lane rows whose raw hash halves are both 0 (tests/test_torch_fingerprint.py).
 BOTH_ZERO_ROWS = ((2392970816, 0, 4120996650), (2503669636, 0, 1754888951))
@@ -65,7 +85,9 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def fingerprint_dict(c):
+def result_dict(c):
+    """Counts, discoveries, coverage, the sample and the discovery paths
+    (walked through K6): what must be equal on cuda and on cpu."""
     cov = c.coverage()
     return dict(
         unique=c.unique_state_count(),
@@ -74,6 +96,8 @@ def fingerprint_dict(c):
         discovery_fps=dict(c._discovery_fps),
         coverage_actions=cov["actions"],
         coverage_depths=cov["depths"],
+        sample=tuple(c._sampler.fingerprints()) if c._sampler is not None else (),
+        paths={k: v.encode(c.model()) for k, v in c.discoveries().items()},
     )
 
 
@@ -106,18 +130,41 @@ def max_abs_err(torch, pairs):
     return err
 
 
-def kernel_parity(torch, np):
+def finish(results):
+    """Bound each timed function by the larger of its bytes over the HBM
+    rate and its operations over the 32-bit rate, print it, and check
+    every kernel's parity."""
+    for name, r in results.items():
+        bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        bound_ops = r["ops"] / INT32_OPS_PER_S * 1e3
+        r["bound_ms"] = max(bound_bytes, bound_ops)
+        r["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
+        print(f"kernel {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']} bound_ms={r['bound_ms']:.5f} "
+              f"bound_by={r['bound_by']} library_ms={r['library_ms']}", flush=True)
+        if r["max_abs_err"] is not None:
+            check(r["max_abs_err"] == 0, f"kernel {name} disagrees with its plain version")
+    return results
+
+
+def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
+    """Every kernel against its plain version at the widths one BFS step
+    of a model with C, A, S gives it, with a tcap-slot table and a
+    qcap-row ring; returns {kernel: timing dict}."""
     from stateright_tpu_torch import kernels
     from stateright_tpu_torch.engines.gpu_bfs import widths
     from stateright_tpu_torch.fingerprint import hash_lanes, hash_lanes_plain
+    from stateright_tpu_torch.obs.sample import DEVICE_STEP_CAP, slab_capacity, slab_entries
     from stateright_tpu_torch.ops import frontier as fr
+    from stateright_tpu_torch.ops import slab as sl
     from stateright_tpu_torch.ops import visited_set as vs
 
     dev = torch.device("cuda")
-    C, A, S = 6144, 37, 3
     CA = C * A
+    W = S + 2
     vcap, rcap, dedup_cap = widths(A, C)
-    print(f"widths: C*A={CA} vcap={vcap} rcap={rcap} dedup_cap={dedup_cap}")
+    print(f"widths ({label}): C*A={CA} vcap={vcap} rcap={rcap} dedup_cap={dedup_cap} "
+          f"S={S} table=2^{tcap.bit_length() - 1} ring=2^{qcap.bit_length() - 1}x{W}")
     rng = np.random.default_rng(7)
     results = {}
 
@@ -134,7 +181,8 @@ def kernel_parity(torch, np):
     errs = []
     for n in (C, vcap):
         lanes = gpu(u32(S, n))
-        lanes[:, :2] = gpu(np.asarray(BOTH_ZERO_ROWS, dtype=np.int64).T)
+        if S == 3:
+            lanes[:, :2] = gpu(np.asarray(BOTH_ZERO_ROWS, dtype=np.int64).T)
         lanes[:, 2:8] = 0
         errs.append(max_abs_err(torch, zip(hash_lanes(lanes), hash_lanes_plain(lanes))))
     lanes = gpu(u32(S, vcap))
@@ -149,8 +197,8 @@ def kernel_parity(torch, np):
         shape=f"[{S}, {n}]",
     )
 
-    # K2: the validity mask [C*A] -> vcap (about a third valid, as on
-    # 2pc-7), an overflowing mask, and the dedup mask [vcap] -> rcap.
+    # K2: the validity mask [C*A] -> vcap (about a third valid), an
+    # overflowing mask, and the dedup mask [vcap] -> rcap.
     errs = []
     cases = [
         (gpu(rng.random(CA) < 0.3), vcap),
@@ -192,17 +240,16 @@ def kernel_parity(torch, np):
         shape=f"[{vcap}]",
     )
 
-    # K4: a 2^22-slot table filled to ~0.25 load, then an [rcap] batch of
+    # K4: a tcap-slot table filled to ~0.25 load, then an [rcap] batch of
     # found keys, new keys and in-batch duplicates; and a duplicate-heavy
     # batch (64 copies of one key, distinct parents) for the winner rule.
-    tcap = 1 << 22
     base = vs.empty_table(tcap, dev)
     fill = tcap // 4 - rcap
     k = gpu(u32(2, fill))
     vs.insert(base, k[0], k[1], k[0], k[1], torch.ones(fill, dtype=torch.bool, device=dev))
     old = rng.integers(0, fill, size=rcap // 3)
     fresh = u32(2, rcap - len(old))
-    bh = np.concatenate([k.cpu().numpy()[:, old], fresh], axis=1)
+    bh = np.concatenate([k[:, torch.from_numpy(old).to(dev)].cpu().numpy(), fresh], axis=1)
     perm = rng.permutation(rcap)
     bh = bh[:, perm]
     bh[:, rcap - 200:] = bh[:, rcap - 400:rcap - 200]  # in-batch duplicates
@@ -224,6 +271,7 @@ def kernel_parity(torch, np):
     n_new = int(out_a[0].sum())
     n_act = int(act.sum())
     check(n_new > 0 and int(out_a[1].sum()) == 0, "insert parity batch: expected new keys and no unresolved")
+    del tb
 
     dup = 64
     w1 = np.concatenate([[0xDEADBEEF] * dup, fresh[0, :dup]])
@@ -242,6 +290,7 @@ def kernel_parity(torch, np):
     dup_key = int(np.array([0xDEADBEEF12345678], dtype=np.uint64).view(np.int64)[0])
     check(int(ta.parents[ta.keys == dup_key].item()) & 0xFFFFFFFF == top + 1,
           "winner rule: the stored parent must be the highest-index copy's")
+    del ta, tb
     results["visited_insert"] = dict(
         max_abs_err=max(errs),
         ms=time_ms(torch, lambda t: vs.insert(t, b1, b2, p1, p2, act), prep=lambda: clone(base)),
@@ -249,35 +298,220 @@ def kernel_parity(torch, np):
         bytes=rcap * (4 * 8 + 1 + 2) + n_act * 8 + n_new * 16,
         ops=n_act * 8,
         library_ms=None,
-        shape=f"[{rcap}] into 2^22 slots at load {(fill / tcap):.3f}",
+        shape=f"[{rcap}] into {tcap} slots at load {(fill / tcap):.3f}",
     )
-    for name, r in results.items():
-        bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        bound_ops = r["ops"] / INT32_OPS_PER_S * 1e3
-        r["bound_ms"] = max(bound_bytes, bound_ops)
-        r["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
-        print(f"kernel {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
-              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-              f"library_ms={r['library_ms']}", flush=True)
-        check(r["max_abs_err"] == 0, f"kernel {name} disagrees with its plain version")
-    return results
+
+    # K7: pop C rows at a head that wraps, and append rcap candidates
+    # (about 40% new) at a tail that wraps.
+    ring = fr.empty_ring(W, qcap, dev)
+    ring[:, :qcap] = gpu(u32(W, qcap))
+    head = qcap - C // 3
+    cand = gpu(u32(W, rcap))
+    cvalid = gpu(rng.random(rcap) < 0.4)
+    ra, rb = ring.clone(), ring.clone()
+    fr.ring_scatter(ra, head, cand, cvalid)
+    fr.ring_scatter_plain(rb, head, cand, cvalid)
+    errs = [max_abs_err(torch, [(fr.ring_pop(ring, head, C), fr.ring_pop_plain(ring, head, C)),
+                                (ra[:, :qcap], rb[:, :qcap])])]
+    del ra, rb
+    n_app = int(cvalid.sum())
+    idx = fr.ring_indices(head, C, qcap, dev)
+    ids, ok, _n = vs.compact_ids(cvalid, rcap)
+    pos = torch.where(ok, fr.ring_indices(head, rcap, qcap, dev), qcap)
+
+    def pop_and_append(_):
+        fr.ring_pop(ring, head, C)
+        fr.ring_scatter(ring, head, cand, cvalid)
+
+    def plain_pop_and_append(_):
+        fr.ring_pop_plain(ring, head, C)
+        fr.ring_scatter_plain(ring, head, cand, cvalid)
+
+    def torch_indexing(_):
+        ring.index_select(1, idx)
+        ring.index_copy_(1, pos, cand.index_select(1, ids))
+
+    results["ring"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, pop_and_append),
+        plain_ms=time_ms(torch, plain_pop_and_append),
+        # pop: W*C read + written; append: the mask, the valid rows read
+        # and written (the K2 compaction it launches is K2's bytes).
+        bytes=2 * W * C * 8 + rcap + 2 * W * n_app * 8,
+        ops=W * (C + n_app),
+        library_ms=time_ms(torch, torch_indexing),
+        shape=f"pop [{W}, {C}] + append [{W}, {rcap}] ({n_app} valid) in a 2^{qcap.bit_length() - 1} ring",
+    )
+
+    # K9a: captures at the rcap width: a loose threshold (every new
+    # insert below it; a clamped step's few hundred, then a flood past
+    # the per-step cap) and a tight one with ties on its high word.
+    scap, sk2 = slab_capacity(64, DEVICE_STEP_CAP), slab_entries(64)
+    new = gpu(rng.random(rcap) < 0.5)
+    hh = gpu(u32(4, rcap))
+    hh[0, :40] = 0x00800000
+    sparse = gpu(rng.random(rcap) < 400 / rcap)
+    sa, sb = sl.empty_slab(scap, dev), sl.empty_slab(scap, dev)
+    errs = []
+    for isnew, t1, t2 in ((sparse, 0xFFFFFFFF, 0xFFFFFFFF), (new, 0x00800000, 0x40000000), (new, 0xFFFFFFFF, 0xFFFFFFFF)):
+        sl.capture(sa, isnew, hh[0], hh[1], hh[2], hh[3], t1, t2, DEVICE_STEP_CAP)
+        sl.capture_plain(sb, isnew, hh[0], hh[1], hh[2], hh[3], t1, t2, DEVICE_STEP_CAP)
+        errs.append(max_abs_err(torch, [(x[:scap], y[:scap]) for x, y in zip(sa[:4], sb[:4])] + [(sa.counts, sb.counts)]))
+    check(int(sa.counts[1]) > 0, "capture parity: the flood should drop rows")
+    tight = (new, 0x00800000, 0x40000000)
+    n_new = int(new.sum())
+    n_below = int(sl.below_threshold(new, hh[0], hh[1], 0x00800000, 0x40000000).sum())
+
+    def fresh_slab():
+        return sl.empty_slab(scap, dev)
+
+    results["sample_capture"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], tight[2], DEVICE_STEP_CAP), prep=fresh_slab),
+        plain_ms=time_ms(torch, lambda sb_: sl.capture_plain(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], tight[2], DEVICE_STEP_CAP), prep=fresh_slab),
+        bytes=rcap + n_new * 16 + min(n_below, DEVICE_STEP_CAP) * 32 + 32,
+        ops=rcap + n_new * 3,
+        library_ms=None,
+        shape=f"[{rcap}], {n_new} new, {n_below} below a tight threshold",
+    )
+
+    # K9b: the era epilogue over a full-width slab at several occupancies,
+    # with many equal keys (top_k's tie order).
+    slanes = [gpu(u32(scap + 1)) for _ in range(4)]
+    slanes[0][::3] = slanes[0][5]
+    errs = []
+    for occ in (0, 9, 700, scap):
+        slab = sl.Slab(*slanes, torch.tensor([occ, 0], device=dev))
+        errs.append(max_abs_err(torch, zip(sl.bottom_k(slab, sk2), sl.bottom_k_plain(slab, sk2))))
+    slab = sl.Slab(*slanes, torch.tensor([700, 0], device=dev))
+    skey = torch.where(torch.arange(scap, device=dev) < 700, (~slanes[0][:scap]) & 0xFFFFFFFF, 0)
+    results["slab_bottomk"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda _: sl.bottom_k(slab, sk2)),
+        plain_ms=time_ms(torch, lambda _: sl.bottom_k_plain(slab, sk2)),
+        bytes=scap * 8 + 16 + sk2 * 4 * 8 + sk2 * (4 * 8 + 1),
+        ops=scap * 2 + (scap * 10 * 11 // 2) * 2,  # key, then the sort's compare-exchanges
+        library_ms=time_ms(torch, lambda _: torch.topk(skey, sk2)),
+        shape=f"[{scap}] -> [{sk2}] at occupancy 700",
+    )
+
+    # K6: a path-walk batch (64 chains, as the sample rows give) against
+    # the filled table, plus absent keys.
+    q = torch.cat([k[:, :64], gpu(u32(2, 16))], dim=1).contiguous()
+    qa = vs.lookup_parent(base, q[0], q[1])
+    qb = vs.lookup_parent_plain(base, q[0], q[1])
+    check(bool(qa[0][:64].all()) and not bool(qa[0][64:].any()), "lookup_parent: found set")
+    results["lookup_parent"] = dict(
+        max_abs_err=max_abs_err(torch, zip(qa, qb)),
+        ms=time_ms(torch, lambda _: vs.lookup_parent(base, q[0], q[1])),
+        plain_ms=time_ms(torch, lambda _: vs.lookup_parent_plain(base, q[0], q[1])),
+        bytes=80 * (16 + 17) + 64 * 16 + 16 * 8,
+        ops=80 * 8,
+        library_ms=None,
+        shape=f"[80] in {tcap} slots at load {(fill / tcap):.3f}",
+    )
+    finish(results)
+
+    # Beside the kernels: K5 (K4 over the occupied rows of a grown table)
+    # and K10 (a fresh table and ring, K1 + K4 over the init rows).
+    from stateright_tpu_torch.engines.gpu_bfs import seed
+
+    occ = int(vs.occupied_mask(base).sum())
+    grown = {}
+
+    def rehash_into(t):
+        grown["bad"] = vs.rehash(base, t)
+
+    extra = {
+        "K5 rehash": dict(
+            max_abs_err=None,
+            ms=time_ms(torch, rehash_into, prep=lambda: vs.empty_table(2 * tcap, dev), reps=5),
+            plain_ms=None, library_ms=None,
+            bytes=tcap * 16 + occ * 24, ops=occ * 8,
+            shape=f"{occ} rows of {tcap} slots into {2 * tcap}",
+        ),
+    }
+    check(grown["bad"] == 0, "rehash left rows unresolved")
+    init = gpu(np.zeros((S, 1), dtype=np.int64))
+    extra["K10 seed"] = dict(
+        max_abs_err=None,
+        ms=time_ms(torch, lambda _: seed(init, 1, tcap, qcap), reps=5),
+        plain_ms=None, library_ms=None,
+        bytes=tcap * 24 + W * (qcap + 1) * 8, ops=S * 8,
+        shape=f"1 init row, {tcap}-slot table, {qcap}-row ring",
+    )
+    del base
+    return results, extra
 
 
-# -- phases 3 to 5 ----------------------------------------------------------
+def time_expand(torch, np, label, tm, C):
+    """K11: one evaluate-and-expand of a full chunk of the model's own
+    reachable-looking rows (its init row repeated), timed with CUDA events;
+    counts the torch launches and the elements they write (the operation
+    count of the bound) under a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
 
-def bfs(n, device, opts):
+    from stateright_tpu_torch.ops.expand import build_expand_lean
+    from stateright_tpu_torch.xp import TorchXP
+
+    dev = torch.device("cuda")
+    S, A = tm.state_width, tm.max_actions
+    expand = build_expand_lean(tm, tm.tensor_properties(), C, TorchXP(dev))
+    init = np.asarray(tm.init_states_array(), dtype=np.int64)[0]
+    rows = torch.from_numpy(np.repeat(init[:, None], C, axis=1)).to(dev).contiguous()
+    ebits = torch.zeros(C, dtype=torch.int64, device=dev)
+    depth = torch.ones(C, dtype=torch.int64, device=dev)
+    active = torch.ones(C, dtype=torch.bool, device=dev)
+
+    class Count(TorchDispatchMode):
+        launches = 0
+        elements = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            seen = {a.untyped_storage().data_ptr() for a in args if isinstance(a, torch.Tensor)}
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                # Views share an input's storage and launch nothing.
+                if (isinstance(t, torch.Tensor) and t.device.type == "cuda" and t.numel()
+                        and t.untyped_storage().data_ptr() not in seen):
+                    Count.launches += 1
+                    Count.elements += t.numel()
+            return out
+
+    with Count():
+        expand(rows, ebits, depth, active, 0xFFFFFFFF)
+    r = dict(
+        max_abs_err=None,
+        ms=time_ms(torch, lambda _: expand(rows, ebits, depth, active, 0xFFFFFFFF)),
+        plain_ms=None, library_ms=None,
+        bytes=S * C * 8 + 2 * C * 8 + S * C * A * 8 + C * A,
+        ops=Count.elements,
+        shape=f"{label}: C={C}, A={A}, S={S}; {Count.launches} torch launches",
+    )
+    return r
+
+
+# -- phases 3 to 7 ----------------------------------------------------------
+
+def bfs(model, device, opts, configure=lambda b: b):
     from stateright_tpu_torch import TensorModelAdapter
-    from stateright_tpu_torch.models import TwoPhaseTensor
 
     import torch
 
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.monotonic()
-    c = TensorModelAdapter(TwoPhaseTensor(n)).checker().coverage().spawn_gpu_bfs(device=device, **opts).join()
+    b = configure(TensorModelAdapter(model).checker().coverage())
+    c = b.spawn_gpu_bfs(device=device, **opts).join()
     if device == "cuda":
         torch.cuda.synchronize()
     return c, time.monotonic() - t0
+
+
+def two_pc(n):
+    from stateright_tpu_torch.models import TwoPhaseTensor
+
+    return TwoPhaseTensor(n)
 
 
 def check_2pc(c, n):
@@ -291,6 +525,38 @@ def check_2pc(c, n):
         replay = Path.from_actions(model, path.into_states()[0], path.into_actions())
         check(replay is not None and replay.last_state() == path.last_state(), f"{name} path does not replay")
         check(model.property(name).condition(model, path.last_state()), f"{name} path ends elsewhere")
+
+
+def check_paths(c):
+    """Every discovery path (walked through K6) replays and ends where its
+    property says (in representative space under symmetry); returns
+    {name: length}."""
+    from stateright_tpu_torch.path import Path
+    from stateright_tpu_torch.tensor import CanonicalTensorAdapter
+
+    model = CanonicalTensorAdapter(c.tm) if c._canon else c.model()
+    out = {}
+    for name, path in c.discoveries().items():
+        replay = Path.from_actions(model, path.into_states()[0], path.into_actions())
+        check(replay is not None and replay.last_state() == path.last_state(), f"{name} path does not replay")
+        check(c.discovery_classification(name) == "counterexample"
+              or model.property(name).condition(model, path.last_state()), f"{name} path ends elsewhere")
+        out[name] = len(path)
+    return out
+
+
+def counted(torch, kernels, label, fn):
+    """Run fn with the launch counts set to 0 just before and read just
+    after; every kernel of the path must have launched."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"launches ({label}): {launches}", flush=True)
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the {label} path")
+    return out, launches
 
 
 def main(argv) -> int:
@@ -309,6 +575,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     skip_full = "--skip-full" in argv
     from stateright_tpu_torch import kernels
+    from stateright_tpu_torch.models import AbdOrderedTensor, PaxosTensorExhaustive
 
     phase("0 environment")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -320,43 +587,113 @@ def main(argv) -> int:
     secs = kernels.build_all(verbose=True)
     print(f"build_secs={secs:.2f}", flush=True)
 
-    phase("2 kernel parity (2pc-7 widths)")
-    results = kernel_parity(torch, np)
+    phase("2 kernel parity (2pc-7 and paxos-3 widths)")
+    results, extra7 = kernel_parity(torch, np, "2pc-7", 6144, 37, 3, 1 << 22, 1 << 20)
+    results_px, extra_px = kernel_parity(torch, np, "paxos-3", 16384, 21, 30, 1 << 26, 1 << 21)
+    extra7["K11 expand"] = time_expand(torch, np, "2pc-7", two_pc(7), 6144)
+    extra_px["K11 expand"] = time_expand(torch, np, "paxos-3", PaxosTensorExhaustive(3), 16384)
+    for label, extra in (("2pc-7", extra7), ("paxos-3", extra_px)):
+        for name, r in finish(extra).items():
+            print(f"beside the kernels ({label}): {name}", flush=True)
+    torch.cuda.empty_cache()
 
-    phase("3 2pc-5 on cuda and on cpu")
-    c_gpu, t_gpu = bfs(5, "cuda", TEST_OPTS)
-    c_cpu, t_cpu = bfs(5, "cpu", TEST_OPTS)
-    d_gpu, d_cpu = fingerprint_dict(c_gpu), fingerprint_dict(c_cpu)
-    check(d_gpu == d_cpu, f"2pc-5 cuda {d_gpu} != cpu {d_cpu}")
-    check(d_gpu["unique"] == GOLDEN[5], "2pc-5 golden")
-    check({k: v.encode(c_gpu.model()) for k, v in c_gpu.discoveries().items()}
-          == {k: v.encode(c_cpu.model()) for k, v in c_cpu.discoveries().items()}, "2pc-5 paths")
-    print(f"2pc-5 equal on cuda ({t_gpu:.2f}s) and cpu ({t_cpu:.2f}s): {c_gpu.telemetry()}", flush=True)
+    phase("3 2pc-5 on cuda and on cpu, sampling on, plain and with symmetry")
+    threads = torch.get_num_threads()
+    for label, configure, closure in (
+        ("2pc-5", lambda b: b, GOLDEN[5]),
+        ("2pc-5 symmetry", lambda b: b.symmetry(), SYM_CLOSURE[5]),
+    ):
+        c_gpu, t_gpu = bfs(two_pc(5), "cuda", TEST_OPTS, configure)
+        torch.set_num_threads(1)  # small CPU ops: the thread pool only slows them
+        c_cpu, t_cpu = bfs(two_pc(5), "cpu", TEST_OPTS, configure)
+        torch.set_num_threads(threads)
+        d_gpu, d_cpu = result_dict(c_gpu), result_dict(c_cpu)
+        check(d_gpu == d_cpu, f"{label} cuda {d_gpu} != cpu {d_cpu}")
+        check(d_gpu["unique"] == closure and len(d_gpu["sample"]) == 64, f"{label} golden / sample")
+        print(f"{label} equal on cuda ({t_gpu:.2f}s) and cpu ({t_cpu:.2f}s), unique={closure}, "
+              f"sample of {len(d_gpu['sample'])}: {c_gpu.telemetry()}", flush=True)
 
     phase("4 2pc-7 headline")
-    bfs(7, "cuda", BENCH7)  # warm-up
-    kernels.reset_launches()
-    c7, t7 = bfs(7, "cuda", BENCH7)
-    launches = kernels.launch_counts()
-    check_2pc(c7, 7)
-    d7 = fingerprint_dict(c7)
+    bfs(two_pc(7), "cuda", BENCH7)  # warm-up
+
+    def two_pc7():
+        c, t = bfs(two_pc(7), "cuda", BENCH7)
+        check_2pc(c, 7)  # its paths walk through K6
+        return c, t
+
+    (c7, t7), launches = counted(torch, kernels, "2pc-7", two_pc7)
+    d7 = result_dict(c7)
     print(f"2pc-7: unique={c7.unique_state_count()} states={c7.state_count()} wall_secs={t7:.3f} "
           f"generated_states_per_sec={c7.state_count() / t7:.1f} unique_per_sec={c7.unique_state_count() / t7:.1f} "
-          f"telemetry={c7.telemetry()} launches={launches} card={card}", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
-    c7g, t7g = bfs(7, "cuda", dict(BENCH7, table_capacity=1 << 16))
-    check(fingerprint_dict(c7g) == d7, "2pc-7 with growth differs from the run without")
+          f"telemetry={c7.telemetry()} card={card}", flush=True)
+    c7g, t7g = bfs(two_pc(7), "cuda", dict(BENCH7, table_capacity=1 << 16))
+    check(result_dict(c7g) == d7, "2pc-7 with growth differs from the run without")
     print(f"2pc-7 with growth from 2^16: equal, wall_secs={t7g:.3f} telemetry={c7g.telemetry()}", flush=True)
+    walls = {"on": [t7], "off": []}
+    for mode in ("off", "off", "on"):
+        c, t = bfs(two_pc(7), "cuda", BENCH7, (lambda b: b) if mode == "on" else (lambda b: b.sample(False)))
+        check(c.unique_state_count() == GOLDEN[7], "2pc-7 golden")
+        walls[mode].append(t)
+    print(f"2pc-7 sampling cost: wall_secs on={walls['on']} off={walls['off']} "
+          f"(order on, off, off, on) card={card}", flush=True)
+
+    phase("5 paxos-3")
+    torch.cuda.reset_peak_memory_stats()
+
+    def paxos3():
+        c, t = bfs(PaxosTensorExhaustive(3), "cuda", PAXOS3)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.monotonic()
+        lens = check_paths(c)
+        t_paths = time.monotonic() - t0
+        t0 = time.monotonic()
+        prof = c.space_profile()
+        t_prof = time.monotonic() - t0
+        return c, t, peak, lens, t_paths, prof, t_prof
+
+    (cpx, tpx, peak, lens, t_paths, prof, t_prof), launches_px = counted(torch, kernels, "paxos-3", paxos3)
+    check(cpx.unique_state_count() == PAXOS3_GOLDEN, f"paxos-3: {cpx.unique_state_count()}")
+    for name in ("linearizable", "network within capacity", "ballot rounds within range"):
+        cpx.assert_no_discovery(name)
+    check("value chosen" in lens, "paxos-3: value chosen not found")
+    check(prof["samples"] == 64 and prof["unresolved"] == 0, "paxos-3 sample rows unresolved")
+    tel = cpx.telemetry()
+    print(f"paxos-3: unique={cpx.unique_state_count()} states={cpx.state_count()} wall_secs={tpx:.3f} "
+          f"generated_states_per_sec={cpx.state_count() / tpx:.1f} steps={tel.get('steps')} "
+          f"max_memory_allocated={peak} paths={lens} paths_secs={t_paths:.3f} "
+          f"space_profile_secs={t_prof:.3f} telemetry={tel} card={card}", flush=True)
+
+    phase("6 abd-ordered-3")
+    def with_paths(model, opts, configure=lambda b: b):
+        c, t = bfs(model, "cuda", opts, configure)
+        return c, t, check_paths(c)
+
+    (cab, tab, lens), _ = counted(torch, kernels, "abd-ordered-3", lambda: with_paths(AbdOrderedTensor(3), ABDO3))
+    check(cab.unique_state_count() == ABDO3_GOLDEN, f"abd-ordered-3: {cab.unique_state_count()}")
+    cab.assert_no_discovery("linearizable")
+    print(f"abd-ordered-3: unique={cab.unique_state_count()} states={cab.state_count()} wall_secs={tab:.3f} "
+          f"generated_states_per_sec={cab.state_count() / tab:.1f} paths={lens} "
+          f"telemetry={cab.telemetry()} card={card}", flush=True)
 
     if not skip_full:
-        phase("5 2pc-10 full size")
+        phase("7 2pc-10 full size, plain and with symmetry")
+        del c7, c7g, cpx, prof, cab  # their tables would count in the peak
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        c10, t10 = bfs(10, "cuda", FULL10)
+        c10, t10 = bfs(two_pc(10), "cuda", FULL10)
         check(c10.unique_state_count() == GOLDEN[10], f"2pc-10: {c10.unique_state_count()}")
         print(f"2pc-10: unique={c10.unique_state_count()} states={c10.state_count()} wall_secs={t10:.3f} "
               f"generated_states_per_sec={c10.state_count() / t10:.1f} "
               f"max_memory_allocated={torch.cuda.max_memory_allocated()} telemetry={c10.telemetry()} card={card}",
+              flush=True)
+        del c10
+        torch.cuda.empty_cache()
+        (c10s, t10s, lens), _ = counted(torch, kernels, "2pc-10 symmetry",
+                                        lambda: with_paths(two_pc(10), SYM10, lambda b: b.symmetry()))
+        check(c10s.unique_state_count() == SYM_CLOSURE[10], f"2pc-10 symmetry: {c10s.unique_state_count()}")
+        c10s.assert_no_discovery("consistent")
+        print(f"2pc-10 symmetry: unique={c10s.unique_state_count()} states={c10s.state_count()} "
+              f"wall_secs={t10s:.3f} paths={lens} telemetry={c10s.telemetry()} card={card}",
               flush=True)
 
     line = {"kernels": []}
@@ -368,6 +705,7 @@ def main(argv) -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         ))
+    check(all(results_px[k]["max_abs_err"] == 0 for k in results_px), "paxos-3 widths parity")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

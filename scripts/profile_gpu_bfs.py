@@ -3,11 +3,12 @@
 
     python3 scripts/profile_gpu_bfs.py        # needs one CUDA device
 
-Runs 2pc-7 at the bench options (bench.py:798) and the first 4M states
-of 2pc-10 at chunk 12288, each once to warm up and once under
-torch.profiler, and prints for each: the wall time, the device-busy
-share (the union of kernel intervals over the wall), the kernel time by
-name, and the launches and wall time per step.
+Runs 2pc-7 at the bench options (bench.py:798), the first 4M states of
+2pc-10 at chunk 12288 and paxos-3 at bench.py:1305-1307's options (serial
+eras), all with sampling on (the default), each once to warm up, once
+timed and once under torch.profiler, and prints for each: the wall time,
+the device-busy share (the union of kernel intervals over the wall), the
+kernel time by name, and the launches and wall time per step.
 """
 
 from __future__ import annotations
@@ -32,15 +33,14 @@ def busy_union(intervals):
     return total
 
 
-def profile_run(label, n, opts, target=None):
+def profile_run(label, make_model, opts, target=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from stateright_tpu_torch import TensorModelAdapter
-    from stateright_tpu_torch.models import TwoPhaseTensor
 
     def run():
-        b = TensorModelAdapter(TwoPhaseTensor(n)).checker()
+        b = TensorModelAdapter(make_model()).checker()
         if target:
             b = b.target_state_count(target)
         torch.cuda.synchronize()
@@ -89,12 +89,21 @@ def main() -> int:
         print("profile_gpu_bfs: needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from stateright_tpu_torch.models import PaxosTensorExhaustive, TwoPhaseTensor
+
     card = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     print("card:", card, "| torch", torch.__version__)
-    profile_run("2pc-7 bench options", 7, dict(chunk_size=6144, queue_capacity=1 << 20, table_capacity=1 << 22))
     profile_run(
-        "2pc-10 first 4M states", 10,
+        "2pc-7 bench options", lambda: TwoPhaseTensor(7),
+        dict(chunk_size=6144, queue_capacity=1 << 20, table_capacity=1 << 22),
+    )
+    profile_run(
+        "2pc-10 first 4M states", lambda: TwoPhaseTensor(10),
         dict(chunk_size=12288, queue_capacity=1 << 26, table_capacity=1 << 28), target=4_000_000,
+    )
+    profile_run(
+        "paxos-3", lambda: PaxosTensorExhaustive(3),
+        dict(chunk_size=16384, queue_capacity=1 << 21, table_capacity=1 << 26),
     )
     return 0
 

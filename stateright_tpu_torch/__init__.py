@@ -1,10 +1,14 @@
 """stateright_tpu_torch: the PyTorch/CUDA port of stateright_tpu.
 
-Exhaustive batched BFS over a `TensorModel` on an NVIDIA H100, through
-hand-written Hopper kernels for fingerprinting, compaction, in-batch
-dedup and the visited-set insert (kernels/csrc). It imports torch and
-numpy, never jax and nothing of the JAX package, and keeps its own copy
-of the host layers it needs.
+Exhaustive batched BFS over a `TensorModel` on an NVIDIA H100, with
+bottom-k state sampling (on by default) and symmetry reduction, through
+hand-written Hopper kernels (kernels/csrc) for fingerprinting,
+compaction, in-batch dedup, the visited-set insert, the ring queue, the
+sample capture and its epilogue, and the parent lookup of path
+reconstruction. Models: two-phase commit, Paxos and ABD
+(`stateright_tpu_torch.models`). It imports torch and numpy, never jax
+and nothing of the JAX package, and keeps its own copy of the host
+layers it needs.
 
     from stateright_tpu_torch import TensorModelAdapter
     from stateright_tpu_torch.models import TwoPhaseTensor

@@ -1,12 +1,12 @@
 """CheckerBuilder / Checker for the port (the counterpart of
 `stateright_tpu/checker.py`, reference src/checker.rs:65-578).
 
-The builder carries the model and the options this slice supports —
-`finish_when`, `target_state_count`, `target_max_depth`, `coverage` —
+The builder carries the model and the options the port supports —
+`finish_when`, `target_state_count`, `target_max_depth`, `coverage`,
+`sample` (on by default, k = 64, as in the JAX package) and `symmetry` —
 and spawns the device BFS engine with `spawn_gpu_bfs(**kw)`, the
 counterpart of `spawn_tpu_bfs`. Options that later slices port raise
-`NotImplementedError` naming the slice; sampling is off until it is
-ported.
+`NotImplementedError` naming the slice.
 """
 
 from __future__ import annotations
@@ -18,9 +18,8 @@ from .has_discoveries import HasDiscoveries
 from .path import Path
 
 # Later slices of the port, numbered as in ROADMAP.md Queue 1.
-SLICE_SAMPLING = "slice 2 (bottom-k sampling and symmetry)"
-SLICE_CHECKPOINTS = "slice 4 (spill tiers and checkpoints)"
-SLICE_PIPELINE = "slice 5 (pipelined and CUDA-graph eras)"
+SLICE_CHECKPOINTS = "slice 3 (spill tiers and checkpoints)"
+SLICE_PIPELINE = "slice 4 (pipelined and CUDA-graph eras)"
 
 
 def not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -44,6 +43,9 @@ class CheckerBuilder:
         self.target_max_depth_: Optional[int] = None
         self.finish_when_: HasDiscoveries = HasDiscoveries.ALL
         self.coverage_: bool = True
+        self.symmetry_fn_: Optional[Any] = None
+        self.sample_: bool = True
+        self.sample_k_: int = 64  # obs/sample.py DEFAULT_SAMPLE_K
 
     def finish_when(self, has_discoveries: HasDiscoveries) -> "CheckerBuilder":
         self.finish_when_ = has_discoveries
@@ -65,15 +67,24 @@ class CheckerBuilder:
         return self
 
     def sample(self, enable: bool = True, k: int = 64) -> "CheckerBuilder":
-        if enable:
-            raise not_ported("bottom-k state sampling", SLICE_SAMPLING)
+        """Deterministic bottom-k fingerprint sampling of the explored
+        space (obs/sample.py), on by default at k = 64: a state is
+        sampled iff its 64-bit fingerprint is among the k smallest seen,
+        so the sample is a pure function of the explored set, equal to
+        the JAX engine's. Surfaced by `Checker.space_profile()`."""
+        self.sample_ = bool(enable)
+        self.sample_k_ = max(1, int(k))
         return self
 
     def symmetry(self) -> "CheckerBuilder":
-        raise not_ported("symmetry reduction", SLICE_SAMPLING)
+        """Symmetry reduction (reference checker.rs:219-227). On a
+        TensorModel the engine canonicalizes through the model's batched
+        `representative_lanes`, and raises if the model defines none."""
+        return self.symmetry_fn(lambda state: state.representative())
 
     def symmetry_fn(self, representative) -> "CheckerBuilder":
-        raise not_ported("symmetry reduction", SLICE_SAMPLING)
+        self.symmetry_fn_ = representative
+        return self
 
     def pipeline(self, enable: bool = True, depth=None, fuse=None) -> "CheckerBuilder":
         if enable or depth is not None or fuse is not None:
@@ -125,6 +136,12 @@ class Checker:
         return self
 
     def coverage(self) -> Dict[str, Any]:
+        return {}
+
+    def space_profile(self) -> Dict[str, Any]:
+        """The run's space profile (obs/sample.py): the bottom-k sample
+        rendered into field sketches, depth/action exemplars and
+        saturation warnings. Engines without sampling return {}."""
         return {}
 
     def discovery(self, name: str) -> Optional[Path]:

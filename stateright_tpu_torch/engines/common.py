@@ -1,6 +1,6 @@
 """The lean part of `stateright_tpu/engines/common.py HostEngineBase`: the
-run thread, join, counters, coverage and discovery bookkeeping that the
-port's device engine needs.
+run thread, join, counters, coverage, sampling and discovery bookkeeping
+that the port's device engine needs.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from typing import Any, Dict, Optional
 
 from ..checker import Checker, CheckerBuilder
 from ..obs.coverage import Coverage
+from ..obs.sample import SpaceSampler, build_space_profile
 
 
 class HostEngineBase(Checker):
@@ -21,6 +22,11 @@ class HostEngineBase(Checker):
         self._target_state_count = builder.target_state_count_
         self._target_max_depth = builder.target_max_depth_
         self._finish_when = builder.finish_when_
+        self._symmetry = builder.symmetry_fn_
+        self._sampler: Optional[SpaceSampler] = (
+            SpaceSampler(k=builder.sample_k_) if builder.sample_ else None
+        )
+        self._space_profile_cache: Optional[Dict[str, Any]] = None
 
         self._state_count = 0
         self._max_depth = 0
@@ -73,7 +79,29 @@ class HostEngineBase(Checker):
         return self._coverage.snapshot()
 
     def telemetry(self) -> Dict[str, Any]:
-        return dict(self._counters)
+        tel: Dict[str, Any] = dict(self._counters)
+        if self._sampler is not None and self._sampler.size():
+            tel["space"] = self._sampler.snapshot()
+        return tel
+
+    def _sample_resolver(self):
+        """fp64 -> {"state", "pred", "action", "depth"} backfill for samples
+        drained fingerprint-only; None when rows came with the offer."""
+        return None
+
+    def space_profile(self) -> Dict[str, Any]:
+        """Built on demand, cached once the run is done (the device
+        engine resolves sample rows by path reconstruction)."""
+        if self._sampler is None or not self._sampler.size():
+            return {}
+        if self._space_profile_cache is not None:
+            return self._space_profile_cache
+        profile = build_space_profile(
+            self._model, self._sampler, resolver=self._sample_resolver()
+        )
+        if self.is_done():
+            self._space_profile_cache = profile
+        return profile
 
     def _inc(self, name: str, n: int = 1) -> None:
         self._counters[name] = self._counters.get(name, 0) + int(n)

@@ -1,20 +1,22 @@
 """Exhaustive batched BFS on the card: the port of
-`stateright_tpu/engines/tpu_bfs.py` (serial eras, no sampling, no
-symmetry, no spill).
+`stateright_tpu/engines/tpu_bfs.py` (serial eras, with bottom-k sampling
+and symmetry reduction; no spill, no checkpoints).
 
 One BFS step pops a chunk of C states from a ring queue on the device and
 runs, at fixed widths so that no step waits on the host mid-way:
 
-  1. ring pop (torch indexing)
+  1. ring pop                                 K7 ring           (kernel)
   2. fingerprints of the popped rows          K1 hash_lanes     (kernel)
   3. property evaluation + successors         K11 expand        (torch, model code)
   4. validity compaction to vcap              K2 compact_ids    (kernel)
-  5. fingerprints of the candidates           K1 hash_lanes     (kernel)
-  6. in-batch dedup                           K3 claim_dedup    (kernel)
-  7. compaction to rcap distinct candidates   K2 compact_ids    (kernel)
-  8. visited-set insert                       K4 insert         (kernel)
-  9. ring append of the new states            K7 via K2 positions
- 10. discovery snapshots and coverage counts  (torch)
+  5. symmetry canonicalization (optional)     the model's representative_lanes (torch)
+  6. fingerprints of the candidates           K1 hash_lanes     (kernel)
+  7. in-batch dedup                           K3 claim_dedup    (kernel)
+  8. compaction to rcap distinct candidates   K2 compact_ids    (kernel)
+  9. visited-set insert                       K4 insert         (kernel)
+ 10. sample capture (sampling on)             K9a sample_capture (kernel)
+ 11. ring append of the new states            K2 + K7 ring      (kernels)
+ 12. discovery snapshots and coverage counts  (torch)
 
 then reads back ONE small vector of counts, and the host applies the JAX
 era program's rules to it (`_build_loop`, tpu_bfs.py:428-703): an
@@ -23,11 +25,22 @@ unresolved insert) commits the inserted prefix, consumes nothing and
 halves `take_cap`, which regrows by chunk/16 after each clean step. An
 era runs steps until the JAX gate closes (tpu_bfs.py:403): empty
 frontier, ring past its high-water mark, table past its growth limit,
-step budget spent, a probe error, or the finish policy met. Eras end
-exactly where the JAX engine's serial eras do, because discoveries are
-extracted per era (the shallowest first hit at the lowest chunk
-position, tpu_bfs.py:781-810), so the results — counts, discovery
-fingerprints, coverage — are the JAX engine's, bit for bit.
+step budget spent, a probe error, the finish policy met, or (sampling
+on) the sample slab past its high-water mark. While the sampler is
+under-full (threshold still MAX) a step pops at most 512 // A rows, as
+the JAX loop clamps it (tpu_bfs.py:339-345, :449-455). At each era's end
+the slab's bottom-k rows (K9b slab_bottomk) drain into the sampler and
+the next era captures below the tightened threshold.
+
+Eras end exactly where the JAX engine's serial eras do, because
+discoveries are extracted per era (the shallowest first hit at the
+lowest chunk position, tpu_bfs.py:781-810) and the ring order follows
+the take clamp, so the results — counts, discovery fingerprints,
+coverage, the sample — are the JAX engine's, bit for bit.
+
+Discovery paths (and sample rows) are walked on the card, every chain
+at once, one K6 lookup_parent launch per hop; the model then re-executes
+along each chain on the host.
 
 On `device="cpu"` every kernel call runs its plain torch version; that is
 the only place the plain versions run on this path.
@@ -35,20 +48,27 @@ the only place the plain versions run on this path.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from ..checker import SLICE_CHECKPOINTS, CheckerBuilder, not_ported
 from ..core import Expectation
-from ..fingerprint import combine64, hash_lanes, split64
+from ..fingerprint import combine64, hash_lanes, hash_words_np, split64
 from ..obs.coverage import DEPTH_CAP
+from ..obs.sample import (
+    DEVICE_STEP_CAP,
+    slab_capacity,
+    slab_entries,
+    slab_high_water,
+)
 from ..ops import frontier as fr
+from ..ops import slab as sl
 from ..ops import visited_set as vs
 from ..ops.expand import build_expand_lean
 from ..path import Path
-from ..tensor import TensorModel, TensorModelAdapter
+from ..tensor import CanonicalTensorAdapter, TensorModel, TensorModelAdapter
 from ..xp import TorchXP
 from .common import HostEngineBase
 
@@ -77,6 +97,32 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def seed(init_rows: torch.Tensor, init_ebits: int, tcap: int, qcap: int):
+    """K10 (tpu_bfs.py:1080 _build_seed): a fresh table and ring on the
+    rows' device, K1 + K4 over the init rows [S, n]. Every init row is
+    enqueued at depth 1; the table keeps one per fingerprint. Returns
+    (table, ring, unique)."""
+    S, n = init_rows.shape
+    dev = init_rows.device
+    table = vs.empty_table(tcap, dev)
+    h1, h2 = hash_lanes(init_rows)
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    is_new, unres = vs.insert(
+        table, h1, h2, zero, zero, torch.ones(n, dtype=torch.bool, device=dev)
+    )
+    ring = fr.empty_ring(S + 2, qcap, dev)
+    ring[:S, :n] = init_rows
+    ring[S, :n] = init_ebits
+    ring[S + 1, :n] = 1
+    new, unresolved = torch.stack([is_new.sum(), unres.sum()]).tolist()
+    if unresolved:
+        raise RuntimeError(
+            "init-state seeding exhausted the visited-table probe budget; "
+            "raise table_capacity"
+        )
+    return table, ring, new
 
 
 class GpuBfsChecker(HostEngineBase):
@@ -110,6 +156,17 @@ class GpuBfsChecker(HostEngineBase):
         super().__init__(builder, model=model)
         self.device = resolve_device(device)
         self.tm: TensorModel = model.tm
+        # Symmetry reduction on the card: candidates are canonicalized by
+        # the model's batched representative_lanes before hashing, so the
+        # ring and the table live in representative space (2pc-5: 8,832
+        # -> 1,092 states). A host `symmetry_fn` is not run: a tensor
+        # model without the lane program is refused, as in JAX.
+        self._canon = self._symmetry is not None
+        if self._canon and self.tm.representative_lanes is None:
+            raise ValueError(
+                f"symmetry requested but {type(self.tm).__name__} defines "
+                "no representative_lanes canonicalizer"
+            )
         self._tprops = self.tm.tensor_properties()
         n_event = sum(
             1 for p in self._tprops if p.expectation == Expectation.EVENTUALLY
@@ -132,7 +189,6 @@ class GpuBfsChecker(HostEngineBase):
         self._unique = 0
         self._discovery_fps: Dict[str, int] = {}
         self._table = None
-        self._table_np = None
         self._init_ebits = 0
         e = 0
         for p in self._tprops:
@@ -147,7 +203,6 @@ class GpuBfsChecker(HostEngineBase):
         tm = self.tm
         dev = self.device
         S, A, C, P = tm.state_width, tm.max_actions, self._chunk, len(self._tprops)
-        W = S + 2  # ring lanes: state | ebits | depth
         qmask = self._qcap - 1
         vcap, rcap, dedup_cap = widths(A, C)
         high_water = self._qcap - C * A
@@ -155,7 +210,8 @@ class GpuBfsChecker(HostEngineBase):
             self._target_max_depth if self._target_max_depth is not None else U32_MAX
         )
         fin_any, fin_all, fin_all_en = self._finish_when.device_masks(self._tprops)
-        expand = build_expand_lean(tm, self._tprops, C, TorchXP(dev))
+        xp = TorchXP(dev)
+        expand = build_expand_lean(tm, self._tprops, C, xp)
         arange_c = torch.arange(C, device=dev)
 
         inits = np.asarray(tm.init_states_array(), dtype=np.uint32)
@@ -164,6 +220,13 @@ class GpuBfsChecker(HostEngineBase):
             dtype=bool,
         )
         inits = inits[inb]
+        if self._canon:
+            # Distinct inits can share a representative: dedupe the rows
+            # so the ring and the counters agree with the table
+            # (tpu_bfs.py:1655-1680; np.unique also sorts them).
+            canon = tm.representative_lanes(np, tuple(inits[:, i] for i in range(S)))
+            inits = np.stack([np.asarray(lane, dtype=np.uint32) for lane in canon], axis=1)
+            inits = np.unique(inits, axis=0)
         n_init = len(inits)
         self._state_count = n_init
         if n_init == 0:
@@ -174,26 +237,25 @@ class GpuBfsChecker(HostEngineBase):
             raise ValueError("more initial states than queue capacity")
         while n_init + vcap > vs.MAX_LOAD * self._tcap:
             self._tcap *= 2
-
-        # Seed (tpu_bfs.py:1080 _build_seed): K1 + K4 over the inits; every
-        # init row is enqueued, the table keeps one per fingerprint.
-        table = vs.empty_table(self._tcap, dev)
-        init_t = torch.from_numpy(inits.T.astype(np.int64)).to(dev).contiguous()
-        h1, h2 = hash_lanes(init_t)
-        zero = torch.zeros(n_init, dtype=torch.int64, device=dev)
-        is_new, unres = vs.insert(
-            table, h1, h2, zero, zero, torch.ones(n_init, dtype=torch.bool, device=dev)
-        )
-        if int(unres.sum()):
-            raise RuntimeError(
-                "init-state seeding exhausted the visited-table probe budget; "
-                "raise table_capacity"
+        sampler = self._sampler
+        if sampler is not None:
+            # The seed inserts before the era loop's slab captures: offer
+            # the inits host-side, rows and all (tpu_bfs.py:1701-1710).
+            ih1, ih2 = hash_words_np(inits)
+            sampler.offer_array(
+                (ih1.astype(np.uint64) << np.uint64(32)) | ih2.astype(np.uint64),
+                depths=np.ones(n_init, dtype=np.int64),
+                states=inits,
             )
-        ring = fr.empty_ring(W, self._qcap, dev)
-        ring[:S, :n_init] = init_t
-        ring[S, :n_init] = self._init_ebits
-        ring[S + 1, :n_init] = 1
-        self._unique = int(is_new.sum())
+            k = sampler.k
+            sk2 = slab_entries(k)
+            s_high = slab_high_water(k)
+            slab = sl.empty_slab(slab_capacity(k, DEVICE_STEP_CAP), dev)
+            # Loose-threshold take clamp (tpu_bfs.py:339-345).
+            s_take = max(1, DEVICE_STEP_CAP // max(1, A))
+
+        init_t = torch.from_numpy(inits.T.astype(np.int64)).to(dev).contiguous()
+        table, ring, self._unique = seed(init_t, self._init_ebits, self._tcap, self._qcap)
 
         head, count, take_cap = 0, n_init, C
         rec_bits = 0
@@ -214,6 +276,12 @@ class GpuBfsChecker(HostEngineBase):
                 remaining = max(0, self._target_state_count - self._state_count)
                 max_steps = max(1, min(max_steps, 1 + remaining // (C * A)))
             budget = max_steps
+            occupied = 0
+            if sampler is not None:
+                t1, t2 = sampler.threshold_parts()
+                loose = (t1, t2) == (U32_MAX, U32_MAX)
+                for lane in slab:
+                    lane.zero_()
 
             # ---- one era (tpu_bfs.py:361 loop) ----
             self._inc("eras")
@@ -236,12 +304,15 @@ class GpuBfsChecker(HostEngineBase):
                     and steps < max_steps
                     and err_cnt == 0
                     and not fin_hit
+                    and (sampler is None or occupied <= s_high)
                 ):
                     break
                 # ---- one step (tpu_bfs.py:428 body) ----
                 take = min(count, C, take_cap)
+                if sampler is not None and loose:
+                    take = min(take, s_take)
                 active = arange_c < take
-                popped, _idx = fr.ring_gather(ring, head, C)
+                popped = fr.ring_pop(ring, head, C)
                 rows = popped[:S]
                 ebits = popped[S]
                 depth = popped[S + 1]
@@ -249,17 +320,25 @@ class GpuBfsChecker(HostEngineBase):
                 ex = expand(rows, ebits, depth, active, depth_limit)
                 vids, vvalid, n_val = vs.compact_ids(ex.valid, vcap)
                 cl = ex.flat.index_select(1, vids)
+                if self._canon:
+                    # Canonicalize at the compacted width, before hashing
+                    # (tpu_bfs.py:478-482).
+                    cl = torch.stack(
+                        tm.representative_lanes(xp, tuple(cl[i] for i in range(S)))
+                    ) & U32_MAX
                 ch1, ch2 = hash_lanes(cl)
                 reps = fr.claim_dedup(ch1, ch2, vvalid, dedup_cap)
                 dids, dvalid, n_d = vs.compact_ids(reps, rcap)
-                src = vids.index_select(0, dids) % C  # candidate a*C + c has parent row c
+                dflat = vids.index_select(0, dids)
+                src = dflat % C  # candidate a*C + c has parent row c
                 dp1 = torch.where(dvalid, row_h1.index_select(0, src), 0)
                 dp2 = torch.where(dvalid, row_h2.index_select(0, src), 0)
                 ddepth = depth.index_select(0, src) + 1
-                c_new, unresolved = vs.insert(
-                    table, ch1.index_select(0, dids), ch2.index_select(0, dids),
-                    dp1, dp2, dvalid,
-                )
+                dh1 = ch1.index_select(0, dids)
+                dh2 = ch2.index_select(0, dids)
+                c_new, unresolved = vs.insert(table, dh1, dh2, dp1, dp2, dvalid)
+                if sampler is not None:
+                    sl.capture(slab, c_new, dh1, dh2, ddepth, dflat // C, t1, t2, DEVICE_STEP_CAP)
                 # The inserted prefix is enqueued even on an overflow step:
                 # inserts are idempotent and enqueue == inserted keeps every
                 # state exactly once in the ring.
@@ -272,6 +351,8 @@ class GpuBfsChecker(HostEngineBase):
                     c_new,
                 )
                 stats = [n_val, n_d, unresolved.sum(), c_new.sum(), ex.generated]
+                if sampler is not None:
+                    stats.append(slab.counts[0])
                 if P:
                     hits = torch.stack(ex.prop_hits)
                     new_hit = hits & ~hseen
@@ -287,7 +368,11 @@ class GpuBfsChecker(HostEngineBase):
                     )
                 vals = torch.cat([s.view(-1) for s in stats]).tolist()  # the one sync
                 n_val, n_d, unres_n, new_count, generated = vals[:5]
-                hs = vals[5:]
+                if sampler is not None:
+                    occupied = vals[5]
+                    hs = vals[6:]
+                else:
+                    hs = vals[5:]
 
                 if take <= 1:
                     err_cnt += unres_n
@@ -312,8 +397,10 @@ class GpuBfsChecker(HostEngineBase):
                     if hs[i]:
                         rec_acc |= 1 << i
 
-            # ---- era epilogue (tpu_bfs.py:781-810) ----
+            # ---- era epilogue (tpu_bfs.py:781-810, :983-995) ----
             self._inc("steps", steps)
+            if sampler is not None:
+                self._drain(slab, sk2)
             if err_cnt:
                 raise RuntimeError(
                     "visited-table probe budget exhausted despite headroom"
@@ -368,6 +455,22 @@ class GpuBfsChecker(HostEngineBase):
         self._inc("table_growths")
         return new
 
+    def _drain(self, slab, sk2: int) -> None:
+        """Era end: the slab's sk2 rows with the smallest fp1 (K9b) go to
+        the sampler with the era's occupancy and drop count, in one
+        readback (tpu_bfs.py:1894-1908)."""
+        fp1, fp2, depth, action, valid = sl.bottom_k(slab, sk2)
+        vals = torch.cat(
+            [slab.counts, fp1, fp2, depth, action, valid.to(torch.int64)]
+        ).cpu().numpy()
+        occupied, dropped = int(vals[0]), int(vals[1])
+        if occupied or dropped:
+            lanes = vals[2:].reshape(5, sk2)
+            self._sampler.drain_slab(
+                lanes[0], lanes[1], lanes[2], lanes[4], occupied,
+                dropped=dropped, actions=lanes[3],
+            )
+
     # -- accessors -----------------------------------------------------------
 
     def unique_state_count(self) -> int:
@@ -380,29 +483,58 @@ class GpuBfsChecker(HostEngineBase):
 
     def discoveries(self) -> Dict[str, Path]:
         self.join()
-        return {
-            name: self._reconstruct(fp)
-            for name, fp in list(self._discovery_fps.items())
-        }
+        items = list(self._discovery_fps.items())
+        paths = self._reconstruct_many([fp for _name, fp in items])
+        return {name: path for (name, _fp), path in zip(items, paths)}
 
-    def _reconstruct(self, fp64: int) -> Path:
-        """Walk the table's parent fingerprints on a host copy, then
-        re-execute the model along the chain (tpu_bfs.py:2686)."""
-        if self._table_np is None:
-            self._table_np = vs.table_to_lanes(self._table)
-        chain = [fp64]
-        cur = fp64
-        while True:
-            h1, h2 = split64(cur)
-            found, p1, p2 = vs.lookup_parent_np(self._table_np, h1, h2)
-            if not found:
-                raise RuntimeError(
-                    f"fingerprint {cur} missing from visited table during "
-                    "path reconstruction"
-                )
-            if p1 == 0 and p2 == 0:
-                break
-            cur = combine64(p1, p2)
-            chain.append(cur)
-        chain.reverse()
-        return Path.from_fingerprints(self._model, chain)
+    def _sample_resolver(self):
+        """Sample rows drain fingerprint-only: resolve them all with one
+        batched walk (the path's last state is the sample, its last step
+        the exemplar transition, its length the depth)."""
+        fps = self._sampler.fingerprints()
+        paths = dict(zip(fps, self._reconstruct_many(fps)))
+
+        def resolve(fp: int):
+            pairs = paths[fp].into_vec()
+            out = {"state": pairs[-1][0], "depth": len(pairs)}
+            if len(pairs) >= 2:
+                out["pred"], out["action"] = pairs[-2]
+            return out
+
+        return resolve
+
+    def _reconstruct_many(self, fps) -> List[Path]:
+        """Walk the table's parent fingerprints for every fp at once on
+        the table's device — one K6 `lookup_parent` launch and one small
+        readback per hop, the table never copied — then re-execute the
+        model along each chain (tpu_bfs.py:2686). Under symmetry the
+        chains are walked in representative space."""
+        table = self._table
+        chains = [[int(fp)] for fp in fps]
+        live = list(range(len(chains)))
+        h = torch.tensor(
+            [split64(c[0]) for c in chains], dtype=torch.int64
+        ).reshape(-1, 2).T.to(table.device)
+        h1, h2 = h[0].contiguous(), h[1].contiguous()
+        hops = 0
+        while live:
+            hops += 1
+            if hops > self._unique + 1:
+                raise RuntimeError("parent chain longer than the state count")
+            found, p1, p2 = vs.lookup_parent(table, h1, h2)
+            f, a, b = torch.stack([found.to(torch.int64), p1, p2]).tolist()
+            keep = []
+            for j, i in enumerate(live):
+                if not f[j]:
+                    raise RuntimeError(
+                        f"fingerprint {chains[i][-1]} missing from visited "
+                        "table during path reconstruction"
+                    )
+                if a[j] or b[j]:
+                    chains[i].append(combine64(a[j], b[j]))
+                    keep.append(j)
+            live = [live[j] for j in keep]
+            sel = torch.tensor(keep, dtype=torch.int64, device=table.device)
+            h1, h2 = p1.index_select(0, sel), p2.index_select(0, sel)
+        model = CanonicalTensorAdapter(self.tm) if self._canon else self._model
+        return [Path.from_fingerprints(model, chain[::-1]) for chain in chains]

@@ -91,7 +91,31 @@ VISITED_INSERT = Kernel(
     "stateright_tpu/ops/visited_set.py:335",
 )
 
-KERNELS = (HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT)
+RING = Kernel(
+    "ring", "ring.cu", "srt_ring",
+    [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _P, _P],
+    "stateright_tpu/ops/frontier.py:55",
+)
+SAMPLE_CAPTURE = Kernel(
+    "sample_capture", "sample_capture.cu", "srt_sample_capture",
+    [_P, _P, _P, _P, _P, _I64, _U64, _U64, _P, _P, _P, _P, _I64, _P, _I64],
+    "stateright_tpu/engines/tpu_bfs.py:519",
+)
+SLAB_BOTTOMK = Kernel(
+    "slab_bottomk", "slab_bottomk.cu", "srt_slab_bottomk",
+    [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
+    "stateright_tpu/engines/tpu_bfs.py:995",
+)
+LOOKUP_PARENT = Kernel(
+    "lookup_parent", "lookup_parent.cu", "srt_lookup_parent",
+    [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
+    "stateright_tpu/ops/visited_set.py:411",
+)
+
+KERNELS = (
+    HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT,
+    RING, SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT,
+)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

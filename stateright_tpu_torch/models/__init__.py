@@ -1,5 +1,13 @@
 """Models the port checks on the card."""
 
+from .abd import AbdOrderedTensor, AbdTensor
+from .paxos import PaxosTensor, PaxosTensorExhaustive
 from .two_phase_commit import TwoPhaseTensor
 
-__all__ = ["TwoPhaseTensor"]
+__all__ = [
+    "AbdOrderedTensor",
+    "AbdTensor",
+    "PaxosTensor",
+    "PaxosTensorExhaustive",
+    "TwoPhaseTensor",
+]

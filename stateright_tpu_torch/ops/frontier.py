@@ -1,4 +1,5 @@
-"""Frontier programs: in-batch dedup (K3) and the ring queue (K7).
+"""Frontier programs: in-batch dedup (K3) and the ring queue (K7), each
+with a hand-written kernel (kernels/csrc) and its plain torch version.
 
 The port's counterpart of `stateright_tpu/ops/frontier.py`. The ring is
 one int64 tensor [W, qcap + 1]: W lanes (the S state lanes, the
@@ -68,17 +69,33 @@ def ring_indices(head: int, n: int, qcap: int, device) -> torch.Tensor:
     return (head + torch.arange(n, dtype=torch.int64, device=device)) & (qcap - 1)
 
 
+def ring_pop_plain(ring: torch.Tensor, head: int, n: int) -> torch.Tensor:
+    idx = ring_indices(head, n, ring_capacity(ring), ring.device)
+    return ring.index_select(1, idx)
+
+
+def ring_pop(ring: torch.Tensor, head: int, n: int) -> torch.Tensor:
+    """The n consecutive ring rows from `head`, wrapping: [W, n] (K7 pop,
+    the counterpart of `ring_gather`)."""
+    if not kernels.on_card(ring):
+        return ring_pop_plain(ring, head, n)
+    if not ring.is_contiguous():
+        raise ValueError("the ring must be contiguous")
+    W = ring.shape[0]
+    out = torch.empty((W, n), dtype=torch.int64, device=ring.device)
+    kernels.RING.launch(
+        kernels.ptr(ring), W, ring.stride(0), ring_capacity(ring) - 1, head,
+        kernels.ptr(out), n, n, None, None,
+    )
+    return out
+
+
 def ring_gather(ring: torch.Tensor, head: int, n: int):
     """The n consecutive ring rows from `head`: ([W, n] rows, indices)."""
-    idx = ring_indices(head, n, ring_capacity(ring), ring.device)
-    return ring.index_select(1, idx), idx
+    return ring_pop(ring, head, n), ring_indices(head, n, ring_capacity(ring), ring.device)
 
 
-def ring_scatter(ring: torch.Tensor, tail: int, cand: torch.Tensor, valid: torch.Tensor) -> None:
-    """Append the `valid` columns of cand [W, m] at tail, tail+1, ... in
-    candidate order (positions from `compact_ids`, K2); in place. Other
-    ring positions are untouched: unused id slots write to the trash
-    column."""
+def ring_scatter_plain(ring, tail: int, cand, valid) -> None:
     m = valid.shape[0]
     qcap = ring_capacity(ring)
     ids, ok, _n = compact_ids(valid, m)
@@ -87,3 +104,23 @@ def ring_scatter(ring: torch.Tensor, tail: int, cand: torch.Tensor, valid: torch
         torch.full((m,), qcap, dtype=torch.int64, device=ring.device),
     )
     ring.index_copy_(1, pos, cand.index_select(1, ids))
+
+
+def ring_scatter(ring: torch.Tensor, tail: int, cand: torch.Tensor, valid: torch.Tensor) -> None:
+    """Append the `valid` columns of cand [W, m] at tail, tail+1, ... in
+    candidate order, in place (K7 append, the counterpart of
+    `ring_scatter`): K2 compacts the mask and the ring kernel writes the
+    r-th valid column at tail + r. Other ring positions are untouched
+    (the plain version sends unused id slots to the trash column)."""
+    if not kernels.on_card(ring, cand, valid):
+        return ring_scatter_plain(ring, tail, cand, valid)
+    if not (ring.is_contiguous() and cand.is_contiguous()):
+        raise ValueError("the ring and the candidates must be contiguous")
+    W, m = cand.shape
+    if W != ring.shape[0] or valid.shape[0] != m:
+        raise ValueError("candidate lanes do not match the ring")
+    ids, _ok, n_set = compact_ids(valid, m)
+    kernels.RING.launch(
+        kernels.ptr(ring), W, ring.stride(0), ring_capacity(ring) - 1, tail,
+        kernels.ptr(cand), cand.stride(0), m, kernels.ptr(ids), kernels.ptr(n_set),
+    )

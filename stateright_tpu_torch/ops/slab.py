@@ -1,0 +1,114 @@
+"""The bottom-k sample slab on the card (K9): per-step capture (K9a) and
+the era epilogue (K9b), the port's counterpart of the sampling parts of
+`stateright_tpu/engines/tpu_bfs.py` (capture :506-549, epilogue
+:983-995).
+
+A slab is four int64 lanes of scap + 1 rows (fp1, fp2, depth, action;
+row scap is the trash row of out-of-range writes) and an int64[2]
+counts vector (occupied, dropped), all on the engine's device. The era
+loop captures into it after every insert, ends the era once `occupied`
+passes the sampler's high-water mark, and drains the sk2 rows with the
+smallest fp1 into `obs.sample.SpaceSampler.drain_slab`.
+
+`capture` and `bottom_k` run their kernels (kernels/csrc) on CUDA
+tensors and their plain torch versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import kernels
+from .visited_set import compact_ids
+
+M32 = 0xFFFFFFFF
+
+
+class Slab(NamedTuple):
+    fp1: torch.Tensor
+    fp2: torch.Tensor
+    depth: torch.Tensor
+    action: torch.Tensor
+    counts: torch.Tensor  # [occupied, dropped]
+
+    @property
+    def capacity(self) -> int:
+        return self.fp1.shape[0] - 1
+
+
+def empty_slab(scap: int, device) -> Slab:
+    def z(n):
+        return torch.zeros(n, dtype=torch.int64, device=device)
+
+    return Slab(z(scap + 1), z(scap + 1), z(scap + 1), z(scap + 1), z(2))
+
+
+def below_threshold(is_new, h1, h2, t1: int, t2: int):
+    """New inserts whose fingerprint is below (t1, t2), lexicographically.
+    The halves are uint32 held in int64, so int64 compares are the
+    unsigned compares of the JAX uint32 lanes."""
+    return is_new & ((h1 < t1) | ((h1 == t1) & (h2 < t2)))
+
+
+def capture_plain(slab: Slab, is_new, h1, h2, depth, action, t1: int, t2: int, step_cap: int) -> None:
+    below = below_threshold(is_new, h1, h2, t1, t2)
+    scap = slab.capacity
+    cids, cvalid, n_c = compact_ids(below, step_cap)
+    occ = slab.counts[0]
+    pos = occ + torch.arange(step_cap, dtype=torch.int64, device=h1.device)
+    widx = torch.where(cvalid & (pos < scap), pos, scap)
+    for lane, src in zip(slab[:4], (h1, h2, depth, action)):
+        # Every valid write has its own row; only the trash row repeats.
+        lane.index_copy_(0, widx[cvalid], src.index_select(0, cids[cvalid]))
+    fit = torch.clamp(n_c, max=step_cap)
+    slab.counts[0] += fit
+    slab.counts[1] += n_c - fit
+
+
+def capture(slab: Slab, is_new, h1, h2, depth, action, t1: int, t2: int, step_cap: int) -> None:
+    """Append the new inserts below the threshold (t1, t2) to the slab, in
+    candidate order, at most `step_cap` of them (the rest count as
+    dropped); updates the slab and its counts in place. is_new bool [n];
+    h1, h2, depth, action int64 [n]."""
+    if not kernels.on_card(slab.fp1, is_new, h1, h2, depth, action):
+        return capture_plain(slab, is_new, h1, h2, depth, action, t1, t2, step_cap)
+    if is_new.dtype != torch.bool:
+        raise ValueError("capture takes a bool is_new mask")
+    args = [t.contiguous() for t in (is_new, h1, h2, depth, action)]
+    kernels.SAMPLE_CAPTURE.launch(
+        *(kernels.ptr(t) for t in args), is_new.shape[0], int(t1) & M32, int(t2) & M32,
+        *(kernels.ptr(t) for t in slab[:4]), slab.capacity,
+        kernels.ptr(slab.counts), step_cap,
+    )
+
+
+def bottom_k_plain(slab: Slab, k: int):
+    scap = slab.capacity
+    occ = slab.counts[0]
+    used = torch.arange(scap, device=slab.fp1.device) < occ
+    key = torch.where(used, (~slab.fp1[:scap]) & M32, 0)
+    # Stable descending sort: equal keys keep the lower row first, the
+    # order lax.top_k gives.
+    top = torch.sort(key, descending=True, stable=True).indices[:k]
+    return tuple(lane.index_select(0, top) for lane in slab[:4]) + (used.index_select(0, top),)
+
+
+def bottom_k(slab: Slab, k: int):
+    """The k used slab rows with the smallest fp1 (ties: lower row first),
+    padded with unused rows: (fp1, fp2, depth, action, valid), each [k]."""
+    if k > slab.capacity:
+        raise ValueError("bottom_k takes at most the slab's capacity")
+    if not kernels.on_card(slab.fp1):
+        return bottom_k_plain(slab, k)
+    if slab.capacity > 4096:
+        raise ValueError("the slab kernel sorts at most 4,096 rows")
+    dev = slab.fp1.device
+    out = [torch.empty(k, dtype=torch.int64, device=dev) for _ in range(4)]
+    valid = torch.empty(k, dtype=torch.bool, device=dev)
+    kernels.SLAB_BOTTOMK.launch(
+        *(kernels.ptr(t) for t in slab[:4]), slab.capacity,
+        kernels.ptr(slab.counts), k, *(kernels.ptr(t) for t in out), kernels.ptr(valid),
+    )
+    return (*out, valid)

@@ -17,9 +17,9 @@ most MAX_PROBES positions — so a table built by either package answers
 convert between the layouts; the checkpoint format is the four flat
 uint32 lanes table0..3 = k1, k2, v1, v2).
 
-Two functions here carry hand-written kernels (kernels/csrc): `insert`
-(K4) and `compact_ids` (K2). Each runs its kernel on a CUDA tensor and
-its plain torch version on a CPU tensor. `insert` updates the table in
+Three functions here carry hand-written kernels (kernels/csrc): `insert`
+(K4), `compact_ids` (K2) and `lookup_parent` (K6). Each runs its kernel
+on a CUDA tensor and its plain torch version on a CPU tensor. `insert` updates the table in
 place, where the JAX function returns a new one.
 """
 
@@ -250,6 +250,50 @@ def table_to_lanes(table: VisitedTable):
     k1, k2 = split_np(table.keys)
     v1, v2 = split_np(table.parents)
     return k1, k2, v1, v2
+
+
+# ---------------------------------------------------------------------------
+# K6: batched parent lookup.
+# ---------------------------------------------------------------------------
+
+def lookup_parent_plain(table: VisitedTable, h1, h2):
+    mask = table.capacity - 1
+    key = pack64(h1, h2)
+    stride = h2 | 1
+    pos = h1 & mask
+    n = h1.shape[0]
+    pending = torch.ones(n, dtype=torch.bool, device=h1.device)
+    found = torch.zeros(n, dtype=torch.bool, device=h1.device)
+    par = torch.zeros(n, dtype=torch.int64, device=h1.device)
+    for _ in range(MAX_PROBES):
+        cur = table.keys.index_select(0, pos)
+        hit = pending & (cur == key)
+        par = torch.where(hit, table.parents.index_select(0, pos), par)
+        found |= hit
+        pending &= (cur != key) & (cur != 0)  # an empty slot ends the walk
+        pos = torch.where(pending, (pos + stride) & mask, pos)
+    p1, p2 = unpack64(par)
+    return found, p1, p2
+
+
+def lookup_parent(table: VisitedTable, h1, h2):
+    """Probe for fingerprints (int64 [n] holding uint32 halves); returns
+    (found [n] bool, parent_h1, parent_h2), parents 0 where not found or
+    for an initial state. Same probe sequence and limit as `insert`."""
+    if not kernels.on_card(table.keys, h1, h2):
+        return lookup_parent_plain(table, h1, h2)
+    h1, h2 = h1.contiguous(), h2.contiguous()
+    n = h1.shape[0]
+    dev = table.device
+    found = torch.empty(n, dtype=torch.bool, device=dev)
+    p1 = torch.empty(n, dtype=torch.int64, device=dev)
+    p2 = torch.empty(n, dtype=torch.int64, device=dev)
+    kernels.LOOKUP_PARENT.launch(
+        kernels.ptr(table.keys), kernels.ptr(table.parents), table.capacity,
+        kernels.ptr(h1), kernels.ptr(h2), n, kernels.ptr(found),
+        kernels.ptr(p1), kernels.ptr(p2),
+    )
+    return found, p1, p2
 
 
 def lookup_parent_np(table_np, h1: int, h2: int):

@@ -23,6 +23,22 @@ _NONDETERMINISM_HINT = (
 )
 
 
+def _state_fields(model, state) -> dict:
+    """Named-field view of a state (values repr'd, so records stay
+    JSON-serializable). Tensor-backed states decode through the model's
+    `decode_state`; tuples and lists report by position."""
+    tm = getattr(model, "tm", None)
+    if tm is not None and hasattr(tm, "decode_state"):
+        import numpy as np
+
+        state = tm.decode_state(np.asarray(state, dtype=np.uint32))
+    if isinstance(state, dict):
+        return {str(k): repr(v) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return {f"[{i}]": repr(v) for i, v in enumerate(state)}
+    return {"state": repr(state)}
+
+
 class Path:
     """A list of (state, Optional[action]) pairs; the final pair has action None."""
 
@@ -99,6 +115,9 @@ class Path:
 
     def into_actions(self) -> List[Any]:
         return [a for _s, a in self._pairs if a is not None]
+
+    def into_vec(self) -> List[Tuple[Any, Optional[Any]]]:
+        return list(self._pairs)
 
     def encode(self, model) -> str:
         """Fingerprint-path string "fp/fp/fp" (reference path.rs:189-198)."""

@@ -72,7 +72,10 @@ class TensorModel:
         """lanes -> bool[B]; default: everything is in bounds."""
         return xp.ones(lanes[0].shape, dtype=bool)
 
-    # Symmetry canonicalization hook; the port's engine does not run it yet.
+    # Symmetry reduction hook: lanes -> canonicalized lanes, a pure
+    # batched array program valid under numpy and the torch `xp`. `None`
+    # means the model has no symmetry canonicalization; engines asked for
+    # `.symmetry()` over such a model raise instead of ignoring it.
     representative_lanes = None
 
     def decode_state(self, row: np.ndarray) -> Any:
@@ -144,6 +147,18 @@ class TensorModelAdapter(Model):
     def fingerprint_state(self, state) -> int:
         return self.tm.fingerprint_row(np.asarray(state, dtype=np.uint32))
 
+    def representative_state(self, state) -> Tuple[int, ...]:
+        """Canonical representative of a state via the model's batched
+        canonicalizer (single-row numpy evaluation). Raises if the model
+        defines no symmetry."""
+        if self.tm.representative_lanes is None:
+            raise ValueError(
+                f"{type(self.tm).__name__} defines no representative_lanes"
+            )
+        lanes = tuple(np.asarray([v], dtype=np.uint32) for v in state)
+        canon = self.tm.representative_lanes(np, lanes)
+        return tuple(int(np.asarray(l)[0]) for l in canon)
+
     def _step_row(self, state) -> Tuple[np.ndarray, np.ndarray]:
         key = tuple(state)
         if key == self._memo_key and self._memo_val is not None:
@@ -161,3 +176,29 @@ class TensorModelAdapter(Model):
         val = (succ_rows, mask)
         self._memo_key, self._memo_val = key, val
         return val
+
+
+class CanonicalTensorAdapter(TensorModelAdapter):
+    """Adapter view living entirely in CANONICAL (representative) space,
+    for path reconstruction of symmetry-reduced runs: the engine explores
+    rep(init) and rep(step(rep_state)), so the chain walker does exactly
+    the same — init states and successors are canonicalized before
+    matching. (Walking raw states and matching by canonical fingerprint
+    is not enough: with an imperfect canonicalizer, the reference's own,
+    equivalent states may map to different representatives.) The path is
+    a sequence of representative states, each one explored by the engine.
+    """
+
+    def init_states(self):
+        return [self.representative_state(s) for s in super().init_states()]
+
+    def next_state(self, last_state, action: int):
+        nxt = super().next_state(last_state, action)
+        if nxt is None:
+            return None
+        return self.representative_state(nxt)
+
+    def fingerprint_state(self, state) -> int:
+        return self.tm.fingerprint_row(
+            np.asarray(self.representative_state(state), dtype=np.uint32)
+        )

@@ -12,8 +12,14 @@ Python int in [0, 2^32), so ``~xp.uint32(3)`` is -4, and ``&``, ``|``,
 uint32 arithmetic. Results may carry high bits (``~lane``); the engine
 masks successor lanes to 32 bits before it hashes or stores them.
 
-The namespace holds what the ported models call; a model ported later
-adds what it needs (ROADMAP P2 lists the calls of the bundled models).
+The namespace holds what the ported models call (2PC, Paxos, ABD and
+the `lanes` toolkit); a model ported later adds what it needs (ROADMAP P2
+lists the calls of the bundled models). numpy's ``arr.astype(xp.uint32)``
+on a bool mask has no torch method; the port's model copies write it as
+``xp.where(mask, u(1), u(0))``, which is the same uint32 array under
+numpy and an int64 lane here, and keeps every op a plain tensor op (a
+tensor subclass with ``astype`` would put a Python hook on every op of
+the launch-bound expand).
 """
 
 from __future__ import annotations
@@ -59,3 +65,30 @@ class TorchXP:
 
     def maximum(self, a, b):
         return torch.maximum(self._t(a), self._t(b))
+
+    def where(self, cond, a, b):
+        """numpy's where; scalar operands become int64 lanes."""
+        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+            a = self._t(a)
+        return torch.where(cond, a, b)
+
+    @staticmethod
+    def concatenate(arrays):
+        return torch.cat(list(arrays))
+
+    def full(self, shape, fill_value, dtype=None):
+        if isinstance(shape, int):
+            shape = (shape,)
+        return torch.full(shape, int(fill_value), dtype=self._dtype(dtype), device=self.device)
+
+    @staticmethod
+    def full_like(x, fill_value):
+        return torch.full_like(x, int(fill_value))
+
+    @staticmethod
+    def zeros_like(x):
+        return torch.zeros_like(x)
+
+    @staticmethod
+    def ones_like(x):
+        return torch.ones_like(x)

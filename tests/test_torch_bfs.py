@@ -1,8 +1,10 @@
 """The port's engine end to end: `spawn_gpu_bfs(device="cpu")` (every
 kernel through its plain version) against the JAX `spawn_tpu_bfs` on the
-same model and options. Equal means the whole result dict — unique and
-total states, max depth, discovery fingerprints, coverage actions,
-depths and property counts — and every discovery path's encoding."""
+same model and options, both with sampling off. Equal means the whole
+result dict — unique and total states, max depth, discovery
+fingerprints, coverage actions, depths and property counts — and every
+discovery path's encoding. The sampled default runs are held in
+test_torch_sample.py, symmetry in test_torch_symmetry.py."""
 
 import pytest
 
@@ -58,7 +60,7 @@ def run_pair(n, opts=OPTS, configure_jax=lambda b: b, configure_port=lambda b: b
         JaxAdapter(jm).checker().coverage().sample(False)
     ).spawn_tpu_bfs(**opts).join()
     ours = configure_port(
-        TensorModelAdapter(TwoPhaseTensor(n)).checker().coverage()
+        TensorModelAdapter(TwoPhaseTensor(n)).checker().coverage().sample(False)
     ).spawn_gpu_bfs(device="cpu", **opts).join()
     return ref, ours
 
@@ -125,8 +127,6 @@ def test_discovery_paths_replay():
 @pytest.mark.parametrize(
     "configure",
     [
-        lambda b: b.symmetry(),
-        lambda b: b.sample(True),
         lambda b: b.pipeline(True),
         lambda b: b.threads(4),
         lambda b: b.timeout(1.0),

@@ -78,3 +78,78 @@ def test_engine_cuda_matches_cpu(dev):
         return c.unique_state_count(), c.state_count(), c.max_depth(), dict(c._discovery_fps), c.coverage()
 
     assert run("cuda") == run("cpu")
+
+
+def test_ring_kernel(dev):
+    rng = np.random.default_rng(3)
+    W, qcap = 7, 1 << 12
+    ring = fr.empty_ring(W, qcap, dev)
+    ring[:, :qcap] = torch.from_numpy(_u32(rng, W, qcap)).to(dev)
+    for head, n in ((4000, 1000), (0, qcap), (17, 1)):
+        assert torch.equal(fr.ring_pop(ring, head, n), fr.ring_pop_plain(ring, head, n))
+    cand = torch.from_numpy(_u32(rng, W, 3000)).to(dev)
+    valid = torch.from_numpy(rng.random(3000) < 0.4).to(dev)
+    other = ring.clone()
+    fr.ring_scatter(ring, 4000, cand, valid)
+    fr.ring_scatter_plain(other, 4000, cand, valid)
+    assert torch.equal(ring[:, :qcap], other[:, :qcap])
+
+
+def test_sample_capture_kernel(dev):
+    from stateright_tpu_torch.ops import slab as sl
+
+    rng = np.random.default_rng(4)
+    a, b = sl.empty_slab(1024, dev), sl.empty_slab(1024, dev)
+    for t1, t2, n in ((0xFFFFFFFF, 0xFFFFFFFF, 300), (0xFFFFFFFF, 0xFFFFFFFF, 9000), (0x01000000, 0x80000000, 40_000), (0, 0, 500)):
+        new = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+        h = torch.from_numpy(_u32(rng, 4, n)).to(dev)
+        h[0, :40] = 0x01000000  # ties on the threshold's high word
+        sl.capture(a, new, h[0], h[1], h[2], h[3], t1, t2, 512)
+        sl.capture_plain(b, new, h[0], h[1], h[2], h[3], t1, t2, 512)
+        for x, y in zip(a[:4], b[:4]):
+            assert torch.equal(x[:1024], y[:1024])
+        assert torch.equal(a.counts, b.counts)
+
+
+def test_slab_bottomk_kernel(dev):
+    from stateright_tpu_torch.ops import slab as sl
+
+    rng = np.random.default_rng(5)
+    lanes = [torch.from_numpy(_u32(rng, 1025)).to(dev) for _ in range(4)]
+    lanes[0][::3] = lanes[0][5]  # equal keys: lower row first
+    for occ in (0, 9, 700, 1024):
+        slab = sl.Slab(*lanes, torch.tensor([occ, 0], device=dev))
+        for x, y in zip(sl.bottom_k(slab, 128), sl.bottom_k_plain(slab, 128)):
+            assert torch.equal(x, y)
+
+
+def test_lookup_parent_kernel(dev):
+    rng = np.random.default_rng(6)
+    n = 5000
+    h = torch.from_numpy(_u32(rng, 4, n)).to(dev)
+    table = vs.empty_table(1 << 14, dev)
+    vs.insert(table, h[0], h[1], h[2], h[3], torch.ones(n, dtype=torch.bool, device=dev))
+    q1 = torch.cat([h[0], torch.from_numpy(_u32(rng, 300)).to(dev)])
+    q2 = torch.cat([h[1], torch.from_numpy(_u32(rng, 300)).to(dev)])
+    got, want = vs.lookup_parent(table, q1, q2), vs.lookup_parent_plain(table, q1, q2)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert bool(got[0][:n].all()) and torch.equal(got[1][:n], h[2])
+
+
+@pytest.mark.parametrize("symmetry", [False, True])
+def test_sampled_engine_cuda_matches_cpu(dev, symmetry):
+    opts = dict(chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 11, sync_steps=4)
+
+    def run(device):
+        b = TensorModelAdapter(TwoPhaseTensor(5)).checker()
+        if symmetry:
+            b = b.symmetry()
+        c = b.spawn_gpu_bfs(device=device, **opts).join()
+        paths = {k: v.encode(c.model()) for k, v in c.discoveries().items()}
+        return (c.unique_state_count(), c.state_count(), dict(c._discovery_fps), c.coverage(),
+                c._sampler.fingerprints(), paths)
+
+    got = run("cuda")
+    assert got == run("cpu")
+    assert got[0] == (1092 if symmetry else 8832)
