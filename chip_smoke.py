@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (stateright_tpu_torch) on one card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
-    python3 chip_smoke.py --skip-full   # without the 2pc-10 phases
+    python3 chip_smoke.py --skip-full   # without the 2pc-10 phases (7, 11)
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
@@ -25,10 +25,28 @@ exits non-zero:
      discovery path and the sample rows walked through K6;
   6. abd-ordered-3 exhaustive (46,516 states);
   7. full size: 2pc-10 exhaustive (61,515,776 states) and 2pc-10 with
-     .symmetry() (265,719 representatives).
+     .symmetry() (265,719 representatives);
+  8. simulation kernel parity: each of the four walk kernels (K13a-d)
+     against its plain version, exactly, at the paxos-3 simulation widths
+     (B=16384, L=256, S=30, A=21, P=4) and the 2pc-10 ones (B=65536,
+     L=256, S=3, A=52, P=3), on walk state from a real era of each model;
+  9. simulation on cuda and on cpu: increment-2 (the JAX bench's run),
+     2pc-5 and 2pc-10 (2,048 walks) with a target, coverage and sampling:
+     equal results; 2pc-5 run to "commit agreement" with 8,192 and 65,536
+     walks: found, or not, after the JAX reference's state, step and era
+     counts (REACH_2PC5); and the increment run's time to its
+     counterexample after a warm-up;
+ 10. paxos-3 simulation as the reference CLI runs it (seed 0, 16,384
+     walks, walk_cap 256, .timeout(10.0)): "value chosen" found and
+     replayed, no safety property violated;
+ 11. full size: 2pc-10 simulation (65,536 walks, sync_steps 64, a target
+     of 100,000,000 states): "abort agreement" found and replayed,
+     "consistent" never ("commit agreement" is out of the walks' reach
+     there, the reference's walks too: see phase 9 and PERF.md).
 
 Every engine phase resets the kernels' launch counts just before its run
-and checks, just after, that each kernel of its path was launched. Before
+and checks, just after, that each kernel of its path (the BFS kernels,
+or K1, K13a-d and K13b's prologue) was launched. Before
 the last line it prints the `kernels` JSON line and the card's name and
 power limit; the last line is the JSON result. It imports nothing of JAX
 or of the JAX package.
@@ -58,6 +76,22 @@ GOLDEN = {5: 8_832, 7: 296_448, 10: 61_515_776}
 SYM_CLOSURE = {5: 1_092, 10: 265_719}
 PAXOS3_GOLDEN = 1_194_428
 ABDO3_GOLDEN = 46_516
+
+# Simulation: paxos-3 as the reference CLI walks it (examples/_cli.py:95;
+# B = the paxos-3 BFS chunk), 2pc-10 at 65,536 walks, and the cuda == cpu
+# runs (the JAX bench's increment-2 run, bench.py:1228-1242, and 2pc-5).
+SIM_L = 256
+SIM_PAXOS3 = dict(walks=16384, walk_cap=SIM_L)
+SIM_2PC10 = dict(walks=65536, walk_cap=SIM_L, sync_steps=64)
+SIM_TARGET10 = 100_000_000
+SIM_INC2 = dict(walks=256, walk_cap=32)
+SIM_2PC5 = dict(walks=1024, walk_cap=64, sync_steps=4)
+SIM_2PC10_SMALL = dict(walks=2048, walk_cap=SIM_L, sync_steps=64)
+# 2pc-5 walks (seed 0, walk_cap 256, sync_steps 64) run until "commit
+# agreement" or 5,000,000 states, as the JAX reference takes them on the
+# CPU (`scripts/sim_reach.py --jax --n 5 --walks 8192 65536`):
+# walks -> (found, generated states, steps, eras).
+REACH_2PC5 = {8192: (True, 4_500_923, 639, 93), 65536: (False, 5_008_016, 86, 84)}
 
 # 3-lane rows whose raw hash halves are both 0 (tests/test_torch_fingerprint.py).
 BOTH_ZERO_ROWS = ((2392970816, 0, 4120996650), (2503669636, 0, 1754888951))
@@ -369,7 +403,9 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
         max_abs_err=max(errs),
         ms=time_ms(torch, lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], tight[2], DEVICE_STEP_CAP), prep=fresh_slab),
         plain_ms=time_ms(torch, lambda sb_: sl.capture_plain(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], tight[2], DEVICE_STEP_CAP), prep=fresh_slab),
-        bytes=rcap + n_new * 16 + min(n_below, DEVICE_STEP_CAP) * 32 + 32,
+        # is_new once, h1 and h2 of each new candidate; a captured row
+        # reads depth and action and writes its 4 slab lanes.
+        bytes=rcap + n_new * 16 + min(n_below, DEVICE_STEP_CAP) * 48 + 32,
         ops=rcap + n_new * 3,
         library_ms=None,
         shape=f"[{rcap}], {n_new} new, {n_below} below a tight threshold",
@@ -534,7 +570,7 @@ def check_paths(c):
     from stateright_tpu_torch.path import Path
     from stateright_tpu_torch.tensor import CanonicalTensorAdapter
 
-    model = CanonicalTensorAdapter(c.tm) if c._canon else c.model()
+    model = CanonicalTensorAdapter(c.tm) if getattr(c, "_canon", False) else c.model()
     out = {}
     for name, path in c.discoveries().items():
         replay = Path.from_actions(model, path.into_states()[0], path.into_actions())
@@ -545,18 +581,239 @@ def check_paths(c):
     return out
 
 
-def counted(torch, kernels, label, fn):
+def counted(torch, kernels, label, fn, path=None):
     """Run fn with the launch counts set to 0 just before and read just
-    after; every kernel of the path must have launched."""
+    after; every kernel of the path (the BFS kernels unless named) must
+    have launched."""
+    path = kernels.BFS_KERNELS if path is None else path
     torch.cuda.synchronize()
     kernels.reset_launches()
     out = fn()
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     print(f"launches ({label}): {launches}", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the {label} path")
+    for k in path:
+        check(launches[k.name] > 0, f"kernel {k.name} was not launched on the {label} path")
     return out, launches
+
+
+# -- phases 8 to 11: simulation ---------------------------------------------
+
+def sim_kernel_parity(torch, np, label, tm, B, L):
+    """K13a-d against their plain versions on the walk state of a real era
+    (64 steps from seed 0, walked without properties so that no walk
+    freezes, with a fixed threshold that lets about 1 in 1,000 counted
+    states into the slab; then a seventh of the walks frozen, as first
+    hits leave them), at the widths the step gives them; returns
+    {kernel: timing dict}."""
+    from stateright_tpu_torch.engines.gpu_simulation import SimProgram
+    from stateright_tpu_torch.fingerprint import hash_lanes
+    from stateright_tpu_torch.obs.sample import slab_entries
+    from stateright_tpu_torch.ops import walk as wk
+    from stateright_tpu_torch.xp import TorchXP
+
+    dev = torch.device("cuda")
+    props = tm.tensor_properties()
+    S, A, P = tm.state_width, tm.max_actions, len(props)
+    sk2 = slab_entries(64)
+    prog = SimProgram(tm, [], B, L, True, 64, dev)
+    walk, path = prog.seed(0)
+    fresh = walk.clone()  # every walk on the init state: a slab of duplicates
+    era = prog.era(walk, path, rec_bits=0, max_steps=64, fin_any=0, fin_all=0, fin_all_en=0,
+                   target_gen=0, gen0=0, threshold=(0x00400000, 0))
+    walk[S + 3] = (torch.arange(B, device=dev) % 7 == 0).to(torch.int64)
+    ev_mask, al_mask = wk.prop_masks(props)
+    init_ebits = (1 << bin(ev_mask).count("1")) - 1
+    print(f"sim widths ({label}): B={B} L={L} S={S} A={A} P={P}; state after one era: "
+          f"steps={era.steps} gen={era.gen} maxd={era.maxd} frozen={int(walk[S + 3].sum())}", flush=True)
+    results = {}
+    h1, h2 = hash_lanes(walk[:S])
+
+    # K13a on the era's walks: paths of every length, cycles, frozen walks.
+    def rec_in():
+        return (walk.clone(), path.clone(), torch.zeros(5, dtype=torch.int64, device=dev),
+                torch.zeros(128, dtype=torch.int64, device=dev))
+
+    a, b = rec_in(), rec_in()
+    ra = wk.record(h1, h2, *a)
+    rb = wk.record_plain(h1, h2, *b)
+    err = max_abs_err(torch, zip(a + ra, b + rb))
+    walk1, counted, cycle = a[0], ra[0], ra[1]
+    live = walk[S + 3] == 0
+    ptr_sum = int(torch.where(live, walk[S + 1].clamp(max=L), 0).sum())
+    n_counted = int(counted.sum())
+    del b, rb
+    results["walk_record"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda t: wk.record(h1, h2, *t), prep=rec_in),
+        plain_ms=time_ms(torch, lambda t: wk.record_plain(h1, h2, *t), prep=rec_in, reps=5),
+        bytes=B * 32 + ptr_sum * 8 + B * 2 + n_counted * 16 + 128 * 8,
+        ops=ptr_sum + B * 4,
+        library_ms=None,
+        shape=f"B={B}, L={L}, {ptr_sum} path slots below ptr, {n_counted} counted",
+    )
+
+    # K13c: the first step of an era (threshold MAX: every counted walk),
+    # a tight threshold, and the freshly seeded walks (all duplicates).
+    scap = prog.s_high + B
+
+    def cap_in():
+        return wk.empty_walk_slab(S, scap, dev), torch.zeros(5, dtype=torch.int64, device=dev)
+
+    errs = []
+    slabs = {}
+    fresh_counted = fresh[S + 3] == 0
+    fh1, fh2 = hash_lanes(fresh[:S])
+    for name, args, t in (("loose", (counted, h1, h2, walk1), (0xFFFFFFFF, 0xFFFFFFFF)),
+                          ("tight", (counted, h1, h2, walk1), (0x00400000, 0)),
+                          ("fresh", (fresh_counted, fh1, fh2, fresh), (0xFFFFFFFF, 0xFFFFFFFF))):
+        (sa, ta), (sb, tb) = cap_in(), cap_in()
+        wk.capture(sa, ta, *args, *t)
+        wk.capture_plain(sb, tb, *args, *t)
+        errs.append(max_abs_err(torch, [(sa[:, :scap], sb[:, :scap]), (ta, tb)]))
+        slabs[name] = (sa, ta)
+    n_loose = int(slabs["loose"][1][1])
+    results["walk_capture"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda t: wk.capture(t[0], t[1], counted, h1, h2, walk1, 0xFFFFFFFF, 0xFFFFFFFF),
+                   prep=cap_in),
+        plain_ms=time_ms(torch, lambda t: wk.capture_plain(t[0], t[1], counted, h1, h2, walk1,
+                                                           0xFFFFFFFF, 0xFFFFFFFF), prep=cap_in),
+        # counted once, h1 and h2 of each counted walk; a captured walk
+        # reads ptr and its S lanes and writes its 3 + S slab lanes.
+        bytes=B + n_counted * 16 + n_loose * ((S + 1) + (3 + S)) * 8 + 16,
+        ops=B + n_loose * (3 + S),
+        library_ms=None,
+        shape=f"B={B} into a {scap}-row slab, {n_loose} captured (threshold MAX)",
+    )
+
+    # K13b on the same step: the model's checks and successors.
+    xp = TorchXP(dev)
+    lanes = tuple(walk1[s] for s in range(S))
+    checks = torch.stack([p.check(xp, lanes) for p in props])
+    succs, amask = tm.step_lanes(xp, lanes)
+    valid = torch.stack([amask[a] & tm.within_boundary_lanes(xp, succs[a]) for a in range(A)])
+    succ = torch.stack([x for a in range(A) for x in succs[a]]).view(A, S, B)
+    del succs, amask
+
+    def model_step(_):
+        ch = torch.stack([p.check(xp, lanes) for p in props])
+        sc, am = tm.step_lanes(xp, lanes)
+        va = torch.stack([am[a] & tm.within_boundary_lanes(xp, sc[a]) for a in range(A)])
+        return ch, va, torch.stack([x for a in range(A) for x in sc[a]])
+
+    model_ms = time_ms(torch, model_step)
+
+    def step_in():
+        return (walk1.clone(), torch.zeros((P, B), dtype=torch.bool, device=dev),
+                torch.zeros((P, B), dtype=torch.int64, device=dev),
+                torch.zeros(5, dtype=torch.int64, device=dev),
+                torch.zeros(A + P + 128, dtype=torch.int64, device=dev))
+
+    def run_step(fn, t):
+        fn(t[0], counted, cycle, checks, ev_mask, al_mask, valid, succ,
+           prog.inits, init_ebits, L, t[1], t[2], t[3], t[4])
+
+    a, b = step_in(), step_in()
+    run_step(wk.step, a)
+    run_step(wk.step_plain, b)
+    err = max_abs_err(torch, zip(a, b))
+    pa, pb = walk1.clone(), walk1.clone()
+    pa[S + 3] = (torch.arange(B, device=dev) % 3 == 0).to(torch.int64)
+    pb.copy_(pa)
+    wk.restart_frozen(pa, prog.inits, init_ebits)
+    wk.restart_frozen_plain(pb, prog.inits, init_ebits)
+    err = max(err, max_abs_err(torch, [(pa, pb)]))
+    n_adv = int(a[4][:A].sum())
+    # A restart sets ptr to 0; every restarting walk had ptr >= 1.
+    n_restart = int(((walk1[S + 1] > 0) & (a[0][S + 1] == 0)).sum())
+    n_hits, n_newly = int(a[1].sum()), int(a[3][wk.FROZEN])
+    results["walk_step"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda t: run_step(wk.step, t), prep=step_in),
+        plain_ms=time_ms(torch, lambda t: run_step(wk.step_plain, t), prep=step_in, reps=5),
+        # Every walk reads seed, ptr, ebits, frozen, counted, cycle, its P
+        # checks and A valid bytes, and writes ebits; an advancing walk
+        # reads its successor row and writes its S lanes; a restarting
+        # walk writes S + 3 lanes (the init rows are read once); a hit
+        # reads and writes hseen and writes plen; a newly frozen walk
+        # writes frozen; then the counters.
+        bytes=(B * (4 * 8 + 2 + P + A + 8) + n_adv * S * 16 + n_restart * (S + 3) * 8
+               + prog.inits.numel() * 8 + n_hits * 10 + n_newly * 8 + (A + P + 5) * 8),
+        ops=B * (P + A + 40),
+        library_ms=None,
+        shape=f"B={B}, S={S}, A={A}, P={P}, {n_adv} advancing, {n_restart} restarting, {n_hits} hits",
+    )
+    del succ, checks, valid
+    results["model step"] = dict(
+        max_abs_err=None, ms=model_ms, plain_ms=None, library_ms=None,
+        bytes=B * S * 8 + A * S * B * 8 + (A + P) * B, ops=0,
+        shape=f"the model's checks, step_lanes and boundary, and the [A, S, B] stack (torch)",
+    )
+
+    # K13d over the era's slab (distinct states, the gate's high-water
+    # occupancy) and over the fresh walks' slab (one state B times).
+    errs = []
+    for name in ("loose", "fresh", "tight"):
+        sa, ta = slabs[name]
+        errs.append(max_abs_err(torch, zip(wk.slab_bottom_k(sa, ta, sk2), wk.slab_bottom_k_plain(sa, ta, sk2))))
+    sa, ta = slabs["loose"]
+    sorts = -(-scap // 4096)
+    n = sorts * sk2
+    while n > 4096:
+        sorts += -(-n // 4096)
+        n = -(-n // 4096) * sk2
+    if scap > 4096:
+        sorts += 1
+    results["walk_slab"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda _: wk.slab_bottom_k(sa, ta, sk2)),
+        plain_ms=time_ms(torch, lambda _: wk.slab_bottom_k_plain(sa, ta, sk2)),
+        bytes=n_loose * 16 + sk2 * (3 + S) * 16 + sk2,
+        ops=n_loose * 12 + sorts * 4096 * 12 * 13 // 2,
+        library_ms=None,
+        shape=f"{n_loose} used of {scap} rows -> [{3 + S}, {sk2}] ({sorts} block sorts)",
+    )
+    del slabs, sa, ta, walk, path, walk1, fresh, prog
+    torch.cuda.empty_cache()
+    return finish(results)
+
+
+def simulate(model, device, seed, configure, opts):
+    from stateright_tpu_torch import TensorModelAdapter
+
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    c = configure(TensorModelAdapter(model).checker()).spawn_gpu_simulation(seed, device=device, **opts).join()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return c, time.monotonic() - t0
+
+
+def sim_dict(c):
+    """What must be equal on cuda and on cpu: counts, every discovery path,
+    coverage, the sample and the era structure."""
+    tel = c.telemetry()
+    return dict(
+        states=c.state_count(), max_depth=c.max_depth(),
+        paths={k: v.encode(c.model()) for k, v in c.discoveries().items()},
+        coverage=c.coverage(), sample=tuple(c._sampler.fingerprints()),
+        steps=tel["steps"], eras=tel["eras"],
+    )
+
+
+def sim_line(label, c, wall, card, peak=None):
+    tel = c.telemetry()
+    mem = f" max_memory_allocated={peak}" if peak is not None else ""
+    print(f"{label}: generated={c.state_count()} wall_secs={wall:.3f} "
+          f"generated_states_per_sec={c.state_count() / wall:.1f} steps_per_sec={tel['steps'] / wall:.2f} "
+          f"eras={tel['eras']} steps={tel['steps']} steps_run={tel['steps_run']} "
+          f"run_steps_per_sec={tel['steps_run'] / wall:.2f} max_depth={c.max_depth()}{mem} "
+          f"discoveries={sorted(c._discovery_paths)} card={card}", flush=True)
+
 
 
 def main(argv) -> int:
@@ -575,7 +832,8 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     skip_full = "--skip-full" in argv
     from stateright_tpu_torch import kernels
-    from stateright_tpu_torch.models import AbdOrderedTensor, PaxosTensorExhaustive
+    from stateright_tpu_torch.has_discoveries import HasDiscoveries
+    from stateright_tpu_torch.models import AbdOrderedTensor, IncrementTensor, PaxosTensor, PaxosTensorExhaustive
 
     phase("0 environment")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -696,15 +954,109 @@ def main(argv) -> int:
               f"wall_secs={t10s:.3f} paths={lens} telemetry={c10s.telemetry()} card={card}",
               flush=True)
 
+    phase("8 simulation kernel parity (paxos-3 and 2pc-10 simulation widths)")
+    sim_px = sim_kernel_parity(torch, np, "paxos-3", PaxosTensor(3), SIM_PAXOS3["walks"], SIM_L)
+    sim_kernel_parity(torch, np, "2pc-10", two_pc(10), SIM_2PC10["walks"], SIM_L)
+
+    phase("9 simulation on cuda and on cpu: increment-2, 2pc-5 and 2pc-10; 2pc-5 against the reference")
+
+    def fin_any(b):
+        return b.finish_when(HasDiscoveries.any_of(["fin"]))
+
+    def target(n):
+        return lambda b: b.target_state_count(n)
+
+    dicts = {}
+    for label, model, seed, configure, opts in (
+        ("increment-2", IncrementTensor(2), 7, fin_any, SIM_INC2),
+        ("2pc-5", two_pc(5), 11, target(200_000), SIM_2PC5),
+        ("2pc-10", two_pc(10), 0, target(300_000), SIM_2PC10_SMALL),
+    ):
+        (c_gpu, t_gpu), _ = counted(torch, kernels, f"{label} simulation",
+                                    lambda: simulate(model, "cuda", seed, configure, opts), kernels.SIM_KERNELS)
+        torch.set_num_threads(1)
+        c_cpu, t_cpu = simulate(model, "cpu", seed, configure, opts)
+        torch.set_num_threads(threads)
+        d_gpu, d_cpu = sim_dict(c_gpu), sim_dict(c_cpu)
+        check(d_gpu == d_cpu, f"{label} simulation: cuda {d_gpu} != cpu {d_cpu}")
+        lens = check_paths(c_gpu)
+        check(lens and len(d_gpu["sample"]) > 0, f"{label} simulation: no discovery or no sample")
+        dicts[label] = d_gpu
+        print(f"{label} simulation equal on cuda ({t_gpu:.3f}s) and cpu ({t_cpu:.3f}s): "
+              f"generated={d_gpu['states']} steps={d_gpu['steps']} eras={d_gpu['eras']} paths={lens} "
+              f"sample of {len(d_gpu['sample'])}", flush=True)
+    def reach(b):
+        return b.finish_when(HasDiscoveries.any_of(["commit agreement"])).target_state_count(5_000_000)
+
+    for walks, want in REACH_2PC5.items():
+        c, t = simulate(two_pc(5), "cuda", 0, reach, dict(walks=walks, walk_cap=SIM_L, sync_steps=64))
+        tel = c.telemetry()
+        got = ("commit agreement" in c.discoveries(), c.state_count(), tel["steps"], tel["eras"])
+        check(got == want, f"2pc-5 simulation, {walks} walks: (found, states, steps, eras) {got} != the reference's {want}")
+        lens = check_paths(c)
+        print(f"2pc-5 simulation, {walks} walks: commit agreement {'found' if got[0] else 'not found'} after "
+              f"{got[1]} states, {got[2]} steps, {got[3]} eras, as the reference ({t:.3f}s) paths={lens}", flush=True)
+    c_inc, t_inc = simulate(IncrementTensor(2), "cuda", 7, fin_any, SIM_INC2)
+    check(sim_dict(c_inc) == dicts["increment-2"], "increment-2 simulation: second run differs")
+    c_inc.assert_discovery("fin", c_inc.discovery("fin").into_actions())
+    print(f"increment-2 simulation: time to the fin counterexample after a warm-up {t_inc:.4f}s "
+          f"({c_inc.telemetry()['steps']} steps, {c_inc.state_count()} states) card={card}", flush=True)
+
+    phase("10 paxos-3 simulation (seed 0, 16,384 walks, walk_cap 256, timeout 10 s)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def paxos3_sim():
+        c, t = simulate(PaxosTensor(3), "cuda", 0, lambda b: b.timeout(10.0), SIM_PAXOS3)
+        return c, t, torch.cuda.max_memory_allocated(), check_paths(c)
+
+    (cps, tps, peak, lens), launches_sim = counted(torch, kernels, "paxos-3 simulation", paxos3_sim,
+                                                   kernels.SIM_KERNELS)
+    check("value chosen" in lens, "paxos-3 simulation: value chosen not found")
+    cps.assert_discovery("value chosen", cps.discovery("value chosen").into_actions())
+    for name in ("linearizable", "network within capacity", "ballot rounds within range"):
+        cps.assert_no_discovery(name)
+    sim_line("paxos-3 simulation", cps, tps, card, peak)
+    print(f"paxos-3 simulation: paths={lens} telemetry={cps.telemetry()}", flush=True)
+    del cps
+
+    if not skip_full:
+        phase("11 2pc-10 simulation (seed 0, 65,536 walks, sync_steps 64, target 100,000,000)")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        def two_pc10_sim():
+            c, t = simulate(two_pc(10), "cuda", 0, target(SIM_TARGET10), SIM_2PC10)
+            return c, t, torch.cuda.max_memory_allocated(), check_paths(c)
+
+        (c10s, t10s, peak, lens), _ = counted(torch, kernels, "2pc-10 simulation", two_pc10_sim,
+                                              kernels.SIM_KERNELS)
+        # Uniform random walks reach "commit agreement" only when every
+        # RM prepares before any abort: 8,192 2pc-5 walks need 4.5 M
+        # states for it, 65,536 find none in 5 M (the reference's walks
+        # too, phase 9), 2pc-6 none in 10 M (PERF.md), so at 2pc-10 and
+        # 100 M states only "abort agreement" is certain.
+        check("abort agreement" in lens, f"2pc-10 simulation: {lens}")
+        c10s.assert_no_discovery("consistent")
+        check(c10s.state_count() >= SIM_TARGET10, "2pc-10 simulation stopped short of its target")
+        sim_line("2pc-10 simulation", c10s, t10s, card, peak)
+        print(f"2pc-10 simulation: paths={lens} telemetry={c10s.telemetry()}", flush=True)
+
     line = {"kernels": []}
     for k in kernels.KERNELS:
-        r = results[k.name]
-        line["kernels"].append(dict(
+        # BFS kernels at the 2pc-7 widths and launches; the walk kernels
+        # at the paxos-3 simulation widths and launches.
+        r, n = (results[k.name], launches[k.name]) if k.name in results else (sim_px[k.name], launches_sim[k.name])
+        entry = dict(
             name=k.name, route="cuda", source=os.path.relpath(k.source_path, HERE),
-            replaces=k.replaces, launches=launches[k.name], max_abs_err=r["max_abs_err"],
+            replaces=k.replaces, launches=n, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
-        ))
+        )
+        if k is kernels.WALK_STEP:
+            # The same source's second entry point, the era prologue.
+            entry["prologue_launches"] = launches_sim[kernels.WALK_PROLOGUE.name]
+        line["kernels"].append(entry)
     check(all(results_px[k]["max_abs_err"] == 0 for k in results_px), "paxos-3 widths parity")
     print(json.dumps(line))
     print(card)

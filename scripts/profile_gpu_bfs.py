@@ -33,7 +33,12 @@ def busy_union(intervals):
     return total
 
 
-def profile_run(label, make_model, opts, target=None):
+def profile_run(label, make_model, opts, target=None,
+                spawn=lambda b, opts: b.spawn_gpu_bfs(**opts)):
+    """Warm up, time, then profile one run of `spawn` on a fresh builder
+    of make_model() (with the state target, if any); prints and returns
+    the wall, the device-busy share, the kernels by time and the launches
+    and wall per step (steps run, where an engine counts them apart)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -45,7 +50,7 @@ def profile_run(label, make_model, opts, target=None):
             b = b.target_state_count(target)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        c = b.spawn_gpu_bfs(**opts).join()
+        c = spawn(b, opts).join()
         torch.cuda.synchronize()
         return c, time.monotonic() - t0
 
@@ -62,7 +67,7 @@ def profile_run(label, make_model, opts, target=None):
         d[1] += (e.time_range.end - e.time_range.start) / 1e3
     busy_ms = busy_union([(e.time_range.start, e.time_range.end) for e in kern]) / 1e3
     tel = c.telemetry()
-    steps = tel.get("steps", 0) + tel.get("partial_steps", 0)
+    steps = tel.get("steps_run", tel.get("steps", 0) + tel.get("partial_steps", 0))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     out = dict(
         label=label,

@@ -1,20 +1,26 @@
 """stateright_tpu_torch: the PyTorch/CUDA port of stateright_tpu.
 
 Exhaustive batched BFS over a `TensorModel` on an NVIDIA H100, with
-bottom-k state sampling (on by default) and symmetry reduction, through
-hand-written Hopper kernels (kernels/csrc) for fingerprinting,
-compaction, in-batch dedup, the visited-set insert, the ring queue, the
-sample capture and its epilogue, and the parent lookup of path
-reconstruction. Models: two-phase commit, Paxos and ABD
-(`stateright_tpu_torch.models`). It imports torch and numpy, never jax
-and nothing of the JAX package, and keeps its own copy of the host
-layers it needs.
+bottom-k state sampling (on by default) and symmetry reduction, and
+batched random-walk simulation, through hand-written Hopper kernels
+(kernels/csrc): for BFS fingerprinting, compaction, in-batch dedup, the
+visited-set insert, the ring queue, the sample capture and its epilogue,
+and the parent lookup of path reconstruction; for simulation the walks'
+cycle test and path record, their step, their sample capture and the
+slab's dedup and bottom-k. Models: two-phase commit, Paxos, ABD and the
+increment race (`stateright_tpu_torch.models`). It imports torch and
+numpy, never jax and nothing of the JAX package, and keeps its own copy
+of the host layers it needs.
 
     from stateright_tpu_torch import TensorModelAdapter
     from stateright_tpu_torch.models import TwoPhaseTensor
 
     c = TensorModelAdapter(TwoPhaseTensor(7)).checker().spawn_gpu_bfs().join()
     c.assert_properties()
+
+    s = TensorModelAdapter(TwoPhaseTensor(7)).checker().target_state_count(
+        10**7).spawn_gpu_simulation(0, walks=16384).join()
+    s.assert_any_discovery("abort agreement")
 
 Engines run on `cuda` unless the caller passes `device="cpu"`, which runs
 each kernel's plain torch version instead.

@@ -3,10 +3,11 @@
 
 The builder carries the model and the options the port supports —
 `finish_when`, `target_state_count`, `target_max_depth`, `coverage`,
-`sample` (on by default, k = 64, as in the JAX package) and `symmetry` —
-and spawns the device BFS engine with `spawn_gpu_bfs(**kw)`, the
-counterpart of `spawn_tpu_bfs`. Options that later slices port raise
-`NotImplementedError` naming the slice.
+`sample` (on by default, k = 64, as in the JAX package), `symmetry` and
+`timeout` — and spawns the device engines: `spawn_gpu_bfs(**kw)`, the
+counterpart of `spawn_tpu_bfs`, and `spawn_gpu_simulation(seed, **kw)`,
+the counterpart of `spawn_tpu_simulation`. Options that later slices
+port raise `NotImplementedError` naming the slice.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ from .has_discoveries import HasDiscoveries
 from .path import Path
 
 # Later slices of the port, numbered as in ROADMAP.md Queue 1.
-SLICE_CHECKPOINTS = "slice 3 (spill tiers and checkpoints)"
-SLICE_PIPELINE = "slice 4 (pipelined and CUDA-graph eras)"
+SLICE_CHECKPOINTS = "slice 7 (spill tiers and checkpoints)"
+SLICE_PIPELINE = "slice 8 (pipelined and CUDA-graph eras)"
 
 
 def not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -46,6 +47,7 @@ class CheckerBuilder:
         self.symmetry_fn_: Optional[Any] = None
         self.sample_: bool = True
         self.sample_k_: int = 64  # obs/sample.py DEFAULT_SAMPLE_K
+        self.timeout_: Optional[float] = None
 
     def finish_when(self, has_discoveries: HasDiscoveries) -> "CheckerBuilder":
         self.finish_when_ = has_discoveries
@@ -100,14 +102,32 @@ class CheckerBuilder:
         raise not_ported("checker visitors", "a later slice (host engines)")
 
     def timeout(self, seconds: float) -> "CheckerBuilder":
-        raise not_ported("run timeouts (adaptive era budgets)", SLICE_PIPELINE)
+        """Stop the run at the first era boundary after `seconds` (the
+        simulation engine; its eras last at most 64 steps then)."""
+        self.timeout_ = seconds
+        return self
 
     def spawn_gpu_bfs(self, **kw) -> "Checker":
         """Exhaustive BFS over a TensorModel on the card (or, with
         device="cpu", through the kernels' plain versions on the CPU)."""
+        if self.timeout_ is not None:
+            raise not_ported("BFS run timeouts (adaptive era budgets)", SLICE_PIPELINE)
         from .engines.gpu_bfs import GpuBfsChecker
 
         return GpuBfsChecker(self, **kw)
+
+    def spawn_gpu_simulation(self, seed: int, *, walks: int = 1024, walk_cap: int = 256,
+                             sync_steps: int = 1024, device=None) -> "Checker":
+        """Batched random-walk simulation over a TensorModel on the card:
+        `walks` seeded walks advance one transition a step, each up to
+        `walk_cap` states, in eras of at most `sync_steps` steps (or, with
+        device="cpu", through the kernels' plain versions on the CPU).
+        The walks are the JAX engine's, bit for bit, for the same seed."""
+        from .engines.gpu_simulation import GpuSimulationChecker
+
+        return GpuSimulationChecker(
+            self, seed, walks=walks, walk_cap=walk_cap, sync_steps=sync_steps, device=device
+        )
 
 
 class Checker:

@@ -1,11 +1,12 @@
 """The lean part of `stateright_tpu/engines/common.py HostEngineBase`: the
-run thread, join, counters, coverage, sampling and discovery bookkeeping
-that the port's device engine needs.
+run thread, join, counters, coverage, sampling, the run deadline and
+discovery bookkeeping that the port's device engines need.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, Optional
 
 from ..checker import Checker, CheckerBuilder
@@ -22,6 +23,10 @@ class HostEngineBase(Checker):
         self._target_state_count = builder.target_state_count_
         self._target_max_depth = builder.target_max_depth_
         self._finish_when = builder.finish_when_
+        self._timeout = builder.timeout_
+        self._deadline = (
+            time.monotonic() + self._timeout if self._timeout is not None else None
+        )
         self._symmetry = builder.symmetry_fn_
         self._sampler: Optional[SpaceSampler] = (
             SpaceSampler(k=builder.sample_k_) if builder.sample_ else None
@@ -105,6 +110,9 @@ class HostEngineBase(Checker):
 
     def _inc(self, name: str, n: int = 1) -> None:
         self._counters[name] = self._counters.get(name, 0) + int(n)
+
+    def _timed_out(self) -> bool:
+        return self._deadline is not None and time.monotonic() >= self._deadline
 
     def _finish_matched(self, discoveries: Dict[str, Any]) -> bool:
         return self._finish_when.matches(set(discoveries), self._properties)

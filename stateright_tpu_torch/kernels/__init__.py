@@ -20,6 +20,7 @@ module on machines with no CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -98,7 +99,7 @@ RING = Kernel(
 )
 SAMPLE_CAPTURE = Kernel(
     "sample_capture", "sample_capture.cu", "srt_sample_capture",
-    [_P, _P, _P, _P, _P, _I64, _U64, _U64, _P, _P, _P, _P, _I64, _P, _I64],
+    [_P, _P, _P, _P, _P, _I64, _U64, _U64, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64],
     "stateright_tpu/engines/tpu_bfs.py:519",
 )
 SLAB_BOTTOMK = Kernel(
@@ -112,10 +113,45 @@ LOOKUP_PARENT = Kernel(
     "stateright_tpu/ops/visited_set.py:411",
 )
 
-KERNELS = (
+WALK_RECORD = Kernel(
+    "walk_record", "walk_record.cu", "srt_walk_record",
+    [_P, _P, _P, _I32, _I64, _P, _I32, _P, _P, _P, _P, _I32],
+    "stateright_tpu/engines/tpu_simulation.py:199",
+)
+WALK_STEP = Kernel(
+    "walk_step", "walk_step.cu", "srt_walk_step",
+    [_P, _I32, _I64, _I32, _P, _I32, _I64, _I64, _P, _I32, _P, _P, _I64, _I64,
+     _P, _P, _P, _P, _P, _P],
+    "stateright_tpu/engines/tpu_simulation.py:268",
+)
+# K13b's second entry point, the era prologue: same source and row, its
+# own launch count.
+WALK_PROLOGUE = Kernel(
+    "walk_prologue", "walk_step.cu", "srt_walk_prologue",
+    [_P, _I32, _I64, _P, _I64, _I64],
+    "stateright_tpu/engines/tpu_simulation.py:394",
+)
+WALK_CAPTURE = Kernel(
+    "walk_capture", "walk_capture.cu", "srt_walk_capture",
+    [_P, _P, _P, _P, _I32, _I64, _U64, _U64, _P, _I64, _P, _P, _I64],
+    "stateright_tpu/engines/tpu_simulation.py:219",
+)
+WALK_SLAB = Kernel(
+    "walk_slab", "walk_slab.cu", "srt_walk_slab",
+    [_P, _I32, _I64, _P, _I32, _P, _I64, _P, _P, _I64, _P, _P],
+    "stateright_tpu/engines/tpu_simulation.py:502",
+)
+
+# The kernels of each engine's path: the BFS step and its epilogue, and
+# the simulation step and its epilogue (K1 runs on both). KERNELS has one
+# entry a source; ENTRIES adds the second entry points.
+BFS_KERNELS = (
     HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT,
     RING, SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT,
 )
+SIM_KERNELS = (HASH_LANES, WALK_RECORD, WALK_STEP, WALK_PROLOGUE, WALK_CAPTURE, WALK_SLAB)
+KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB)
+ENTRIES = KERNELS + (WALK_PROLOGUE,)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -141,8 +177,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(k: Kernel) -> str:
-    with open(k.source_path, "rb") as f:
-        digest = hashlib.sha256(f.read() + ARCH.encode()).hexdigest()[:16]
+    h = hashlib.sha256(ARCH.encode())
+    # The shared headers (csrc/*.cuh) are part of every source.
+    for path in [k.source_path] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{os.path.splitext(k.source)[0]}_{digest}.so")
 
 
@@ -161,7 +201,7 @@ def build_all(kernels=KERNELS, verbose: bool = False) -> float:
     procs = []
     for k in kernels:
         out = _lib_path(k)
-        if os.path.exists(out):
+        if os.path.exists(out) or any(p[1] == out for p in procs):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = _nvcc_cmd(k, tmp)
@@ -199,12 +239,21 @@ def _load(k: Kernel):
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in ENTRIES:
         k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.name: k.launches for k in KERNELS}
+    return {k.name: k.launches for k in ENTRIES}
+
+
+CAPTURE_TILE = 1024  # candidates a block in csrc/capture_scan.cuh (kTile)
+
+
+def capture_scratch(n: int, device) -> torch.Tensor:
+    """The per-tile counts that K9a and K13c pass between their two
+    launches over n candidates, and the occupancy they start from."""
+    return torch.empty(-(-n // CAPTURE_TILE) + 1, dtype=torch.int64, device=device)
 
 
 def ptr(t: torch.Tensor) -> int:

@@ -16,9 +16,11 @@ engine and package. Because fingerprints are uniform in [0, 2^64), the
 kth-smallest fingerprint doubles as a distinct-count estimator (KMV):
 ``est ≈ (k-1) * 2^64 / kth_fp``.
 
-The device engine captures candidates in a small fixed on-device slab
+The BFS engine captures candidates in a small fixed on-device slab
 (kernel K9a, `kernels/csrc/sample_capture.cu`) and drains it once per era
-(K9b, `slab_bottomk.cu`). The per-era drain keeps only the bottom-k'' of
+(K9b, `slab_bottomk.cu`); the simulation engine does the same through
+K13c and K13d (`walk_capture.cu`, `walk_slab.cu`), whose slab holds
+revisited states and drains with ``exact=False``. The per-era drain keeps only the bottom-k'' of
 that era's candidates, which is exact for the global bottom-k: any global
 bottom-k member has fewer than k candidates below it *anywhere*, hence
 fewer than k below it within its own era. The device ranks by the high
@@ -240,17 +242,26 @@ class SpaceSampler:
         occupied: int,
         dropped: int = 0,
         actions=None,
+        states=None,
+        exact: bool = True,
     ) -> None:
         """Consume one era's device slab drain.
 
-        ``fp1``/``fp2``/``depths`` (+ optional ``actions``) are the
-        drained entry lanes, ``ok`` the validity
+        ``fp1``/``fp2``/``depths`` (+ optional ``actions`` / ``states``
+        [n, S] rows) are the drained entry lanes, ``ok`` the validity
         mask (1 for written slab slots, 0 for padding), ``occupied`` the
         era's true candidate count and ``dropped`` its slab-overflow
         drop count. Applies the h1 tie cut (module doc) before offering:
         when the era produced more candidates than were drained, entries
         AT the boundary h1 value may be an incomplete tie group, so only
         the exact set strictly below the cut is kept.
+
+        ``exact=False`` skips the tie cut: for engines whose slab can
+        hold DUPLICATE fingerprints (the simulation engine — walks
+        revisit states, and there is no visited table to make captures
+        once-only), ``occupied > n_valid`` usually means duplicates, not
+        truncation, and the cut would starve the sample by forever
+        discarding the boundary group.
         """
         fp1 = np.asarray(fp1, dtype=np.uint64)
         fp2 = np.asarray(fp2, dtype=np.uint64)
@@ -262,7 +273,7 @@ class SpaceSampler:
         n_valid = int(valid.sum())
         if not n_valid:
             return
-        if occupied > n_valid:
+        if exact and occupied > n_valid:
             cut = int(fp1[valid].max())
             keep = valid & (fp1 < np.uint64(cut))
             if int(keep.sum()) < self.k:
@@ -276,6 +287,11 @@ class SpaceSampler:
                 fp,
                 depth=int(depths[i]),
                 action=None if act == NO_ACTION else act,
+                state=(
+                    tuple(int(v) for v in states[i])
+                    if states is not None
+                    else None
+                ),
             )
 
     # -- queries ------------------------------------------------------------

@@ -77,10 +77,11 @@ def capture(slab: Slab, is_new, h1, h2, depth, action, t1: int, t2: int, step_ca
     if is_new.dtype != torch.bool:
         raise ValueError("capture takes a bool is_new mask")
     args = [t.contiguous() for t in (is_new, h1, h2, depth, action)]
+    scratch = kernels.capture_scratch(is_new.shape[0], is_new.device)
     kernels.SAMPLE_CAPTURE.launch(
         *(kernels.ptr(t) for t in args), is_new.shape[0], int(t1) & M32, int(t2) & M32,
         *(kernels.ptr(t) for t in slab[:4]), slab.capacity,
-        kernels.ptr(slab.counts), step_cap,
+        kernels.ptr(slab.counts), step_cap, kernels.ptr(scratch), scratch.shape[0],
     )
 
 

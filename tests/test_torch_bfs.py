@@ -129,7 +129,7 @@ def test_discovery_paths_replay():
     [
         lambda b: b.pipeline(True),
         lambda b: b.threads(4),
-        lambda b: b.timeout(1.0),
+        lambda b: b.timeout(1.0).spawn_gpu_bfs(device="cpu", **OPTS),
         lambda b: b.visitor(print),
         lambda b: b.spawn_gpu_bfs(device="cpu", checkpoint_path="x"),
     ],

@@ -1,5 +1,5 @@
-"""The port's kernels on the card, each against its plain version, and a
-small engine run on cuda against cpu. Marked `cuda`: they skip where no
+"""The port's kernels on the card, each against its plain version, and
+small BFS and simulation runs on cuda against cpu. Marked `cuda`: they skip where no
 CUDA device is present. On a machine with a card (no JAX needed):
 
     python -m pytest --noconftest -q tests/test_torch_card.py
@@ -153,3 +153,144 @@ def test_sampled_engine_cuda_matches_cpu(dev, symmetry):
     got = run("cuda")
     assert got == run("cpu")
     assert got[0] == (1092 if symmetry else 8832)
+
+
+# -- simulation (K13a-d) ------------------------------------------------------
+
+def _pack(h1, h2):
+    return ((h1.astype(np.uint64) << np.uint64(32)) | h2.astype(np.uint64)).view(np.int64)
+
+
+def _walks(rng, S, B, L):
+    """Walk lanes with paths of every length, a tenth frozen, and a path row
+    per walk in which about a third of the walks meet their own state."""
+    walk = np.zeros((S + 4, B), dtype=np.int64)
+    walk[:S] = rng.integers(0, 50, size=(S, B))
+    walk[S] = _u32(rng, B)
+    walk[S + 1] = rng.integers(0, L + 1, size=B)
+    walk[S + 2] = rng.integers(0, 4, size=B)
+    walk[S + 3] = rng.random(B) < 0.1
+    h = _u32(rng, 2, B)
+    path = _pack(_u32(rng, B, L), _u32(rng, B, L))
+    for w in np.flatnonzero((rng.random(B) < 0.3) & (walk[S + 1] > 0)):
+        path[w, rng.integers(0, walk[S + 1, w])] = _pack(h[0, w:w + 1], h[1, w:w + 1])[0]
+    return walk, h, path
+
+
+def test_walk_record_kernel(dev):
+    from stateright_tpu_torch.ops import walk as wk
+
+    rng = np.random.default_rng(10)
+    S, B, L = 5, 20_000, 48
+    walk, h, path = _walks(rng, S, B, L)
+    h1, h2 = (torch.from_numpy(x).to(dev) for x in h)
+    outs = []
+    for fn in (wk.record, wk.record_plain):
+        w, p = torch.tensor(walk, device=dev), torch.tensor(path, device=dev)
+        stats = torch.zeros(5, dtype=torch.int64, device=dev)
+        dhist = torch.zeros(128, dtype=torch.int64, device=dev)
+        counted, cycle = fn(h1, h2, w, p, stats, dhist)
+        outs.append((w, p, stats, dhist, counted, cycle))
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    assert bool(outs[0][5].any()) and bool(outs[0][4].any())
+
+
+def test_walk_step_kernel(dev):
+    from stateright_tpu_torch.ops import walk as wk
+
+    rng = np.random.default_rng(11)
+    S, B, L, A, P = 4, 20_000, 32, 37, 3
+    walk, h, path = _walks(rng, S, B, L)
+    counted, cycle = wk.record_plain(torch.from_numpy(h[0]), torch.from_numpy(h[1]),
+                                     torch.from_numpy(walk), torch.from_numpy(path),
+                                     torch.zeros(5, dtype=torch.int64), None)
+    walk = walk.copy()
+    walk[S + 1] = np.minimum(walk[S + 1], L)
+    checks = torch.from_numpy(rng.random((P, B)) < 0.3).to(dev)
+    valid = rng.random((A, B)) < 0.2
+    valid[:, :500] = False  # terminal walks
+    valid = torch.from_numpy(valid).to(dev)
+    succ = _u32(rng, A, S, B)
+    succ[0, 0, :100] += 1 << 40  # high bits the kernel must mask
+    succ = torch.from_numpy(succ).to(dev)
+    inits = torch.from_numpy(rng.integers(0, 9, size=(S, 3))).to(dev)
+    hseen0 = torch.from_numpy(rng.random((P, B)) < 0.05).to(dev)
+    outs = []
+    for fn in (wk.step, wk.step_plain):
+        w = torch.tensor(walk, device=dev)
+        hseen = hseen0.clone()
+        plen = torch.zeros((P, B), dtype=torch.int64, device=dev)
+        stats = torch.zeros(5, dtype=torch.int64, device=dev)
+        cov = torch.zeros(A + P + 128, dtype=torch.int64, device=dev)
+        fn(w, counted.to(dev), cycle.to(dev), checks, 0b001, 0b010, valid, succ, inits, 1, L,
+           hseen, plen, stats, cov)
+        outs.append((w, hseen, plen, stats, cov))
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    a = torch.tensor(walk, device=dev)
+    b = a.clone()
+    wk.restart_frozen(a, inits, 1)
+    wk.restart_frozen_plain(b, inits, 1)
+    assert torch.equal(a, b) and not bool(a[S + 3].any())
+
+
+def test_walk_capture_kernel(dev):
+    from stateright_tpu_torch.ops import walk as wk
+
+    rng = np.random.default_rng(12)
+    S, B = 3, 20_000
+    walk, h, _path = _walks(rng, S, B, 8)
+    walk, h1, h2 = (torch.from_numpy(x).to(dev) for x in (walk, h[0], h[1]))
+    h1[:50] = 0x01000000  # ties on the threshold's high word
+    counted = torch.from_numpy(rng.random(B) < 0.8).to(dev)
+    scap = 512 + B
+    slabs = [wk.empty_walk_slab(S, scap, dev) for _ in range(2)]
+    stats = [torch.tensor([0, 100, 0, 0, 0], device=dev) for _ in range(2)]
+    for t1, t2 in ((0x01000000, 0x80000000), (0, 0), (0xFFFFFFFF, 0xFFFFFFFF)):
+        stats[0][1] = stats[1][1] = 100
+        wk.capture(slabs[0], stats[0], counted, h1, h2, walk, t1, t2)
+        wk.capture_plain(slabs[1], stats[1], counted, h1, h2, walk, t1, t2)
+        assert torch.equal(slabs[0][:, :scap], slabs[1][:, :scap])
+        assert torch.equal(stats[0], stats[1])
+
+
+@pytest.mark.parametrize("scap", [900, 20_512, 66_048])
+def test_walk_slab_kernel(dev, scap):
+    from stateright_tpu_torch.ops import walk as wk
+
+    rng = np.random.default_rng(scap)
+    S = 3
+    slab = _u32(rng, 3 + S, scap + 1)
+    slab[0] %= 5000  # equal fp1 with distinct fp2
+    slab[1] %= 3
+    slab[0, 9::41] = 0xFFFFFFFF
+    slab = torch.from_numpy(slab).to(dev)
+    for occ in (0, 7, scap // 3, scap):
+        stats = torch.tensor([0, occ, 0, 0, 0], device=dev)
+        got = wk.slab_bottom_k(slab, stats, 128)
+        want = wk.slab_bottom_k_plain(slab, stats, 128)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_simulation_cuda_matches_cpu(dev):
+    from stateright_tpu_torch.has_discoveries import HasDiscoveries
+    from stateright_tpu_torch.models import IncrementTensor
+
+    def run(device, tm, seed, configure, **kw):
+        c = configure(TensorModelAdapter(tm).checker()).spawn_gpu_simulation(
+            seed, device=device, **kw).join()
+        paths = {k: v.encode(c.model()) for k, v in c.discoveries().items()}
+        tel = c.telemetry()
+        return (c.state_count(), c.max_depth(), paths, c.coverage(), c._sampler.fingerprints(),
+                tel["steps"], tel["eras"])
+
+    cases = [
+        (IncrementTensor(2), 7, lambda b: b.finish_when(HasDiscoveries.any_of(["fin"])), dict(walks=256, walk_cap=32)),
+        (TwoPhaseTensor(4), 11, lambda b: b.target_state_count(50_000), dict(walks=512, walk_cap=64, sync_steps=4)),
+    ]
+    for tm, seed, configure, kw in cases:
+        got = run("cuda", tm, seed, configure, **kw)
+        assert got == run("cpu", tm, seed, configure, **kw)
+        assert got[2]

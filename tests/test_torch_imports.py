@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of it and
-`chip_smoke.py`, and running a BFS, loads neither jax nor any module of
+`chip_smoke.py`, and running a BFS and a simulation, loads neither jax nor any module of
 the JAX package."""
 
 import os
@@ -19,6 +19,9 @@ from stateright_tpu_torch.models import TwoPhaseTensor
 c = TensorModelAdapter(TwoPhaseTensor(2)).checker().spawn_gpu_bfs(
     device="cpu", chunk_size=16, queue_capacity=1 << 10, table_capacity=1 << 10).join()
 assert c.unique_state_count() > 1
+s = TensorModelAdapter(TwoPhaseTensor(2)).checker().target_state_count(200).spawn_gpu_simulation(
+    1, device="cpu", walks=16, walk_cap=8).join()
+assert s.state_count() >= 200
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "stateright_tpu" or m.startswith("stateright_tpu."))
 print("LOADED", bad)
