@@ -42,11 +42,28 @@ exits non-zero:
  11. full size: 2pc-10 simulation (65,536 walks, sync_steps 64, a target
      of 100,000,000 states): "abort agreement" found and replayed,
      "consistent" never ("commit agreement" is out of the walks' reach
-     there, the reference's walks too: see phase 9 and PERF.md).
+     there, the reference's walks too: see phase 9 and PERF.md);
+ 12. lane kernel parity: the lane forms of K2, K3, K4, K6 and K7 against
+     their plain versions, exactly, at the widths of 1,024 lanes of 2pc-5
+     (the reference's default lane shape: chunk 151, ring 2^13, table
+     2^16; 1.61 GB of tables), and each at one lane against its solo call;
+ 13. the service shape: 32 lanes of increment-2 (bench.py's service
+     section) and 27 mixed 2pc-5 builders (target_max_depth 4, 9 or none,
+     some finishing on a discovery) in 32 lanes: cuda equals cpu lane by
+     lane, discoveries replay, each lane equals its solo run; with the
+     checks/s of 8 serial solo runs (bench.py:1575-1591);
+ 14. the sweeps: 1,024 lanes of 2pc-5 (lane i at target_max_depth
+     1 + i % 18) and 256 lanes of paxos-2 (table 2^17, ring 2^14): wall,
+     checks/s, states/s, steps, launches a step, peak memory and the
+     device's busy share (torch.profiler); every depth equal to its solo
+     run, every unbounded lane at 8,832 (paxos-2: 16,668), 64 (paxos-2:
+     8) lanes equal to the port's cpu lanes; beside them the serial solo
+     runs' checks/s.
 
 Every engine phase resets the kernels' launch counts just before its run
 and checks, just after, that each kernel of its path (the BFS kernels,
-or K1, K13a-d and K13b's prologue) was launched. Before
+K1, K13a-d and K13b's prologue, or K1 and the lane entry points of K2,
+K3, K4, K6 and K7) was launched. Before
 the last line it prints the `kernels` JSON line and the card's name and
 power limit; the last line is the JSON result. It imports nothing of JAX
 or of the JAX package.
@@ -92,6 +109,32 @@ SIM_2PC10_SMALL = dict(walks=2048, walk_cap=SIM_L, sync_steps=64)
 # CPU (`scripts/sim_reach.py --jax --n 5 --walks 8192 65536`):
 # walks -> (found, generated states, steps, eras).
 REACH_2PC5 = {8192: (True, 4_500_923, 639, 93), 65536: (False, 5_008_016, 86, 84)}
+
+# Multiplexed lanes: the reference's default lane shape
+# (multiplex.py:390), 1,024 lanes of 2pc-5 in the sweep, and paxos-2's
+# lanes (16,668 states in 73 steps a lane, the JAX lanes on the CPU).
+LANE_SHAPE = dict(chunk=256, queue_capacity=1 << 13, table_capacity=1 << 16)
+SWEEP_LANES = 1024
+PAXOS2_LANES = dict(table_capacity=1 << 17, queue_capacity=1 << 14)
+PAXOS2_GOLDEN = 16_668
+
+
+def mixed_config(i, HasDiscoveries):
+    """Builder i of phase 13's 27 mixed 2pc-5 checks: target_max_depth 4,
+    9 or none, and every other check finishing at "abort agreement" or
+    "commit agreement" (a cycle of 12)."""
+    depth = (4, 9, None)[i % 3]
+    finish = (None, "abort agreement", None, "commit agreement")[i % 4]
+
+    def configure(b):
+        if depth is not None:
+            b = b.target_max_depth(depth)
+        if finish is not None:
+            b = b.finish_when(HasDiscoveries.any_of([finish]))
+        return b
+
+    return configure
+
 
 # 3-lane rows whose raw hash halves are both 0 (tests/test_torch_fingerprint.py).
 BOTH_ZERO_ROWS = ((2392970816, 0, 4120996650), (2503669636, 0, 1754888951))
@@ -816,6 +859,313 @@ def sim_line(label, c, wall, card, peak=None):
 
 
 
+# -- phases 12 to 14: multiplexed lanes -------------------------------------
+
+def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
+    """The lane forms of K2, K3, K4, K6 and K7 against their plain
+    versions at the widths one lane step of N lanes of a model with C, A,
+    S gives them (tables [N, tcap], rings [N, S + 2, qcap]), each also at
+    one lane against its solo call; returns {entry name: timing dict}."""
+    from stateright_tpu_torch.engines.gpu_bfs import widths
+    from stateright_tpu_torch.ops import frontier as fr
+    from stateright_tpu_torch.ops import visited_set as vs
+
+    dev = torch.device("cuda")
+    W = S + 2
+    vcap, rcap, dedup_cap = widths(A, C)
+    print(f"lane widths: N={N} C={C} A={A} S={S} vcap={vcap} rcap={rcap} dedup_cap={dedup_cap} "
+          f"tables [{N}, 2^{tcap.bit_length() - 1}] ({N * tcap * 24} bytes) "
+          f"rings [{N}, {W}, 2^{qcap.bit_length() - 1}] ({N * W * (qcap + 1) * 8} bytes)", flush=True)
+    rng = np.random.default_rng(12)
+    results = {}
+
+    def gpu(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def u32(*shape):
+        return rng.integers(1, 1 << 32, size=shape, dtype=np.uint64).astype(np.int64)
+
+    def solo_equal(pairs):
+        check(max_abs_err(torch, pairs) == 0, "a lane form at one lane differs from the solo call")
+
+    # K2: the step's action-major validity mask [A, N, C] read as [N, A, C]
+    # (about a third valid) -> vcap, and the dedup mask [N, vcap] -> rcap.
+    amask = gpu(rng.random((A, N, C)) < 0.3)
+    view = amask.transpose(0, 1)
+    reps = gpu(rng.random((N, vcap)) < 0.35)
+    errs = [max_abs_err(torch, zip(vs.compact_ids_lanes(m, cap), vs.compact_ids_lanes_plain(m, cap)))
+            for m, cap in ((view, vcap), (reps, rcap))]
+    solo_equal(zip(vs.compact_ids_lanes(view[:1], vcap), (x[None] for x in vs.compact_ids(view[0].reshape(-1), vcap))))
+    results["compact_ids_lanes"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda _: vs.compact_ids_lanes(view, vcap)),
+        plain_ms=time_ms(torch, lambda _: vs.compact_ids_lanes_plain(view, vcap)),
+        bytes=N * A * C + N * vcap * 9 + N * 8,
+        ops=N * A * C,
+        library_ms=time_ms(torch, lambda _: torch.nonzero(view)),
+        shape=f"[{A}, {N}, {C}] as [{N}, {A}*{C}] -> [{N}, {vcap}]",
+    )
+
+    # K3: [N, vcap] candidates from one key pool for every lane (the same
+    # keys across lanes, many duplicates within a lane), slot contenders.
+    pool = u32(2, vcap // 8)
+    pick = rng.integers(0, pool.shape[1], size=(N, vcap))
+    h1, h2 = gpu(pool[0, pick]), gpu(pool[1, pick])
+    h1[:, :32] = 5
+    h2[:, :32] = torch.arange(32, device=dev)
+    valid = gpu(rng.random((N, vcap)) < 0.9)
+    keep = fr.claim_dedup_lanes(h1, h2, valid, dedup_cap)
+    err = max_abs_err(torch, [(keep, fr.claim_dedup_lanes_plain(h1, h2, valid, dedup_cap))])
+    solo_equal([(fr.claim_dedup_lanes(h1[:1], h2[:1], valid[:1], dedup_cap)[0],
+                 fr.claim_dedup(h1[0], h2[0], valid[0], dedup_cap))])
+    results["claim_dedup_lanes"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda _: fr.claim_dedup_lanes(h1, h2, valid, dedup_cap)),
+        plain_ms=time_ms(torch, lambda _: fr.claim_dedup_lanes_plain(h1, h2, valid, dedup_cap)),
+        bytes=N * vcap * (8 + 8 + 1 + 1),
+        ops=N * vcap * 8,
+        library_ms=None,
+        shape=f"[{N}, {vcap}], scratch [{N}, {dedup_cap}]",
+    )
+    del h1, h2, valid, keep, amask, view, reps
+
+    # K4: each lane's table filled to the load a finished 2pc-5 lane has
+    # (8,832 of 2^16), then an [N, rcap] batch of found keys, new keys and
+    # in-batch duplicates with other parents.
+    base = vs.empty_table(tcap, dev, lanes=N)
+    fill = 8832 - rcap
+    k = gpu(u32(2, N, fill))
+    vs.insert_lanes(base, k[0], k[1], k[0], k[1], torch.ones((N, fill), dtype=torch.bool, device=dev))
+    old = gpu(rng.integers(0, fill, size=(N, rcap // 3)))
+    bh = torch.cat([k.gather(2, old[None].expand(2, N, -1)), gpu(u32(2, N, rcap - rcap // 3))], dim=2)
+    bh = bh[:, :, gpu(rng.permutation(rcap))].contiguous()
+    bh[:, :, rcap - 200:] = bh[:, :, rcap - 400:rcap - 200]
+    p = gpu(u32(2, N, rcap))
+    act = gpu(rng.random((N, rcap)) < 0.95)
+
+    def clone(t):
+        return vs.VisitedTable(t.keys.clone(), t.parents.clone(), t.stamps.clone(), t.epoch)
+
+    def dump(t):
+        order = torch.argsort(t.keys, dim=1)
+        return t.keys.gather(1, order), t.parents.gather(1, order)
+
+    ta, tb = clone(base), clone(base)
+    out_a = vs.insert_lanes(ta, bh[0], bh[1], p[0], p[1], act)
+    out_b = vs.insert_lanes_plain(tb, bh[0], bh[1], p[0], p[1], act)
+    err = max_abs_err(torch, list(zip(out_a, out_b)) + list(zip(dump(ta), dump(tb))))
+    n_new, n_act = int(out_a[0].sum()), int(act.sum())
+    check(n_new > 0 and int(out_a[1].sum()) == 0, "lane insert batch: expected new keys and no unresolved")
+    del tb
+    one = vs.VisitedTable(base.keys[:1].clone(), base.parents[:1].clone(), base.stamps[:1].clone(), base.epoch)
+    solo = vs.VisitedTable(base.keys[0].clone(), base.parents[0].clone(), base.stamps[0].clone(), base.epoch)
+    # Same key -> parent map; which of two keys contending for one empty
+    # slot takes it is the CAS order's, so the slot layout may differ.
+    solo_equal(list(zip((x[0] for x in vs.insert_lanes(one, bh[0, :1], bh[1, :1], p[0, :1], p[1, :1], act[:1])),
+                        vs.insert(solo, bh[0, 0], bh[1, 0], p[0, 0], p[1, 0], act[0])))
+               + list(zip(dump(one), dump(vs.VisitedTable(solo.keys[None], solo.parents[None], solo.stamps[None])))))
+    results["visited_insert_lanes"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda t: vs.insert_lanes(t, bh[0], bh[1], p[0], p[1], act), prep=lambda: clone(base), reps=10),
+        plain_ms=time_ms(torch, lambda t: vs.insert_lanes_plain(t, bh[0], bh[1], p[0], p[1], act),
+                         prep=lambda: clone(base), reps=3),
+        bytes=N * rcap * (4 * 8 + 1 + 2) + n_act * 8 + n_new * 16,
+        ops=n_act * 8,
+        library_ms=None,
+        shape=f"[{N}, {rcap}] into [{N}, {tcap}] at load {8832 / tcap:.3f}",
+    )
+    del ta, one, solo
+
+    # K6: the path walks of every lane's two discoveries (2,048 chains of
+    # 1,024 lanes), plus absent keys.
+    nq = 2 * N
+    lane = gpu(np.repeat(np.arange(N), 2))
+    q = torch.stack([k[0, :, :2].reshape(-1), k[1, :, :2].reshape(-1)])
+    q = torch.cat([q, gpu(u32(2, 64))], dim=1).contiguous()
+    qlane = torch.cat([lane, torch.arange(64, device=dev) % N])
+    qa = vs.lookup_parent_lanes(base, qlane, q[0], q[1])
+    err = max_abs_err(torch, zip(qa, vs.lookup_parent_lanes_plain(base, qlane, q[0], q[1])))
+    check(bool(qa[0][:nq].all()) and not bool(qa[0][nq:].any()), "lane lookup_parent: found set")
+    solo = vs.VisitedTable(base.keys[3], base.parents[3], base.stamps[3])
+    solo_equal(zip(vs.lookup_parent_lanes(base, torch.full_like(qlane, 3), q[0], q[1]),
+                   vs.lookup_parent(solo, q[0], q[1])))
+    results["lookup_parent_lanes"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda _: vs.lookup_parent_lanes(base, qlane, q[0], q[1])),
+        plain_ms=time_ms(torch, lambda _: vs.lookup_parent_lanes_plain(base, qlane, q[0], q[1])),
+        bytes=(nq + 64) * (16 + 8 + 17) + nq * 16 + 64 * 8,
+        ops=(nq + 64) * 8,
+        library_ms=None,
+        shape=f"[{nq + 64}] queries in [{N}, {tcap}]",
+    )
+    del base, k, bh, p, act
+
+    # K7: pop C rows of every lane at heads that wrap, and append [N, rcap]
+    # candidates (about 40% new) at tails that wrap.
+    rings = fr.empty_ring(W, qcap, dev, lanes=N)
+    rings[:, :, :qcap] = torch.randint(0, 1 << 32, (N, W, qcap), device=dev)
+    heads = gpu(rng.integers(qcap - C, qcap, size=N))
+    cand = torch.randint(0, 1 << 32, (W, N * rcap), device=dev)
+    cvalid = gpu(rng.random((N, rcap)) < 0.4)
+    ra, rb = rings.clone(), rings.clone()
+    fr.ring_scatter_lanes(ra, heads, cand, cvalid)
+    fr.ring_scatter_lanes_plain(rb, heads, cand, cvalid)
+    err = max_abs_err(torch, [(fr.ring_pop_lanes(rings, heads, C), fr.ring_pop_lanes_plain(rings, heads, C)),
+                              (ra[..., :qcap], rb[..., :qcap])])
+    del rb
+    solo = rings[5].clone()
+    fr.ring_scatter(solo, int(heads[5]), cand[:, 5 * rcap:6 * rcap].contiguous(), cvalid[5])
+    solo_equal([(fr.ring_pop_lanes(rings[5:6], heads[5:6], C), fr.ring_pop(rings[5], int(heads[5]), C)),
+                (solo[:, :qcap], ra[5, :, :qcap])])
+    del ra, solo
+    n_app = int(cvalid.sum())
+    idx = ((heads[:, None] + torch.arange(C, device=dev)) & (qcap - 1))[:, None, :].expand(N, W, C)
+
+    def pop_and_append(_):
+        fr.ring_pop_lanes(rings, heads, C)
+        fr.ring_scatter_lanes(rings, heads, cand, cvalid)
+
+    def plain_pop_and_append(_):
+        fr.ring_pop_lanes_plain(rings, heads, C)
+        fr.ring_scatter_lanes_plain(rings, heads, cand, cvalid)
+
+    def torch_indexing(_):
+        rings.gather(2, idx)
+        rings.view(-1).index_copy_(0, flat_pos, cand_sel)
+
+    ids, ok, _n = vs.compact_ids_lanes(cvalid, rcap)
+    pos = torch.where(ok, (heads[:, None] + torch.arange(rcap, device=dev)) & (qcap - 1), qcap)
+    flat_pos = ((torch.arange(N, device=dev)[None, :, None] * (W * (qcap + 1))
+                 + torch.arange(W, device=dev)[:, None, None] * (qcap + 1)) + pos[None]).reshape(-1)
+    cand_sel = cand.view(W, N, rcap).gather(2, ids[None].expand(W, N, rcap)).reshape(-1)
+    results["ring_lanes"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, pop_and_append),
+        plain_ms=time_ms(torch, plain_pop_and_append),
+        bytes=2 * W * N * C * 8 + N * rcap + 2 * W * n_app * 8 + 2 * N * 8,
+        ops=W * (N * C + n_app),
+        library_ms=time_ms(torch, torch_indexing),
+        shape=f"pop [{W}, {N}*{C}] + append [{W}, {N}*{rcap}] ({n_app} valid) in [{N}, {W}, 2^{qcap.bit_length() - 1}]",
+    )
+    del rings, cand, cvalid, idx, flat_pos, cand_sel
+    torch.cuda.empty_cache()
+    return finish(results)
+
+
+def lane_dict(c):
+    """What must be equal lane by lane on cuda and on cpu."""
+    tel = c.telemetry()
+    return dict(
+        unique=c.unique_state_count(), states=c.state_count(), max_depth=c.max_depth(),
+        discovery_fps=dict(c._discovery_fps), coverage=c.coverage(),
+        steps=tel["steps"], partial_steps=tel["partial_steps"],
+        paths={k: v.encode(c.model()) for k, v in c.discoveries().items()},
+    )
+
+
+def lanes(model, configs, device, shape):
+    """run_multiplexed over one builder a config, timed to the end of the
+    card's work."""
+    import torch
+
+    from stateright_tpu_torch import TensorModelAdapter
+    from stateright_tpu_torch.engines.multiplex import run_multiplexed
+
+    builders = [cfg(TensorModelAdapter(model).checker()) for cfg in configs]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = run_multiplexed(builders, device=device, **shape)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def cpu_lanes(torch, model, configs, shape):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return lanes(model, configs, "cpu", shape)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def solo_like(model, configure, shape, device="cuda"):
+    """The solo engine on one lane's check: the lane's chunk, queue and
+    table, no sampling, one era."""
+    from stateright_tpu_torch import TensorModelAdapter
+
+    return configure(TensorModelAdapter(model).checker().coverage().sample(False)).spawn_gpu_bfs(
+        device=device, chunk_size=shape["chunk"], queue_capacity=shape["queue_capacity"],
+        table_capacity=shape["table_capacity"], sync_steps=1 << 20,
+    ).join()
+
+
+def serial_solo_rate(torch, make_model, runs, opts):
+    """bench.py's serial baseline (:1575-1591) on the card: one solo run
+    over a fresh model instance for each (configure, golden unique count,
+    weight) of `runs`, one after another; checks/s of that mix, each run
+    counted `weight` times."""
+    from stateright_tpu_torch import TensorModelAdapter
+
+    secs = 0.0
+    for configure, golden, weight in runs:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        c = configure(TensorModelAdapter(make_model()).checker()).spawn_gpu_bfs(**opts).join()
+        torch.cuda.synchronize()
+        secs += weight * (time.monotonic() - t0)
+        check(c.unique_state_count() == golden, f"serial solo run: {c.unique_state_count()} != {golden}")
+    return sum(w for _c, _g, w in runs) / secs
+
+
+def sweep(torch, kernels, label, make_model, configs, shape, card):
+    """Phase 14's measurement of one lane sweep: a cold run, a counted and
+    timed warm run (launches from 0, peak memory), a profiled run (device
+    busy share); prints and returns (lane checkers, launches, stats)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from profile_gpu_bfs import busy_union
+
+    _cold, t_cold = lanes(make_model(), configs, "cuda", shape)
+    del _cold
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()  # the warm workspace and what earlier phases hold
+    (out, wall), launches = counted(torch, kernels, label, lambda: lanes(make_model(), configs, "cuda", shape),
+                                    kernels.LANE_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    tm = make_model()
+    workspace = shape["lanes"] * (shape["table_capacity"] * 24
+                                  + (tm.state_width + 2) * (shape["queue_capacity"] + 1) * 8)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _p, wall_prof = lanes(make_model(), configs, "cuda", shape)
+    del _p
+    kern = [e for e in prof.events() if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start]
+    busy_ms = busy_union([(e.time_range.start, e.time_range.end) for e in kern]) / 1e3
+    n = len(out)
+    batch_steps = out[0].telemetry()["batch_steps"]
+    unique = sum(c.unique_state_count() for c in out)
+    states = sum(c.state_count() for c in out)
+    stats = dict(
+        label=label, lanes=n, wall_secs=wall, cold_wall_secs=t_cold, checks_per_sec=n / wall,
+        unique_states_per_sec=unique / wall, generated_states_per_sec=states / wall,
+        unique=unique, states=states, batch_steps=batch_steps,
+        lane_steps_max=max(c.telemetry()["steps"] for c in out),
+        partial_steps=sum(c.telemetry()["partial_steps"] for c in out),
+        wall_ms_per_step=wall * 1e3 / batch_steps,
+        kernel_launches_per_step=sum(launches[k.name] for k in kernels.LANE_KERNELS) / batch_steps,
+        device_launches_per_step=len(kern) / batch_steps,
+        device_busy_ms=busy_ms, profiled_wall_secs=wall_prof,
+        device_busy_share=busy_ms / (wall_prof * 1e3),
+        max_memory_allocated=peak, memory_allocated_before=before, run_peak_over_before=peak - before,
+        lane_workspace_bytes=workspace, card=card,
+    )
+    print(f"{label}: {json.dumps(stats)}", flush=True)
+    return out, launches, stats
+
+
 def main(argv) -> int:
     try:
         import numpy as np
@@ -1042,6 +1392,104 @@ def main(argv) -> int:
         sim_line("2pc-10 simulation", c10s, t10s, card, peak)
         print(f"2pc-10 simulation: paths={lens} telemetry={c10s.telemetry()}", flush=True)
 
+    phase("12 lane kernel parity (1,024 lanes of 2pc-5: C=151, A=27, S=3, table 2^16, ring 2^13)")
+    tm5 = two_pc(5)
+    C5 = min(LANE_SHAPE["chunk"], LANE_SHAPE["queue_capacity"] // (2 * tm5.max_actions))
+    lane_res = lane_kernel_parity(torch, np, SWEEP_LANES, C5, tm5.max_actions, tm5.state_width,
+                                  LANE_SHAPE["table_capacity"], LANE_SHAPE["queue_capacity"])
+
+    phase("13 the service shape: 32 increment-2 lanes; 27 mixed 2pc-5 builders in 32 lanes")
+    inc = [lambda b: b] * 32
+    lanes(IncrementTensor(2), inc, "cuda", dict(lanes=32))  # warm-up: the lane program
+    (inc_gpu, t_inc), _ = counted(torch, kernels, "increment-2 lanes",
+                                  lambda: lanes(IncrementTensor(2), inc, "cuda", dict(lanes=32)), kernels.LANE_KERNELS)
+    inc_cpu, t_inc_cpu = cpu_lanes(torch, IncrementTensor(2), inc, dict(lanes=32))
+    inc_solo = solo_like(IncrementTensor(2), lambda b: b, LANE_SHAPE)
+    for i, (g, c) in enumerate(zip(inc_gpu, inc_cpu)):
+        check(lane_dict(g) == lane_dict(c), f"increment-2 lane {i}: cuda {lane_dict(g)} != cpu {lane_dict(c)}")
+        check(g.unique_state_count() == 13, f"increment-2 lane {i}: {g.unique_state_count()}")
+        check((g.unique_state_count(), g.state_count(), g.max_depth())
+              == (inc_solo.unique_state_count(), inc_solo.state_count(), inc_solo.max_depth()),
+              f"increment-2 lane {i} differs from its solo run")
+        check_paths(g)
+    inc_serial = serial_solo_rate(torch, lambda: IncrementTensor(2), [(lambda b: b, 13, 1)] * 8,
+                                  dict(chunk_size=64, queue_capacity=1 << 10, table_capacity=1 << 12))
+    print(f"increment-2, 32 lanes: equal on cuda ({t_inc:.4f}s) and cpu ({t_inc_cpu:.4f}s), 13 unique each; "
+          f"lanes_checks_per_sec={32 / t_inc:.1f} serial_solo_checks_per_sec={inc_serial:.2f} "
+          f"(8 solo runs, bench.py:1575-1591) speedup={32 / t_inc / inc_serial:.1f} "
+          f"batch_steps={inc_gpu[0].telemetry()['batch_steps']} card={card}", flush=True)
+
+    mixed = [mixed_config(i, HasDiscoveries) for i in range(27)]
+    (mix_gpu, t_mix), _ = counted(torch, kernels, "2pc-5 mixed lanes",
+                                  lambda: lanes(two_pc(5), mixed, "cuda", dict(lanes=32)), kernels.LANE_KERNELS)
+    mix_cpu, t_mix_cpu = cpu_lanes(torch, two_pc(5), mixed, dict(lanes=32))
+    solos = {}
+    for i, (g, c) in enumerate(zip(mix_gpu, mix_cpu)):
+        check(lane_dict(g) == lane_dict(c), f"2pc-5 mixed lane {i}: cuda != cpu")
+        check_paths(g)
+        key = i % 12  # mixed_config repeats every 12 builders
+        if key not in solos:
+            solos[key] = solo_like(two_pc(5), lambda b, i=i: mixed_config(i, HasDiscoveries)(b), LANE_SHAPE)
+        s = solos[key]
+        check((g.unique_state_count(), g.state_count(), g.max_depth())
+              == (s.unique_state_count(), s.state_count(), s.max_depth()),
+              f"2pc-5 mixed lane {i} differs from its solo run")
+    print(f"2pc-5, 27 mixed builders in 32 lanes: equal on cuda ({t_mix:.4f}s) and cpu ({t_mix_cpu:.3f}s) "
+          f"and to {len(solos)} solo runs; unique={[c.unique_state_count() for c in mix_gpu]} "
+          f"batch_steps={mix_gpu[0].telemetry()['batch_steps']} card={card}", flush=True)
+    del inc_gpu, inc_cpu, mix_gpu, mix_cpu, solos
+
+    phase("14 sweeps: 1,024 lanes of 2pc-5 (target_max_depth 1 + i % 18), 256 lanes of paxos-2")
+    depth_cfgs = [(lambda b, d=1 + i % 18: b.target_max_depth(d)) for i in range(SWEEP_LANES)]
+    sw, launches_lanes, sw_stats = sweep(torch, kernels, "2pc-5 sweep", lambda: two_pc(5), depth_cfgs,
+                                         dict(LANE_SHAPE, lanes=SWEEP_LANES), card)
+    mix = []  # the sweep's checks: (configure, unique count, lanes at that depth)
+    for d in range(1, 19):
+        s = solo_like(two_pc(5), lambda b, d=d: b.target_max_depth(d), LANE_SHAPE)
+        mix.append((lambda b, d=d: b.sample(False).target_max_depth(d), s.unique_state_count(),
+                    len(range(d - 1, SWEEP_LANES, 18))))
+        for i in range(d - 1, SWEEP_LANES, 18):
+            g = sw[i]
+            check((g.unique_state_count(), g.state_count(), g.max_depth())
+                  == (s.unique_state_count(), s.state_count(), s.max_depth()),
+                  f"2pc-5 sweep lane {i} (depth {d}) differs from its solo run")
+    check(all(sw[i].unique_state_count() == GOLDEN[5] for i in range(17, SWEEP_LANES, 18)),
+          "2pc-5 sweep: an unbounded lane missed 8,832")
+    held, _t = cpu_lanes(torch, two_pc(5), depth_cfgs[:64], dict(LANE_SHAPE, lanes=64))
+    for i, c in enumerate(held):
+        check(lane_dict(sw[i]) == lane_dict(c), f"2pc-5 sweep lane {i}: cuda != cpu")
+    # The serial baseline runs the sweep's own checks: one solo run at each
+    # of its 18 depths, weighted by the lanes at that depth; at the lane's
+    # chunk, queue and table (the same steps a check as its lane), and at
+    # the solo engine's defaults (chunk 8192: what a user running the
+    # check alone would take).
+    sw5_serial = serial_solo_rate(torch, lambda: two_pc(5), mix,
+                                  dict(chunk_size=LANE_SHAPE["chunk"], queue_capacity=LANE_SHAPE["queue_capacity"],
+                                       table_capacity=LANE_SHAPE["table_capacity"], sync_steps=1 << 20))
+    sw5_serial_default = serial_solo_rate(torch, lambda: two_pc(5), mix, {})
+    print(f"2pc-5 sweep: 18 depths equal to their solo runs, {len(range(17, SWEEP_LANES, 18))} unbounded lanes "
+          f"at 8,832, 64 lanes equal on cpu; lanes_checks_per_sec={sw_stats['checks_per_sec']:.1f} "
+          f"serial_solo_checks_per_sec={sw5_serial:.2f} (the sweep's depth mix, solo at the lane's chunk {C5}) "
+          f"speedup={sw_stats['checks_per_sec'] / sw5_serial:.1f} "
+          f"serial_solo_default_checks_per_sec={sw5_serial_default:.2f} (the same mix at the solo defaults) "
+          f"speedup_default={sw_stats['checks_per_sec'] / sw5_serial_default:.1f} card={card}", flush=True)
+    del sw, held
+    torch.cuda.empty_cache()
+    px, _launches_px, px_stats = sweep(torch, kernels, "paxos-2 sweep", lambda: PaxosTensor(2), [lambda b: b] * 256,
+                                       dict(PAXOS2_LANES, lanes=256), card)
+    check(all(c.unique_state_count() == PAXOS2_GOLDEN for c in px), "paxos-2 sweep: a lane missed 16,668")
+    held, _t = cpu_lanes(torch, PaxosTensor(2), [lambda b: b] * 8, dict(PAXOS2_LANES, lanes=8))
+    for i, c in enumerate(held):
+        check(lane_dict(px[i]) == lane_dict(c), f"paxos-2 sweep lane {i}: cuda != cpu")
+    check_paths(px[0])
+    px_serial = serial_solo_rate(torch, lambda: PaxosTensor(2), [(lambda b: b.sample(False), PAXOS2_GOLDEN, 1)] * 8,
+                                 dict(chunk_size=256, queue_capacity=PAXOS2_LANES["queue_capacity"],
+                                      table_capacity=PAXOS2_LANES["table_capacity"], sync_steps=1 << 20))
+    print(f"paxos-2 sweep: 256 lanes at 16,668 in {px[0].telemetry()['steps']} steps, 8 equal on cpu; "
+          f"lanes_checks_per_sec={px_stats['checks_per_sec']:.2f} serial_solo_checks_per_sec={px_serial:.3f} "
+          f"(8 solo runs) card={card}", flush=True)
+    del px, held
+
     line = {"kernels": []}
     for k in kernels.KERNELS:
         # BFS kernels at the 2pc-7 widths and launches; the walk kernels
@@ -1057,6 +1505,16 @@ def main(argv) -> int:
             # The same source's second entry point, the era prologue.
             entry["prologue_launches"] = launches_sim[kernels.WALK_PROLOGUE.name]
         line["kernels"].append(entry)
+    for k in kernels.LANE_KERNELS[1:]:
+        # The lane entry points of the same sources: phase 12's widths,
+        # the 2pc-5 sweep's launches.
+        r = lane_res[k.name]
+        line["kernels"].append(dict(
+            name=k.name, route="cuda", source=os.path.relpath(k.source_path, HERE),
+            replaces=k.replaces, launches=launches_lanes[k.name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+        ))
     check(all(results_px[k]["max_abs_err"] == 0 for k in results_px), "paxos-3 widths parity")
     print(json.dumps(line))
     print(card)

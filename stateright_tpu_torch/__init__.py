@@ -7,12 +7,15 @@ batched random-walk simulation, through hand-written Hopper kernels
 visited-set insert, the ring queue, the sample capture and its epilogue,
 and the parent lookup of path reconstruction; for simulation the walks'
 cycle test and path record, their step, their sample capture and the
-slab's dedup and bottom-k. Models: two-phase commit, Paxos, ABD and the
-increment race (`stateright_tpu_torch.models`). It imports torch and
+slab's dedup and bottom-k; and many small same-shape checks as lanes of
+one BFS step loop (`run_multiplexed`), through the same BFS kernels
+with a lane axis, with a cache of warm executables (`ExecutableCache`).
+Models: two-phase commit, Paxos, ABD and the increment race
+(`stateright_tpu_torch.models`). It imports torch and
 numpy, never jax and nothing of the JAX package, and keeps its own copy
 of the host layers it needs.
 
-    from stateright_tpu_torch import TensorModelAdapter
+    from stateright_tpu_torch import TensorModelAdapter, run_multiplexed
     from stateright_tpu_torch.models import TwoPhaseTensor
 
     c = TensorModelAdapter(TwoPhaseTensor(7)).checker().spawn_gpu_bfs().join()
@@ -22,12 +25,19 @@ of the host layers it needs.
         10**7).spawn_gpu_simulation(0, walks=16384).join()
     s.assert_any_discovery("abort agreement")
 
+    # Many small same-shape checks as lanes of one step loop:
+    lanes = run_multiplexed(
+        [TensorModelAdapter(TwoPhaseTensor(5)).checker().target_max_depth(d)
+         for d in range(1, 19)], lanes=32)
+
 Engines run on `cuda` unless the caller passes `device="cpu"`, which runs
 each kernel's plain torch version instead.
 """
 
 from .checker import Checker, CheckerBuilder
 from .core import Expectation, Model, Property
+from .engines.compiled import CompiledCheck, ExecutableCache
+from .engines.multiplex import run_multiplexed
 from .has_discoveries import HasDiscoveries
 from .path import Path
 from .tensor import TensorModel, TensorModelAdapter, TensorProperty
@@ -35,6 +45,8 @@ from .tensor import TensorModel, TensorModelAdapter, TensorProperty
 __all__ = [
     "Checker",
     "CheckerBuilder",
+    "CompiledCheck",
+    "ExecutableCache",
     "Expectation",
     "HasDiscoveries",
     "Model",
@@ -43,4 +55,5 @@ __all__ = [
     "TensorModel",
     "TensorModelAdapter",
     "TensorProperty",
+    "run_multiplexed",
 ]

@@ -3,11 +3,13 @@
 
 The builder carries the model and the options the port supports —
 `finish_when`, `target_state_count`, `target_max_depth`, `coverage`,
-`sample` (on by default, k = 64, as in the JAX package), `symmetry` and
-`timeout` — and spawns the device engines: `spawn_gpu_bfs(**kw)`, the
-counterpart of `spawn_tpu_bfs`, and `spawn_gpu_simulation(seed, **kw)`,
-the counterpart of `spawn_tpu_simulation`. Options that later slices
-port raise `NotImplementedError` naming the slice.
+`sample` (on by default, k = 64, as in the JAX package), `symmetry`
+and `timeout` — and spawns the device engines:
+`spawn_gpu_bfs(**kw)`, the counterpart of `spawn_tpu_bfs`, and
+`spawn_gpu_simulation(seed, **kw)`, the counterpart of
+`spawn_tpu_simulation`; `engines.multiplex.run_multiplexed` runs many
+builders as lanes of one step loop. Options that later slices port
+raise `NotImplementedError` naming the slice.
 """
 
 from __future__ import annotations

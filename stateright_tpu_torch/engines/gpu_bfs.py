@@ -125,12 +125,79 @@ def seed(init_rows: torch.Tensor, init_ebits: int, tcap: int, qcap: int):
     return table, ring, new
 
 
+def seed_lanes(table, rings, init_rows: torch.Tensor, n_init: torch.Tensor, init_ebits: int):
+    """K10's lane form (multiplex.py:117-143): seed each lane's table
+    ([N, tcap], empty) and ring ([N, W, qcap + 1], zero) in place from one
+    icap-wide init slab [S, icap]: lane l takes its first n_init[l] rows
+    (n_init int64 [N] on the device; 0 for a padding lane), K1 over the
+    slab and lane K4 over [N, icap]. Every taken row is enqueued at depth
+    1; each table keeps one per fingerprint. Returns device tensors
+    (unique [N], unresolved [N])."""
+    S, icap = init_rows.shape
+    N = rings.shape[0]
+    valid = torch.arange(icap, device=init_rows.device) < n_init[:, None]
+    h1, h2 = hash_lanes(init_rows)
+    zero = torch.zeros((N, icap), dtype=torch.int64, device=init_rows.device)
+    is_new, unres = vs.insert_lanes(
+        table, h1.expand(N, icap).contiguous(), h2.expand(N, icap).contiguous(), zero, zero, valid
+    )
+    rings[:, :S, :icap] = torch.where(valid[:, None, :], init_rows[None], 0)
+    rings[:, S, :icap] = torch.where(valid, init_ebits, 0)
+    rings[:, S + 1, :icap] = valid.to(torch.int64)
+    return is_new.sum(1), unres.sum(1)
+
+
+def parent_chains(table, fps, lanes=None) -> List[List[int]]:
+    """Walk the table's parent fingerprints from every fp at once on the
+    table's device — one K6 launch and one small readback per hop, the
+    table never copied — and return each chain, leaf first. With `lanes`
+    (one lane index per fp) the walks run in the lanes' stacked tables
+    (`lookup_parent_lanes`), every chain of every lane in one launch a
+    hop."""
+    chains = [[int(fp)] for fp in fps]
+    live = list(range(len(chains)))
+    dev = table.device
+    h = torch.tensor(
+        [split64(c[0]) for c in chains], dtype=torch.int64
+    ).reshape(-1, 2).T.to(dev)
+    h1, h2 = h[0].contiguous(), h[1].contiguous()
+    lane = None if lanes is None else torch.tensor(list(lanes), dtype=torch.int64, device=dev)
+    limit = table.keys.numel() + 1
+    hops = 0
+    while live:
+        hops += 1
+        if hops > limit:
+            raise RuntimeError("parent chain longer than the state count")
+        if lane is None:
+            found, p1, p2 = vs.lookup_parent(table, h1, h2)
+        else:
+            found, p1, p2 = vs.lookup_parent_lanes(table, lane, h1, h2)
+        f, a, b = torch.stack([found.to(torch.int64), p1, p2]).tolist()
+        keep = []
+        for j, i in enumerate(live):
+            if not f[j]:
+                where = "" if lanes is None else f"lane {lanes[i]}'s "
+                raise RuntimeError(
+                    f"fingerprint {chains[i][-1]} missing from {where}visited "
+                    "table during path reconstruction"
+                )
+            if a[j] or b[j]:
+                chains[i].append(combine64(a[j], b[j]))
+                keep.append(j)
+        live = [live[j] for j in keep]
+        sel = torch.tensor(keep, dtype=torch.int64, device=dev)
+        h1, h2 = p1.index_select(0, sel), p2.index_select(0, sel)
+        if lane is not None:
+            lane = lane.index_select(0, sel)
+    return chains
+
+
 class GpuBfsChecker(HostEngineBase):
     """Batched BFS over a TensorModel on one CUDA device."""
 
     _NOT_PORTED = (
         "checkpoint_path", "checkpoint_every", "resume_from",
-        "keep_checkpoints", "compiled",
+        "keep_checkpoints",
     )
 
     def __init__(
@@ -142,6 +209,7 @@ class GpuBfsChecker(HostEngineBase):
         table_capacity: int = 1 << 22,
         sync_steps: int = 4096,
         device=None,
+        compiled=None,
         **kw,
     ):
         for name in kw:
@@ -153,6 +221,19 @@ class GpuBfsChecker(HostEngineBase):
             model = TensorModelAdapter(model)
         if not isinstance(model, TensorModelAdapter):
             raise TypeError("spawn_gpu_bfs requires a TensorModel (or its adapter)")
+        if compiled is not None:
+            # The build/run split (engines/compiled.py): run the compiled
+            # check's interned model instance.
+            from .compiled import model_signature
+
+            if model_signature(model.tm) != compiled.signature:
+                raise ValueError(
+                    "CompiledCheck signature mismatch: executable was built "
+                    f"for {compiled.signature!r}, builder model is "
+                    f"{model_signature(model.tm)!r}"
+                )
+            if model.tm is not compiled.tm:
+                model = TensorModelAdapter(compiled.tm)
         super().__init__(builder, model=model)
         self.device = resolve_device(device)
         self.tm: TensorModel = model.tm
@@ -504,37 +585,9 @@ class GpuBfsChecker(HostEngineBase):
         return resolve
 
     def _reconstruct_many(self, fps) -> List[Path]:
-        """Walk the table's parent fingerprints for every fp at once on
-        the table's device — one K6 `lookup_parent` launch and one small
-        readback per hop, the table never copied — then re-execute the
-        model along each chain (tpu_bfs.py:2686). Under symmetry the
-        chains are walked in representative space."""
-        table = self._table
-        chains = [[int(fp)] for fp in fps]
-        live = list(range(len(chains)))
-        h = torch.tensor(
-            [split64(c[0]) for c in chains], dtype=torch.int64
-        ).reshape(-1, 2).T.to(table.device)
-        h1, h2 = h[0].contiguous(), h[1].contiguous()
-        hops = 0
-        while live:
-            hops += 1
-            if hops > self._unique + 1:
-                raise RuntimeError("parent chain longer than the state count")
-            found, p1, p2 = vs.lookup_parent(table, h1, h2)
-            f, a, b = torch.stack([found.to(torch.int64), p1, p2]).tolist()
-            keep = []
-            for j, i in enumerate(live):
-                if not f[j]:
-                    raise RuntimeError(
-                        f"fingerprint {chains[i][-1]} missing from visited "
-                        "table during path reconstruction"
-                    )
-                if a[j] or b[j]:
-                    chains[i].append(combine64(a[j], b[j]))
-                    keep.append(j)
-            live = [live[j] for j in keep]
-            sel = torch.tensor(keep, dtype=torch.int64, device=table.device)
-            h1, h2 = p1.index_select(0, sel), p2.index_select(0, sel)
+        """Walk every fp's parent chain on the card (`parent_chains`),
+        then re-execute the model along each chain (tpu_bfs.py:2686).
+        Under symmetry the chains are walked in representative space."""
+        chains = parent_chains(self._table, fps)
         model = CanonicalTensorAdapter(self.tm) if self._canon else self._model
         return [Path.from_fingerprints(model, chain[::-1]) for chain in chains]

@@ -76,26 +76,45 @@ HASH_LANES = Kernel(
     [_P, _I64, _I32, _P, _P],
     "stateright_tpu/fingerprint.py:262",
 )
-COMPACT_IDS = Kernel(
-    "compact_ids", "compact_ids.cu", "srt_compact_ids",
-    [_P, _I64, _I64, _P, _P, _P, _P],
+
+# K2, K3, K4, K6 and K7 take a lane axis (the multiplexed engine's
+# lanes, engines/multiplex.py); the solo engine calls them with one lane.
+# Each source has two counted entries: the solo calls count on the first,
+# the lane calls on its `_lanes` twin (same source, same C symbol).
+_COMPACT_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P]
+_DEDUP_ARGS = [_P, _P, _P, _I64, _I64, _P, _I64, _P]
+_INSERT_ARGS = [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P]
+_RING_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I64, _P, _P]
+_LOOKUP_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P]
+
+
+def _with_lanes(name, source, symbol, argtypes, replaces):
+    return (
+        Kernel(name, source, symbol, argtypes, replaces),
+        Kernel(f"{name}_lanes", source, symbol, argtypes,
+               f"{replaces} under jax.vmap (stateright_tpu/engines/multiplex.py:86)"),
+    )
+
+
+COMPACT_IDS, COMPACT_IDS_LANES = _with_lanes(
+    "compact_ids", "compact_ids.cu", "srt_compact_ids", _COMPACT_ARGS,
     "stateright_tpu/ops/visited_set.py:250",
 )
-CLAIM_DEDUP = Kernel(
-    "claim_dedup", "claim_dedup.cu", "srt_claim_dedup",
-    [_P, _P, _P, _I64, _P, _I64, _P],
+CLAIM_DEDUP, CLAIM_DEDUP_LANES = _with_lanes(
+    "claim_dedup", "claim_dedup.cu", "srt_claim_dedup", _DEDUP_ARGS,
     "stateright_tpu/ops/frontier.py:20",
 )
-VISITED_INSERT = Kernel(
-    "visited_insert", "visited_insert.cu", "srt_visited_insert",
-    [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _I64, _P, _P, _P],
+VISITED_INSERT, VISITED_INSERT_LANES = _with_lanes(
+    "visited_insert", "visited_insert.cu", "srt_visited_insert", _INSERT_ARGS,
     "stateright_tpu/ops/visited_set.py:335",
 )
-
-RING = Kernel(
-    "ring", "ring.cu", "srt_ring",
-    [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _P, _P],
+RING, RING_LANES = _with_lanes(
+    "ring", "ring.cu", "srt_ring", _RING_ARGS,
     "stateright_tpu/ops/frontier.py:55",
+)
+LOOKUP_PARENT, LOOKUP_PARENT_LANES = _with_lanes(
+    "lookup_parent", "lookup_parent.cu", "srt_lookup_parent", _LOOKUP_ARGS,
+    "stateright_tpu/ops/visited_set.py:411",
 )
 SAMPLE_CAPTURE = Kernel(
     "sample_capture", "sample_capture.cu", "srt_sample_capture",
@@ -106,11 +125,6 @@ SLAB_BOTTOMK = Kernel(
     "slab_bottomk", "slab_bottomk.cu", "srt_slab_bottomk",
     [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
     "stateright_tpu/engines/tpu_bfs.py:995",
-)
-LOOKUP_PARENT = Kernel(
-    "lookup_parent", "lookup_parent.cu", "srt_lookup_parent",
-    [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
-    "stateright_tpu/ops/visited_set.py:411",
 )
 
 WALK_RECORD = Kernel(
@@ -142,16 +156,21 @@ WALK_SLAB = Kernel(
     "stateright_tpu/engines/tpu_simulation.py:502",
 )
 
-# The kernels of each engine's path: the BFS step and its epilogue, and
-# the simulation step and its epilogue (K1 runs on both). KERNELS has one
-# entry a source; ENTRIES adds the second entry points.
+# The kernels of each engine's path: the BFS step and its epilogue, the
+# simulation step and its epilogue, and the multiplexed lane step, its
+# seed and its path walks (K1 runs on all three). KERNELS has one entry a
+# source; ENTRIES adds the second entry points.
 BFS_KERNELS = (
     HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT,
     RING, SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT,
 )
 SIM_KERNELS = (HASH_LANES, WALK_RECORD, WALK_STEP, WALK_PROLOGUE, WALK_CAPTURE, WALK_SLAB)
+LANE_KERNELS = (
+    HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES,
+    RING_LANES, LOOKUP_PARENT_LANES,
+)
 KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB)
-ENTRIES = KERNELS + (WALK_PROLOGUE,)
+ENTRIES = KERNELS + (WALK_PROLOGUE,) + LANE_KERNELS[1:]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -21,6 +21,12 @@ Three functions here carry hand-written kernels (kernels/csrc): `insert`
 (K4), `compact_ids` (K2) and `lookup_parent` (K6). Each runs its kernel
 on a CUDA tensor and its plain torch version on a CPU tensor. `insert` updates the table in
 place, where the JAX function returns a new one.
+
+Each also has a lane form (`insert_lanes`, `compact_ids_lanes`,
+`lookup_parent_lanes`): the JAX op under `jax.vmap`, as the multiplexed
+engine runs it (engines/multiplex.py), with one table a lane stacked as
+[lanes, capacity]. The solo functions are their one-lane case: one
+kernel source serves both.
 """
 
 from __future__ import annotations
@@ -51,19 +57,23 @@ class VisitedTable:
 
     @property
     def capacity(self) -> int:
-        return self.keys.shape[0]
+        """Slots of one lane's table."""
+        return self.keys.shape[-1]
 
     @property
     def device(self) -> torch.device:
         return self.keys.device
 
 
-def empty_table(capacity: int, device) -> VisitedTable:
+def empty_table(capacity: int, device, lanes=None) -> VisitedTable:
+    """A table of `capacity` slots, or with `lanes` one such table a lane
+    ([lanes, capacity] tensors, the multiplexed engine's)."""
     if capacity <= 0 or capacity & (capacity - 1):
         raise ValueError("visited-set capacity must be a power of two")
+    shape = (capacity,) if lanes is None else (lanes, capacity)
 
     def z():
-        return torch.zeros(capacity, dtype=torch.int64, device=device)
+        return torch.zeros(shape, dtype=torch.int64, device=device)
 
     return VisitedTable(z(), z(), z())
 
@@ -84,21 +94,76 @@ def occupied_mask(table: VisitedTable) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K2: stable compaction of a mask into a fixed-width id buffer.
+# K2: stable compaction of a mask into a fixed-width id buffer, per lane.
 # ---------------------------------------------------------------------------
 
-def compact_ids_plain(mask: torch.Tensor, cap: int):
-    n = mask.shape[0]
-    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+def compact_ids_lanes_plain(mask: torch.Tensor, cap: int):
+    """The plain version of `compact_ids_lanes` (any [N, ...] mask, read
+    row-major within each lane)."""
+    mask = mask.reshape(mask.shape[0], -1)
+    N, n = mask.shape
+    dev = mask.device
+    rank = torch.cumsum(mask.to(torch.int64), 1) - 1
     keep = mask & (rank < cap)
-    # Unkept entries go to a trash slot past the end.
-    pos = torch.where(keep, rank, torch.full_like(rank, cap))
-    ids = torch.zeros(cap + 1, dtype=torch.int64, device=mask.device)
-    ids.index_copy_(0, pos, torch.arange(n, dtype=torch.int64, device=mask.device))
-    ids = ids[:cap].contiguous()
-    n_set = mask.sum(dtype=torch.int64)
-    valid = torch.arange(cap, device=mask.device) < torch.clamp(n_set, max=cap)
+    # Unkept entries go to a trash slot past the end of their lane's row.
+    row = (torch.arange(N, device=dev) * (cap + 1))[:, None]
+    pos = row + torch.where(keep, rank, torch.full_like(rank, cap))
+    ids = torch.zeros(N * (cap + 1), dtype=torch.int64, device=dev)
+    ids.index_copy_(
+        0, pos.reshape(-1),
+        torch.arange(n, dtype=torch.int64, device=dev).repeat(N),
+    )
+    ids = ids.view(N, cap + 1)[:, :cap].contiguous()
+    n_set = mask.sum(1, dtype=torch.int64)
+    valid = torch.arange(cap, device=dev) < torch.clamp(n_set, max=cap)[:, None]
     return ids, valid, n_set
+
+
+def _compact_ids(mask: torch.Tensor, cap: int, kernel):
+    """K2 over a [N, nseg, seg] bool view whose runs are contiguous."""
+    if mask.dim() != 3 or mask.dtype != torch.bool:
+        raise ValueError("compact_ids takes a bool mask")
+    if not kernels.on_card(mask):
+        return compact_ids_lanes_plain(mask, cap)
+    N, nseg, seg = mask.shape
+    if seg > 1 and mask.stride(2) != 1:
+        mask = mask.contiguous()
+    if N > 65535:
+        raise ValueError("compact_ids takes at most 65535 lanes")
+    n = nseg * seg
+    dev = mask.device
+    ids = torch.empty((N, cap), dtype=torch.int64, device=dev)
+    valid = torch.empty((N, cap), dtype=torch.bool, device=dev)
+    n_set = torch.empty(N, dtype=torch.int64, device=dev)
+    scratch = torch.empty(N * max(1, -(-n // 4096)), dtype=torch.int64, device=dev)
+    # The view's first element, then the kernel's strides.
+    kernel.launch(
+        mask.data_ptr(), N, n, seg, mask.stride(1), mask.stride(0), cap,
+        kernels.ptr(ids), kernels.ptr(valid), kernels.ptr(n_set),
+        kernels.ptr(scratch),
+    )
+    return ids, valid, n_set
+
+
+def compact_ids_lanes(mask: torch.Tensor, cap: int):
+    """Per lane, the indices of the set bits of `mask`, in order, packed
+    into [cap] (the vmapped `_compact_ids`).
+
+    `mask` is a bool [N, n] tensor, or a [N, A, C] view (any strides,
+    contiguous runs of C) read as each lane's A*C bits in row-major order:
+    the multiplexed step passes its action-major validity mask [A, N, C]
+    transposed, so lane l's bits come in the solo order a*C + c. Returns
+    (ids [N, cap] int64, valid [N, cap] bool, n_set [N] int64), each
+    lane's as `compact_ids` returns them.
+    """
+    if mask.dim() == 2:
+        mask = mask[:, None, :]
+    return _compact_ids(mask, cap, kernels.COMPACT_IDS_LANES)
+
+
+def compact_ids_plain(mask: torch.Tensor, cap: int):
+    ids, valid, n_set = compact_ids_lanes_plain(mask[None], cap)
+    return ids[0], valid[0], n_set[0]
 
 
 def compact_ids(mask: torch.Tensor, cap: int):
@@ -107,61 +172,60 @@ def compact_ids(mask: torch.Tensor, cap: int):
     Returns (ids[cap] int64, valid[cap] bool, n_set 0-d int64). Entries
     past min(n_set, cap) are 0 and invalid; set bits ranked >= cap are
     counted in n_set but not stored. Deterministic: ring order depends on
-    it.
+    it. The one-lane case of `compact_ids_lanes`.
     """
-    if mask.dim() != 1 or mask.dtype != torch.bool:
+    if mask.dim() != 1:
         raise ValueError("compact_ids takes a 1-D bool mask")
-    if not kernels.on_card(mask):
-        return compact_ids_plain(mask, cap)
-    mask = mask.contiguous()
-    n = mask.shape[0]
-    dev = mask.device
-    ids = torch.empty(cap, dtype=torch.int64, device=dev)
-    valid = torch.empty(cap, dtype=torch.bool, device=dev)
-    n_set = torch.empty((), dtype=torch.int64, device=dev)
-    scratch = torch.empty(max(1, -(-n // 4096)), dtype=torch.int64, device=dev)
-    kernels.COMPACT_IDS.launch(
-        kernels.ptr(mask), n, cap, kernels.ptr(ids), kernels.ptr(valid),
-        kernels.ptr(n_set), kernels.ptr(scratch),
-    )
-    return ids, valid, n_set
+    ids, valid, n_set = _compact_ids(mask[None, None], cap, kernels.COMPACT_IDS)
+    return ids[0], valid[0], n_set[0]
 
 
 # ---------------------------------------------------------------------------
-# K4: batched insert.
+# K4: batched insert, per lane.
 # ---------------------------------------------------------------------------
 
-def insert_plain(table: VisitedTable, h1, h2, p1, p2, active):
-    """Claim rounds, as the JAX table inserts: every pending candidate
-    reads its slot; a match means found, an empty slot is claimed by the
-    HIGHEST candidate index among its contenders (`scatter_reduce` amax:
-    a defined winner, unlike `index_put_` over duplicates), a foreign key
-    advances the probe. Claim losers re-read the same slot next round."""
-    keys, parents = table.keys, table.parents
+def _lane_bases(N: int, m: int, cap: int, device) -> torch.Tensor:
+    """Slot offset of each of the N*m candidates' lane table."""
+    return (torch.arange(N, dtype=torch.int64, device=device) * cap).repeat_interleave(m)
+
+
+def insert_lanes_plain(table: VisitedTable, h1, h2, p1, p2, active):
+    """Claim rounds, as the JAX table inserts, in each lane's table: every
+    pending candidate reads its slot; a match means found, an empty slot
+    is claimed by the HIGHEST candidate index among its contenders
+    (`scatter_reduce` amax: a defined winner, unlike `index_put_` over
+    duplicates; contenders share a lane), a foreign key advances the
+    probe. Claim losers re-read the same slot next round."""
+    N, m = h1.shape
+    keys, parents = table.keys.view(-1), table.parents.view(-1)
     cap = table.capacity
     dev = keys.device
     mask = cap - 1
-    n = h1.shape[0]
+    n = N * m
+    h1, h2, p1, p2 = (t.reshape(-1) for t in (h1, h2, p1, p2))
     key = pack64(h1, h2)
     par = pack64(p1, p2)
     stride = h2 | 1
+    base = _lane_bases(N, m, cap, dev)
     pos = h1 & mask
     probe = torch.zeros(n, dtype=torch.int64, device=dev)
     ids = torch.arange(n, dtype=torch.int64, device=dev)
-    pending = active.clone()
+    pending = active.reshape(-1).clone()
     is_new = torch.zeros(n, dtype=torch.bool, device=dev)
     unresolved = torch.zeros(n, dtype=torch.bool, device=dev)
+    trash = keys.shape[0]
     while bool(pending.any()):
-        cur = keys.index_select(0, pos)
+        slot = base + pos
+        cur = keys.index_select(0, slot)
         pending &= cur != key  # found: already visited
         empty = pending & (cur == 0)
-        claim = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
+        claim = torch.full((trash + 1,), -1, dtype=torch.int64, device=dev)
         claim.scatter_reduce_(
-            0, torch.where(empty, pos, torch.full_like(pos, cap)), ids, reduce="amax"
+            0, torch.where(empty, slot, torch.full_like(slot, trash)), ids, reduce="amax"
         )
-        won = empty & (claim.index_select(0, pos) == ids)
-        keys[pos[won]] = key[won]  # winner slots are unique
-        parents[pos[won]] = par[won]
+        won = empty & (claim.index_select(0, slot) == ids)
+        keys[slot[won]] = key[won]  # winner slots are unique
+        parents[slot[won]] = par[won]
         is_new |= won
         pending &= ~won
         foreign = pending & ~empty
@@ -171,7 +235,46 @@ def insert_plain(table: VisitedTable, h1, h2, p1, p2, active):
         advance = foreign & ~give_up
         pos = torch.where(advance, (pos + stride) & mask, pos)
         probe = probe + advance.to(torch.int64)
+    return is_new.view(N, m), unresolved.view(N, m)
+
+
+def _insert(table: VisitedTable, h1, h2, p1, p2, active, kernel):
+    if not kernels.on_card(table.keys, h1, h2, p1, p2, active):
+        return insert_lanes_plain(table, h1, h2, p1, p2, active)
+    N, m = h1.shape
+    n = N * m
+    if active.dtype != torch.bool or n >= M32:
+        raise ValueError("insert takes a bool active mask and n < 2^32 - 1")
+    if table.keys.numel() != N * table.capacity:
+        raise ValueError("one table a lane: keys must be [lanes, capacity]")
+    args = [t.contiguous() for t in (h1, h2, p1, p2, active)]
+    dev = table.device
+    slot = torch.empty((N, m), dtype=torch.int64, device=dev)
+    is_new = torch.empty((N, m), dtype=torch.bool, device=dev)
+    unresolved = torch.empty((N, m), dtype=torch.bool, device=dev)
+    table.epoch += 1
+    kernel.launch(
+        kernels.ptr(table.keys), kernels.ptr(table.parents),
+        kernels.ptr(table.stamps), table.capacity, table.epoch,
+        *(kernels.ptr(t) for t in args), n, m, kernels.ptr(slot),
+        kernels.ptr(is_new), kernels.ptr(unresolved),
+    )
     return is_new, unresolved
+
+
+def insert_lanes(table: VisitedTable, h1, h2, p1, p2, active):
+    """`insert` into each lane's table (the vmapped JAX insert): `table`
+    holds [N, capacity] keys, parents and stamps, the candidates are
+    [N, m], and candidate (l, i) probes only table l. Returns (is_new,
+    unresolved), each [N, m]; the winner rule holds within each lane."""
+    return _insert(table, h1, h2, p1, p2, active, kernels.VISITED_INSERT_LANES)
+
+
+def insert_plain(table: VisitedTable, h1, h2, p1, p2, active):
+    is_new, unresolved = insert_lanes_plain(
+        table, h1[None], h2[None], p1[None], p2[None], active[None]
+    )
+    return is_new[0], unresolved[0]
 
 
 def insert(table: VisitedTable, h1, h2, p1, p2, active):
@@ -186,25 +289,13 @@ def insert(table: VisitedTable, h1, h2, p1, p2, active):
       unresolved[i] — neither the key nor an empty slot within MAX_PROBES
                       positions; the key was placed nowhere. Callers must
                       grow the table and retry.
+    The one-lane case of `insert_lanes`.
     """
-    n = h1.shape[0]
-    if not kernels.on_card(table.keys, h1, h2, p1, p2, active):
-        return insert_plain(table, h1, h2, p1, p2, active)
-    if active.dtype != torch.bool or n >= M32:
-        raise ValueError("insert takes a bool active mask and n < 2^32 - 1")
-    args = [t.contiguous() for t in (h1, h2, p1, p2, active)]
-    dev = table.device
-    slot = torch.empty(n, dtype=torch.int64, device=dev)
-    is_new = torch.empty(n, dtype=torch.bool, device=dev)
-    unresolved = torch.empty(n, dtype=torch.bool, device=dev)
-    table.epoch += 1
-    kernels.VISITED_INSERT.launch(
-        kernels.ptr(table.keys), kernels.ptr(table.parents),
-        kernels.ptr(table.stamps), table.capacity, table.epoch,
-        *(kernels.ptr(t) for t in args), n, kernels.ptr(slot),
-        kernels.ptr(is_new), kernels.ptr(unresolved),
+    is_new, unresolved = _insert(
+        table, h1[None], h2[None], p1[None], p2[None], active[None],
+        kernels.VISITED_INSERT,
     )
-    return is_new, unresolved
+    return is_new[0], unresolved[0]
 
 
 # ---------------------------------------------------------------------------
@@ -256,19 +347,21 @@ def table_to_lanes(table: VisitedTable):
 # K6: batched parent lookup.
 # ---------------------------------------------------------------------------
 
-def lookup_parent_plain(table: VisitedTable, h1, h2):
+def lookup_parent_lanes_plain(table: VisitedTable, lane, h1, h2):
     mask = table.capacity - 1
+    keys, parents = table.keys.view(-1), table.parents.view(-1)
     key = pack64(h1, h2)
     stride = h2 | 1
+    base = lane * table.capacity if lane is not None else torch.zeros_like(h1)
     pos = h1 & mask
     n = h1.shape[0]
     pending = torch.ones(n, dtype=torch.bool, device=h1.device)
     found = torch.zeros(n, dtype=torch.bool, device=h1.device)
     par = torch.zeros(n, dtype=torch.int64, device=h1.device)
     for _ in range(MAX_PROBES):
-        cur = table.keys.index_select(0, pos)
+        cur = keys.index_select(0, base + pos)
         hit = pending & (cur == key)
-        par = torch.where(hit, table.parents.index_select(0, pos), par)
+        par = torch.where(hit, parents.index_select(0, base + pos), par)
         found |= hit
         pending &= (cur != key) & (cur != 0)  # an empty slot ends the walk
         pos = torch.where(pending, (pos + stride) & mask, pos)
@@ -276,24 +369,40 @@ def lookup_parent_plain(table: VisitedTable, h1, h2):
     return found, p1, p2
 
 
-def lookup_parent(table: VisitedTable, h1, h2):
-    """Probe for fingerprints (int64 [n] holding uint32 halves); returns
-    (found [n] bool, parent_h1, parent_h2), parents 0 where not found or
-    for an initial state. Same probe sequence and limit as `insert`."""
-    if not kernels.on_card(table.keys, h1, h2):
-        return lookup_parent_plain(table, h1, h2)
+def _lookup_parent(table: VisitedTable, lane, h1, h2, kernel):
+    tensors = (table.keys, h1, h2) + ((lane,) if lane is not None else ())
+    if not kernels.on_card(*tensors):
+        return lookup_parent_lanes_plain(table, lane, h1, h2)
     h1, h2 = h1.contiguous(), h2.contiguous()
     n = h1.shape[0]
     dev = table.device
     found = torch.empty(n, dtype=torch.bool, device=dev)
     p1 = torch.empty(n, dtype=torch.int64, device=dev)
     p2 = torch.empty(n, dtype=torch.int64, device=dev)
-    kernels.LOOKUP_PARENT.launch(
+    kernel.launch(
         kernels.ptr(table.keys), kernels.ptr(table.parents), table.capacity,
+        kernels.ptr(lane.contiguous()) if lane is not None else None,
         kernels.ptr(h1), kernels.ptr(h2), n, kernels.ptr(found),
         kernels.ptr(p1), kernels.ptr(p2),
     )
     return found, p1, p2
+
+
+def lookup_parent_lanes(table: VisitedTable, lane, h1, h2):
+    """`lookup_parent` in the lanes' stacked tables ([N, capacity]): query
+    i probes table lane[i] (int64 [n])."""
+    return _lookup_parent(table, lane, h1, h2, kernels.LOOKUP_PARENT_LANES)
+
+
+def lookup_parent_plain(table: VisitedTable, h1, h2):
+    return lookup_parent_lanes_plain(table, None, h1, h2)
+
+
+def lookup_parent(table: VisitedTable, h1, h2):
+    """Probe for fingerprints (int64 [n] holding uint32 halves); returns
+    (found [n] bool, parent_h1, parent_h2), parents 0 where not found or
+    for an initial state. Same probe sequence and limit as `insert`."""
+    return _lookup_parent(table, None, h1, h2, kernels.LOOKUP_PARENT)
 
 
 def lookup_parent_np(table_np, h1: int, h2: int):

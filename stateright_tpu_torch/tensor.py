@@ -84,6 +84,19 @@ class TensorModel:
     def format_action(self, action_index: int) -> str:
         return f"action[{action_index}]"
 
+    def config_digest(self) -> str:
+        """Stable digest of this instance's constructor-derived parameters:
+        every scalar/tuple attribute in sorted order (models holding richer
+        config may override). Two instances of one class with equal
+        digests run the identical step (engines/compiled.py
+        `model_signature`)."""
+        items = sorted(
+            (k, v)
+            for k, v in vars(self).items()
+            if isinstance(v, (bool, int, float, str, tuple))
+        )
+        return repr(items)
+
     def fingerprint_row(self, row: np.ndarray) -> int:
         h1, h2 = hash_words_np(np.asarray(row, dtype=np.uint32)[None, :])
         return combine64(h1[0], h2[0])

@@ -294,3 +294,81 @@ def test_simulation_cuda_matches_cpu(dev):
         got = run("cuda", tm, seed, configure, **kw)
         assert got == run("cpu", tm, seed, configure, **kw)
         assert got[2]
+
+
+# -- the lane forms (multiplexed lanes) --------------------------------------
+
+def test_lane_compaction_dedup_insert_lookup_kernels(dev):
+    """K2 (over the step's strided [A, N, C] mask), K3, K4 and K6 in their
+    lane forms against their plain versions, and at one lane against the
+    solo calls."""
+    rng = np.random.default_rng(8)
+    N, A, C, cap = 37, 9, 151, 700
+    mask = torch.from_numpy(rng.random((A, N, C)) < 0.4).to(dev)
+    view = mask.transpose(0, 1)
+    for a, b in zip(vs.compact_ids_lanes(view, cap), vs.compact_ids_lanes_plain(view, cap)):
+        assert torch.equal(a, b)
+    m = 900
+    pool = _u32(rng, 2, 300)
+    pick = rng.integers(0, 300, size=(N, m))
+    h1, h2 = (torch.from_numpy(pool[i, pick]).to(dev) for i in range(2))
+    valid = torch.from_numpy(rng.random((N, m)) < 0.8).to(dev)
+    keep = fr.claim_dedup_lanes(h1, h2, valid, 1 << 11)
+    assert torch.equal(keep, fr.claim_dedup_lanes_plain(h1, h2, valid, 1 << 11))
+    assert torch.equal(keep[5], fr.claim_dedup(h1[5], h2[5], valid[5], 1 << 11))
+    p = torch.from_numpy(_u32(rng, 2, N, m)).to(dev)
+    ta = vs.empty_table(1 << 12, dev, lanes=N)
+    tb = vs.empty_table(1 << 12, dev, lanes=N)
+    results = []
+    for _ in range(2):  # the second call finds every key
+        a = vs.insert_lanes(ta, h1, h2, p[0], p[1], valid)
+        b = vs.insert_lanes_plain(tb, h1, h2, p[0], p[1], valid)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        results.append(a)
+    lane = torch.from_numpy(rng.integers(0, N, size=m)).to(dev)
+    for x, y in zip(vs.lookup_parent_lanes(ta, lane, h1[0], h2[0]),
+                    vs.lookup_parent_lanes_plain(ta, lane, h1[0], h2[0])):
+        assert torch.equal(x, y)
+    solo = vs.empty_table(1 << 12, dev)
+    got = vs.insert(solo, h1[3], h2[3], p[0, 3], p[1, 3], valid[3])
+    for x, y in zip(got, results[0]):
+        assert torch.equal(x, y[3])
+    assert not bool(results[1][0].any())
+
+
+def test_lane_ring_kernel(dev):
+    rng = np.random.default_rng(9)
+    N, W, qcap, n = 19, 5, 1 << 10, 300
+    rings = fr.empty_ring(W, qcap, dev, lanes=N)
+    rings[:, :, :qcap] = torch.from_numpy(_u32(rng, N, W, qcap)).to(dev)
+    heads = torch.from_numpy(rng.integers(0, qcap, size=N)).to(dev)
+    assert torch.equal(fr.ring_pop_lanes(rings, heads, n), fr.ring_pop_lanes_plain(rings, heads, n))
+    cand = torch.from_numpy(_u32(rng, W, N * n)).to(dev)
+    valid = torch.from_numpy(rng.random((N, n)) < 0.4).to(dev)
+    other = rings.clone()
+    fr.ring_scatter_lanes(rings, heads, cand, valid)
+    fr.ring_scatter_lanes_plain(other, heads, cand, valid)
+    assert torch.equal(rings[:, :, :qcap], other[:, :, :qcap])
+
+
+def test_multiplexed_lanes_cuda_match_cpu(dev):
+    from stateright_tpu_torch.engines.multiplex import run_multiplexed
+    from stateright_tpu_torch.has_discoveries import HasDiscoveries
+
+    def run(device):
+        tm = TwoPhaseTensor(4)
+        builders = [TensorModelAdapter(tm).checker().target_max_depth(d) for d in (3, 7, 30)]
+        builders.append(TensorModelAdapter(tm).checker().finish_when(HasDiscoveries.any_of(["abort agreement"])))
+        out = []
+        for c in run_multiplexed(builders, lanes=6, device=device, chunk=64, queue_capacity=1 << 12,
+                                 table_capacity=1 << 15):
+            tel = c.telemetry()
+            out.append((c.unique_state_count(), c.state_count(), c.max_depth(), dict(c._discovery_fps),
+                        c.coverage(), tel["steps"], tel["partial_steps"],
+                        {k: v.encode(c.model()) for k, v in c.discoveries().items()}))
+        return out
+
+    got = run("cuda")
+    assert got == run("cpu")
+    assert got[2][0] == 1_568

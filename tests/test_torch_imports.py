@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of it and
-`chip_smoke.py`, and running a BFS and a simulation, loads neither jax nor any module of
-the JAX package."""
+`chip_smoke.py`, and running a BFS, a simulation, multiplexed lanes and the
+executable cache, loads neither jax nor any module of the JAX package."""
 
 import os
 import subprocess
@@ -22,6 +22,10 @@ assert c.unique_state_count() > 1
 s = TensorModelAdapter(TwoPhaseTensor(2)).checker().target_state_count(200).spawn_gpu_simulation(
     1, device="cpu", walks=16, walk_cap=8).join()
 assert s.state_count() >= 200
+from stateright_tpu_torch import ExecutableCache, run_multiplexed
+compiled, _hit = ExecutableCache().get(TwoPhaseTensor(2), "multiplex", lanes=4, chunk=16, device="cpu")
+lanes = run_multiplexed([compiled.builder() for _ in range(3)], lanes=4, chunk=16, device="cpu")
+assert [c.unique_state_count() for c in lanes] == [c.unique_state_count()] * 3
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "stateright_tpu" or m.startswith("stateright_tpu."))
 print("LOADED", bad)

@@ -31,8 +31,9 @@ def parity_dict(c):
         coverage_depths=cov["depths"],
         coverage_properties=cov["properties"],
     )
-    if c._sampler is not None and c._sampler.size():
-        fp["sample"] = tuple(c._sampler.fingerprints())
+    sampler = getattr(c, "_sampler", None)  # lane checkers have none
+    if sampler is not None and sampler.size():
+        fp["sample"] = tuple(sampler.fingerprints())
     return fp
 
 
