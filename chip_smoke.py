@@ -9,7 +9,7 @@ exits non-zero:
 
   0. environment: torch, CUDA, nvcc, the card's name and power limit;
   1. build: every kernel from kernels/csrc with nvcc, in parallel;
-  2. kernel parity: each of the eight hand-written kernels against its
+  2. kernel parity: each of the eight BFS step kernels against its
      plain torch version on the same card tensors, compared bit for bit,
      with CUDA-event timings, at the 2pc-7 bench widths (C=6144, A=37)
      and at the paxos-3 widths (C=16384, A=21); beside them the times of
@@ -58,7 +58,23 @@ exits non-zero:
      device's busy share (torch.profiler); every depth equal to its solo
      run, every unbounded lane at 8,832 (paxos-2: 16,668), 64 (paxos-2:
      8) lanes equal to the port's cpu lanes; beside them the serial solo
-     runs' checks/s.
+     runs' checks/s;
+ 15. device-resident eras: K8f's two kernels (the era's gate and step
+     commit, and its epilogue) against their plain versions at the 2pc-7
+     and paxos-3 widths; 2pc-5 cuda == cpu over the (depth, fuse) sweep
+     and the serial dispatch loop; 2pc-7, paxos-3 and abd-ordered-3 with the
+     default pipeline, the serial dispatch loop and (depth 4, fuse 4): equal to
+     each other (the bottom-k sample aside: a chained era's stale
+     threshold changes the captures a step drops, in the JAX engine too)
+     and to the goldens, with wall, steps, eras, dispatches,
+     graph captures and capture seconds, host launch calls and device
+     kernels a step, wall a step, the device's busy share
+     (torch.profiler) and peak memory.
+
+Since the era program (engines/era.py) runs every BFS dispatch as one
+CUDA graph, phases 3-7 and 15 run BFS through graph eras; the launch
+counts add each captured segment's launches once per run of it on the
+card.
 
 Every engine phase resets the kernels' launch counts just before its run
 and checks, just after, that each kernel of its path (the BFS kernels,
@@ -431,21 +447,22 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     sa, sb = sl.empty_slab(scap, dev), sl.empty_slab(scap, dev)
     errs = []
     for isnew, t1, t2 in ((sparse, 0xFFFFFFFF, 0xFFFFFFFF), (new, 0x00800000, 0x40000000), (new, 0xFFFFFFFF, 0xFFFFFFFF)):
-        sl.capture(sa, isnew, hh[0], hh[1], hh[2], hh[3], t1, t2, DEVICE_STEP_CAP)
-        sl.capture_plain(sb, isnew, hh[0], hh[1], hh[2], hh[3], t1, t2, DEVICE_STEP_CAP)
+        thresh = torch.tensor([t1, t2], device=dev)
+        sl.capture(sa, isnew, hh[0], hh[1], hh[2], hh[3], thresh, DEVICE_STEP_CAP)
+        sl.capture_plain(sb, isnew, hh[0], hh[1], hh[2], hh[3], thresh, DEVICE_STEP_CAP)
         errs.append(max_abs_err(torch, [(x[:scap], y[:scap]) for x, y in zip(sa[:4], sb[:4])] + [(sa.counts, sb.counts)]))
     check(int(sa.counts[1]) > 0, "capture parity: the flood should drop rows")
-    tight = (new, 0x00800000, 0x40000000)
+    tight = (new, torch.tensor([0x00800000, 0x40000000], device=dev))
     n_new = int(new.sum())
-    n_below = int(sl.below_threshold(new, hh[0], hh[1], 0x00800000, 0x40000000).sum())
+    n_below = int(sl.below_threshold(new, hh[0], hh[1], tight[1]).sum())
 
     def fresh_slab():
         return sl.empty_slab(scap, dev)
 
     results["sample_capture"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], tight[2], DEVICE_STEP_CAP), prep=fresh_slab),
-        plain_ms=time_ms(torch, lambda sb_: sl.capture_plain(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], tight[2], DEVICE_STEP_CAP), prep=fresh_slab),
+        ms=time_ms(torch, lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], DEVICE_STEP_CAP), prep=fresh_slab),
+        plain_ms=time_ms(torch, lambda sb_: sl.capture_plain(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], DEVICE_STEP_CAP), prep=fresh_slab),
         # is_new once, h1 and h2 of each new candidate; a captured row
         # reads depth and action and writes its 4 slab lanes.
         bytes=rcap + n_new * 16 + min(n_below, DEVICE_STEP_CAP) * 48 + 32,
@@ -493,7 +510,7 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
 
     # Beside the kernels: K5 (K4 over the occupied rows of a grown table)
     # and K10 (a fresh table and ring, K1 + K4 over the init rows).
-    from stateright_tpu_torch.engines.gpu_bfs import seed
+    from stateright_tpu_torch.engines.era import seed
 
     occ = int(vs.occupied_mask(base).sum())
     grown = {}
@@ -501,11 +518,17 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     def rehash_into(t):
         grown["bad"] = vs.rehash(base, t)
 
+    def rehash_plain_into(t):
+        k1, k2 = vs.unpack64(base.keys)
+        v1, v2 = vs.unpack64(base.parents)
+        vs.insert_plain(t, k1, k2, v1, v2, vs.occupied_mask(base))
+
     extra = {
         "K5 rehash": dict(
             max_abs_err=None,
             ms=time_ms(torch, rehash_into, prep=lambda: vs.empty_table(2 * tcap, dev), reps=5),
-            plain_ms=None, library_ms=None,
+            plain_ms=time_ms(torch, rehash_plain_into, prep=lambda: vs.empty_table(2 * tcap, dev), reps=1),
+            library_ms=None,
             bytes=tcap * 16 + occ * 24, ops=occ * 8,
             shape=f"{occ} rows of {tcap} slots into {2 * tcap}",
         ),
@@ -514,7 +537,7 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     init = gpu(np.zeros((S, 1), dtype=np.int64))
     extra["K10 seed"] = dict(
         max_abs_err=None,
-        ms=time_ms(torch, lambda _: seed(init, 1, tcap, qcap), reps=5),
+        ms=time_ms(torch, lambda _: seed(vs.empty_table(tcap, dev), fr.empty_ring(W, qcap, dev), init, 1), reps=5),
         plain_ms=None, library_ms=None,
         bytes=tcap * 24 + W * (qcap + 1) * 8, ops=S * 8,
         shape=f"1 init row, {tcap}-slot table, {qcap}-row ring",
@@ -1166,6 +1189,241 @@ def sweep(torch, kernels, label, make_model, configs, shape, card):
     return out, launches, stats
 
 
+# -- phase 15: device-resident eras ------------------------------------------
+
+# The pipeline settings of phase 15's runs, and the (depth, fuse) sweep of
+# tests/test_pipeline.py:161 with the serial dispatch loop (None).
+PIPES = {
+    "default": lambda b: b,
+    "serial": lambda b: b.pipeline(False),
+    "depth 4, fuse 4": lambda b: b.pipeline(depth=4, fuse=4),
+}
+PIPE_SWEEP = [None, (1, 1), (2, 1), (4, 1), (4, 4)]
+
+
+def era_kernel_parity(torch, np, label, tm, C, qcap):
+    """K8f's two kernels against their plain versions on the same card
+    tensors, at the widths one era of `tm` at chunk C gives them (the
+    insert masks rcap wide, the first-hit lanes [P, C], a qcap-row ring,
+    sampling on, fuse 4): the step kernel's START, BEGIN and COMMIT
+    (clean, overflow, an unresolved single row) and the epilogue over
+    sparse first hits with depth ties, under each budget rule; returns
+    {kernel: timing dict} (the COMMIT and the epilogue timed)."""
+    from stateright_tpu_torch.engines import era
+    from stateright_tpu_torch.ops import era as eo
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15)
+    props = tm.tensor_properties()
+    P, A = len(props), tm.max_actions
+    prog = era.EraProgram(tm, props, C, qcap, 1 << 12, False, True, 64, 4, dev)
+    c, x, n = prog.cfg, prog.plen, prog.rcap
+    print(f"era widths ({label}): C={C} A={A} P={P} vcap={prog.vcap} rcap={n} state words={x + eo.X_LEN} "
+          f"ring=2^{qcap.bit_length() - 1}", flush=True)
+
+    def state(count, steps=3, max_steps=64, cap=64, rec=0, k=0, loose=True):
+        s = rng.integers(0, 1 << 20, size=x + eo.X_LEN).astype(np.int64)
+        s[:eo.P_LEN] = [int(rng.integers(0, qcap)), count, 10 ** 6, rec, 0xFFFFFFFF, 2 * 10 ** 6,
+                        qcap - C * A, max_steps, 5, 7, 2, 0, C, 1 << (P - 1), 0, 0, cap]
+        s[prog.s_base:prog.s_base + 2] = 0xFFFFFFFF if loose else 1 << 20
+        s[prog.f_base] = 4
+        s[x + eo.X_ESTEPS], s[x + eo.X_REC0], s[x + eo.X_K] = steps, rec, k
+        s[x + eo.X_OPEN], s[x + eo.X_TAKE] = 1, min(count, C)
+        return torch.from_numpy(s).to(dev)
+
+    def slab():
+        sb = [torch.from_numpy(rng.integers(0, 1 << 32, size=c.scap + 1)).to(dev) for _ in range(4)]
+        from stateright_tpu_torch.ops.slab import Slab
+
+        return Slab(*sb, torch.tensor([int(rng.integers(0, 600)), 3], device=dev))
+
+    def operands(n_val, n_d, unres, take):
+        return eo.StepOperands(
+            torch.tensor(n_val, device=dev), torch.tensor(n_d, device=dev),
+            torch.from_numpy(rng.random(n) < unres).to(dev), torch.from_numpy(rng.random(n) < 0.4).to(dev),
+            torch.tensor(int(rng.integers(0, C * A)), device=dev),
+            torch.from_numpy(rng.integers(0, C, size=P)).to(dev), torch.from_numpy(rng.integers(0, C, size=A)).to(dev),
+        )
+
+    def clone_slab(sb):
+        return type(sb)(*(t.clone() for t in sb))
+
+    errs = []
+    commit_cases = [
+        (state(3 * C), operands(prog.vcap // 2, n // 2, 0.0, C)),
+        (state(3 * C), operands(prog.vcap + 1, n // 2, 0.0, C)),
+        (state(3 * C), operands(prog.vcap // 2, n + 1, 0.0, C)),
+        (state(1), operands(5, 5, 0.001, 1)),
+    ]
+    for mode in (eo.START, eo.BEGIN, eo.COMMIT):
+        for st, step in commit_cases:
+            sb = slab()
+            sa, sb_, ea, eb = st.clone(), st.clone(), torch.ones(1, dtype=torch.int64, device=dev), None
+            eb = ea.clone()
+            la, lb = clone_slab(sb), clone_slab(sb)
+            eo.era_step(mode, c, sa, step, la, ea)
+            eo.era_step_plain(mode, c, sb_, step, lb, eb)
+            errs.append(max_abs_err(torch, [(sa, sb_), (ea, eb)] + list(zip(la, lb))))
+    st, step = commit_cases[0]
+    sb = slab()
+    results = {"era_step": dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda s_: eo.era_step(eo.COMMIT, c, s_, step, sb, prog.epoch), prep=st.clone),
+        plain_ms=time_ms(torch, lambda s_: eo.era_step_plain(eo.COMMIT, c, s_, step, sb, prog.epoch),
+                         prep=st.clone, reps=5),
+        # the two masks once, the state read and written, hs and pa
+        bytes=2 * n + 2 * 8 * (x + eo.X_LEN) + 8 * (P + A + 4), ops=2 * n,
+        library_ms=None, shape=f"COMMIT over [{n}] insert masks, {x + eo.X_LEN} state words",
+    )}
+
+    def lanes(density):
+        hseen = torch.from_numpy(rng.random((P, C)) < density).to(dev)
+        depth = torch.from_numpy(rng.integers(5, 9, size=(P, C))).to(dev)
+        f1, f2 = (torch.from_numpy(rng.integers(0, 1 << 32, size=(P, C))).to(dev) for _ in range(2))
+        return hseen, f1, f2, depth
+
+    errs = []
+    epi_cases = [
+        (state(3 * C, steps=64, max_steps=64, k=0), 0.01),          # budget-only: double, fuse on
+        (state(qcap, steps=10, max_steps=64, k=1), 0.001),          # ring pressure: halve
+        (state(0, steps=10, max_steps=64, cap=0, k=3), 0.0),        # frontier exhausted, cap 0
+        (state(3 * C, steps=64, max_steps=64, rec=1 << (P - 1), k=2), 0.02),  # finish ANY met
+    ]
+    for st, density in epi_cases:
+        ins = lanes(density)
+        counts = torch.tensor([int(rng.integers(0, 600)), 0], device=dev)
+        a = [st.clone()] + [t.clone() for t in ins]
+        b = [st.clone()] + [t.clone() for t in ins]
+        eo.era_epilogue(c, a[0], *a[1:], prog.ring[tm.state_width + 1], counts)
+        eo.era_epilogue_plain(c, b[0], *b[1:], prog.ring[tm.state_width + 1], counts)
+        errs.append(max_abs_err(torch, list(zip(a, b))))
+    st, density = epi_cases[0]
+    ins = lanes(density)
+    counts = torch.tensor([100, 0], device=dev)
+    depth_lane = prog.ring[tm.state_width + 1]
+
+    def prep():
+        return [st.clone()] + [t.clone() for t in ins]
+
+    results["era_epilogue"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda a: eo.era_epilogue(c, a[0], *a[1:], depth_lane, counts), prep=prep),
+        plain_ms=time_ms(torch, lambda a: eo.era_epilogue_plain(c, a[0], *a[1:], depth_lane, counts),
+                         prep=prep, reps=5),
+        # hseen and faccd read, the four first-hit lanes written (zeroed),
+        # the state read and written
+        bytes=P * C * (1 + 8) + P * C * (1 + 3 * 8) + 2 * 8 * (x + eo.X_LEN), ops=2 * P * C,
+        library_ms=None, shape=f"[{P}, {C}] first-hit lanes, {x + eo.X_LEN} state words",
+    )
+    del prog
+    return finish(results)
+
+
+def model(name, *args):
+    from stateright_tpu_torch import models
+
+    return getattr(models, name)(*args)
+
+
+# Phase 15's models: (model factory, options) by label.
+ERA_MODELS = {
+    "2pc-7": (lambda: model("TwoPhaseTensor", 7), BENCH7),
+    "paxos-3": (lambda: model("PaxosTensorExhaustive", 3), PAXOS3),
+    "abd-ordered-3": (lambda: model("AbdOrderedTensor", 3), ABDO3),
+}
+
+
+def profiled_run(torch, label, pipe):
+    """One run of `label` under `pipe` after a warm-up one, the second
+    under torch.profiler: the device's busy share (the union of kernel
+    intervals over the profiled wall), the device kernels and the host
+    launch calls (profiler CPU events named *Launch*) a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from profile_gpu_bfs import busy_union
+
+    make_model, opts = ERA_MODELS[label]
+    bfs(make_model(), "cuda", opts, PIPES[pipe])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        c, wall = bfs(make_model(), "cuda", opts, PIPES[pipe])
+    tel = c.telemetry()
+    steps = tel["steps"] + tel.get("partial_steps", 0)
+    kern = [e for e in prof.events() if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start]
+    host = [e for e in prof.events() if e.device_type.name == "CPU" and "Launch" in e.name]
+    busy_ms = busy_union([(e.time_range.start, e.time_range.end) for e in kern]) / 1e3
+    return dict(
+        host_launch_calls_per_step=len(host) / steps, device_kernels_per_step=len(kern) / steps,
+        device_busy_ms=busy_ms, profiled_wall_secs=wall,
+        device_busy_share=busy_ms / (wall * 1e3) if kern else "not measured",
+    )
+
+
+def profile_in_child(label, pipe):
+    """`profiled_run` in a fresh process: the profiler traces one run a
+    process (in one long process later traced runs were seen to lose kernel
+    records of graph launches). A failed child is reported, not hidden:
+    its numbers read "not measured" with its exit code."""
+    done = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-one", label, pipe],
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in done.stdout.splitlines() if ln.startswith("{")]
+    if done.returncode != 0 or not lines:
+        print(f"profiled run of {label}, {pipe} failed (exit {done.returncode}): {done.stderr[-2000:]}", flush=True)
+        return dict(device_busy_share="not measured", profile_exit_code=done.returncode)
+    return json.loads(lines[-1])
+
+
+def era_runs(torch, kernels, card, label, golden, checks=lambda c: None):
+    """Phase 15's runs of one model at its phase 4-6 options: the default
+    pipeline, the serial dispatch loop and (depth 4, fuse 4), each counted from
+    0 (every BFS kernel launched, the path walks included), timed (the
+    wall ends before the paths are walked), then run once more under
+    torch.profiler in a fresh process (`profile_in_child`); all three
+    equal to each other (the sample aside) and to the golden. Prints and
+    returns each run's numbers."""
+    make_model, opts = ERA_MODELS[label]
+    dicts, out = {}, {}
+
+    def run_and_check(configure):
+        c, wall = bfs(make_model(), "cuda", opts, configure)
+        peak = torch.cuda.max_memory_allocated()
+        return c, wall, peak, result_dict(c)  # its paths walk through K6
+
+    for name, configure in PIPES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (c, wall, peak, dicts[name]), launches = counted(torch, kernels, f"{label}, {name}",
+                                                         lambda: run_and_check(configure))
+        check(c.unique_state_count() == golden, f"{label}, {name}: {c.unique_state_count()} != {golden}")
+        checks(c)
+        tel = c.telemetry()
+        del c
+        prof = profile_in_child(label, name)
+        steps = tel["steps"] + tel.get("partial_steps", 0)
+        out[name] = dict(
+            label=label, pipeline=name, wall_secs=wall, steps=tel["steps"],
+            partial_steps=tel.get("partial_steps", 0), eras=tel["eras"], dispatches=tel["dispatches"],
+            spec_dispatch=tel.get("spec_dispatch", 0), spec_wasted=tel.get("spec_wasted", 0),
+            fused_eras_per_dispatch=tel["fused_eras_per_dispatch"], graph_captures=tel["graph_captures"],
+            capture_secs=tel["capture_secs"], wall_ms_per_step=wall * 1e3 / steps,
+            wall_ms_per_step_without_capture=(wall - tel["capture_secs"]) * 1e3 / steps,
+            **prof, era_kernel_launches=launches["era_step"] + launches["era_epilogue"],
+            max_memory_allocated=peak, card=card,
+        )
+        print(f"{label}: {json.dumps(out[name])}", flush=True)
+    # Counts, discoveries, coverage and the paths are the same under every
+    # pipeline setting. Eras and the bottom-k sample are each setting's
+    # own, in the JAX engine too: a chained era runs with the threshold of
+    # the era it chains off, which moves era ends and the captures a step
+    # drops past DEVICE_STEP_CAP (phase 15's 2pc-5 sweep holds each
+    # setting's sample against the cpu run).
+    first = {k: v for k, v in dicts["default"].items() if k != "sample"}
+    for name, d in dicts.items():
+        check({k: v for k, v in d.items() if k != "sample"} == first,
+              f"{label}: {name} differs from the default pipeline")
+    return out
+
+
 def main(argv) -> int:
     try:
         import numpy as np
@@ -1180,6 +1438,9 @@ def main(argv) -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if argv[:1] == ["--profile-one"]:
+        print(json.dumps(profiled_run(torch, argv[1], argv[2])), flush=True)
+        return 0
     skip_full = "--skip-full" in argv
     from stateright_tpu_torch import kernels
     from stateright_tpu_torch.has_discoveries import HasDiscoveries
@@ -1231,6 +1492,7 @@ def main(argv) -> int:
 
     (c7, t7), launches = counted(torch, kernels, "2pc-7", two_pc7)
     d7 = result_dict(c7)
+    tel7 = c7.telemetry()
     print(f"2pc-7: unique={c7.unique_state_count()} states={c7.state_count()} wall_secs={t7:.3f} "
           f"generated_states_per_sec={c7.state_count() / t7:.1f} unique_per_sec={c7.unique_state_count() / t7:.1f} "
           f"telemetry={c7.telemetry()} card={card}", flush=True)
@@ -1489,6 +1751,45 @@ def main(argv) -> int:
           f"lanes_checks_per_sec={px_stats['checks_per_sec']:.2f} serial_solo_checks_per_sec={px_serial:.3f} "
           f"(8 solo runs) card={card}", flush=True)
     del px, held
+
+    phase("15 device-resident eras: K8f's kernels; graph eras cuda == cpu; 2pc-7, paxos-3, abd-ordered-3 pipelined")
+    torch.cuda.empty_cache()
+    era_res = era_kernel_parity(torch, np, "2pc-7", two_pc(7), 6144, 1 << 20)
+    era_px = era_kernel_parity(torch, np, "paxos-3", PaxosTensorExhaustive(3), 16384, 1 << 21)
+    results.update(era_res)
+    check(all(r["max_abs_err"] == 0 for r in era_px.values()), "era kernels at the paxos-3 widths")
+    for pipe in PIPE_SWEEP:
+        configure = PIPES["serial"] if pipe is None else (lambda b, p=pipe: b.pipeline(depth=p[0], fuse=p[1]))
+        c_gpu, t_gpu = bfs(two_pc(5), "cuda", TEST_OPTS, configure)
+        torch.set_num_threads(1)
+        c_cpu, t_cpu = bfs(two_pc(5), "cpu", TEST_OPTS, configure)
+        torch.set_num_threads(threads)
+        d_gpu = dict(result_dict(c_gpu), eras=c_gpu.telemetry()["eras"], steps=c_gpu.telemetry()["steps"])
+        d_cpu = dict(result_dict(c_cpu), eras=c_cpu.telemetry()["eras"], steps=c_cpu.telemetry()["steps"])
+        check(d_gpu == d_cpu and d_gpu["unique"] == GOLDEN[5], f"2pc-5 pipeline {pipe}: cuda != cpu")
+        print(f"2pc-5 pipeline {pipe or 'serial'}: equal on cuda ({t_gpu:.3f}s) and cpu ({t_cpu:.3f}s), "
+              f"eras={d_gpu['eras']} steps={d_gpu['steps']} telemetry={c_gpu.telemetry()}", flush=True)
+    era_runs(torch, kernels, card, "2pc-7", GOLDEN[7], lambda c: check_2pc(c, 7))
+    era_runs(torch, kernels, card, "paxos-3", PAXOS3_GOLDEN)
+    era_runs(torch, kernels, card, "abd-ordered-3", ABDO3_GOLDEN)
+
+    # The loop rows' bounds: the sum of their kernels' bounds (one call at
+    # the run's widths) times their launches in the run; a step is one
+    # K3 launch (BFS), one K13b launch (simulation), one lane K3 launch.
+    bfs_steps = launches["claim_dedup"]
+    loops = {
+        "K8 (2pc-7 run, with K11)": sum(results[k.name]["bound_ms"] * launches[k.name] for k in kernels.BFS_KERNELS)
+        + extra7["K11 expand"]["bound_ms"] * bfs_steps,
+        "K13 (paxos-3 simulation run, with the model step)": sum(
+            sim_px[k.name]["bound_ms"] * launches_sim[k.name] for k in kernels.SIM_KERNELS if k.name in sim_px)
+        + sim_px["model step"]["bound_ms"] * launches_sim["walk_step"],
+        "K14 (2pc-5 sweep, lane kernels)": sum(
+            lane_res[k.name]["bound_ms"] * launches_lanes[k.name] for k in kernels.LANE_KERNELS[1:]),
+    }
+    print(f"loop bounds (ms over the run): {json.dumps(loops)} steps: 2pc-7 {bfs_steps} "
+          f"(telemetry {tel7['steps']} + {tel7.get('partial_steps', 0)} partial), "
+          f"paxos-3 simulation {launches_sim['walk_step']}, 2pc-5 sweep {launches_lanes['claim_dedup_lanes']} "
+          f"card={card}", flush=True)
 
     line = {"kernels": []}
     for k in kernels.KERNELS:

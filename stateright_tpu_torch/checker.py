@@ -3,7 +3,8 @@
 
 The builder carries the model and the options the port supports —
 `finish_when`, `target_state_count`, `target_max_depth`, `coverage`,
-`sample` (on by default, k = 64, as in the JAX package), `symmetry`
+`sample` (on by default, k = 64, as in the JAX package), `symmetry`,
+`pipeline` (on by default: a chain of depth 2, no fusion, as in JAX)
 and `timeout` — and spawns the device engines:
 `spawn_gpu_bfs(**kw)`, the counterpart of `spawn_tpu_bfs`, and
 `spawn_gpu_simulation(seed, **kw)`, the counterpart of
@@ -22,7 +23,6 @@ from .path import Path
 
 # Later slices of the port, numbered as in ROADMAP.md Queue 1.
 SLICE_CHECKPOINTS = "slice 7 (spill tiers and checkpoints)"
-SLICE_PIPELINE = "slice 8 (pipelined and CUDA-graph eras)"
 
 
 def not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -50,6 +50,9 @@ class CheckerBuilder:
         self.sample_: bool = True
         self.sample_k_: int = 64  # obs/sample.py DEFAULT_SAMPLE_K
         self.timeout_: Optional[float] = None
+        self.pipeline_: bool = True
+        self.pipeline_depth_: Optional[int] = None
+        self.fuse_eras_: Optional[int] = None
 
     def finish_when(self, has_discoveries: HasDiscoveries) -> "CheckerBuilder":
         self.finish_when_ = has_discoveries
@@ -90,9 +93,33 @@ class CheckerBuilder:
         self.symmetry_fn_ = representative
         return self
 
-    def pipeline(self, enable: bool = True, depth=None, fuse=None) -> "CheckerBuilder":
-        if enable or depth is not None or fuse is not None:
-            raise not_ported("speculative and fused era pipelining", SLICE_PIPELINE)
+    def pipeline(
+        self,
+        enable: bool = True,
+        depth: Optional[int] = None,
+        fuse: Optional[int] = None,
+    ) -> "CheckerBuilder":
+        """Era pipelining on the BFS engine (default on; reference
+        `stateright_tpu/checker.py:263-307`). While an era's readback is
+        in flight the engine launches up to ``depth`` more eras off the
+        still-on-device state (``None`` = 2); the device gate makes an era
+        chained past a boundary that needs the host a no-op, so results
+        are the serial loop's, bit for bit. ``fuse`` runs up to that
+        many eras in one dispatch (``None`` = 1): the next inner era runs
+        only after an era that ended on its step budget alone.
+        ``enable=False`` forces the serial dispatch -> readback ->
+        dispatch loop."""
+        self.pipeline_ = bool(enable)
+        if depth is not None:
+            depth = int(depth)
+            if depth < 1:
+                raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+        self.pipeline_depth_ = depth
+        if fuse is not None:
+            fuse = int(fuse)
+            if fuse < 1:
+                raise ValueError(f"pipeline fuse must be >= 1, got {fuse}")
+        self.fuse_eras_ = fuse
         return self
 
     def threads(self, thread_count: int) -> "CheckerBuilder":
@@ -104,16 +131,16 @@ class CheckerBuilder:
         raise not_ported("checker visitors", "a later slice (host engines)")
 
     def timeout(self, seconds: float) -> "CheckerBuilder":
-        """Stop the run at the first era boundary after `seconds` (the
-        simulation engine; its eras last at most 64 steps then)."""
+        """Stop the run at the first era boundary after `seconds`. The BFS
+        engine then sizes its eras adaptively (from 64 steps, doubling
+        while an era takes under an eighth of the timeout); the
+        simulation engine's eras last at most 64 steps."""
         self.timeout_ = seconds
         return self
 
     def spawn_gpu_bfs(self, **kw) -> "Checker":
         """Exhaustive BFS over a TensorModel on the card (or, with
         device="cpu", through the kernels' plain versions on the CPU)."""
-        if self.timeout_ is not None:
-            raise not_ported("BFS run timeouts (adaptive era budgets)", SLICE_PIPELINE)
         from .engines.gpu_bfs import GpuBfsChecker
 
         return GpuBfsChecker(self, **kw)

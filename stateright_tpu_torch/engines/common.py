@@ -35,8 +35,8 @@ class HostEngineBase(Checker):
 
         self._state_count = 0
         self._max_depth = 0
-        # Run counters (eras, steps, table growths, ...), read by
-        # telemetry().
+        # Run counters (eras, steps, table growths, ...) and gauges,
+        # read by telemetry().
         self._counters: Dict[str, int] = {}
         self._coverage = Coverage(enabled=builder.coverage_)
         self._coverage.register_properties(p.name for p in self._properties)
@@ -110,6 +110,10 @@ class HostEngineBase(Checker):
 
     def _inc(self, name: str, n: int = 1) -> None:
         self._counters[name] = self._counters.get(name, 0) + int(n)
+
+    def _gauge(self, name: str, value) -> None:
+        """Set a telemetry value that is not a running count."""
+        self._counters[name] = value
 
     def _timed_out(self) -> bool:
         return self._deadline is not None and time.monotonic() >= self._deadline

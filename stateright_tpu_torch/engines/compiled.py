@@ -91,8 +91,9 @@ def intern_model(model: Any) -> Tuple[TensorModel, str]:
 def era_geometry(model: Any, options: Optional[Dict[str, Any]] = None) -> Dict[str, int]:
     """The solo engine shape a default run takes, resolved from `options`
     as `spawn_gpu_bfs` resolves them: the chunk clamp, the coverage and
-    sample defaults, and the table's pre-growth to hold the inits and one
-    insert batch."""
+    sample defaults, the era fusion factor (``fuse_eras``, as the JAX
+    loop cache keys it: tpu_bfs.py:1461-1468) and the table's pre-growth
+    to hold the inits and one insert batch."""
     from ..ops import visited_set as vs
     from .gpu_bfs import widths
 
@@ -114,6 +115,7 @@ def era_geometry(model: Any, options: Optional[Dict[str, Any]] = None) -> Dict[s
         "tcap": tcap,
         "cov": bool(options.get("coverage", True)),
         "sample_k": int(options.get("sample_k", 64)),
+        "fuse": max(1, int(options.get("fuse_eras", 1))),
         "n_init": n_init,
     }
 
@@ -175,6 +177,9 @@ class CompiledCheck:
             if k in self.options
         }
         opts.update(kw)
+        if "fuse_eras" in self.options:
+            # The fusion factor is part of this executable's shape.
+            builder.pipeline(builder.pipeline_, builder.pipeline_depth_, self.options["fuse_eras"])
         self.uses += 1
         return builder.spawn_gpu_bfs(compiled=self, **opts)
 

@@ -1,42 +1,28 @@
 """Exhaustive batched BFS on the card: the port of
-`stateright_tpu/engines/tpu_bfs.py` (serial eras, with bottom-k sampling
-and symmetry reduction; no spill, no checkpoints).
+`stateright_tpu/engines/tpu_bfs.py` (eras on the device, pipelined and
+fused as the JAX engine runs them, with bottom-k sampling, symmetry
+reduction and run timeouts; no spill, no checkpoints).
 
-One BFS step pops a chunk of C states from a ring queue on the device and
-runs, at fixed widths so that no step waits on the host mid-way:
+The era program (engines/era.py) runs BFS steps on the device until its
+gate closes — empty frontier, ring past its high-water mark, table past
+its growth limit, step budget spent, a probe error, the finish policy
+met, or (sampling on) the sample slab past its high-water mark — and,
+with `.pipeline(fuse=N)`, up to N such eras in one dispatch; on the card
+a dispatch is one CUDA-graph launch and one readback of the era's
+packed params (the JAX layout, word for word). This module is the host
+loop around it, the counterpart of `TpuBfsChecker._run`
+(tpu_bfs.py:1540-2301): the fused seed and first era (K10f), the
+per-era host work between dispatches (table growth, the step budget and
+its target clamp, a fresh params upload only when something the host
+owns changed), the speculative K-deep chain of dispatches off the
+still-on-device state, and `process_result`: counters, discoveries,
+coverage, the sample drain and the stop conditions.
 
-  1. ring pop                                 K7 ring           (kernel)
-  2. fingerprints of the popped rows          K1 hash_lanes     (kernel)
-  3. property evaluation + successors         K11 expand        (torch, model code)
-  4. validity compaction to vcap              K2 compact_ids    (kernel)
-  5. symmetry canonicalization (optional)     the model's representative_lanes (torch)
-  6. fingerprints of the candidates           K1 hash_lanes     (kernel)
-  7. in-batch dedup                           K3 claim_dedup    (kernel)
-  8. compaction to rcap distinct candidates   K2 compact_ids    (kernel)
-  9. visited-set insert                       K4 insert         (kernel)
- 10. sample capture (sampling on)             K9a sample_capture (kernel)
- 11. ring append of the new states            K2 + K7 ring      (kernels)
- 12. discovery snapshots and coverage counts  (torch)
-
-then reads back ONE small vector of counts, and the host applies the JAX
-era program's rules to it (`_build_loop`, tpu_bfs.py:428-703): an
-overflow (more than vcap valid or rcap distinct candidates, or an
-unresolved insert) commits the inserted prefix, consumes nothing and
-halves `take_cap`, which regrows by chunk/16 after each clean step. An
-era runs steps until the JAX gate closes (tpu_bfs.py:403): empty
-frontier, ring past its high-water mark, table past its growth limit,
-step budget spent, a probe error, the finish policy met, or (sampling
-on) the sample slab past its high-water mark. While the sampler is
-under-full (threshold still MAX) a step pops at most 512 // A rows, as
-the JAX loop clamps it (tpu_bfs.py:339-345, :449-455). At each era's end
-the slab's bottom-k rows (K9b slab_bottomk) drain into the sampler and
-the next era captures below the tightened threshold.
-
-Eras end exactly where the JAX engine's serial eras do, because
-discoveries are extracted per era (the shallowest first hit at the
-lowest chunk position, tpu_bfs.py:781-810) and the ring order follows
-the take clamp, so the results — counts, discovery fingerprints,
-coverage, the sample — are the JAX engine's, bit for bit.
+Eras end exactly where the JAX engine's do (the same gate, budgets and
+chain), because discoveries are extracted per era (the shallowest first
+hit at the lowest chunk position) and the ring order follows the take
+clamp, so the results — counts, discovery fingerprints, coverage, the
+sample, the eras and steps — are the JAX engine's, bit for bit.
 
 Discovery paths (and sample rows) are walked on the card, every chain
 at once, one K6 lookup_parent launch per hop; the model then re-executes
@@ -48,6 +34,7 @@ the only place the plain versions run on this path.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -56,33 +43,22 @@ import torch
 from ..checker import SLICE_CHECKPOINTS, CheckerBuilder, not_ported
 from ..core import Expectation
 from ..fingerprint import combine64, hash_lanes, hash_words_np, split64
-from ..obs.coverage import DEPTH_CAP
-from ..obs.sample import (
-    DEVICE_STEP_CAP,
-    slab_capacity,
-    slab_entries,
-    slab_high_water,
-)
-from ..ops import frontier as fr
-from ..ops import slab as sl
+from ..ops import era as eo
 from ..ops import visited_set as vs
-from ..ops.expand import build_expand_lean
 from ..path import Path
 from ..tensor import CanonicalTensorAdapter, TensorModel, TensorModelAdapter
-from ..xp import TorchXP
+from . import era
 from .common import HostEngineBase
+from .era import widths
 
 U32_MAX = 0xFFFFFFFF
-
-
-def widths(A: int, chunk: int):
-    """(vcap, rcap, dedup_cap) of the step: the compacted candidate width
-    (tpu_bfs.py:162 `_vcap`, divisor 3), the distinct-candidate width and
-    the dedup scratch (tpu_bfs.py:353-357)."""
-    vcap = min(chunk * A, max(128 * A, (chunk * A) // 3))
-    rcap = max(128 * A, (2 * vcap) // 5)
-    dedup_cap = 1 << max(1, (4 * vcap - 1).bit_length())
-    return vcap, rcap, dedup_cap
+# The JAX engine's message for an init row the seed left unresolved
+# (tpu_bfs.py:1824-1829).
+SEED_ERROR = (
+    "init-state seeding exhausted the visited-table probe budget "
+    "(duplicate-heavy or adversarial initial fingerprints); raise "
+    "table_capacity"
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -97,32 +73,6 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def seed(init_rows: torch.Tensor, init_ebits: int, tcap: int, qcap: int):
-    """K10 (tpu_bfs.py:1080 _build_seed): a fresh table and ring on the
-    rows' device, K1 + K4 over the init rows [S, n]. Every init row is
-    enqueued at depth 1; the table keeps one per fingerprint. Returns
-    (table, ring, unique)."""
-    S, n = init_rows.shape
-    dev = init_rows.device
-    table = vs.empty_table(tcap, dev)
-    h1, h2 = hash_lanes(init_rows)
-    zero = torch.zeros(n, dtype=torch.int64, device=dev)
-    is_new, unres = vs.insert(
-        table, h1, h2, zero, zero, torch.ones(n, dtype=torch.bool, device=dev)
-    )
-    ring = fr.empty_ring(S + 2, qcap, dev)
-    ring[:S, :n] = init_rows
-    ring[S, :n] = init_ebits
-    ring[S + 1, :n] = 1
-    new, unresolved = torch.stack([is_new.sum(), unres.sum()]).tolist()
-    if unresolved:
-        raise RuntimeError(
-            "init-state seeding exhausted the visited-table probe budget; "
-            "raise table_capacity"
-        )
-    return table, ring, new
 
 
 def seed_lanes(table, rings, init_rows: torch.Tensor, n_init: torch.Tensor, init_ebits: int):
@@ -267,6 +217,11 @@ class GpuBfsChecker(HostEngineBase):
         self._tcap = table_capacity
         self._max_sync_steps = sync_steps
         self._cov = self._coverage.enabled
+        # Era pipelining (CheckerBuilder.pipeline, on by default with a
+        # chain of depth 2 and no fusion, as in JAX: tpu_bfs.py:1517-1524).
+        self._pipeline = builder.pipeline_
+        self._chain_depth = builder.pipeline_depth_ or 2
+        self._fuse = builder.fuse_eras_ or 1
         self._unique = 0
         self._discovery_fps: Dict[str, int] = {}
         self._table = None
@@ -281,19 +236,19 @@ class GpuBfsChecker(HostEngineBase):
     # -- the run -------------------------------------------------------------
 
     def _run(self) -> None:
+        """The JAX engine's host loop (tpu_bfs.py:1540-2301) without spill, checkpoints,
+        resharding and the flight recorder."""
         tm = self.tm
         dev = self.device
         S, A, C, P = tm.state_width, tm.max_actions, self._chunk, len(self._tprops)
-        qmask = self._qcap - 1
-        vcap, rcap, dedup_cap = widths(A, C)
+        vcap = widths(A, C)[0]
         high_water = self._qcap - C * A
         depth_limit = (
             self._target_max_depth if self._target_max_depth is not None else U32_MAX
         )
         fin_any, fin_all, fin_all_en = self._finish_when.device_masks(self._tprops)
-        xp = TorchXP(dev)
-        expand = build_expand_lean(tm, self._tprops, C, xp)
-        arange_c = torch.arange(C, device=dev)
+        sampler = self._sampler
+        sample_k = sampler.k if sampler is not None else 0
 
         inits = np.asarray(tm.init_states_array(), dtype=np.uint32)
         inb = np.asarray(
@@ -318,7 +273,6 @@ class GpuBfsChecker(HostEngineBase):
             raise ValueError("more initial states than queue capacity")
         while n_init + vcap > vs.MAX_LOAD * self._tcap:
             self._tcap *= 2
-        sampler = self._sampler
         if sampler is not None:
             # The seed inserts before the era loop's slab captures: offer
             # the inits host-side, rows and all (tpu_bfs.py:1701-1710).
@@ -328,189 +282,136 @@ class GpuBfsChecker(HostEngineBase):
                 depths=np.ones(n_init, dtype=np.int64),
                 states=inits,
             )
-            k = sampler.k
-            sk2 = slab_entries(k)
-            s_high = slab_high_water(k)
-            slab = sl.empty_slab(slab_capacity(k, DEVICE_STEP_CAP), dev)
-            # Loose-threshold take clamp (tpu_bfs.py:339-345).
-            s_take = max(1, DEVICE_STEP_CAP // max(1, A))
 
+        # The era budget (tpu_bfs.py:1583-1612): the full sync_steps
+        # allowance, or under a timeout the adaptive budget — the device
+        # emits the next era's budget (doubling after budget-only exits,
+        # halving under pressure) and the host moves only its cap, from
+        # the wall time of each era against a poll target of timeout / 4.
+        adaptive = self._timeout is not None
+        max_sync = self._max_sync_steps if not adaptive else min(eo.BUDGET_MIN, self._max_sync_steps)
+        pipeline = self._pipeline and self._target_state_count is None
+        depth = self._chain_depth if pipeline else 0
+
+        prog = era.EraProgram(
+            tm, self._tprops, C, self._qcap, self._tcap, self._canon, self._cov,
+            sample_k, self._fuse, dev, in_flight=depth + 1,
+        )
+        try:
+            self._run_eras(prog, inits, vcap, high_water, depth_limit, (fin_any, fin_all, fin_all_en),
+                           adaptive, max_sync, pipeline, depth)
+        finally:
+            prog.free_graph()
+        self._table = prog.table
+
+    def _run_eras(self, prog, inits, vcap, high_water, depth_limit, fin, adaptive, max_sync,
+                  pipeline, depth) -> None:
+        tm, dev = self.tm, self.device
+        A, C, P = tm.max_actions, self._chunk, len(self._tprops)
+        n_init = len(inits)
+        fin_any, fin_all, fin_all_en = fin
+        sampler = self._sampler
+        budget = max_sync
+        budget_cap = min(eo.BUDGET_MIN, max_sync) if adaptive else 0
+        cap_limit = min(self._max_sync_steps, 1 << 30)
+        poll_target = self._timeout / 4.0 if adaptive else None
+        x = prog.plen
+        fb, sb, sk2 = prog.f_base, prog.s_base, prog.sk2
+        cb = prog.cov_base
+
+        def fuse_lim_now() -> int:
+            # tpu_bfs.py:1628-1647 without auto-N (it reads the flight
+            # recorder, which the port does not have).
+            if self._fuse <= 1 or self._target_state_count is not None:
+                return 1
+            if self._deadline is not None and time.monotonic() >= self._deadline - self._timeout / 2:
+                return 1
+            return self._fuse
+
+        max_steps0 = max_sync
+        if self._target_state_count is not None:
+            remaining = max(0, self._target_state_count - n_init)
+            max_steps0 = max(1, min(max_steps0, 1 + remaining // (C * A)))
+        template = np.zeros(prog.plen + eo.X_LEN, dtype=np.int64)
+        last_fuse_lim = last_thresh = None
+        if fb >= 0:
+            last_fuse_lim = template[fb] = fuse_lim_now()
+        if sampler is not None:
+            last_thresh = sampler.threshold_parts()
+            template[sb:sb + 2] = last_thresh
+        template[:eo.P_LEN] = [
+            0, n_init, 0, 0, depth_limit, max(0, int(vs.MAX_LOAD * self._tcap) - vcap),
+            high_water, max_steps0, 0, 0, 0, 0, C, fin_any, fin_all, fin_all_en, budget_cap,
+        ]
+
+        # K10f: the seed and the first era, with no readback between them.
         init_t = torch.from_numpy(inits.T.astype(np.int64)).to(dev).contiguous()
-        table, ring, self._unique = seed(init_t, self._init_ebits, self._tcap, self._qcap)
+        prog.seed(init_t, self._init_ebits, template)
+        era_t0 = time.monotonic()
+        pending = prog.launch()
+        self._inc("dispatches")
+        head, count, take_cap, rec_bits = 0, n_init, C, 0
+        self._unique = n_init  # provisional; exact at the first readback
+        last_max_steps, last_budget_cap = max_steps0, budget_cap
+        mirror = template  # the state vector as last read back
+        dirty = stop = False
+        chain_max = 0
 
-        head, count, take_cap = 0, n_init, C
-        rec_bits = 0
-        budget = self._max_sync_steps
-
-        first = True
-        while first or count > 0:
-            if not first:
-                while self._unique + vcap > vs.MAX_LOAD * self._tcap:
-                    table = self._grow(table)
-            first = False
-            grow_limit = max(0, int(vs.MAX_LOAD * self._tcap) - vcap)
-            max_steps = budget
-            if self._target_state_count is not None:
-                # Bound the overshoot past the target: a step generates at
-                # most C*A states (tpu_bfs.py:2079). The clamped budget
-                # carries to the next era, as the device-emitted budget does.
-                remaining = max(0, self._target_state_count - self._state_count)
-                max_steps = max(1, min(max_steps, 1 + remaining // (C * A)))
-            budget = max_steps
-            occupied = 0
-            if sampler is not None:
-                t1, t2 = sampler.threshold_parts()
-                loose = (t1, t2) == (U32_MAX, U32_MAX)
-                for lane in slab:
-                    lane.zero_()
-
-            # ---- one era (tpu_bfs.py:361 loop) ----
-            self._inc("eras")
-            steps = gen = err_cnt = expanded = 0
-            rec_acc = rec_bits
-            hseen = torch.zeros((P, C), dtype=torch.bool, device=dev)
-            facc1 = torch.zeros((P, C), dtype=torch.int64, device=dev)
-            facc2 = torch.zeros_like(facc1)
-            faccd = torch.zeros_like(facc1)
-            act = torch.zeros(A, dtype=torch.int64, device=dev)
-            dhist = torch.zeros(DEPTH_CAP, dtype=torch.int64, device=dev)
-            covp = [0] * P
-            while True:
-                fin_hit = (rec_acc & fin_any) != 0 or (
-                    fin_all_en and (rec_acc & fin_all) == fin_all
-                )
-                if not (
-                    0 < count <= high_water
-                    and self._unique <= grow_limit
-                    and steps < max_steps
-                    and err_cnt == 0
-                    and not fin_hit
-                    and (sampler is None or occupied <= s_high)
-                ):
-                    break
-                # ---- one step (tpu_bfs.py:428 body) ----
-                take = min(count, C, take_cap)
-                if sampler is not None and loose:
-                    take = min(take, s_take)
-                active = arange_c < take
-                popped = fr.ring_pop(ring, head, C)
-                rows = popped[:S]
-                ebits = popped[S]
-                depth = popped[S + 1]
-                row_h1, row_h2 = hash_lanes(rows)
-                ex = expand(rows, ebits, depth, active, depth_limit)
-                vids, vvalid, n_val = vs.compact_ids(ex.valid, vcap)
-                cl = ex.flat.index_select(1, vids)
-                if self._canon:
-                    # Canonicalize at the compacted width, before hashing
-                    # (tpu_bfs.py:478-482).
-                    cl = torch.stack(
-                        tm.representative_lanes(xp, tuple(cl[i] for i in range(S)))
-                    ) & U32_MAX
-                ch1, ch2 = hash_lanes(cl)
-                reps = fr.claim_dedup(ch1, ch2, vvalid, dedup_cap)
-                dids, dvalid, n_d = vs.compact_ids(reps, rcap)
-                dflat = vids.index_select(0, dids)
-                src = dflat % C  # candidate a*C + c has parent row c
-                dp1 = torch.where(dvalid, row_h1.index_select(0, src), 0)
-                dp2 = torch.where(dvalid, row_h2.index_select(0, src), 0)
-                ddepth = depth.index_select(0, src) + 1
-                dh1 = ch1.index_select(0, dids)
-                dh2 = ch2.index_select(0, dids)
-                c_new, unresolved = vs.insert(table, dh1, dh2, dp1, dp2, dvalid)
-                if sampler is not None:
-                    sl.capture(slab, c_new, dh1, dh2, ddepth, dflat // C, t1, t2, DEVICE_STEP_CAP)
-                # The inserted prefix is enqueued even on an overflow step:
-                # inserts are idempotent and enqueue == inserted keeps every
-                # state exactly once in the ring.
-                fr.ring_scatter(
-                    ring, (head + count) & qmask,
-                    torch.cat([
-                        cl.index_select(1, dids),
-                        ex.ebits.index_select(0, src)[None], ddepth[None],
-                    ]),
-                    c_new,
-                )
-                stats = [n_val, n_d, unresolved.sum(), c_new.sum(), ex.generated]
-                if sampler is not None:
-                    stats.append(slab.counts[0])
-                if P:
-                    hits = torch.stack(ex.prop_hits)
-                    new_hit = hits & ~hseen
-                    facc1 = torch.where(new_hit, row_h1, facc1)
-                    facc2 = torch.where(new_hit, row_h2, facc2)
-                    faccd = torch.where(new_hit, depth, faccd)
-                    hseen |= hits
-                    stats.append(hits.sum(1))
-                if self._cov:
-                    pa = ex.valid.view(A, C).sum(1)
-                    dhist.index_add_(
-                        0, ddepth.clamp(max=DEPTH_CAP - 1), c_new.to(torch.int64)
-                    )
-                vals = torch.cat([s.view(-1) for s in stats]).tolist()  # the one sync
-                n_val, n_d, unres_n, new_count, generated = vals[:5]
-                if sampler is not None:
-                    occupied = vals[5]
-                    hs = vals[6:]
-                else:
-                    hs = vals[5:]
-
-                if take <= 1:
-                    err_cnt += unres_n
-                ovf = n_val > vcap or n_d > rcap or unres_n > 0
-                consumed = 0 if ovf else take
-                head = (head + consumed) & qmask
-                count = count - consumed + new_count
-                self._unique += new_count
-                if ovf:
-                    self._inc("partial_steps")
-                    take_cap = max(take >> 1, 1)
-                else:
-                    gen += generated
-                    steps += 1
-                    take_cap = min(take_cap + max(1, C // 16), C)
-                    if self._cov:
-                        act += pa
-                        for i in range(P):
-                            covp[i] += hs[i]
-                expanded += consumed
-                for i in range(P):
-                    if hs[i]:
-                        rec_acc |= 1 << i
-
-            # ---- era epilogue (tpu_bfs.py:781-810, :983-995) ----
-            self._inc("steps", steps)
-            if sampler is not None:
-                self._drain(slab, sk2)
-            if err_cnt:
-                raise RuntimeError(
-                    "visited-table probe budget exhausted despite headroom"
-                )
-            if P:
-                found = hseen.any(1).tolist()
-                sel = torch.where(hseen, faccd, U32_MAX).argmin(1)  # shallowest, lowest position
-                pidx = torch.arange(P, device=dev)
-                fp1 = facc1[pidx, sel].tolist()
-                fp2 = facc2[pidx, sel].tolist()
+        def process_result(vals, era_dt: float) -> None:
+            """Consume one dispatch's readback (tpu_bfs.py:1776-2035)."""
+            nonlocal head, count, take_cap, rec_bits, stop, dirty, budget, budget_cap, last_thresh
+            n_inner = max(1, min(int(vals[fb + 1]), self._fuse)) if fb >= 0 else 1
+            if vals[eo.P_ERR]:
+                # An error with zero steps on the first readback came in
+                # from the seed (tpu_bfs.py:1824-1829).
+                if self._counters.get("eras", 0) == 0 and vals[eo.P_STEPS] == 0:
+                    raise RuntimeError(SEED_ERROR)
+                raise RuntimeError("visited-table probe budget exhausted despite headroom")
+            head, count = int(vals[eo.P_HEAD]), int(vals[eo.P_COUNT])
+            take_cap = int(vals[eo.P_TAKE_CAP])
+            budget = int(vals[eo.P_MAX_STEPS])
+            self._gauge("era_step_budget", last_max_steps)
+            if poll_target is not None and era_dt > 0.0:
+                per_era_dt = era_dt / n_inner
+                if per_era_dt < poll_target / 2 and budget_cap < cap_limit:
+                    budget_cap = min(budget_cap * 2, cap_limit)
+                elif per_era_dt > poll_target and budget_cap > eo.BUDGET_MIN:
+                    budget_cap = max(budget_cap // 2, eo.BUDGET_MIN)
+            self._inc("eras", n_inner)
+            self._inc("steps", vals[eo.P_STEPS])
+            self._inc("states_generated", vals[eo.P_GEN])
+            self._inc("partial_steps", vals[x + eo.X_PARTIAL])
+            self._unique = int(vals[eo.P_UNIQUE])
+            self._state_count += int(vals[eo.P_GEN])
+            self._max_depth = max(self._max_depth, int(vals[eo.P_MAXD]))
+            new_bits = int(vals[eo.P_REC])
+            if new_bits != rec_bits:
+                fp1 = vals[eo.P_LEN:eo.P_LEN + P]
+                fp2 = vals[eo.P_LEN + P:eo.P_LEN + 2 * P]
                 for i, p in enumerate(self._tprops):
-                    if found[i] and not (rec_bits >> i) & 1:
-                        if p.name not in self._discovery_fps:
-                            self._discovery_fps[p.name] = combine64(fp1[i], fp2[i])
-                        rec_bits |= 1 << i
-            if steps > 0:
-                self._max_depth = max(
-                    self._max_depth, int(ring[S + 1, (head - 1) & qmask])
-                )
-            self._state_count += gen
-            self._inc("states_generated", gen)
+                    if (new_bits >> i) & 1 and p.name not in self._discovery_fps:
+                        self._discovery_fps[p.name] = combine64(int(fp1[i]), int(fp2[i]))
+                rec_bits = new_bits
             if self._cov:
                 cov = self._coverage
-                cov.record_action_counts(act.tolist())
+                cov.record_action_counts(vals[cb:cb + A].tolist())
+                expanded = int(vals[cb + A + P])
                 for i, p in enumerate(self._tprops):
                     cov.record_property_eval(p.name, expanded)
-                    cov.record_property_hit(p.name, covp[i])
-                cov.record_depth_counts(dhist.tolist())
-
+                    cov.record_property_hit(p.name, int(vals[cb + A + i]))
+                cov.record_depth_counts(vals[cb + A + P + 1:cb + eo.cov_len(A, P)].tolist())
+            if sampler is not None:
+                occupied, dropped = int(vals[sb + 2]), int(vals[sb + 3])
+                if occupied or dropped:
+                    rows = vals[sb + 4:sb + 4 + 5 * sk2].reshape(5, sk2)
+                    sampler.drain_slab(
+                        rows[0], rows[1], rows[2], rows[4], occupied,
+                        dropped=dropped, actions=rows[3],
+                    )
+                if sampler.threshold_parts() != last_thresh:
+                    # The drain tightened the threshold: upload it before
+                    # the next era (tpu_bfs.py:1909-1916).
+                    dirty = True
             if count > high_water:
                 raise RuntimeError(
                     f"the frontier ({count} states) outgrew queue_capacity="
@@ -518,39 +419,106 @@ class GpuBfsChecker(HostEngineBase):
                     "ported yet; raise queue_capacity"
                 )
             if self._finish_matched(self._discovery_fps):
-                break
-            if (
+                stop = True
+            elif (
                 self._target_state_count is not None
                 and self._state_count >= self._target_state_count
             ):
+                stop = True
+            elif self._timed_out():
+                stop = True
+
+        mirror = prog.result(pending)
+        process_result(mirror, time.monotonic() - era_t0)
+
+        while not stop and count > 0:
+            host_dirty = dirty
+            # Proactive growth between eras, the graph captured anew.
+            while self._unique + vcap > vs.MAX_LOAD * self._tcap:
+                self._tcap = prog.grow()
+                self._inc("table_growths")
+                host_dirty = True
+            grow_limit = max(0, int(vs.MAX_LOAD * self._tcap) - vcap)
+            max_steps = min(budget, budget_cap) if adaptive else budget
+            if self._target_state_count is not None:
+                # Bound the overshoot past the target: a step generates at
+                # most C*A states (tpu_bfs.py:2079).
+                remaining = max(0, self._target_state_count - self._state_count)
+                max_steps = max(1, min(max_steps, 1 + remaining // (C * A)))
+            if max_steps != budget or budget_cap != last_budget_cap:
+                host_dirty = True
+            fuse_lim = fuse_lim_now()
+            if fb >= 0 and fuse_lim != last_fuse_lim:
+                host_dirty = True
+            if host_dirty:
+                vals = mirror.copy()
+                vals[:eo.P_LEN] = [
+                    head, count, self._unique, rec_bits, depth_limit, grow_limit, high_water,
+                    max_steps, 0, 0, 0, 0, take_cap, fin_any, fin_all, fin_all_en, budget_cap,
+                ]
+                if fb >= 0:
+                    last_fuse_lim = vals[fb] = fuse_lim
+                if sampler is not None:
+                    last_thresh = sampler.threshold_parts()
+                    vals[sb:sb + 2] = last_thresh
+                prog.upload(vals)
+                dirty = False
+            last_max_steps, last_budget_cap = max_steps, budget_cap
+            era_t0 = time.monotonic()
+            pending = prog.launch()
+            self._inc("dispatches")
+            # The K-deep speculative chain (tpu_bfs.py:2204-2301): eras
+            # launched off the still-on-device state while earlier
+            # readbacks are in flight. Sound because the device gate
+            # re-derives every exit from the state vector: an era chained
+            # past a boundary that needs the host runs no step. Each
+            # chained era carries the threshold of the era it chains off.
+            chain = []
+            while True:
+                while pipeline and len(chain) < depth and not self._timed_out():
+                    chain.append((prog.launch(), time.monotonic()))
+                    self._inc("dispatches")
+                    self._inc("spec_dispatch")
+                    chain_max = max(chain_max, len(chain))
+                mirror = prog.result(pending)
+                process_result(mirror, time.monotonic() - era_t0)
+                if not chain:
+                    break
+                if (
+                    not stop and count > 0 and not dirty
+                    and self._unique + vcap <= vs.MAX_LOAD * self._tcap
+                ):
+                    # The era ended inside every gate: the oldest chained
+                    # era is the next era.
+                    pending, _t0 = chain.pop(0)
+                    last_max_steps = budget
+                    era_t0 = time.monotonic()
+                    continue
+                # The host acts at this boundary: drain the chain in order.
+                # An era that ran no step was a no-op (wasted speculation);
+                # one that ran steps (a timeout landing mid-chain) is real
+                # work and is consumed.
+                while chain:
+                    spec, spec_t0 = chain.pop(0)
+                    mirror = prog.result(spec)
+                    if mirror[eo.P_STEPS] == 0:
+                        self._inc("spec_wasted")
+                        continue
+                    # Its output is the state the next era starts from, as
+                    # JAX takes it (params_dev = spec): only its own drain
+                    # can ask for a fresh upload.
+                    dirty = False
+                    last_max_steps = budget
+                    process_result(mirror, time.monotonic() - spec_t0)
                 break
-        self._table = table
 
-    def _grow(self, table):
-        """Double the table and rehash on the device (K5 = K4 over the
-        occupied rows)."""
-        new = vs.empty_table(table.capacity * 2, self.device)
-        if vs.rehash(table, new):
-            raise RuntimeError("rehash failed; table pathologically full")
-        self._tcap = new.capacity
-        self._inc("table_growths")
-        return new
-
-    def _drain(self, slab, sk2: int) -> None:
-        """Era end: the slab's sk2 rows with the smallest fp1 (K9b) go to
-        the sampler with the era's occupancy and drop count, in one
-        readback (tpu_bfs.py:1894-1908)."""
-        fp1, fp2, depth, action, valid = sl.bottom_k(slab, sk2)
-        vals = torch.cat(
-            [slab.counts, fp1, fp2, depth, action, valid.to(torch.int64)]
-        ).cpu().numpy()
-        occupied, dropped = int(vals[0]), int(vals[1])
-        if occupied or dropped:
-            lanes = vals[2:].reshape(5, sk2)
-            self._sampler.drain_slab(
-                lanes[0], lanes[1], lanes[2], lanes[4], occupied,
-                dropped=dropped, actions=lanes[3],
-            )
+        self._gauge("spec_chain_depth", chain_max)
+        self._gauge(
+            "fused_eras_per_dispatch",
+            round(self._counters.get("eras", 0) / max(1, self._counters.get("dispatches", 0)), 3),
+        )
+        self._gauge("graph_captures", prog.graph_captures)
+        self._gauge("capture_secs", prog.capture_secs)
 
     # -- accessors -----------------------------------------------------------
 

@@ -13,6 +13,12 @@ returns ``cudaGetLastError()`` (0 = launched). `Kernel.launch` raises on
 anything else and then adds one to the kernel's ``launches`` count — the
 count a run reads to show its main path went through the kernel.
 
+A launch made while a CUDA graph captures is not a launch: the era graph
+(engines/era.py) takes the counts its captures added back off
+(`restore_launches`) and adds each captured segment's launches once per
+run of the segment on the card (`add_launches`), from the run counts the
+era's state vector reports.
+
 Nothing here builds or loads at import: the CPU tests import every
 module on machines with no CUDA toolkit.
 """
@@ -58,6 +64,16 @@ class Kernel:
     def source_path(self) -> str:
         return os.path.join(_CSRC, self.source)
 
+    def function(self, symbol: str, argtypes, restype=ctypes.c_int):
+        """Another C function of this kernel's library (built and loaded
+        on first use), with its argument types."""
+        if self._fn is None:
+            self._fn = _load(self)
+        fn = getattr(_libs[_lib_path(self)], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
+
     def launch(self, *args) -> None:
         fn = self._fn
         if fn is None:
@@ -83,7 +99,7 @@ HASH_LANES = Kernel(
 # the lane calls on its `_lanes` twin (same source, same C symbol).
 _COMPACT_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P]
 _DEDUP_ARGS = [_P, _P, _P, _I64, _I64, _P, _I64, _P]
-_INSERT_ARGS = [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P]
+_INSERT_ARGS = [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P]
 _RING_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I64, _P, _P]
 _LOOKUP_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P]
 
@@ -118,13 +134,25 @@ LOOKUP_PARENT, LOOKUP_PARENT_LANES = _with_lanes(
 )
 SAMPLE_CAPTURE = Kernel(
     "sample_capture", "sample_capture.cu", "srt_sample_capture",
-    [_P, _P, _P, _P, _P, _I64, _U64, _U64, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64],
+    [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64],
     "stateright_tpu/engines/tpu_bfs.py:519",
 )
 SLAB_BOTTOMK = Kernel(
     "slab_bottomk", "slab_bottomk.cu", "srt_slab_bottomk",
     [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
     "stateright_tpu/engines/tpu_bfs.py:995",
+)
+
+# K8f: the era's gate and step commit, and its epilogue (engines/era.py).
+ERA_STEP = Kernel(
+    "era_step", "era_step.cu", "srt_era_step",
+    [_I32, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U64],
+    "stateright_tpu/engines/tpu_bfs.py:403",
+)
+ERA_EPILOGUE = Kernel(
+    "era_epilogue", "era_epilogue.cu", "srt_era_epilogue",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _U64],
+    "stateright_tpu/engines/tpu_bfs.py:781",
 )
 
 WALK_RECORD = Kernel(
@@ -162,7 +190,7 @@ WALK_SLAB = Kernel(
 # source; ENTRIES adds the second entry points.
 BFS_KERNELS = (
     HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT,
-    RING, SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT,
+    RING, SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT, ERA_STEP, ERA_EPILOGUE,
 )
 SIM_KERNELS = (HASH_LANES, WALK_RECORD, WALK_STEP, WALK_PROLOGUE, WALK_CAPTURE, WALK_SLAB)
 LANE_KERNELS = (
@@ -264,6 +292,19 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in ENTRIES}
+
+
+def restore_launches(counts: Dict[str, int]) -> None:
+    """Set every count back to `counts` (a `launch_counts()` snapshot)."""
+    for k in ENTRIES:
+        k.launches = counts[k.name]
+
+
+def add_launches(per_run: Dict[str, int], runs: int) -> None:
+    """Add `runs` times the launches of one run of a captured segment."""
+    if runs:
+        for k in ENTRIES:
+            k.launches += per_run.get(k.name, 0) * runs
 
 
 CAPTURE_TILE = 1024  # candidates a block in csrc/capture_scan.cuh (kTile)

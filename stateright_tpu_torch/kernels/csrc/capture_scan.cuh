@@ -4,7 +4,9 @@
 //
 // Candidate i is captured iff sel[i] and (h1[i], h2[i]) < (t1, t2)
 // lexicographically, compared UNSIGNED on the uint32 halves held in
-// int64. The captured candidates take ranks 0, 1, ... in candidate order;
+// int64. The threshold comes by value, or, where `thresh` is not null,
+// from thresh[0..1] on the card (the BFS era keeps it in its state
+// vector, so a captured step reads the current one). The captured candidates take ranks 0, 1, ... in candidate order;
 // those below step_cap are written, lane l from src[l][i] to
 // dst[l][occupied + rank] (row scap, the trash row, for a row at or past
 // scap), and the counters on the card advance by occupied += fit and
@@ -56,12 +58,22 @@ __device__ __forceinline__ bool below(const bool* __restrict__ sel,
   return a < t1 || (a == t1 && b < t2);
 }
 
+__device__ __forceinline__ void load_threshold(const long long* thresh, uint32_t& t1,
+                                               uint32_t& t2) {
+  if (thresh != nullptr) {
+    t1 = (uint32_t)thresh[0];
+    t2 = (uint32_t)thresh[1];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
     count_kernel(const bool* __restrict__ sel, const long long* __restrict__ h1,
                  const long long* __restrict__ h2, long long n, uint32_t t1,
-                 uint32_t t2, const long long* __restrict__ occ,
+                 uint32_t t2, const long long* __restrict__ thresh,
+                 const long long* __restrict__ occ,
                  long long* __restrict__ tile_cnt) {
   __shared__ int warp_sum[kWarps];
+  load_threshold(thresh, t1, t2);
   const long long first = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
   int cnt = 0;
 #pragma unroll
@@ -80,7 +92,8 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     write_kernel(const bool* __restrict__ sel, const long long* __restrict__ h1,
                  const long long* __restrict__ h2, long long n, uint32_t t1,
-                 uint32_t t2, const __grid_constant__ Lanes lanes, long long scap,
+                 uint32_t t2, const long long* __restrict__ thresh,
+                 const __grid_constant__ Lanes lanes, long long scap,
                  const long long* __restrict__ tile_cnt,
                  long long* __restrict__ occ, long long* __restrict__ dropped,
                  long long step_cap) {
@@ -89,6 +102,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ long long tile_base;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  load_threshold(thresh, t1, t2);
 
   // This tile's first rank: the captures of the tiles before it.
   long long part = 0;
@@ -150,7 +164,8 @@ __global__ void __launch_bounds__(kThreads)
 inline long long tiles(long long n) { return (n + kTile - 1) / kTile; }
 
 inline int launch(const bool* sel, const long long* h1, const long long* h2,
-                  long long n, uint32_t t1, uint32_t t2, const Lanes& lanes,
+                  long long n, uint32_t t1, uint32_t t2, const long long* thresh,
+                  const Lanes& lanes,
                   long long scap, long long* occ, long long* dropped,
                   long long step_cap, long long* scratch, long long scratch_len,
                   cudaStream_t st) {
@@ -159,8 +174,9 @@ inline int launch(const bool* sel, const long long* h1, const long long* h2,
   if (n == 0) return (int)cudaSuccess;
   const long long grid = tiles(n);
   if (scratch_len < grid + 1 || grid > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
-  count_kernel<<<(unsigned)grid, kThreads, 0, st>>>(sel, h1, h2, n, t1, t2, occ, scratch);
-  write_kernel<<<(unsigned)grid, kThreads, 0, st>>>(sel, h1, h2, n, t1, t2, lanes, scap,
+  count_kernel<<<(unsigned)grid, kThreads, 0, st>>>(sel, h1, h2, n, t1, t2, thresh, occ,
+                                                    scratch);
+  write_kernel<<<(unsigned)grid, kThreads, 0, st>>>(sel, h1, h2, n, t1, t2, thresh, lanes, scap,
                                                     scratch, occ, dropped, step_cap);
   return (int)cudaGetLastError();
 }

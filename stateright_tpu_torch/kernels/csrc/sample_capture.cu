@@ -3,9 +3,10 @@
 // Replaces the capture of stateright_tpu/engines/tpu_bfs.py:506-549
 // (`below` and `_capture`, under the `lax.cond` at :547). It fuses:
 //   1. the threshold test: candidate i is captured iff it was newly
-//      inserted (is_new[i]) and its fingerprint is below the host
-//      threshold, (h1, h2) < (t1, t2) lexicographically, compared
-//      UNSIGNED on the uint32 halves held in int64 lanes;
+//      inserted (is_new[i]) and its fingerprint is below the threshold
+//      thresh[0..1] = (t1, t2), read on the card (the era's state vector
+//      holds it, as the JAX loop reads it from its params), compared
+//      lexicographically and UNSIGNED on the uint32 halves held in int64;
 //   2. an order-preserving compaction of those candidates to
 //      step_cap (= DEVICE_STEP_CAP, 512) slots, in candidate order, as
 //      `vs._compact_ids(below, DEVICE_STEP_CAP)` orders them;
@@ -28,12 +29,12 @@
 
 #include "capture_scan.cuh"
 
-// The slab lanes hold scap + 1 int64 rows; counts is int64[2]; scratch
-// holds at least ceil(n / 1024) + 1 int64.
+// The slab lanes hold scap + 1 int64 rows; counts is int64[2]; thresh is
+// int64[2] on the card; scratch holds at least ceil(n / 1024) + 1 int64.
 extern "C" int srt_sample_capture(const void* is_new, const void* h1,
                                   const void* h2, const void* depth,
                                   const void* act, long long n,
-                                  unsigned long long t1, unsigned long long t2,
+                                  const void* thresh,
                                   void* sfp1, void* sfp2, void* sdep,
                                   void* sact, long long scap, void* counts,
                                   long long step_cap, void* scratch,
@@ -48,7 +49,7 @@ extern "C" int srt_sample_capture(const void* is_new, const void* h1,
   lanes.n = 4;
   long long* c = (long long*)counts;
   return capture::launch((const bool*)is_new, (const long long*)h1,
-                         (const long long*)h2, n, (uint32_t)t1, (uint32_t)t2,
-                         lanes, scap, c, c + 1, step_cap, (long long*)scratch,
+                         (const long long*)h2, n, 0u, 0u,
+                         (const long long*)thresh, lanes, scap, c, c + 1, step_cap, (long long*)scratch,
                          scratch_len, (cudaStream_t)stream);
 }

@@ -28,7 +28,9 @@
 // ordered launches restore the rule with a per-slot stamp:
 //   1. probe: place-or-find with CAS; the placer raises stamps[slot] to
 //      epoch << 32 (epoch grows with every call, so stamps never need
-//      clearing and older stamps are always smaller);
+//      clearing and older stamps are always smaller; a caller that
+//      replays the call from a CUDA graph passes the epoch on the card,
+//      and its step raises it after every call);
 //   2. stamp: every candidate whose slot carries this epoch raises it to
 //      epoch << 32 | (idx + 1) — atomicMax elects the highest index (idx
 //      counts over all lanes; within a lane it orders as the lane's own);
@@ -48,10 +50,18 @@ namespace {
 
 constexpr int kMaxProbes = 24;  // == ops/visited_set.py MAX_PROBES
 
+// This call's epoch << 32: by value, or from the card when epoch_dev is
+// not null.
+__device__ __forceinline__ unsigned long long epoch_bits(unsigned long long epoch_hi,
+                                                         const long long* epoch_dev) {
+  return epoch_dev ? (unsigned long long)*epoch_dev << 32 : epoch_hi;
+}
+
 __global__ void probe_kernel(unsigned long long* __restrict__ keys,
                              unsigned long long* __restrict__ stamps,
                              unsigned long long mask,
                              unsigned long long epoch_hi,
+                             const long long* __restrict__ epoch_dev,
                              const long long* __restrict__ h1,
                              const long long* __restrict__ h2,
                              const bool* __restrict__ active, long long n,
@@ -64,6 +74,7 @@ __global__ void probe_kernel(unsigned long long* __restrict__ keys,
   unresolved[i] = false;
   slot[i] = -1;
   if (!active[i]) return;
+  epoch_hi = epoch_bits(epoch_hi, epoch_dev);
   uint32_t a = (uint32_t)h1[i];
   uint32_t b = (uint32_t)h2[i];
   unsigned long long key = ((unsigned long long)a << 32) | b;
@@ -93,11 +104,13 @@ __global__ void probe_kernel(unsigned long long* __restrict__ keys,
 
 __global__ void stamp_kernel(unsigned long long* __restrict__ stamps,
                              unsigned long long epoch_hi,
+                             const long long* __restrict__ epoch_dev,
                              const long long* __restrict__ slot, long long n) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   long long s = slot[i];
   if (s < 0) return;
+  epoch_hi = epoch_bits(epoch_hi, epoch_dev);
   if ((stamps[s] & 0xFFFFFFFF00000000ull) == epoch_hi)
     atomicMax(&stamps[s], epoch_hi | (unsigned long long)(i + 1));
 }
@@ -105,6 +118,7 @@ __global__ void stamp_kernel(unsigned long long* __restrict__ stamps,
 __global__ void commit_kernel(const unsigned long long* __restrict__ stamps,
                               unsigned long long* __restrict__ parents,
                               unsigned long long epoch_hi,
+                              const long long* __restrict__ epoch_dev,
                               const long long* __restrict__ p1,
                               const long long* __restrict__ p2,
                               const long long* __restrict__ slot, long long n,
@@ -113,6 +127,7 @@ __global__ void commit_kernel(const unsigned long long* __restrict__ stamps,
   if (i >= n) return;
   long long s = slot[i];
   if (s < 0) return;
+  epoch_hi = epoch_bits(epoch_hi, epoch_dev);
   if (stamps[s] == (epoch_hi | (unsigned long long)(i + 1))) {
     parents[s] = ((unsigned long long)(uint32_t)p1[i] << 32) |
                  (uint32_t)p2[i];
@@ -123,11 +138,12 @@ __global__ void commit_kernel(const unsigned long long* __restrict__ stamps,
 }  // namespace
 
 // epoch: this call's epoch, >= 1 and above every earlier call's on these
-// tables. Candidates: n = lanes * m of them, m a lane. slot: int64[n]
+// tables; or, where epoch_dev (int64[1] on the card) is not null, the
+// value there at the launch. Candidates: n = lanes * m of them, m a lane. slot: int64[n]
 // scratch (a slot index over all lanes). n < 2^32 - 1.
 extern "C" int srt_visited_insert(void* keys, void* parents, void* stamps,
                                   long long cap, unsigned long long epoch,
-                                  const void* h1, const void* h2,
+                                  const void* epoch_dev, const void* h1, const void* h2,
                                   const void* p1, const void* p2,
                                   const void* active, long long n, long long m,
                                   void* slot, void* is_new, void* unresolved,
@@ -140,13 +156,14 @@ extern "C" int srt_visited_insert(void* keys, void* parents, void* stamps,
     unsigned long long mask = (unsigned long long)cap - 1ull;
     probe_kernel<<<blocks, threads, 0, st>>>(
         (unsigned long long*)keys, (unsigned long long*)stamps, mask, epoch_hi,
-        (const long long*)h1, (const long long*)h2, (const bool*)active, n, m,
+        (const long long*)epoch_dev, (const long long*)h1, (const long long*)h2, (const bool*)active, n, m,
         (long long*)slot, (bool*)is_new, (bool*)unresolved);
     stamp_kernel<<<blocks, threads, 0, st>>>(
-        (unsigned long long*)stamps, epoch_hi, (const long long*)slot, n);
+        (unsigned long long*)stamps, epoch_hi, (const long long*)epoch_dev,
+        (const long long*)slot, n);
     commit_kernel<<<blocks, threads, 0, st>>>(
         (const unsigned long long*)stamps, (unsigned long long*)parents,
-        epoch_hi, (const long long*)p1, (const long long*)p2,
+        epoch_hi, (const long long*)epoch_dev, (const long long*)p1, (const long long*)p2,
         (const long long*)slot, n, (bool*)is_new);
   }
   return (int)cudaGetLastError();

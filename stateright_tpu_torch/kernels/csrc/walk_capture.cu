@@ -43,6 +43,6 @@ extern "C" int srt_walk_capture(const void* counted, const void* h1,
   long long* st = (long long*)stats;
   return capture::launch((const bool*)counted, (const long long*)h1,
                          (const long long*)h2, B, (uint32_t)t1, (uint32_t)t2,
-                         lanes, scap, st + 1, nullptr, B, (long long*)scratch,
+                         nullptr, lanes, scap, st + 1, nullptr, B, (long long*)scratch,
                          scratch_len, (cudaStream_t)stream);
 }

@@ -141,15 +141,25 @@ def ring_pop_lanes(rings: torch.Tensor, heads: torch.Tensor, n: int) -> torch.Te
     return _pop(rings, 0, heads, n, kernels.RING_LANES)
 
 
-def ring_pop_plain(ring: torch.Tensor, head: int, n: int) -> torch.Tensor:
-    return _pop_plain(ring[None], head, None, n)
+def _solo_position(head):
+    """(base, bases) of a solo ring position: a Python int, or an int64
+    tensor of one element on the ring's device (the era's state vector
+    holds the head, so a captured step pops where each step left it)."""
+    if isinstance(head, torch.Tensor):
+        return 0, head.reshape(1)
+    return int(head), None
 
 
-def ring_pop(ring: torch.Tensor, head: int, n: int) -> torch.Tensor:
-    """The n consecutive ring rows from `head`, wrapping: [W, n] (K7 pop,
-    the counterpart of `ring_gather`; the one-lane case of
+def ring_pop_plain(ring: torch.Tensor, head, n: int) -> torch.Tensor:
+    return _pop_plain(ring[None], *_solo_position(head), n)
+
+
+def ring_pop(ring: torch.Tensor, head, n: int) -> torch.Tensor:
+    """The n consecutive ring rows from `head` (an int, or an int64 [1]
+    tensor on the ring's device), wrapping: [W, n] (K7 pop, the
+    counterpart of `ring_gather`; the one-lane case of
     `ring_pop_lanes`)."""
-    return _pop(ring[None], head, None, n, kernels.RING)
+    return _pop(ring[None], *_solo_position(head), n, kernels.RING)
 
 
 def ring_gather(ring: torch.Tensor, head: int, n: int):
@@ -203,15 +213,16 @@ def ring_scatter_lanes(rings: torch.Tensor, tails: torch.Tensor, cand: torch.Ten
     _append(rings, 0, tails, cand, valid, kernels.COMPACT_IDS_LANES, kernels.RING_LANES)
 
 
-def ring_scatter_plain(ring, tail: int, cand, valid) -> None:
-    _append_plain(ring[None], tail, None, cand, valid[None])
+def ring_scatter_plain(ring, tail, cand, valid) -> None:
+    _append_plain(ring[None], *_solo_position(tail), cand, valid[None])
 
 
-def ring_scatter(ring: torch.Tensor, tail: int, cand: torch.Tensor, valid: torch.Tensor) -> None:
+def ring_scatter(ring: torch.Tensor, tail, cand: torch.Tensor, valid: torch.Tensor) -> None:
     """Append the `valid` columns of cand [W, m] at tail, tail+1, ... in
     candidate order, in place (K7 append, the counterpart of
-    `ring_scatter`): K2 compacts the mask and the ring kernel writes the
-    r-th valid column at tail + r. Other ring positions are untouched
-    (the plain version sends unused id slots to the trash column). The
+    `ring_scatter`; `tail` an int or an int64 [1] tensor on the ring's
+    device): K2 compacts the mask and the ring kernel writes the r-th
+    valid column at tail + r. Other ring positions are untouched (the
+    plain version sends unused id slots to the trash column). The
     one-lane case of `ring_scatter_lanes`."""
-    _append(ring[None], tail, None, cand, valid[None], kernels.COMPACT_IDS, kernels.RING)
+    _append(ring[None], *_solo_position(tail), cand, valid[None], kernels.COMPACT_IDS, kernels.RING)

@@ -45,15 +45,17 @@ def empty_slab(scap: int, device) -> Slab:
     return Slab(z(scap + 1), z(scap + 1), z(scap + 1), z(scap + 1), z(2))
 
 
-def below_threshold(is_new, h1, h2, t1: int, t2: int):
-    """New inserts whose fingerprint is below (t1, t2), lexicographically.
-    The halves are uint32 held in int64, so int64 compares are the
-    unsigned compares of the JAX uint32 lanes."""
+def below_threshold(is_new, h1, h2, thresh):
+    """New inserts whose fingerprint is below thresh = (t1, t2) (an int64
+    [2] tensor on the candidates' device), lexicographically. The halves
+    are uint32 held in int64, so int64 compares are the unsigned compares
+    of the JAX uint32 lanes."""
+    t1, t2 = thresh[0], thresh[1]
     return is_new & ((h1 < t1) | ((h1 == t1) & (h2 < t2)))
 
 
-def capture_plain(slab: Slab, is_new, h1, h2, depth, action, t1: int, t2: int, step_cap: int) -> None:
-    below = below_threshold(is_new, h1, h2, t1, t2)
+def capture_plain(slab: Slab, is_new, h1, h2, depth, action, thresh, step_cap: int) -> None:
+    below = below_threshold(is_new, h1, h2, thresh)
     scap = slab.capacity
     cids, cvalid, n_c = compact_ids(below, step_cap)
     occ = slab.counts[0]
@@ -67,19 +69,21 @@ def capture_plain(slab: Slab, is_new, h1, h2, depth, action, t1: int, t2: int, s
     slab.counts[1] += n_c - fit
 
 
-def capture(slab: Slab, is_new, h1, h2, depth, action, t1: int, t2: int, step_cap: int) -> None:
-    """Append the new inserts below the threshold (t1, t2) to the slab, in
-    candidate order, at most `step_cap` of them (the rest count as
-    dropped); updates the slab and its counts in place. is_new bool [n];
-    h1, h2, depth, action int64 [n]."""
-    if not kernels.on_card(slab.fp1, is_new, h1, h2, depth, action):
-        return capture_plain(slab, is_new, h1, h2, depth, action, t1, t2, step_cap)
-    if is_new.dtype != torch.bool:
-        raise ValueError("capture takes a bool is_new mask")
+def capture(slab: Slab, is_new, h1, h2, depth, action, thresh, step_cap: int) -> None:
+    """Append the new inserts below the threshold thresh = (t1, t2) to the
+    slab, in candidate order, at most `step_cap` of them (the rest count
+    as dropped); updates the slab and its counts in place. is_new bool
+    [n]; h1, h2, depth, action int64 [n]; thresh int64 [2] on the same
+    device, read there (the era's state vector holds it, so a captured
+    step reads the threshold of each era it runs in)."""
+    if not kernels.on_card(slab.fp1, is_new, h1, h2, depth, action, thresh):
+        return capture_plain(slab, is_new, h1, h2, depth, action, thresh, step_cap)
+    if is_new.dtype != torch.bool or thresh.numel() != 2 or not thresh.is_contiguous():
+        raise ValueError("capture takes a bool is_new mask and a contiguous [2] threshold")
     args = [t.contiguous() for t in (is_new, h1, h2, depth, action)]
     scratch = kernels.capture_scratch(is_new.shape[0], is_new.device)
     kernels.SAMPLE_CAPTURE.launch(
-        *(kernels.ptr(t) for t in args), is_new.shape[0], int(t1) & M32, int(t2) & M32,
+        *(kernels.ptr(t) for t in args), is_new.shape[0], kernels.ptr(thresh),
         *(kernels.ptr(t) for t in slab[:4]), slab.capacity,
         kernels.ptr(slab.counts), step_cap, kernels.ptr(scratch), scratch.shape[0],
     )

@@ -238,7 +238,7 @@ def insert_lanes_plain(table: VisitedTable, h1, h2, p1, p2, active):
     return is_new.view(N, m), unresolved.view(N, m)
 
 
-def _insert(table: VisitedTable, h1, h2, p1, p2, active, kernel):
+def _insert(table: VisitedTable, h1, h2, p1, p2, active, kernel, epoch=None):
     if not kernels.on_card(table.keys, h1, h2, p1, p2, active):
         return insert_lanes_plain(table, h1, h2, p1, p2, active)
     N, m = h1.shape
@@ -252,10 +252,12 @@ def _insert(table: VisitedTable, h1, h2, p1, p2, active, kernel):
     slot = torch.empty((N, m), dtype=torch.int64, device=dev)
     is_new = torch.empty((N, m), dtype=torch.bool, device=dev)
     unresolved = torch.empty((N, m), dtype=torch.bool, device=dev)
-    table.epoch += 1
+    if epoch is None:
+        table.epoch += 1
     kernel.launch(
         kernels.ptr(table.keys), kernels.ptr(table.parents),
         kernels.ptr(table.stamps), table.capacity, table.epoch,
+        None if epoch is None else kernels.ptr(epoch),
         *(kernels.ptr(t) for t in args), n, m, kernels.ptr(slot),
         kernels.ptr(is_new), kernels.ptr(unresolved),
     )
@@ -277,7 +279,7 @@ def insert_plain(table: VisitedTable, h1, h2, p1, p2, active):
     return is_new[0], unresolved[0]
 
 
-def insert(table: VisitedTable, h1, h2, p1, p2, active):
+def insert(table: VisitedTable, h1, h2, p1, p2, active, epoch=None):
     """Insert fingerprints (h1, h2) with parents (p1, p2) where `active`.
 
     All int64 [n] holding uint32 values; `active` bool [n]. Updates the
@@ -289,11 +291,14 @@ def insert(table: VisitedTable, h1, h2, p1, p2, active):
       unresolved[i] — neither the key nor an empty slot within MAX_PROBES
                       positions; the key was placed nowhere. Callers must
                       grow the table and retry.
-    The one-lane case of `insert_lanes`.
+    `epoch` (an int64 [1] tensor on the card, optional) is the kernel's
+    stamp epoch read on the card, for a call that a CUDA graph replays:
+    the caller raises it after every call and keeps it above
+    `table.epoch`. The one-lane case of `insert_lanes`.
     """
     is_new, unresolved = _insert(
         table, h1[None], h2[None], p1[None], p2[None], active[None],
-        kernels.VISITED_INSERT,
+        kernels.VISITED_INSERT, epoch,
     )
     return is_new[0], unresolved[0]
 

@@ -55,21 +55,29 @@ class TorchXP:
     def ones(self, shape, dtype=None):
         return torch.ones(shape, dtype=self._dtype(dtype), device=self.device)
 
-    def _t(self, x):
-        if isinstance(x, torch.Tensor):
-            return x
-        return torch.as_tensor(x, dtype=torch.int64, device=self.device)
+    # Scalar operands stay Python numbers: torch passes them to the
+    # kernel by value, where `torch.as_tensor(x, device=cuda)` would be a
+    # pageable host-to-device copy, which CUDA-graph capture refuses.
+    # The results are the same int64 lanes either way.
 
     def minimum(self, a, b):
-        return torch.minimum(self._t(a), self._t(b))
+        return self._binary(torch.minimum, "max", a, b)
 
     def maximum(self, a, b):
-        return torch.maximum(self._t(a), self._t(b))
+        return self._binary(torch.maximum, "min", a, b)
+
+    def _binary(self, op, clamp_kw, a, b):
+        ta, tb = isinstance(a, torch.Tensor), isinstance(b, torch.Tensor)
+        if ta and tb:
+            return op(a, b)
+        if ta or tb:
+            t, c = (a, b) if ta else (b, a)
+            return torch.clamp(t, **{clamp_kw: int(c)})
+        pick = min if op is torch.minimum else max
+        return torch.full((), pick(int(a), int(b)), dtype=torch.int64, device=self.device)
 
     def where(self, cond, a, b):
         """numpy's where; scalar operands become int64 lanes."""
-        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
-            a = self._t(a)
         return torch.where(cond, a, b)
 
     @staticmethod

@@ -18,7 +18,7 @@ from stateright_tpu_torch.models import (
 from stateright_tpu_torch.ops import visited_set as vs
 from stateright_tpu_torch.path import Path
 from stateright_tpu_torch.xp import TorchXP
-from torch_parity import PAXOS_OPTS, one_torch_thread, parity_dict, paths, run_pair  # noqa: F401
+from torch_parity import PAXOS_OPTS, one_torch_thread, parity_dict, paths, reference_uncached, run_pair  # noqa: F401
 
 M32 = 0xFFFFFFFF
 

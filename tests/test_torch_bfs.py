@@ -13,6 +13,7 @@ from stateright_tpu.models import TwoPhaseTensor as JaxTwoPhase
 from stateright_tpu.tensor import TensorModelAdapter as JaxAdapter
 from stateright_tpu_torch import HasDiscoveries, TensorModelAdapter
 from stateright_tpu_torch.models import TwoPhaseTensor
+from torch_parity import reference_uncached  # noqa: F401
 
 # Many short eras and table growth (tests/test_pipeline.py:25).
 OPTS = dict(chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 11, sync_steps=4)
@@ -127,9 +128,9 @@ def test_discovery_paths_replay():
 @pytest.mark.parametrize(
     "configure",
     [
-        lambda b: b.pipeline(True),
+        lambda b: b.spawn_gpu_bfs(device="cpu", resume_from="x"),
         lambda b: b.threads(4),
-        lambda b: b.timeout(1.0).spawn_gpu_bfs(device="cpu", **OPTS),
+        lambda b: b.spawn_gpu_bfs(device="cpu", keep_checkpoints=2),
         lambda b: b.visitor(print),
         lambda b: b.spawn_gpu_bfs(device="cpu", checkpoint_path="x"),
     ],

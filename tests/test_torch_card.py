@@ -104,8 +104,9 @@ def test_sample_capture_kernel(dev):
         new = torch.from_numpy(rng.random(n) < 0.7).to(dev)
         h = torch.from_numpy(_u32(rng, 4, n)).to(dev)
         h[0, :40] = 0x01000000  # ties on the threshold's high word
-        sl.capture(a, new, h[0], h[1], h[2], h[3], t1, t2, 512)
-        sl.capture_plain(b, new, h[0], h[1], h[2], h[3], t1, t2, 512)
+        thresh = torch.tensor([t1, t2], device=dev)
+        sl.capture(a, new, h[0], h[1], h[2], h[3], thresh, 512)
+        sl.capture_plain(b, new, h[0], h[1], h[2], h[3], thresh, 512)
         for x, y in zip(a[:4], b[:4]):
             assert torch.equal(x[:1024], y[:1024])
         assert torch.equal(a.counts, b.counts)
@@ -372,3 +373,99 @@ def test_multiplexed_lanes_cuda_match_cpu(dev):
     got = run("cuda")
     assert got == run("cpu")
     assert got[2][0] == 1_568
+
+
+# -- device-resident eras (K8f, K10f) ----------------------------------------
+
+PIPE_OPTS = dict(chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 11, sync_steps=4)
+PIPE_SWEEP = [None, (1, 1), (2, 1), (4, 1), (4, 4)]
+
+
+def _era_run(device, pipe, n=5, opts=PIPE_OPTS, configure=lambda b: b):
+    b = configure(TensorModelAdapter(TwoPhaseTensor(n)).checker().coverage())
+    b = b.pipeline(False) if pipe is None else b.pipeline(depth=pipe[0], fuse=pipe[1])
+    c = b.spawn_gpu_bfs(device=device, **opts).join()
+    tel = c.telemetry()
+    return c, dict(
+        unique=c.unique_state_count(), states=c.state_count(), max_depth=c.max_depth(),
+        fps=dict(c._discovery_fps), coverage=c.coverage(), sample=c._sampler.fingerprints(),
+        paths={k: v.encode(c.model()) for k, v in c.discoveries().items()},
+        eras=tel["eras"], steps=tel["steps"],
+    )
+
+
+@pytest.mark.parametrize("pipe", PIPE_SWEEP)
+def test_graph_eras_match_cpu_eras(dev, pipe):
+    """Every (depth, fuse) of the sweep and the serial dispatch loop: the graph
+    eras on the card give the cpu eras, and every BFS kernel (the era's
+    two included) launched through the graph."""
+    from stateright_tpu_torch import kernels
+
+    kernels.reset_launches()
+    c, got = _era_run("cuda", pipe)
+    counts = kernels.launch_counts()
+    assert got == _era_run("cpu", pipe)[1]
+    assert got["unique"] == 8832
+    tel = c.telemetry()
+    assert tel["graph_captures"] >= 1 and tel["capture_secs"] > 0
+    for k in kernels.BFS_KERNELS:
+        assert counts[k.name] > 0, k.name
+    assert counts["era_step"] >= tel["steps"]
+
+
+def test_era_kernels_match_plain_in_a_run(dev):
+    """One dispatch run eagerly on the card (each kernel launched on its
+    own) against the same dispatch through the plain versions."""
+    from stateright_tpu_torch.engines import era
+
+    def prog(device):
+        from stateright_tpu_torch.models import TwoPhaseTensor as T
+
+        tm = T(4)
+        p = era.EraProgram(tm, tm.tensor_properties(), 64, 1 << 12, 1 << 12, False, True, 64, 4, device)
+        init = torch.from_numpy(np.asarray(tm.init_states_array(), dtype=np.int64).T.copy()).to(device)
+        vals = np.zeros(p.plen + 12, dtype=np.int64)
+        vals[:17] = [0, 1, 0, 0, 0xFFFFFFFF, 4000, (1 << 12) - 64 * tm.max_actions, 7, 0, 0, 0, 0,
+                     64, 2, 0, 0, 16]
+        vals[p.f_base] = 4
+        vals[p.s_base:p.s_base + 2] = 0xFFFFFFFF
+        p.seed(init, 0, vals)
+        return p
+
+    a, b = prog(dev), prog("cpu")
+    for _ in range(3):
+        a.run_eager()
+        b.run_eager()
+        assert torch.equal(a.state.cpu(), b.state)
+        assert torch.equal(a.ring[:, :-1].cpu(), b.ring[:, :-1])  # the trash column aside
+        assert torch.equal(a.slab.counts.cpu(), b.slab.counts)
+
+
+def test_capture_failure_raises(dev):
+    """A step that reads back mid-capture fails the capture: the run
+    raises, nothing falls back."""
+
+    class Syncing(TwoPhaseTensor):
+        def step_lanes(self, xp, lanes):
+            if int(lanes[0].sum()) < 0:  # a host read inside the step
+                raise AssertionError
+            return super().step_lanes(xp, lanes)
+
+    with pytest.raises(RuntimeError):
+        TensorModelAdapter(Syncing(3)).checker().spawn_gpu_bfs(device="cuda", **PIPE_OPTS).join()
+
+
+def test_graph_recaptured_after_growth(dev):
+    """2pc-7 from a 2^16 table grows during the run: the era graph is
+    captured again after each growth, and the run equals one with no
+    growth."""
+    opts = dict(chunk_size=6144, queue_capacity=1 << 20, table_capacity=1 << 22)
+    big, want = _era_run("cuda", (2, 1), 7, opts)
+    grown, got = _era_run("cuda", (2, 1), 7, dict(opts, table_capacity=1 << 16))
+    # A growth ends an era (the table's limit), so the eras differ.
+    del want["eras"], got["eras"]
+    assert got == want and got["unique"] == 296_448
+    tel = grown.telemetry()
+    assert tel["table_growths"] >= 1
+    assert tel["graph_captures"] == tel["table_growths"] + 1
+    assert big.telemetry()["graph_captures"] == 1

@@ -22,7 +22,7 @@ from stateright_tpu_torch.engines.compiled import (
     intern_model,
     model_signature,
 )
-from torch_parity import one_torch_thread  # noqa: F401
+from torch_parity import one_torch_thread, reference_uncached  # noqa: F401
 
 
 @pytest.mark.parametrize("name,args", [
@@ -52,6 +52,7 @@ def test_model_signature_stable_across_instances():
 @pytest.mark.parametrize("options", [
     {}, dict(chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 11),
     dict(chunk_size=6144, table_capacity=1 << 10, coverage=False),
+    dict(chunk_size=64, fuse_eras=4),
 ])
 def test_era_geometry_matches_jax(options):
     ours = era_geometry(torch_models.TwoPhaseTensor(5), options)
@@ -119,3 +120,17 @@ def test_compiled_solo_spawn_runs_the_interned_model():
         CompiledCheck("multiplex", torch_models.TwoPhaseTensor(3), dict(device="cpu")).spawn()
     with pytest.raises(ValueError, match="unknown compiled-check engine"):
         CompiledCheck("tpu_bfs", torch_models.TwoPhaseTensor(3), {}).warm()
+
+
+def test_fusion_factor_keys_the_solo_executable():
+    """The fusion factor is part of a solo executable's shape (the JAX
+    loop cache keys it): its own entry, and its runs are fused."""
+    cache = ExecutableCache()
+    opts = dict(chunk_size=16, queue_capacity=1 << 10, table_capacity=1 << 10, device="cpu")
+    plain, _ = cache.get(torch_models.TwoPhaseTensor(3), "gpu_bfs", **opts)
+    fused, hit = cache.get(torch_models.TwoPhaseTensor(3), "gpu_bfs", fuse_eras=4, **opts)
+    assert not hit and fused is not plain
+    c = fused.spawn(sync_steps=2).join()
+    tel = c.telemetry()
+    assert c.unique_state_count() == 288
+    assert tel["dispatches"] < tel["eras"] and tel["fused_eras_per_dispatch"] > 1.0

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of it and
-`chip_smoke.py`, and running a BFS, a simulation, multiplexed lanes and the
-executable cache, loads neither jax nor any module of the JAX package."""
+`chip_smoke.py`, and running a BFS (serial, pipelined and fused, and
+timed), a simulation, multiplexed lanes and the executable cache, loads
+neither jax nor any module of the JAX package."""
 
 import os
 import subprocess
@@ -19,6 +20,10 @@ from stateright_tpu_torch.models import TwoPhaseTensor
 c = TensorModelAdapter(TwoPhaseTensor(2)).checker().spawn_gpu_bfs(
     device="cpu", chunk_size=16, queue_capacity=1 << 10, table_capacity=1 << 10).join()
 assert c.unique_state_count() > 1
+for configure in (lambda b: b.pipeline(False), lambda b: b.pipeline(depth=3, fuse=4), lambda b: b.timeout(60.0)):
+    p = configure(TensorModelAdapter(TwoPhaseTensor(2)).checker()).spawn_gpu_bfs(
+        device="cpu", chunk_size=16, queue_capacity=1 << 10, table_capacity=1 << 10, sync_steps=2).join()
+    assert p.unique_state_count() == c.unique_state_count()
 s = TensorModelAdapter(TwoPhaseTensor(2)).checker().target_state_count(200).spawn_gpu_simulation(
     1, device="cpu", walks=16, walk_cap=8).join()
 assert s.state_count() >= 200

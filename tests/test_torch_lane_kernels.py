@@ -16,9 +16,11 @@ import torch
 from stateright_tpu.fingerprint import hash_lanes_jnp
 from stateright_tpu.ops import frontier as jfr
 from stateright_tpu.ops import visited_set as jvs
-from stateright_tpu_torch.engines.gpu_bfs import seed, seed_lanes
+from stateright_tpu_torch.engines.era import seed
+from stateright_tpu_torch.engines.gpu_bfs import seed_lanes
 from stateright_tpu_torch.ops import frontier as tfr
 from stateright_tpu_torch.ops import visited_set as tvs
+from torch_parity import reference_uncached  # noqa: F401
 
 N = 4
 
@@ -206,8 +208,9 @@ def test_seed_lanes_matches_the_vmapped_lane_seed():
     assert _port_maps(table) == _jax_maps(jt)
     assert np.array_equal(rings[:, :, :qcap].numpy(), _np(jq))
     # The solo seed takes the same rows into the same table and ring.
-    t1, r1, new = seed(_t(rows[:, :7]), ebits, tcap, qcap)
-    assert new == 6 and torch.equal(r1, rings[0])
+    t1, r1 = tvs.empty_table(tcap, "cpu"), tfr.empty_ring(W, qcap, "cpu")
+    new, _unres = seed(t1, r1, _t(rows[:, :7]), ebits)
+    assert int(new) == 6 and torch.equal(r1, rings[0])
     assert _map(*tvs.table_to_lanes(t1)) == _port_maps(table)[0]
 
 

@@ -15,7 +15,7 @@ from stateright_tpu.tensor import TensorModelAdapter as JaxAdapter
 from stateright_tpu_torch import TensorModelAdapter
 from stateright_tpu_torch.engines.multiplex import run_multiplexed
 from stateright_tpu_torch.has_discoveries import HasDiscoveries
-from torch_parity import _JAX_MODELS, one_torch_thread, parity_dict, paths  # noqa: F401
+from torch_parity import _JAX_MODELS, one_torch_thread, parity_dict, paths, reference_uncached  # noqa: F401
 
 
 def lane_dict(c):

@@ -15,7 +15,7 @@ from stateright_tpu.obs import sample as jsample
 from stateright_tpu.ops import visited_set as jvs
 from stateright_tpu_torch.obs import sample as tsample
 from stateright_tpu_torch.ops import slab as tslab
-from torch_parity import OPTS, one_torch_thread, parity_dict, paths, run_pair  # noqa: F401
+from torch_parity import OPTS, one_torch_thread, parity_dict, paths, reference_uncached, run_pair  # noqa: F401
 
 K = 64
 SCAP = tsample.slab_capacity(K, tsample.DEVICE_STEP_CAP)
@@ -94,7 +94,7 @@ def test_capture_matches_jax(steps):
         new, h1, h2, dep, act = _batch(rng, n, bits)
         if t1 not in (MAX, 0x10):
             h1[:50] = t1  # ties on the threshold's high word
-        tslab.capture(slab, torch.from_numpy(new), _t(h1), _t(h2), _t(dep), _t(act), t1, t2, CAP)
+        tslab.capture(slab, torch.from_numpy(new), _t(h1), _t(h2), _t(dep), _t(act), torch.tensor([t1, t2]), CAP)
         sc = jax_capture(sc, jnp.asarray(new), *(jnp.asarray(a) for a in (h1, h2, dep, act)), t1, t2)
         for lane, j in zip(slab[:4], sc[:4]):
             assert np.array_equal(lane[:SCAP].numpy(), np.asarray(j[:SCAP]).astype(np.int64))

@@ -13,7 +13,7 @@ import stateright_tpu_torch.has_discoveries as thd
 import stateright_tpu_torch.models as torch_models
 from stateright_tpu.tensor import TensorModelAdapter as JaxAdapter
 from stateright_tpu_torch import TensorModelAdapter
-from torch_parity import one_torch_thread  # noqa: F401
+from torch_parity import one_torch_thread, reference_uncached  # noqa: F401
 from torch_sim_models import ChainFork, JaxChainFork, JaxTinyClock, TinyClock
 
 _JAX = {}

@@ -13,7 +13,7 @@ from stateright_tpu_torch.models import PaxosTensor, TwoPhaseTensor
 from stateright_tpu_torch.path import Path
 from stateright_tpu_torch.tensor import CanonicalTensorAdapter
 from stateright_tpu_torch.xp import TorchXP
-from torch_parity import OPTS, one_torch_thread, parity_dict, paths, run_pair  # noqa: F401
+from torch_parity import OPTS, one_torch_thread, parity_dict, paths, reference_uncached, run_pair  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -19,7 +19,7 @@ from stateright_tpu_torch.engines.gpu_simulation import SimProgram
 from stateright_tpu_torch.obs.coverage import DEPTH_CAP
 from stateright_tpu_torch.obs.sample import SpaceSampler, slab_entries
 from stateright_tpu_torch.ops import walk as wk
-from torch_parity import one_torch_thread  # noqa: F401
+from torch_parity import one_torch_thread, reference_uncached  # noqa: F401
 from torch_sim_models import JaxTinyClock, TinyClock
 
 MAX = 0xFFFFFFFF

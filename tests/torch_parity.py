@@ -2,6 +2,9 @@
 the JAX `spawn_tpu_bfs` and the port's `spawn_gpu_bfs(device="cpu")` with
 the same options and compare everything the golden contract covers."""
 
+import contextlib
+
+import jax
 import pytest
 import torch
 
@@ -59,3 +62,30 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
+def persistent_cache_off():
+    """Compile the reference with JAX's persistent compilation cache off.
+    Reading that cache while other test processes write it has crashed
+    the reference (a segfault in `compilation_cache.get_executable_and_
+    time`). JAX decides once per process whether the cache is used
+    (`is_cache_used`), so the switch resets that decision on the way in
+    and on the way out; the JAX package's own tests keep the cache."""
+    from jax._src import compilation_cache
+
+    before = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", before)
+        compilation_cache.reset_cache()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_uncached():
+    """Every reference compile of a port test module runs uncached."""
+    with persistent_cache_off():
+        yield
