@@ -54,8 +54,8 @@ exits non-zero:
      checks/s of 8 serial solo runs (bench.py:1575-1591);
  14. the sweeps: 1,024 lanes of 2pc-5 (lane i at target_max_depth
      1 + i % 18) and 256 lanes of paxos-2 (table 2^17, ring 2^14): wall,
-     checks/s, states/s, steps, launches a step, peak memory and the
-     device's busy share (torch.profiler); every depth equal to its solo
+     checks/s, states/s, steps, launches a step and peak memory (phase
+     16 profiles them); every depth equal to its solo
      run, every unbounded lane at 8,832 (paxos-2: 16,668), 64 (paxos-2:
      8) lanes equal to the port's cpu lanes; beside them the serial solo
      runs' checks/s;
@@ -71,15 +71,32 @@ exits non-zero:
      kernels a step, wall a step, the device's busy share
      (torch.profiler) and peak memory.
 
-Since the era program (engines/era.py) runs every BFS dispatch as one
-CUDA graph, phases 3-7 and 15 run BFS through graph eras; the launch
-counts add each captured segment's launches once per run of it on the
-card.
+ 16. simulation eras and lane batches as device programs: K13f's
+     walk-era kernel (BEGIN, COMMIT under every exit, EPILOGUE) against
+     its plain version at the paxos-3 simulation widths, and the lane axis
+     of K8f's two kernels (K14f) at 1,024 lanes of 2pc-5, each also at one
+     lane against the solo kernel, all exactly; graph simulation ==
+     phase 9's cpu runs (increment-2, 2pc-5 at a target, the sample
+     included) with one capture a run and one readback an era; the 27
+     mixed 2pc-5 builders in 4 batches of 8 lanes on one warm program ==
+     their cpu lanes, with one capture and one readback a batch; and the
+     speed cells of `scripts/solo_walls.py` (paxos-3 and 2pc-10
+     simulation at fixed targets, increment-2's time to its
+     counterexample, the 2pc-5 and paxos-2 sweeps, 32 increment-2 lanes):
+     wall, steps, eras or batches, graph captures and their seconds, era
+     readbacks, host launch calls and device kernels a step (one profiled
+     run in a fresh process), wall a step, the busy share and peak memory.
+
+Every device program runs as CUDA graphs (engines/graph.py): a BFS
+dispatch (engines/era.py), a simulation era (engines/gpu_simulation.py)
+and a lane batch (engines/multiplex.py) are one graph launch and one
+readback each, so phases 3-16 run through graphs; the launch counts add
+each captured segment's launches once per run of it on the card.
 
 Every engine phase resets the kernels' launch counts just before its run
 and checks, just after, that each kernel of its path (the BFS kernels,
-K1, K13a-d and K13b's prologue, or K1 and the lane entry points of K2,
-K3, K4, K6 and K7) was launched. Before
+K1, K13a-d, K13b's prologue and K13f, or K1 and the lane entry points of
+K2, K3, K4, K6, K7 and K8f) was launched. Before
 the last line it prints the `kernels` JSON line and the card's name and
 power limit; the last line is the JSON result. It imports nothing of JAX
 or of the JAX package.
@@ -161,8 +178,11 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 
 
+T0 = time.monotonic()
+
+
 def phase(name):
-    print(f"== phase {name}", flush=True)
+    print(f"== phase {name} (at {time.monotonic() - T0:.1f} s)", flush=True)
 
 
 def run(cmd):
@@ -734,17 +754,18 @@ def sim_kernel_parity(torch, np, label, tm, B, L):
                           ("tight", (counted, h1, h2, walk1), (0x00400000, 0)),
                           ("fresh", (fresh_counted, fh1, fh2, fresh), (0xFFFFFFFF, 0xFFFFFFFF))):
         (sa, ta), (sb, tb) = cap_in(), cap_in()
-        wk.capture(sa, ta, *args, *t)
-        wk.capture_plain(sb, tb, *args, *t)
+        thresh = torch.tensor(t, device=dev)  # read on the card, as the era's state holds it
+        wk.capture(sa, ta, *args, thresh)
+        wk.capture_plain(sb, tb, *args, thresh)
         errs.append(max_abs_err(torch, [(sa[:, :scap], sb[:, :scap]), (ta, tb)]))
         slabs[name] = (sa, ta)
     n_loose = int(slabs["loose"][1][1])
+    loose = torch.tensor([0xFFFFFFFF, 0xFFFFFFFF], device=dev)
     results["walk_capture"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda t: wk.capture(t[0], t[1], counted, h1, h2, walk1, 0xFFFFFFFF, 0xFFFFFFFF),
-                   prep=cap_in),
-        plain_ms=time_ms(torch, lambda t: wk.capture_plain(t[0], t[1], counted, h1, h2, walk1,
-                                                           0xFFFFFFFF, 0xFFFFFFFF), prep=cap_in),
+        ms=time_ms(torch, lambda t: wk.capture(t[0], t[1], counted, h1, h2, walk1, loose), prep=cap_in),
+        plain_ms=time_ms(torch, lambda t: wk.capture_plain(t[0], t[1], counted, h1, h2, walk1, loose),
+                         prep=cap_in),
         # counted once, h1 and h2 of each counted walk; a captured walk
         # reads ptr and its S lanes and writes its 3 + S slab lanes.
         bytes=B + n_counted * 16 + n_loose * ((S + 1) + (3 + S)) * 8 + 16,
@@ -878,6 +899,8 @@ def sim_line(label, c, wall, card, peak=None):
           f"generated_states_per_sec={c.state_count() / wall:.1f} steps_per_sec={tel['steps'] / wall:.2f} "
           f"eras={tel['eras']} steps={tel['steps']} steps_run={tel['steps_run']} "
           f"run_steps_per_sec={tel['steps_run'] / wall:.2f} max_depth={c.max_depth()}{mem} "
+          f"graph_captures={tel['graph_captures']} capture_secs={tel['capture_secs']:.3f} "
+          f"era_readbacks={tel['readbacks']} path_readbacks={tel.get('path_readbacks', 0)} "
           f"discoveries={sorted(c._discovery_paths)} card={card}", flush=True)
 
 
@@ -1143,14 +1166,10 @@ def serial_solo_rate(torch, make_model, runs, opts):
 
 
 def sweep(torch, kernels, label, make_model, configs, shape, card):
-    """Phase 14's measurement of one lane sweep: a cold run, a counted and
-    timed warm run (launches from 0, peak memory), a profiled run (device
-    busy share); prints and returns (lane checkers, launches, stats)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    sys.path.insert(0, os.path.join(HERE, "scripts"))
-    from profile_gpu_bfs import busy_union
-
+    """Phase 14's measurement of one lane sweep: a cold run (the warm lane
+    program's build and graph capture), then a counted and timed warm run
+    (launches from 0, peak memory); phase 16 profiles it in a fresh
+    process. Prints and returns (lane checkers, launches, stats)."""
     _cold, t_cold = lanes(make_model(), configs, "cuda", shape)
     del _cold
     torch.cuda.empty_cache()
@@ -1162,26 +1181,21 @@ def sweep(torch, kernels, label, make_model, configs, shape, card):
     tm = make_model()
     workspace = shape["lanes"] * (shape["table_capacity"] * 24
                                   + (tm.state_width + 2) * (shape["queue_capacity"] + 1) * 8)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _p, wall_prof = lanes(make_model(), configs, "cuda", shape)
-    del _p
-    kern = [e for e in prof.events() if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start]
-    busy_ms = busy_union([(e.time_range.start, e.time_range.end) for e in kern]) / 1e3
     n = len(out)
-    batch_steps = out[0].telemetry()["batch_steps"]
+    tel = out[0].telemetry()
+    batch_steps = tel["batch_steps"]
     unique = sum(c.unique_state_count() for c in out)
     states = sum(c.state_count() for c in out)
     stats = dict(
         label=label, lanes=n, wall_secs=wall, cold_wall_secs=t_cold, checks_per_sec=n / wall,
         unique_states_per_sec=unique / wall, generated_states_per_sec=states / wall,
-        unique=unique, states=states, batch_steps=batch_steps,
+        unique=unique, states=states, batch_steps=batch_steps, batch_secs=tel["device_era_secs"],
         lane_steps_max=max(c.telemetry()["steps"] for c in out),
         partial_steps=sum(c.telemetry()["partial_steps"] for c in out),
+        graph_captures=tel["graph_captures"], capture_secs=tel["capture_secs"],
+        batch_readbacks=tel["batch_readbacks"],
         wall_ms_per_step=wall * 1e3 / batch_steps,
         kernel_launches_per_step=sum(launches[k.name] for k in kernels.LANE_KERNELS) / batch_steps,
-        device_launches_per_step=len(kern) / batch_steps,
-        device_busy_ms=busy_ms, profiled_wall_secs=wall_prof,
-        device_busy_share=busy_ms / (wall_prof * 1e3),
         max_memory_allocated=peak, memory_allocated_before=before, run_peak_over_before=peak - before,
         lane_workspace_bytes=workspace, card=card,
     )
@@ -1317,6 +1331,243 @@ def era_kernel_parity(torch, np, label, tm, C, qcap):
     )
     del prog
     return finish(results)
+
+
+# -- phase 16: simulation eras and lane batches as graphs ---------------------
+
+def walk_era_parity(torch, np, label, tm, B, L):
+    """K13f's three modes against the plain version on the same card
+    tensors, at the simulation widths of `tm` (B walks, paths of L, the
+    sample on), on the state and first-hit lanes of a real era (16 steps
+    from seed 0): BEGIN under drawn era inputs, COMMIT under each exit
+    (the budget, a finish mask, the target, the slab's high-water mark,
+    every walk frozen) and the EPILOGUE; returns {"walk_era": timing
+    dict} (COMMIT timed: the per-step launch; BEGIN and the EPILOGUE
+    beside it)."""
+    from stateright_tpu_torch.engines.gpu_simulation import SimProgram
+    from stateright_tpu_torch.ops import walk_era as we
+
+    dev = torch.device("cuda")
+    props = tm.tensor_properties()
+    prog = SimProgram(tm, props, B, L, True, 64, dev)
+    walk, path = prog.seed(0)
+    era = prog.era(walk, path, rec_bits=0, max_steps=16, fin_any=0, fin_all=0, fin_all_en=0,
+                   target_gen=0, gen0=0)
+    c, x = prog.cfg, prog.cfg.x
+    P = len(props)
+    hits = int(prog.hseen.sum())
+    print(f"walk-era widths ({label}): B={B} L={L} P={P} state words={c.length}; the era: steps={era.steps} "
+          f"gen={era.gen} first hits={hits}", flush=True)
+    rng = np.random.default_rng(16)
+    M = 0xFFFFFFFF
+    errs = []
+
+    def inputs():
+        return torch.tensor([int(rng.integers(0, 1 << P)), int(rng.integers(0, 70)), int(rng.integers(0, 1 << P)),
+                             int(rng.integers(0, 1 << P)), int(rng.integers(0, 2)), int(rng.choice([0, 10 ** 6])),
+                             int(rng.integers(0, 10 ** 6)), 0, 0, 0, 0, M, M], device=dev)
+
+    def both(mode, st, stats=None, era_in=None):
+        a = [st.clone(), prog.hseen.clone(), prog.plen.clone()]
+        b = [st.clone(), prog.hseen.clone(), prog.plen.clone()]
+        for t in (a, b):
+            if stats is not None:
+                t[0][x:x + 5] = torch.tensor(stats, device=dev)
+                t[0][x + we.X_OPEN] = 1
+        we.walk_era(mode, c, a[0], era_in, a[1], a[2])
+        we.walk_era_plain(mode, c, b[0], era_in, b[1], b[2])
+        errs.append(max_abs_err(torch, zip(a, b)))
+        return a[0]
+
+    st = prog.state.clone()
+    for _ in range(4):
+        both(we.BEGIN, st, era_in=inputs())
+    # The COMMIT cases: open, the slab past its high-water mark, a finish
+    # mask met, every walk frozen, the target reached, the budget spent.
+    commit_st = st.clone()
+    commit_st[we.P_MAX_STEPS], commit_st[x + we.X_STEPS] = 16, 3
+    commit_st[we.P_FIN_ANY], commit_st[we.P_TARGET_GEN], commit_st[we.P_GEN0] = 2, 5 * 10 ** 6, 0
+    high = prog.s_high
+    for stats in ((5, 0, 0, 3, 0), (5, high + 1, 0, 3, 0), (5, 0, 2, 3, 0), (5, 0, 0, 3, B), (10 ** 7, 0, 0, 3, 0)):
+        both(we.COMMIT, commit_st, stats)
+    spent = commit_st.clone()
+    spent[x + we.X_STEPS] = 15
+    both(we.COMMIT, spent, (5, 0, 0, 3, 0))
+    both(we.EPILOGUE, st)
+    commit_st[x + we.X_OPEN] = 1
+
+    def begin(t):
+        we.walk_era(we.BEGIN, c, t[0], prog.era_in, t[1], t[2])
+
+    def prep():
+        return [st.clone(), prog.hseen.clone(), prog.plen.clone()]
+
+    results = {"walk_era": dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda s_: we.walk_era(we.COMMIT, c, s_), prep=commit_st.clone),
+        plain_ms=time_ms(torch, lambda s_: we.walk_era_plain(we.COMMIT, c, s_), prep=commit_st.clone, reps=5),
+        begin_ms=time_ms(torch, begin, prep=prep),
+        epilogue_ms=time_ms(torch, lambda t: we.walk_era(we.EPILOGUE, c, t[0], None, t[1], t[2]), prep=prep),
+        epilogue_plain_ms=time_ms(torch, lambda t: we.walk_era_plain(we.EPILOGUE, c, t[0], None, t[1], t[2]),
+                                  prep=prep, reps=5),
+        # COMMIT: the gate's ten words read, three written
+        bytes=13 * 8, ops=20,
+        epilogue_bytes=P * B * 9 + 2 * 8 * c.length,
+        library_ms=None, shape=f"COMMIT on {c.length} state words (B={B}, P={P})",
+    )}
+    del prog
+    torch.cuda.empty_cache()
+    return finish(results)
+
+
+def lane_era_parity(torch, np, N, tm, C, qcap):
+    """The lane axis of K8f's two kernels (K14f) against their plain
+    versions on the same card tensors, at the widths of N lanes of `tm`
+    at chunk C (the default lane shape): START, BEGIN and COMMIT over
+    lane states with open, closed, overflowing, erroring and finishing
+    lanes, and the epilogue over sparse first hits; each also at one lane
+    against the solo kernel; returns {entry name: timing dict}."""
+    from stateright_tpu_torch.engines.gpu_bfs import widths
+    from stateright_tpu_torch.ops import era as eo
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    props = tm.tensor_properties()
+    P, A, W = len(props), tm.max_actions, tm.state_width + 2
+    vcap, rcap, _d = widths(A, C)
+    plen = eo.params_len(A, P, True, 0)
+    cfg = eo.EraConfig(chunk=C, qmask=qcap - 1, vcap=vcap, rcap=rcap, P=P, A=A, cov_base=eo.P_LEN + 2 * P,
+                       s_base=-1, s_high=0, s_take=C, f_base=-1, fuse=1, x=plen, regrow=max(1, C // 16),
+                       budget_min=eo.BUDGET_MIN, n_cov=eo.cov_len(A, P), scap=0)
+    L = plen + eo.X_LEN
+    print(f"lane era widths: N={N} C={C} A={A} P={P} rcap={rcap} state [{N}, {L}]", flush=True)
+
+    def state():
+        s = rng.integers(0, 1 << 20, size=(N, L)).astype(np.int64)
+        s[:, eo.P_COUNT] = rng.choice([0, 1, 5, 3 * C], size=N)
+        s[:, eo.P_HIGH_WATER] = qcap - C * A
+        s[:, eo.P_GROW_LIMIT] = 1 << 30
+        s[:, eo.P_MAX_STEPS] = rng.choice([1, 1 << 20], size=N)
+        s[:, eo.P_ERR] = rng.random(N) < 0.05
+        s[:, eo.P_REC] = 0
+        s[:, eo.P_FIN_ANY] = rng.choice([0, 0, 1], size=N)
+        s[:, eo.P_FIN_ALL_EN] = 0
+        s[:, eo.P_BUDGET_CAP] = 0
+        return torch.from_numpy(s).to(dev)
+
+    def operands():
+        return eo.StepOperands(
+            torch.from_numpy(rng.integers(0, vcap + 2, size=N)).to(dev),
+            torch.from_numpy(rng.integers(0, rcap + 2, size=N)).to(dev),
+            torch.from_numpy(rng.random((N, rcap)) < 0.0005).to(dev),
+            torch.from_numpy(rng.random((N, rcap)) < 0.3).to(dev),
+            torch.from_numpy(rng.integers(0, C * A, size=N)).to(dev),
+            torch.from_numpy(rng.integers(0, 3, size=(P, N))).to(dev),
+            torch.from_numpy(rng.integers(0, C, size=(N, A))).to(dev),
+        )
+
+    ticket = torch.zeros(1, dtype=torch.int64, device=dev)
+    errs = []
+    st, step = state(), operands()
+    a, b = st.clone(), st.clone()
+    for mode in (eo.START, eo.BEGIN, eo.COMMIT, eo.COMMIT):
+        eo.era_step(mode, cfg, a, step if mode == eo.COMMIT else None, ticket=ticket)
+        eo.era_step_plain(mode, cfg, b, step if mode == eo.COMMIT else None)
+        errs.append(max_abs_err(torch, [(a, b)]))
+    check(int(ticket) == 0, "lane era step: the ticket was not reset")
+    # One lane against the solo kernel on the same row.
+    for l in range(3):
+        solo, lane = st[l].clone(), st[l:l + 1].clone()
+        one = eo.StepOperands(step.n_val[l], step.n_d[l], step.unresolved[l].contiguous(), step.c_new[l].contiguous(),
+                              step.generated[l], step.hs[:, l].contiguous(), step.pa[l].contiguous())
+        one_l = eo.StepOperands(step.n_val[l:l + 1], step.n_d[l:l + 1], step.unresolved[l:l + 1],
+                                step.c_new[l:l + 1], step.generated[l:l + 1], step.hs[:, l:l + 1].contiguous(),
+                                step.pa[l:l + 1])
+        for mode in (eo.START, eo.BEGIN, eo.COMMIT):
+            e1, e2 = torch.ones(1, dtype=torch.int64, device=dev), torch.ones(1, dtype=torch.int64, device=dev)
+            eo.era_step(mode, cfg, solo, one if mode == eo.COMMIT else None, epoch=e1)
+            eo.era_step(mode, cfg, lane, one_l if mode == eo.COMMIT else None, epoch=e2, ticket=ticket)
+            errs.append(max_abs_err(torch, [(solo, lane[0]), (e1, e2)]))
+    commit_st = a.clone()
+    commit_st[:, plen + eo.X_OPEN] = 1
+    commit_st[:, plen + eo.X_TAKE] = torch.clamp(commit_st[:, eo.P_COUNT], max=C)
+    results = {"era_step_lanes": dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda s_: eo.era_step(eo.COMMIT, cfg, s_, step, ticket=ticket), prep=commit_st.clone),
+        plain_ms=time_ms(torch, lambda s_: eo.era_step_plain(eo.COMMIT, cfg, s_, step), prep=commit_st.clone,
+                         reps=3),
+        # each lane's two masks once, its state row read and written, hs and pa
+        bytes=N * (2 * rcap + 2 * 8 * L + 8 * (P + A + 3)), ops=2 * N * rcap,
+        library_ms=None, shape=f"COMMIT of {N} lanes over [{N}, {rcap}] insert masks",
+    )}
+
+    errs = []
+    hseen = torch.from_numpy(rng.random((P, N * C)) < 0.002).to(dev)
+    f1, f2 = (torch.from_numpy(rng.integers(0, 1 << 32, size=(P, N * C))).to(dev) for _ in range(2))
+    fd = torch.from_numpy(rng.integers(1, 9, size=(P, N * C))).to(dev)
+    rings = torch.from_numpy(rng.integers(0, 30, size=(N, W, qcap + 1))).to(dev)
+    epi = a.clone()
+
+    def prep():
+        return [epi.clone(), hseen.clone(), f1.clone(), f2.clone(), fd.clone()]
+
+    x1, x2 = prep(), prep()
+    eo.era_epilogue(cfg, x1[0], *x1[1:], rings[:, W - 1])
+    eo.era_epilogue_plain(cfg, x2[0], *x2[1:], rings[:, W - 1])
+    errs.append(max_abs_err(torch, zip(x1, x2)))
+    for l in range(3):
+        t1 = [epi[l].clone(), hseen.view(P, N, C)[:, l].contiguous(), f1.view(P, N, C)[:, l].contiguous(),
+              f2.view(P, N, C)[:, l].contiguous(), fd.view(P, N, C)[:, l].contiguous()]
+        t2 = [epi[l:l + 1].clone()] + [t.clone() for t in t1[1:]]
+        eo.era_epilogue(cfg, t1[0], *t1[1:], rings[l, W - 1])
+        eo.era_epilogue(cfg, t2[0], *t2[1:], rings[l:l + 1, W - 1])
+        errs.append(max_abs_err(torch, [(t1[0], t2[0][0])]))
+    results["era_epilogue_lanes"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda t: eo.era_epilogue(cfg, t[0], *t[1:], rings[:, W - 1]), prep=prep),
+        plain_ms=time_ms(torch, lambda t: eo.era_epilogue_plain(cfg, t[0], *t[1:], rings[:, W - 1]), prep=prep,
+                         reps=3),
+        # hseen and faccd read, the four first-hit lanes written, the rows
+        bytes=P * N * C * (1 + 8) + P * N * C * (1 + 3 * 8) + 2 * 8 * N * L, ops=2 * P * N * C,
+        library_ms=None, shape=f"[{P}, {N}*{C}] first-hit lanes, [{N}, {L}] state",
+    )
+    return finish(results)
+
+
+def graph_cell(torch, kernels, card, run, label, path):
+    """One speed cell of `scripts/solo_walls.py` through the port's entry
+    points: a warm-up run, a run counted from 0 (every kernel of `path`
+    launched) and timed, with its peak memory; then a profiled run in a
+    fresh process (`solo_walls.profile_child`). Prints and returns the
+    cell's numbers."""
+    import solo_walls
+
+    run(label)
+    torch.cuda.empty_cache()
+    r, launches = counted(torch, kernels, label, lambda: run(label), path)
+    prof = solo_walls.profile_child(HERE, label)
+    steps = r.get("steps_run") or r["steps"]
+    out = dict(label=label, wall_secs=r["secs"], steps=r["steps"], steps_run=r.get("steps_run"),
+               eras=r.get("eras"), batches=r.get("batches"), graph_captures=r["graph_captures"],
+               capture_secs=r["capture_secs"], era_readbacks=r.get("readbacks"),
+               wall_ms_per_step=r["secs"] * 1e3 / max(1, steps),
+               host_launch_calls_per_step=prof.get("host_launch_calls_per_step"),
+               device_kernels_per_step=prof.get("device_kernels_per_step"),
+               device_busy_ms=prof.get("busy_ms"), profiled_wall_secs=prof.get("profiled_wall_secs"),
+               profiled_steps=prof.get("steps"), device_busy_share=prof.get("share"),
+               # busy a step (the profiled run) over wall a step (this run)
+               device_busy_over_wall=(prof["busy_ms"] / prof["steps"] / (r["secs"] * 1e3 / steps))
+               if prof.get("busy_ms") else "not measured",
+               profile_exit_code=prof.get("exit_code", 0), profile_fault=prof.get("fault"),
+               max_memory_allocated=r["peak"], result=r["result"], card=card)
+    if "batch_secs" in r:
+        out["batch_secs"] = r["batch_secs"]  # the graph launch and its readback
+        out["batch_readbacks"] = r["batch_readbacks"]
+    for key in ("generated", "checks"):
+        if key in r:
+            out[f"{'generated_states' if key == 'generated' else 'checks'}_per_sec"] = r[key] / r["secs"]
+    print(f"{label}: {json.dumps(out)}", flush=True)
+    return out, launches
 
 
 def model(name, *args):
@@ -1699,6 +1950,7 @@ def main(argv) -> int:
     print(f"2pc-5, 27 mixed builders in 32 lanes: equal on cuda ({t_mix:.4f}s) and cpu ({t_mix_cpu:.3f}s) "
           f"and to {len(solos)} solo runs; unique={[c.unique_state_count() for c in mix_gpu]} "
           f"batch_steps={mix_gpu[0].telemetry()['batch_steps']} card={card}", flush=True)
+    mix_dicts = [lane_dict(c) for c in mix_cpu]  # phase 16 holds the graph lanes against them
     del inc_gpu, inc_cpu, mix_gpu, mix_cpu, solos
 
     phase("14 sweeps: 1,024 lanes of 2pc-5 (target_max_depth 1 + i % 18), 256 lanes of paxos-2")
@@ -1773,6 +2025,55 @@ def main(argv) -> int:
     era_runs(torch, kernels, card, "paxos-3", PAXOS3_GOLDEN)
     era_runs(torch, kernels, card, "abd-ordered-3", ABDO3_GOLDEN)
 
+    phase("16 simulation eras and lane batches as graphs: K13f, K14f; graph == cpu; the speed cells")
+    torch.cuda.empty_cache()
+    walk_res = walk_era_parity(torch, np, "paxos-3", PaxosTensor(3), SIM_PAXOS3["walks"], SIM_L)
+    sim_px.update(walk_res)
+    lane_res.update(lane_era_parity(torch, np, SWEEP_LANES, tm5, C5, LANE_SHAPE["queue_capacity"]))
+    # Graph eras against the cpu eras of phase 9 (the sample included):
+    # one capture a run, one readback an era (the path harvests apart).
+    for label, mdl, seed, configure, opts in (
+        ("increment-2", IncrementTensor(2), 7, fin_any, SIM_INC2),
+        ("2pc-5", two_pc(5), 11, target(200_000), SIM_2PC5),
+    ):
+        (c, t), _ = counted(torch, kernels, f"{label} graph simulation",
+                            lambda: simulate(mdl, "cuda", seed, configure, opts), kernels.SIM_KERNELS)
+        tel = c.telemetry()
+        check(sim_dict(c) == dicts[label], f"{label} graph simulation differs from the cpu run")
+        check(tel["graph_captures"] == 1 and tel["readbacks"] == tel["eras"],
+              f"{label} graph simulation: {tel['graph_captures']} captures, {tel['readbacks']} readbacks "
+              f"for {tel['eras']} eras")
+        print(f"{label} graph simulation == cpu: {tel['eras']} eras, {tel['readbacks']} era readbacks, "
+              f"{tel.get('path_readbacks', 0)} path readbacks, 1 capture ({tel['capture_secs']:.3f}s), "
+              f"{t:.3f}s", flush=True)
+    # The 27 mixed 2pc-5 builders in 4 batches of 8 lanes on one warm
+    # program: one capture, one readback a batch, each lane == its cpu lane.
+    from stateright_tpu_torch import ExecutableCache
+
+    cache = ExecutableCache()
+    (mix8, _t), _ = counted(torch, kernels, "2pc-5 mixed lanes, batches of 8",
+                            lambda: lanes(two_pc(5), mixed, "cuda", dict(lanes=8, cache=cache)), kernels.LANE_KERNELS)
+    warm = cache.get(two_pc(5), "multiplex", lanes=8, device="cuda")[0].program
+    for i, c in enumerate(mix8):
+        check(lane_dict(c) == mix_dicts[i], f"2pc-5 mixed lane {i} in batches of 8 differs from its cpu lane")
+    check(warm.graph_captures == 1 and warm.readbacks == 4,
+          f"warm lane program: {warm.graph_captures} captures, {warm.readbacks} readbacks for 4 batches")
+    print(f"2pc-5 mixed lanes in 4 batches of 8: == cpu lane by lane; 1 capture ({warm.capture_secs:.3f}s), "
+          f"4 batch readbacks", flush=True)
+    del mix8, warm, cache
+    # The speed cells of scripts/solo_walls.py: simulation at fixed targets
+    # and the time to a counterexample; the lane batches.
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import solo_walls
+
+    _torch, cell_run = solo_walls._setup(HERE)
+    cells = {}
+    for label in solo_walls.SIMS:
+        cells[label], _ = graph_cell(torch, kernels, card, cell_run, label, kernels.SIM_KERNELS)
+    for label in solo_walls.LANES:
+        cells[label], _ = graph_cell(torch, kernels, card, cell_run, label, kernels.LANE_KERNELS)
+    torch.cuda.empty_cache()
+
     # The loop rows' bounds: the sum of their kernels' bounds (one call at
     # the run's widths) times their launches in the run; a step is one
     # K3 launch (BFS), one K13b launch (simulation), one lane K3 launch.
@@ -1805,6 +2106,9 @@ def main(argv) -> int:
         if k is kernels.WALK_STEP:
             # The same source's second entry point, the era prologue.
             entry["prologue_launches"] = launches_sim[kernels.WALK_PROLOGUE.name]
+        for extra in ("begin_ms", "epilogue_ms", "epilogue_plain_ms"):
+            if extra in r:
+                entry[extra] = r[extra]
         line["kernels"].append(entry)
     for k in kernels.LANE_KERNELS[1:]:
         # The lane entry points of the same sources: phase 12's widths,
@@ -1818,6 +2122,7 @@ def main(argv) -> int:
         ))
     check(all(results_px[k]["max_abs_err"] == 0 for k in results_px), "paxos-3 widths parity")
     print(json.dumps(line))
+    print(f"chip_smoke: every phase passed in {time.monotonic() - T0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

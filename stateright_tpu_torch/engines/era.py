@@ -25,14 +25,14 @@ and the host reads back the state vector once.
 
 On the card a dispatch is ONE graph launch. Each segment above (START,
 BEGIN, the step with its COMMIT, the epilogue, the tail) is captured
-once with `torch.cuda.graph`, and a graph built in C (kernels/csrc/
-era_step.cu `srt_graph_*`) holds them as child graphs inside two
-conditional WHILE nodes: the step kernel's gate sets the inner loop's
-condition and the epilogue sets the outer (fusion) loop's, so the loops
-run on the card like `lax.while_loop`, with no host round trip and no
-no-op step. A table growth replaces the table, so the program is
-captured again; a capture that fails raises. The readback is an
-asynchronous copy to pinned memory on a side stream, and the next
+once with `torch.cuda.graph`, and a graph built in C (engines/graph.py,
+the plumbing every device program shares) holds them as child graphs
+inside two conditional WHILE nodes: the step kernel's gate sets the
+inner loop's condition and the epilogue sets the outer (fusion) loop's,
+so the loops run on the card like `lax.while_loop`, with no host round
+trip and no no-op step. A table growth replaces the table, so the
+program is captured again; a capture that fails raises. The readback is
+an asynchronous copy to pinned memory on a side stream, and the next
 dispatch waits only for that copy.
 
 On the CPU (`device="cpu"`, the tests) the same segments run eagerly
@@ -46,14 +46,11 @@ workspace and back: the era-parity tests feed both programs with them.
 
 from __future__ import annotations
 
-import ctypes
-import time
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import kernels
 from ..fingerprint import hash_lanes
 from ..obs.coverage import DEPTH_CAP
 from ..obs.sample import DEVICE_STEP_CAP, slab_capacity, slab_entries, slab_high_water
@@ -63,11 +60,9 @@ from ..ops import slab as sl
 from ..ops import visited_set as vs
 from ..ops.expand import build_expand_lean
 from ..xp import TorchXP
+from . import graph as gr
 
 M32 = 0xFFFFFFFF
-_V = ctypes.c_void_p
-_PV = ctypes.POINTER(ctypes.c_void_p)
-_U = ctypes.c_ulonglong
 
 
 def widths(A: int, chunk: int):
@@ -95,26 +90,6 @@ def seed(table: vs.VisitedTable, ring: torch.Tensor, init_rows: torch.Tensor, in
     ring[S, :n] = init_ebits
     ring[S + 1, :n] = 1
     return is_new.sum(dtype=torch.int64), unres.sum(dtype=torch.int64)
-
-
-class _Graph:
-    """One capture of the era program: the C-built graph and its
-    instantiation, the torch graphs (and their memory pools) its child
-    nodes copy, and each segment's launches a run."""
-
-    def __init__(self):
-        self.graph = _V()
-        self.exec = _V()
-        self.torch_graphs: List[torch.cuda.CUDAGraph] = []
-        self.per_run: Dict[str, Dict[str, int]] = {}
-
-    def free(self, destroy) -> None:
-        if self.exec.value or self.graph.value:
-            destroy(self.exec, self.graph)
-            self.exec, self.graph = _V(), _V()
-        for g in self.torch_graphs:
-            g.reset()
-        self.torch_graphs = []
 
 
 class EraProgram:
@@ -167,20 +142,14 @@ class EraProgram:
             self.state[self.cov_base + A + P + 1:self.cov_base + ncov] if cov else None
         )
         self._ring_depth = self.ring[S + 1]
-        self._graph: Optional[_Graph] = None
+        self._graph: Optional[gr.Graph] = None
         self.graph_captures = 0
         self.capture_secs = 0.0
         self._on_card = dev.type == "cuda"
         if self._on_card:
             # One pinned readback buffer per dispatch that can be in
             # flight at once (`in_flight`: the chain's depth + 1).
-            self._side = torch.cuda.Stream(device=dev)
-            self._slots = [
-                torch.empty(self.state.shape, dtype=torch.int64).pin_memory()
-                for _ in range(in_flight + 1)
-            ]
-            self._slot_next = 0
-            self._read_done: Optional[torch.cuda.Event] = None
+            self._readback = gr.Readback(self.state, in_flight + 1)
 
     # -- the workspace -------------------------------------------------------
 
@@ -323,134 +292,55 @@ class EraProgram:
         if self._graph is None:
             self._capture()
         main = torch.cuda.current_stream(self.device)
-        if self._read_done is not None:
-            # The graph updates the state in place: the previous
-            # dispatch's readback must have copied it first.
-            main.wait_event(self._read_done)
-        err = self._lib("srt_graph_launch", [_V, _V])(self._graph.exec, main.cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"era graph launch failed: cudaError {err}")
-        done = torch.cuda.Event()
-        done.record(main)
-        slot = self._slot()
-        with torch.cuda.stream(self._side):
-            self._side.wait_event(done)
-            slot.copy_(self.state, non_blocking=True)
-            read = torch.cuda.Event()
-            read.record(self._side)
-        self._read_done = read
-        return slot, read, self._graph.per_run
+        self._readback.before_launch(main)
+        self._graph.launch(main)
+        return self._readback.after_launch(main), self._graph
 
     def result(self, handle) -> np.ndarray:
         """Wait for a dispatch's readback: the state vector after it. On
         the card this also counts the launches its graph made."""
         if not self._on_card:
             return handle
-        slot, read, per_run = handle
-        read.synchronize()
-        vals = slot.numpy().copy()
+        read, g = handle
+        vals = self._readback.wait(read)
         x = self.plen
         iters, inner = int(vals[x + eo.X_ITER]), int(vals[x + eo.X_K])
-        for name, runs in (("start", 1), ("begin", inner), ("step", iters),
-                           ("epilogue", inner), ("tail", 1)):
-            kernels.add_launches(per_run.get(name, {}), runs)
+        g.count(dict(start=1, begin=inner, step=iters, epilogue=inner, tail=1))
         return vals
 
-    def _slot(self) -> torch.Tensor:
-        slot = self._slots[self._slot_next]
-        self._slot_next = (self._slot_next + 1) % len(self._slots)
-        return slot
-
     # -- the graph -----------------------------------------------------------
-
-    def _lib(self, symbol: str, argtypes):
-        return kernels.ERA_STEP.function(symbol, argtypes)
 
     def _capture(self) -> None:
         """Capture the five segments and build the era graph (see the
         module doc). A failure raises; nothing falls back."""
-        t0 = time.monotonic()
-        call = {
-            name: self._lib(name, args) for name, args in (
-                ("srt_graph_create", [_PV]),
-                ("srt_graph_handle", [_V, ctypes.POINTER(_U)]),
-                ("srt_graph_while", [_V, _V, _U, _PV, _PV]),
-                ("srt_graph_child", [_V, _V, _V, _PV]),
-                ("srt_graph_instantiate", [_V, _PV]),
-            )
-        }
-
-        def ok(err, what):
-            if err != 0:
-                raise RuntimeError(f"era graph: {what} failed: cudaError {err}")
-
         # Run the step once with the gate closed: it changes nothing, and
         # every lazy initialisation happens before the capture.
         x = self.plen
         self.state[x + eo.X_OPEN] = 0
         self.state[x + eo.X_TAKE] = 0
         self._step()
-        torch.cuda.synchronize(self.device)
-        counts = kernels.launch_counts()
-        g = _Graph()
-        try:
-            def capture(name, fn) -> _V:
-                before = kernels.launch_counts()
-                tg = torch.cuda.CUDAGraph(keep_graph=True)
-                with torch.cuda.graph(tg, capture_error_mode="thread_local"):
-                    fn()
-                after = kernels.launch_counts()
-                g.per_run[name] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-                g.torch_graphs.append(tg)
-                return _V(tg.raw_cuda_graph())
 
-            def handle(graph) -> _U:
-                h = _U()
-                ok(call["srt_graph_handle"](graph, ctypes.byref(h)), "conditional handle")
-                return h
-
-            def child(graph, after, raw) -> _V:
-                node = _V()
-                ok(call["srt_graph_child"](graph, after, raw, ctypes.byref(node)), "child graph")
-                return node
-
-            def loop(graph, after, h):
-                node, body = _V(), _V()
-                ok(call["srt_graph_while"](graph, after, h, ctypes.byref(node), ctypes.byref(body)),
-                   "while node")
-                return node, body
-
-            ok(call["srt_graph_create"](ctypes.byref(g.graph)), "graph create")
-            outer = handle(g.graph)
-            start = child(g.graph, None, capture("start", lambda: self._start(outer.value)))
-            outer_loop, outer_body = loop(g.graph, start, outer)
-            inner = handle(outer_body)
-            begin = child(outer_body, None, capture("begin", lambda: self._begin(inner.value)))
-            inner_loop, inner_body = loop(outer_body, begin, inner)
-            child(inner_body, None, capture("step", lambda: self._step(inner.value)))
-            child(outer_body, inner_loop, capture("epilogue", lambda: self._epilogue(outer.value)))
+        def describe(g: gr.Graph) -> None:
+            outer = g.handle(g.root)
+            start = g.child(g.root, None, g.capture("start", lambda: self._start(outer.value)))
+            outer_loop, outer_body = g.loop(g.root, start, outer)
+            inner = g.handle(outer_body)
+            begin = g.child(outer_body, None, g.capture("begin", lambda: self._begin(inner.value)))
+            inner_loop, inner_body = g.loop(outer_body, begin, inner)
+            g.child(inner_body, None, g.capture("step", lambda: self._step(inner.value)))
+            g.child(outer_body, inner_loop, g.capture("epilogue", lambda: self._epilogue(outer.value)))
             if self.slab is not None:
-                child(g.graph, outer_loop, capture("tail", self._tail))
-            ok(call["srt_graph_instantiate"](g.graph, ctypes.byref(g.exec)), "instantiate")
-        except BaseException:
-            g.free(self._destroy)
-            raise
-        finally:
-            # Captured launches are not launches: each run adds them back.
-            kernels.restore_launches(counts)
-        self._graph = g
-        self.graph_captures += 1
-        self.capture_secs += time.monotonic() - t0
+                g.child(g.root, outer_loop, g.capture("tail", self._tail))
 
-    def _destroy(self, exec_, graph) -> None:
-        self._lib("srt_graph_destroy", [_V, _V])(exec_, graph)
+        self._graph = gr.build(self.device, describe)
+        self.graph_captures += 1
+        self.capture_secs += self._graph.secs
 
     def free_graph(self) -> None:
         """Drop the captured graph (the next dispatch captures anew)."""
         if self._graph is not None:
-            if self._read_done is not None:
-                self._read_done.synchronize()
-            self._graph.free(self._destroy)
+            self._readback.drain()
+            self._graph.free()
             self._graph = None
 
 

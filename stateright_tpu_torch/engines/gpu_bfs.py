@@ -75,21 +75,24 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def seed_lanes(table, rings, init_rows: torch.Tensor, n_init: torch.Tensor, init_ebits: int):
+def seed_lanes(table, rings, init_rows: torch.Tensor, n_init: torch.Tensor, init_ebits: int,
+               epoch=None):
     """K10's lane form (multiplex.py:117-143): seed each lane's table
     ([N, tcap], empty) and ring ([N, W, qcap + 1], zero) in place from one
     icap-wide init slab [S, icap]: lane l takes its first n_init[l] rows
     (n_init int64 [N] on the device; 0 for a padding lane), K1 over the
     slab and lane K4 over [N, icap]. Every taken row is enqueued at depth
     1; each table keeps one per fingerprint. Returns device tensors
-    (unique [N], unresolved [N])."""
+    (unique [N], unresolved [N]). `epoch`: the insert's stamp epoch on
+    the card, for a call that a CUDA graph replays (`vs.insert`)."""
     S, icap = init_rows.shape
     N = rings.shape[0]
     valid = torch.arange(icap, device=init_rows.device) < n_init[:, None]
     h1, h2 = hash_lanes(init_rows)
     zero = torch.zeros((N, icap), dtype=torch.int64, device=init_rows.device)
     is_new, unres = vs.insert_lanes(
-        table, h1.expand(N, icap).contiguous(), h2.expand(N, icap).contiguous(), zero, zero, valid
+        table, h1.expand(N, icap).contiguous(), h2.expand(N, icap).contiguous(), zero, zero, valid,
+        epoch=epoch,
     )
     rings[:, :S, :icap] = torch.where(valid[:, None, :], init_rows[None], 0)
     rings[:, S, :icap] = torch.where(valid, init_ebits, 0)

@@ -12,20 +12,28 @@ runs, at fixed widths:
                                               `step_lanes` (torch)
   5. hits, freezing, choice, advance/restart  K13b walk_step   (kernel)
 
-then reads back ONE small counts vector (gen, occupied, recorded bits,
-maxd, frozen walks), and the host applies the JAX era program's gate to
-it before the next step (tpu_simulation.py:168): the step budget
-(`sync_steps`, at most 64 under a timeout), the finish policy's masks,
-the generated-states target and, with sampling, the slab occupancy
-`<= slab_high_water(k)`. Once every walk is frozen the era's remaining
-steps are no-ops in the reference; they are counted, not run.
-An era starts by restarting the walks that arrived frozen (K13b's
-prologue entry point) and ends with the shortest first hit of each property
-(argmin over `plen`, first walk on ties), the coverage counts and the
-sample slab's deduplicated bottom-k (K13d walk_slab), all in one
-readback. The host then drains the sample, tightens the threshold,
-harvests each newly hit property's fingerprint path from its walk's path
-row, and stops on the finish policy, the target or the timeout.
+then K13f's COMMIT (kernels/csrc/walk_era.cu), which counts the step and
+applies the JAX era program's gate on the card (tpu_simulation.py:168):
+the step budget (`sync_steps`, at most 64 under a timeout), the finish
+policy's masks, the generated-states target and, with sampling, the slab
+occupancy `<= slab_high_water(k)`. Once every walk is frozen the era's
+remaining steps are no-ops in the reference; the gate counts them and
+closes, so none runs. An era starts with K13b's prologue entry point
+(restart the walks that arrived frozen) and K13f's BEGIN (the era's
+inputs, zeroed counts, the gate), and ends with K13f's EPILOGUE (the
+shortest first hit of each property: argmin over `plen`, first walk on
+ties) and the sample slab's deduplicated bottom-k (K13d walk_slab), all
+into one state vector in the JAX era's `params_out` layout
+(ops/walk_era.py).
+
+On the card an era is ONE graph launch (engines/graph.py: the prologue,
+a conditional WHILE node over the step, the epilogue), captured once a
+run, then ONE readback of that vector; the host uploads only the era's
+head words and sample threshold. The first era follows the seeding on
+the same stream with no readback in between, as the JAX `seed_run` fuses
+them. The host then drains the sample, tightens the threshold, harvests
+each newly hit property's fingerprint path from its walk's path row, and
+stops on the finish policy, the target or the timeout.
 
 The walks' choices come from the integer hash `ops.walk.prng`, which is
 the JAX loop's own, so every era ends where the JAX engine's does and the
@@ -33,7 +41,8 @@ results — counts, discovery paths, coverage, the sample — are the JAX
 engine's, bit for bit (below 2^32 generated states: the JAX era counts
 wrap there, these do not).
 
-On `device="cpu"` every kernel call runs its plain torch version.
+On `device="cpu"` the same segments run eagerly with every kernel's
+plain torch version, and the host reads the gate after each step.
 """
 
 from __future__ import annotations
@@ -45,12 +54,13 @@ import torch
 
 from ..checker import CheckerBuilder
 from ..fingerprint import combine64, hash_lanes
-from ..obs.coverage import DEPTH_CAP
-from ..obs.sample import slab_entries, slab_high_water
+from ..obs.sample import slab_high_water
 from ..ops import walk as wk
+from ..ops import walk_era as we
 from ..path import Path
 from ..tensor import TensorModel, TensorModelAdapter
 from ..xp import TorchXP
+from . import graph as gr
 from .common import HostEngineBase
 from .gpu_bfs import resolve_device
 
@@ -69,21 +79,24 @@ class EraResult(NamedTuple):
     occupied: int  # sample slab rows captured in the era
     sample: Optional[np.ndarray]  # [3 + S, sk2]: fp1, fp2, depth, lanes
     sample_ok: Optional[np.ndarray]  # [sk2] bool
+    params: np.ndarray  # the JAX era's params_out, word for word
 
 
 class SimProgram:
     """The walks of one model at fixed widths (B walks, paths of L) on one
-    device: `seed` makes the walk state, `era` runs one era of steps behind
-    the JAX gate. The counterpart of `_build_sim_loop`'s `seed_run` and
-    `loop`."""
+    device: its workspace (walk, path, the era's state vector, the
+    first-hit lanes, the sample slab), `seed` makes the walk state, `era`
+    runs one era behind the device gate. The counterpart of
+    `_build_sim_loop`'s `seed_run` and `loop`. On the card an era is one
+    graph launch (captured once, by `seed`) and one readback."""
 
     def __init__(self, tm: TensorModel, props, B: int, L: int, cov: bool,
                  sample_k: int, device):
         self.tm, self.props = tm, props
         self.B, self.L, self.cov = B, L, cov
-        self.device = torch.device(device)
-        self.xp = TorchXP(self.device)
-        S = tm.state_width
+        self.device = dev = torch.device(device)
+        self.xp = TorchXP(dev)
+        S, A, P = tm.state_width, tm.max_actions, len(props)
         inits = np.asarray(tm.init_states_array(), dtype=np.uint32)
         # Boundary-filtered init states (tpu_simulation.py:111-119).
         inb = np.asarray(
@@ -91,30 +104,69 @@ class SimProgram:
         )
         inits = inits[inb]
         self.n_init = len(inits)
-        self.inits = torch.from_numpy(inits.T.astype(np.int64)).to(self.device).contiguous()
+        self.inits = torch.from_numpy(inits.T.astype(np.int64)).to(dev).contiguous()
         self.ev_mask, self.al_mask = wk.prop_masks(props)
         self.init_ebits = (1 << bin(self.ev_mask).count("1")) - 1
         self.sample_k = sample_k
+        self.s_high = slab_high_water(sample_k) if sample_k else 0
+        self.cfg = c = we.WalkEraConfig(S, A, P, B, cov, sample_k, self.s_high)
+        self.sk2 = c.sk2
+        self.state = torch.zeros(c.length, dtype=torch.int64, device=dev)
+        self.stats = self.state[c.x:c.x + we.X_FROZEN + 1]
+        self.cov_words = self.dhist = self.thresh = self.slab = None
+        if cov:
+            self.cov_words = self.state[c.cov_base:c.cov_base + c.n_cov]
+            self.dhist = self.cov_words[A + P:]
         if sample_k:
-            self.sk2 = slab_entries(sample_k)
-            self.s_high = slab_high_water(sample_k)
+            self.thresh = self.state[c.s_base:c.s_base + 2]
             # One more step always fits (tpu_simulation.py:102).
-            self.slab = wk.empty_walk_slab(S, self.s_high + B, self.device)
+            self.slab = wk.empty_walk_slab(S, self.s_high + B, dev)
+            rows = c.s_base + 4
+            self._sample_rows = self.state[rows:rows + (3 + S) * self.sk2].view(3 + S, self.sk2)
+            self._sample_ok = self.state[rows + (3 + S) * self.sk2:rows + (4 + S) * self.sk2]
+        self.hseen = torch.zeros((P, B), dtype=torch.bool, device=dev)
+        self.plen = torch.zeros((P, B), dtype=torch.int64, device=dev)
+        self.walk = torch.zeros((S + 4, B), dtype=torch.int64, device=dev)
+        self.path = torch.zeros((B, L), dtype=torch.int64, device=dev)
+        self.era_in = torch.zeros(we.IN_LEN, dtype=torch.int64, device=dev)
+        self.master = 0
+        self._on_card = dev.type == "cuda"
+        self._graph: Optional[gr.Graph] = None
+        self.graph_captures = 0
+        self.capture_secs = 0.0
+        self.readbacks = 0
+        if self._on_card:
+            self._in_host = torch.zeros(we.IN_LEN, dtype=torch.int64).pin_memory()
+            self._readback = gr.Readback(self.state)
 
     def seed(self, master: int):
-        """(walk, path) of `seed_run` (tpu_simulation.py:536)."""
-        walk = wk.seed_walks(master, self.B, self.inits, self.init_ebits)
-        path = torch.zeros((self.B, self.L), dtype=torch.int64, device=self.device)
-        return walk, path
+        """Seed the walk lanes as `seed_run` does (tpu_simulation.py:536);
+        returns the program's (walk, path). Nothing is read back: on the
+        card the first era's graph launch follows on the same stream (the
+        graph is captured first, on the unseeded workspace, whose warm-up
+        run the seed then overwrites)."""
+        self.capture()
+        self.master = master & U32_MAX
+        self.walk.copy_(wk.seed_walks(master, self.B, self.inits, self.init_ebits))
+        return self.walk, self.path
 
-    def _step(self, walk, path, stats, hseen, plen, cov, dhist, t1, t2) -> None:
+    # -- the segments (each a child graph on the card) -----------------------
+
+    def _prologue(self, handle: int = 0) -> None:
+        """K13b's prologue (restart the walks that arrived frozen), then
+        K13f BEGIN: the era's inputs, zeroed counts, the gate."""
+        wk.restart_frozen(self.walk, self.inits, self.init_ebits)
+        we.walk_era(we.BEGIN, self.cfg, self.state, self.era_in, self.hseen, self.plen, handle)
+
+    def _step(self, handle: int = 0) -> None:
         tm, xp = self.tm, self.xp
         S, A, B = tm.state_width, tm.max_actions, self.B
+        walk, path = self.walk, self.path
         rows = walk[:S]
         h1, h2 = hash_lanes(rows)
-        counted, cycle = wk.record(h1, h2, walk, path, stats, dhist)
+        counted, cycle = wk.record(h1, h2, walk, path, self.stats, self.dhist)
         if self.sample_k:
-            wk.capture(self.slab, stats, counted, h1, h2, walk, t1, t2)
+            wk.capture(self.slab, self.stats, counted, h1, h2, walk, self.thresh)
         lanes = tuple(rows[s] for s in range(S))
         if self.props:
             checks = torch.stack([p.check(xp, lanes) for p in self.props])
@@ -128,75 +180,100 @@ class SimProgram:
         # the walk lanes some of them are views of.
         succ = torch.stack([lane for a in range(A) for lane in succs[a]]).view(A, S, B)
         wk.step(walk, counted, cycle, checks, self.ev_mask, self.al_mask, valid, succ,
-                self.inits, self.init_ebits, self.L, hseen, plen, stats, cov)
+                self.inits, self.init_ebits, self.L, self.hseen, self.plen, self.stats,
+                self.cov_words)
+        we.walk_era(we.COMMIT, self.cfg, self.state, handle=handle)
+
+    def _epilogue(self) -> None:
+        """K13f EPILOGUE, then K13d's bottom-k of the slab into the sample
+        tail."""
+        we.walk_era(we.EPILOGUE, self.cfg, self.state, hseen=self.hseen, plen=self.plen)
+        if self.sample_k:
+            lanes, ok = wk.slab_bottom_k(self.slab, self.stats, self.sk2)
+            self._sample_rows.copy_(lanes)
+            self._sample_ok.copy_(ok)
+
+    def capture(self) -> None:
+        """On the card, once: capture the prologue, the step (+ COMMIT)
+        and the epilogue into one graph, the step inside a WHILE node on
+        the gate. The warm-up run before the capture (every lazy
+        initialisation happens there) overwrites the walks, so it runs
+        before they are seeded. A failure raises; nothing falls back."""
+        if not self._on_card or self._graph is not None:
+            return
+        self.era_in.zero_()
+        self._prologue()
+        self._step()
+        self._epilogue()
+
+        def describe(g: gr.Graph) -> None:
+            h = g.handle(g.root)
+            pro = g.child(g.root, None, g.capture("prologue", lambda: self._prologue(h.value)))
+            loop, body = g.loop(g.root, pro, h)
+            g.child(body, None, g.capture("step", lambda: self._step(h.value)))
+            g.child(g.root, loop, g.capture("epilogue", self._epilogue))
+
+        self._graph = gr.build(self.device, describe)
+        self.graph_captures += 1
+        self.capture_secs += self._graph.secs
+
+    # -- an era --------------------------------------------------------------
+
+    def _launch(self, inputs) -> np.ndarray:
+        """Run one era from `inputs` (the era_in words); the state vector
+        after it."""
+        self.readbacks += 1
+        if not self._on_card:
+            self.era_in.copy_(torch.tensor(inputs, dtype=torch.int64))
+            x = self.cfg.x
+            self._prologue()
+            while int(self.state[x + we.X_OPEN]):
+                self._step()
+            self._epilogue()
+            return self.state.numpy().copy()
+        if self._graph is None:
+            raise RuntimeError("the simulation graph is captured by seed(), before the first era")
+        main = torch.cuda.current_stream(self.device)
+        self._readback.before_launch(main)
+        self._in_host.copy_(torch.tensor(inputs, dtype=torch.int64))
+        self.era_in.copy_(self._in_host, non_blocking=True)
+        self._graph.launch(main)
+        vals = self._readback.wait(self._readback.after_launch(main))
+        # The host buffer is free again once the readback is in: the
+        # upload ran before the graph.
+        self._graph.count(dict(prologue=1, step=int(vals[self.cfg.x + we.X_RUN]), epilogue=1))
+        return vals
 
     def era(self, walk, path, *, rec_bits: int, max_steps: int, fin_any: int,
             fin_all: int, fin_all_en: int, target_gen: int, gen0: int,
             threshold=(U32_MAX, U32_MAX)) -> EraResult:
         """One era (tpu_simulation.py:149 `loop`): the prologue, steps while
-        the gate holds, the epilogue. Updates walk and path in place."""
-        dev = self.device
-        S, A, P, B = self.tm.state_width, self.tm.max_actions, len(self.props), self.B
-        wk.restart_frozen(walk, self.inits, self.init_ebits)
-        stats = torch.tensor([0, 0, rec_bits, 0, 0], dtype=torch.int64, device=dev)
-        hseen = torch.zeros((P, B), dtype=torch.bool, device=dev)
-        plen = torch.zeros((P, B), dtype=torch.int64, device=dev)
-        cov = dhist = None
-        if self.cov:
-            cov = torch.zeros(A + P + DEPTH_CAP, dtype=torch.int64, device=dev)
-            dhist = cov[A + P:]
-        t1, t2 = threshold
-        steps = run = gen = occupied = frozen = 0
-        rec_acc = rec_bits
-        while True:
-            fin_hit = (rec_acc & fin_any) != 0 or (
-                fin_all_en != 0 and (rec_acc & fin_all) == fin_all
-            )
-            under_target = target_gen == 0 or gen0 + gen < target_gen
-            if not (steps < max_steps and not fin_hit and under_target
-                    and (not self.sample_k or occupied <= self.s_high)):
-                break
-            if frozen == B:
-                # Every walk is frozen until the era ends: each step left
-                # would change nothing but the step count, so the gate
-                # stays open until the budget is spent. Count them unrun.
-                steps = max_steps
-                break
-            self._step(walk, path, stats, hseen, plen, cov, dhist, t1, t2)
-            steps += 1
-            run += 1
-            gen, occupied, rec_acc, _maxd, frozen = stats.tolist()  # the one sync a step
-
-        # Epilogue: per property the walk of the shortest first hit
-        # (first walk on ties), then everything in one readback.
-        sel = torch.where(hseen, plen, U32_MAX).argmin(1)
-        parts = [stats, sel, plen.gather(1, sel[:, None]).view(-1),
-                 hseen.any(1).to(torch.int64)]
-        if cov is not None:
-            parts.append(cov)
-        if self.sample_k:
-            lanes, ok = wk.slab_bottom_k(self.slab, stats, self.sk2)
-            parts += [lanes.reshape(-1), ok.to(torch.int64)]
-        vals = torch.cat(parts).cpu().numpy()
-        gen, occupied, _rec, maxd = (int(v) for v in vals[:4])
-        off = stats.numel()
-        disc_walk = [int(v) for v in vals[off:off + P]]
-        disc_plen = [int(v) for v in vals[off + P:off + 2 * P]]
-        found = vals[off + 2 * P:off + 3 * P]
-        off += 3 * P
-        for i in range(P):
-            if found[i]:
-                rec_bits |= 1 << i
+        the gate holds, the epilogue. Updates walk and path (the program's
+        own, from `seed`) in place."""
+        if walk is not self.walk or path is not self.path:
+            raise ValueError("era runs on the program's own walk and path (from seed)")
+        c = self.cfg
+        S, A, P = self.tm.state_width, self.tm.max_actions, len(self.props)
+        vals = self._launch([
+            rec_bits, max_steps, fin_any, fin_all, fin_all_en, target_gen, gen0, 0, 0, 0,
+            self.master, threshold[0], threshold[1],
+        ])
+        x = c.x
         coverage = sample = sample_ok = None
-        if cov is not None:
-            coverage = vals[off:off + A + P + DEPTH_CAP]
-            off += A + P + DEPTH_CAP
+        if self.cov:
+            coverage = vals[c.cov_base:c.cov_base + c.n_cov]
         if self.sample_k:
+            rows = c.s_base + 4
             n = (3 + S) * self.sk2
-            sample = vals[off:off + n].reshape(3 + S, self.sk2)
-            sample_ok = vals[off + n:off + n + self.sk2].astype(bool)
-        return EraResult(rec_bits, gen, steps, run, maxd, disc_walk, disc_plen,
-                         coverage, occupied, sample, sample_ok)
+            sample = vals[rows:rows + n].reshape(3 + S, self.sk2)
+            sample_ok = vals[rows + n:rows + n + self.sk2].astype(bool)
+        return EraResult(
+            int(vals[we.P_REC]), int(vals[x + we.X_GEN]), int(vals[x + we.X_STEPS]),
+            int(vals[x + we.X_RUN]), int(vals[x + we.X_MAXD]),
+            [int(v) for v in vals[we.P_LEN:we.P_LEN + P]],
+            [int(v) for v in vals[we.P_LEN + P:we.P_LEN + 2 * P]],
+            coverage, int(vals[x + we.X_OCC]), sample, sample_ok, vals[:c.plen],
+        )
 
 
 class GpuSimulationChecker(HostEngineBase):
@@ -300,6 +377,9 @@ class GpuSimulationChecker(HostEngineBase):
                 break
             if self._timed_out():
                 break
+        self._gauge("graph_captures", prog.graph_captures)
+        self._gauge("capture_secs", prog.capture_secs)
+        self._gauge("readbacks", prog.readbacks)
 
     def _harvest(self, path, out: EraResult, L: int) -> None:
         """Read each newly hit property's fingerprint chain, the first plen
@@ -312,6 +392,7 @@ class GpuSimulationChecker(HostEngineBase):
             return
         ws = torch.tensor([out.disc_walk[i] for i, _ in need], dtype=torch.int64)
         rows = path.index_select(0, ws.to(path.device)).cpu().numpy()
+        self._inc("path_readbacks")
         for (i, name), row in zip(need, rows):
             n = min(out.disc_plen[i], L)
             self._discovery_paths[name] = [

@@ -1,54 +1,69 @@
 """Multiplexed lanes on the card: N same-signature BFS checks as lanes of
-ONE step loop — the port of `stateright_tpu/engines/multiplex.py` (K14,
-`_build_lane_program:86`, which runs `jax.vmap` over the raw era loop).
+ONE device program — the port of `stateright_tpu/engines/multiplex.py`
+(K14, `_build_lane_program:86`, which runs `jax.vmap` over the K10 seed
+and the raw era loop).
 
 A lane here is one check, as in the reference; a state's columns stay
 its state lanes, and the ring's W rows its state-row lanes. Each lane
 seeds its own table from the shared init rows (K10's lane form), then
 runs ONE era of the raw BFS loop (`tpu_bfs.py:247 _build_loop(...,
-raw=True)`): no sampling, no symmetry, no growth. Every scalar of the
-solo step (engines/gpu_bfs.py) is a numpy [N] vector on the host — head,
-count, take_cap, unique, steps, the probe-error count, the discovery
-bits and the gate — and a step runs, for all lanes at once:
+raw=True)`): no sampling, no symmetry, no growth. Every lane keeps its
+JAX params row, word for word, in the lanes' state [N, params_len +
+X_LEN] on the card (ops/era.py), and a batch is (K14f):
 
-  1. ring pop of each lane's take                 K7 ring, lane form
-  2. fingerprints of the popped rows [S, N*C]     K1 hash_lanes
-  3. properties + successors, ONCE at width N*C   K11 expand (depth limit per row)
-  4. validity compaction per lane                 K2, lane form, over the
-                                                  [A, N, C] mask read as [N, A, C]
-  5. fingerprints of the candidates               K1
-  6. in-batch dedup per lane                      K3, lane form
-  7. compaction to rcap per lane                  K2, lane form
-  8. insert into each lane's table                K4, lane form
-  9. ring append per lane                         K2 + K7, lane forms
- 10. discovery snapshots and coverage counts      (torch)
+  seed       zero the tables and rings; K10's lane form; each lane's head,
+             count, unique and error words; K8f START and BEGIN over the
+             lane axis (every lane's gate, OR-ed into the loop's)
+  while any lane's gate is open:
+    1. ring pop of each lane's take                 K7 ring, lane form
+    2. fingerprints of the popped rows [S, N*C]     K1 hash_lanes
+    3. properties + successors, ONCE at width N*C   K11 expand (depth limit per row)
+    4. validity compaction per lane                 K2, lane form, over the
+                                                    [A, N, C] mask read as [N, A, C]
+    5. fingerprints of the candidates               K1
+    6. in-batch dedup per lane                      K3, lane form
+    7. compaction to rcap per lane                  K2, lane form
+    8. insert into each lane's table                K4, lane form
+    9. ring append per lane                         K2 + K7, lane forms
+   10. first hits and the depth histogram           (torch)
+   11. COMMIT and the gate of every lane            K8f step kernel, lane axis
+  epilogue   each lane's discoveries and max depth  K8f epilogue, lane axis
 
-with one upload of the lanes' take, head and tail and ONE readback of an
-[k, N] counts tensor, as the solo engine reads one vector. The expand's
-candidates are action-major over all lanes (candidate a*N*C + l*C + c),
-while K2's stable order, K3's and K4's winner (the highest index) and
-the ring order follow the solo order a*C + c within a lane: step 4 reads
-each lane's [A, C] slice through a strided view, never a global
-compaction split afterwards.
+The take, head and tail of a lane are words of its row, so nothing of a
+step leaves the card. The expand's candidates are action-major over all
+lanes (candidate a*N*C + l*C + c), while K2's stable order, K3's and
+K4's winner (the highest index) and the ring order follow the solo order
+a*C + c within a lane: step 4 reads each lane's [A, C] slice through a
+strided view, never a global compaction split afterwards.
 
-The host applies the solo rules per lane: an overflow commits the
+The lane COMMIT applies the solo rules per lane: an overflow commits the
 inserted prefix, consumes nothing and halves take_cap. A lane's gate is
 the solo gate (empty frontier, ring past high water, table past its
 growth limit, `_LANE_MAX_STEPS`, a probe error, its finish masks); a
 lane whose gate closed takes 0 rows, so nothing of it changes — its
 ring, table, counters, coverage and take_cap stay as they were, which is
-what vmap's select-mask gives the reference. Padding lanes start closed.
-Each lane keeps its own `target_max_depth`, partial commits and coverage.
-Its result equals, bit for bit, the JAX lane with the same builder.
+what vmap's select-mask gives the reference. Padding lanes (params all
+zero) start closed. Each lane keeps its own `target_max_depth`, partial
+commits and coverage. Its result equals, bit for bit, the JAX lane with
+the same builder: the lanes' params rows are the JAX `params_out`.
+
+On the card a batch is ONE graph launch (engines/graph.py: the seed
+segment, a conditional WHILE node over the step, the epilogue) and ONE
+readback of the lanes' state; the discovery paths are then walked on the
+card by K6 over the lanes' stacked tables, every chain of every lane in
+one launch a hop. On the CPU (`device="cpu"`) the same segments run
+eagerly with the plain versions, the host reading the lanes' gates after
+each step.
 
 The warm executable (`warm_lane_program`): the kernels built, the
-expand closure at lane width, and the lane workspace (stacked tables,
-rings) allocated once and reused by every batch. One owner holds it: the
-`ExecutableCache` entry (engines/compiled.py) of its signature and
-shape, so the cache's capacity bounds the workspaces on the device and
-an evicted entry frees its own. Discovery paths are walked on the card by K6 over the
-lanes' stacked tables, every chain of every lane in one launch a hop,
-when a batch ends (the next batch reuses the tables).
+expand closure at lane width, the lane workspace (stacked tables, rings,
+the lanes' state, the init slab) allocated once and the batch's graph
+captured once (by the first batch), reused by every batch: a batch
+writes its inputs — the init slab, each lane's init count and params
+row, the per-row depth limits — into the workspace in place. One owner
+holds it: the `ExecutableCache` entry (engines/compiled.py) of its
+signature and shape, so the cache's capacity bounds the workspaces on
+the device and an evicted entry frees its own.
 
 Not here: the batch snapshots of `checkpoint_path` / `resume_from`
 (slice 7) and the run service that feeds this engine (slice 4b).
@@ -69,12 +84,14 @@ from ..checker import SLICE_CHECKPOINTS, Checker, CheckerBuilder, not_ported
 from ..core import Expectation
 from ..fingerprint import combine64, hash_lanes
 from ..obs.coverage import DEPTH_CAP, Coverage
+from ..ops import era as eo
 from ..ops import frontier as fr
 from ..ops import visited_set as vs
 from ..ops.expand import build_expand_lean
 from ..path import Path
 from ..tensor import TensorModel, TensorModelAdapter
 from ..xp import TorchXP
+from . import graph as gr
 from .compiled import ExecutableCache, intern_model, model_signature
 from .gpu_bfs import U32_MAX, parent_chains, resolve_device, seed_lanes, widths
 
@@ -109,9 +126,12 @@ def lane_options(tm: TensorModel, *, lanes: int = 32, chunk: int = 256,
 
 class LaneProgram:
     """The warm lane executable of one model instance and shape: kernels
-    built (on the card), the expand closure at width lanes*chunk, and the
-    workspace — `lanes` tables of tcap slots and rings of qcap rows —
-    reused by every batch (a batch zeroes them first)."""
+    built (on the card), the expand closure at width lanes*chunk, the
+    workspace — `lanes` tables of tcap slots, rings of qcap rows, the
+    lanes' state [N, params_len + X_LEN], the init slab and the era's
+    first-hit lanes — reused by every batch, and on the card the batch's
+    graph, captured once (a batch writes its inputs into the workspace
+    in place and launches it)."""
 
     def __init__(self, tm: TensorModel, props, lanes: int, chunk: int,
                  qcap: int, tcap: int, icap: int, cov: bool, device):
@@ -119,200 +139,258 @@ class LaneProgram:
         self.props = props
         self.lanes, self.chunk, self.qcap, self.tcap, self.icap = lanes, chunk, qcap, tcap, icap
         self.cov = cov
-        self.device = device
-        if device.type == "cuda":
-            kernels.build_all(kernels.LANE_KERNELS)
-        self.expand = build_expand_lean(tm, props, lanes * chunk, TorchXP(device))
-        W = tm.state_width + 2
-        self.table = vs.empty_table(tcap, device, lanes=lanes)
-        self.rings = fr.empty_ring(W, qcap, device, lanes=lanes)
+        self.device = dev = torch.device(device)
+        self._on_card = dev.type == "cuda"
+        if self._on_card:
+            kernels.build_all(kernels.LANE_KERNELS + (kernels.ERA_STEP_LANES, kernels.ERA_EPILOGUE_LANES))
+        N, C = lanes, chunk
+        S, A, P = tm.state_width, tm.max_actions, len(props)
+        self.S, self.A, self.P = S, A, P
+        self.vcap, self.rcap, self.dedup_cap = widths(A, C)
+        self.plen = eo.params_len(A, P, cov, 0)
+        ncov = eo.cov_len(A, P) if cov else 0
+        self.cov_base = eo.P_LEN + 2 * P if cov else -1
+        self.cfg = eo.EraConfig(
+            chunk=C, qmask=qcap - 1, vcap=self.vcap, rcap=self.rcap, P=P, A=A,
+            cov_base=self.cov_base, s_base=-1, s_high=0, s_take=C, f_base=-1, fuse=1,
+            x=self.plen, regrow=max(1, C // 16), budget_min=eo.BUDGET_MIN, n_cov=ncov, scap=0,
+        )
+        self.init_ebits = sum(1 << e for e in range(sum(
+            p.expectation == Expectation.EVENTUALLY for p in props)))
+        self.expand = build_expand_lean(tm, props, N * C, TorchXP(dev))
+        self.table = vs.empty_table(tcap, dev, lanes=N)
+        self.rings = fr.empty_ring(S + 2, qcap, dev, lanes=N)
+        self.state = torch.zeros((N, self.plen + eo.X_LEN), dtype=torch.int64, device=dev)
+        self.init_slab = torch.zeros((S, icap), dtype=torch.int64, device=dev)
+        self.n_init = torch.zeros(N, dtype=torch.int64, device=dev)
+        self.dl_rows = torch.zeros(N * C, dtype=torch.int64, device=dev)
+        self.hseen = torch.zeros((P, N * C), dtype=torch.bool, device=dev)
+        self.facc1, self.facc2, self.faccd = (
+            torch.zeros((P, N * C), dtype=torch.int64, device=dev) for _ in range(3)
+        )
+        self.lane_c = torch.arange(N, device=dev) * C
+        self.lane_v = (torch.arange(N, device=dev) * self.vcap)[:, None]
+        self.arange_c = torch.arange(C, device=dev)
+        if cov:
+            # Each lane's depth histogram: the coverage tail of its row.
+            dbase = self.cov_base + A + P + 1
+            self.lane_dhist = (torch.arange(N, device=dev) * self.state.shape[1] + dbase)[:, None]
+        # The insert's stamp epoch and the lane gate's ticket, on the card.
+        self.epoch = torch.ones(1, dtype=torch.int64, device=dev) if self._on_card else None
+        self.ticket = torch.zeros(1, dtype=torch.int64, device=dev) if self._on_card else None
         self.lock = threading.Lock()
+        self._graph: Optional[gr.Graph] = None
+        # Builds of the batch program: on the card its graph captures; on
+        # the CPU the eager segments, set up with the first batch.
+        self.builds = 0
+        self.readbacks = 0
+        self.graph_captures = 0
+        self.capture_secs = 0.0
+        if self._on_card:
+            self._readback = gr.Readback(self.state)
 
-    def run(self, inits: np.ndarray, init_ebits: int, n: int, depth_limit: np.ndarray,
+    # -- the segments (each a child graph on the card) -----------------------
+
+    def _seed(self, handle: int = 0) -> None:
+        """K10's lane form (multiplex.py:117-143) into emptied tables and
+        rings, the seed's counts into each lane's params (head 0, count
+        n_init, unique, the unresolved inits as the error word), then the
+        era's START and BEGIN: the gate of every lane."""
+        st = self.state
+        self.table.keys.zero_()
+        self.table.parents.zero_()
+        self.rings.zero_()
+        unique, unres = seed_lanes(self.table, self.rings, self.init_slab, self.n_init,
+                                   self.init_ebits, epoch=self.epoch)
+        if self.epoch is not None:
+            self.epoch += 1
+        st[:, eo.P_HEAD] = 0
+        st[:, eo.P_COUNT] = self.n_init
+        st[:, eo.P_UNIQUE] = unique
+        st[:, eo.P_ERR] = unres
+        eo.era_step(eo.START, self.cfg, st)
+        eo.era_step(eo.BEGIN, self.cfg, st, handle=handle, ticket=self.ticket)
+
+    def _step(self, handle: int = 0) -> None:
+        """One step of every lane (tpu_bfs.py:428 body under vmap) at the
+        takes the gate set, then the lanes' COMMIT; every scalar it reads
+        or writes stays on the device."""
+        N, C, S, A, P = self.lanes, self.chunk, self.S, self.A, self.P
+        vcap, rcap = self.vcap, self.rcap
+        st, x = self.state, self.plen
+        take = st[:, x + eo.X_TAKE]
+        active = (self.arange_c[None, :] < take[:, None]).view(-1)
+        popped = fr.ring_pop_lanes(self.rings, st[:, eo.P_HEAD].contiguous(), C)
+        rows, ebits, depth = popped[:S], popped[S], popped[S + 1]
+        row_h1, row_h2 = hash_lanes(rows)
+        ex = self.expand(rows, ebits, depth, active, self.dl_rows)
+        valid = ex.valid.view(A, N, C)
+        # Lane l's candidates in the solo order a*C + c.
+        vids, vvalid, n_val = vs.compact_ids_lanes(valid.transpose(0, 1), vcap)
+        lane_c = self.lane_c
+        cl = ex.flat.index_select(1, ((vids // C) * (N * C) + lane_c[:, None] + vids % C).view(-1))
+        ch1, ch2 = hash_lanes(cl)
+        reps = fr.claim_dedup_lanes(ch1.view(N, vcap), ch2.view(N, vcap), vvalid, self.dedup_cap)
+        dids, dvalid, n_d = vs.compact_ids_lanes(reps, rcap)
+        src = (lane_c[:, None] + vids.gather(1, dids) % C).view(-1)  # parent row
+        gd = (self.lane_v + dids).view(-1)
+        dp1 = torch.where(dvalid, row_h1.index_select(0, src).view(N, rcap), 0)
+        dp2 = torch.where(dvalid, row_h2.index_select(0, src).view(N, rcap), 0)
+        ddepth = depth.index_select(0, src) + 1
+        dh1 = ch1.index_select(0, gd).view(N, rcap)
+        dh2 = ch2.index_select(0, gd).view(N, rcap)
+        c_new, unresolved = vs.insert_lanes(self.table, dh1, dh2, dp1, dp2, dvalid, epoch=self.epoch)
+        # The inserted prefix is enqueued even on an overflow step, as in
+        # the solo engine.
+        fr.ring_scatter_lanes(
+            self.rings, st[:, x + eo.X_TAIL].contiguous(),
+            torch.cat([cl.index_select(1, gd), ex.ebits.index_select(0, src)[None], ddepth[None]]),
+            c_new,
+        )
+        hs = pa = None
+        if P:
+            hits = torch.stack(ex.prop_hits)
+            first = hits & ~self.hseen
+            self.facc1.copy_(torch.where(first, row_h1, self.facc1))
+            self.facc2.copy_(torch.where(first, row_h2, self.facc2))
+            self.faccd.copy_(torch.where(first, depth, self.faccd))
+            self.hseen |= hits
+            hs = hits.view(P, N, C).sum(2)
+        if self.cov:
+            pa = valid.sum(2).T.contiguous()
+            # Inserts count always, an overflowing lane's step too.
+            st.view(-1).index_add_(
+                0, (self.lane_dhist + ddepth.view(N, rcap).clamp(max=DEPTH_CAP - 1)).view(-1),
+                c_new.view(-1).to(torch.int64),
+            )
+        step = eo.StepOperands(n_val, n_d, unresolved, c_new, valid.sum((0, 2)), hs, pa)
+        eo.era_step(eo.COMMIT, self.cfg, st, step, epoch=self.epoch, handle=handle, ticket=self.ticket)
+
+    def _epilogue(self) -> None:
+        eo.era_epilogue(self.cfg, self.state, self.hseen, self.facc1, self.facc2, self.faccd,
+                        self.rings[:, self.S + 1])
+
+    # -- a batch -------------------------------------------------------------
+
+    def lane_params(self, n: int, depth_limit, fin_any, fin_all, fin_all_en) -> np.ndarray:
+        """The lanes' params rows (JAX multiplex.py:479-491 `lane_params`):
+        the first n from the [n] vectors, the padding lanes all zero."""
+        t = np.zeros((self.lanes, self.plen), dtype=np.int64)
+        t[:n, eo.P_DEPTH_LIMIT] = depth_limit
+        t[:n, eo.P_HIGH_WATER] = self.qcap - self.chunk * self.A
+        t[:n, eo.P_MAX_STEPS] = _LANE_MAX_STEPS
+        t[:n, eo.P_TAKE_CAP] = self.chunk
+        t[:n, eo.P_FIN_ANY] = fin_any
+        t[:n, eo.P_FIN_ALL] = fin_all
+        t[:n, eo.P_FIN_ALL_EN] = fin_all_en
+        t[:n, eo.P_GROW_LIMIT] = max(0, int(vs.MAX_LOAD * self.tcap) - self.vcap)
+        return t
+
+    def load(self, inits: np.ndarray, n_init, params: np.ndarray) -> None:
+        """Write one batch's inputs into the workspace in place: the init
+        slab ([n_init, S] rows), each lane's init count ([N]) and params
+        rows ([N, params_len]), and the expand's per-row depth limits."""
+        slab = np.zeros((self.S, self.icap), dtype=np.int64)
+        slab[:, :len(inits)] = np.asarray(inits, dtype=np.int64).T
+        self.init_slab.copy_(torch.from_numpy(slab))
+        self.n_init.copy_(torch.from_numpy(np.asarray(n_init, dtype=np.int64)))
+        self.state[:, :self.plen].copy_(torch.from_numpy(params))
+        self.dl_rows.copy_(torch.from_numpy(np.repeat(params[:, eo.P_DEPTH_LIMIT], self.chunk)))
+
+    def launch_batch(self) -> np.ndarray:
+        """Seed every lane and run its era to the end; returns the lanes'
+        state [N, params_len + X_LEN] read back. On the card: one graph
+        launch and one readback (`capture` must have run before the
+        batch's `load`); on the CPU the segments run eagerly and the host
+        reads the lanes' gates after each step."""
+        self.readbacks += 1
+        if not self._on_card:
+            x = self.plen
+            self._seed()
+            while bool(self.state[:, x + eo.X_OPEN].any()):
+                self._step()
+            self._epilogue()
+            return self.state.numpy().copy()
+        main = torch.cuda.current_stream(self.device)
+        self._readback.before_launch(main)
+        self._graph.launch(main)
+        vals = self._readback.wait(self._readback.after_launch(main))
+        iters = int(vals[:, self.plen + eo.X_ITER].max())
+        self._graph.count(dict(seed=1, step=iters, epilogue=1))
+        return vals
+
+    def capture(self) -> None:
+        """Build the batch program, once: on the card, capture the seed
+        (+ START + BEGIN), the step (+ COMMIT) and the epilogue into one
+        graph, the step inside a WHILE node on the lanes' OR-ed gate. It
+        overwrites the workspace, so it runs before a batch is loaded. A
+        failure raises; nothing falls back."""
+        if self.builds:
+            return
+        self.builds += 1
+        if not self._on_card:
+            return
+        # Run every segment once eagerly on an empty batch (every lane
+        # closed: nothing changes) so that every lazy initialisation
+        # happens before the capture.
+        self.n_init.zero_()
+        self.state.zero_()
+        self._seed()
+        self._step()
+        self._epilogue()
+
+        def describe(g: gr.Graph) -> None:
+            h = g.handle(g.root)
+            seed = g.child(g.root, None, g.capture("seed", lambda: self._seed(h.value)))
+            loop, body = g.loop(g.root, seed, h)
+            g.child(body, None, g.capture("step", lambda: self._step(h.value)))
+            g.child(g.root, loop, g.capture("epilogue", self._epilogue))
+
+        self._graph = gr.build(self.device, describe)
+        self.graph_captures += 1
+        self.capture_secs += self._graph.secs
+
+    def run(self, inits: np.ndarray, n: int, depth_limit: np.ndarray,
             fin_any: np.ndarray, fin_all: np.ndarray, fin_all_en: np.ndarray) -> SimpleNamespace:
         """Seed the first n lanes with `inits` [n_init, S] (the rest are
         padding) and run every lane's era to its end; the per-lane gate
         inputs are [n] vectors. Returns the batch's per-lane outcome as
-        numpy [N] vectors ([N, ...] for coverage) and each lane's
+        numpy [N] vectors ([N, ...] for coverage), each lane's params row
+        (`params`, the JAX lane program's `params_out`) and each lane's
         discovery fingerprints. The caller holds `lock` from here until
         it has walked the batch's paths (`walk`): the next run reuses the
         tables."""
-        tm, dev = self.tm, self.device
-        N, C, qcap, tcap, icap = self.lanes, self.chunk, self.qcap, self.tcap, self.icap
-        S, A, P = tm.state_width, tm.max_actions, len(self.props)
-        qmask = qcap - 1
-        vcap, rcap, dedup_cap = widths(A, C)
-        high_water = qcap - C * A
-        grow_limit = max(0, int(vs.MAX_LOAD * tcap) - vcap)
-        table, rings = self.table, self.rings
-
-        def lanes_of(x, fill):
-            out = np.full(N, fill, dtype=np.int64)
-            out[:n] = x
-            return out
-
-        # ---- seed (K10, multiplex.py:117-143) ----
-        n_init = len(inits)
-        table.keys.zero_()
-        table.parents.zero_()
-        rings.zero_()
-        slab = np.zeros((S, icap), dtype=np.int64)
-        slab[:, :n_init] = inits.T
-        n_inits = lanes_of(n_init, 0)
-        unique, err = seed_lanes(
-            table, rings, torch.from_numpy(slab).to(dev),
-            torch.from_numpy(n_inits).to(dev), init_ebits,
-        )
-        unique, err = torch.stack([unique, err]).cpu().numpy()
-        depth_limit = lanes_of(depth_limit, U32_MAX)
-        fin_any, fin_all, fin_all_en = (lanes_of(x, 0) for x in (fin_any, fin_all, fin_all_en))
-
-        head = np.zeros(N, dtype=np.int64)
-        count = n_inits.copy()
-        take_cap = np.full(N, C, dtype=np.int64)
-        steps = np.zeros(N, dtype=np.int64)
-        partial = np.zeros(N, dtype=np.int64)
-        gen = np.zeros(N, dtype=np.int64)
-        expanded = np.zeros(N, dtype=np.int64)
-        rec_acc = np.zeros(N, dtype=np.int64)
-
-        lane_c = torch.arange(N, device=dev) * C
-        lane_v = (torch.arange(N, device=dev) * vcap)[:, None]
-        lane_d = (torch.arange(N, device=dev) * DEPTH_CAP)[:, None]
-        arange_c = torch.arange(C, device=dev)
-        dl_rows = torch.from_numpy(np.repeat(depth_limit, C)).to(dev)
-        hseen = torch.zeros((P, N * C), dtype=torch.bool, device=dev)
-        facc1 = torch.zeros((P, N * C), dtype=torch.int64, device=dev)
-        facc2 = torch.zeros_like(facc1)
-        faccd = torch.zeros_like(facc1)
-        act = torch.zeros((N, A), dtype=torch.int64, device=dev)
-        covp = torch.zeros((P, N), dtype=torch.int64, device=dev)
-        dhist = torch.zeros(N * DEPTH_CAP, dtype=torch.int64, device=dev)
-
+        N, P, A = self.lanes, self.P, self.A
+        self.capture()
+        n_init = np.zeros(N, dtype=np.int64)
+        n_init[:n] = len(inits)
+        self.load(inits, n_init, self.lane_params(n, depth_limit, fin_any, fin_all, fin_all_en))
         t0 = time.monotonic()
-        iterations = 0
-        while True:
-            # ---- the gate of each lane (tpu_bfs.py:403 cond) ----
-            fin_hit = ((rec_acc & fin_any) != 0) | (
-                (fin_all_en != 0) & ((rec_acc & fin_all) == fin_all)
-            )
-            gate = (
-                (count > 0) & (count <= high_water) & (unique <= grow_limit)
-                & (steps < _LANE_MAX_STEPS) & (err == 0) & ~fin_hit
-            )
-            if not gate.any():
-                break
-            # ---- one step of every lane (tpu_bfs.py:428 body) ----
-            iterations += 1
-            take = np.where(gate, np.minimum(np.minimum(count, C), take_cap), 0)
-            pos = torch.from_numpy(np.stack([take, head, (head + count) & qmask])).to(dev)
-            take_t, head_t, tail_t = pos[0], pos[1], pos[2]
-            active = (arange_c[None, :] < take_t[:, None]).view(-1)
-            popped = fr.ring_pop_lanes(rings, head_t, C)
-            rows, ebits, depth = popped[:S], popped[S], popped[S + 1]
-            row_h1, row_h2 = hash_lanes(rows)
-            ex = self.expand(rows, ebits, depth, active, dl_rows)
-            valid = ex.valid.view(A, N, C)
-            # Lane l's candidates in the solo order a*C + c.
-            vids, vvalid, n_val = vs.compact_ids_lanes(valid.transpose(0, 1), vcap)
-            cl = ex.flat.index_select(1, ((vids // C) * (N * C) + lane_c[:, None] + vids % C).view(-1))
-            ch1, ch2 = hash_lanes(cl)
-            reps = fr.claim_dedup_lanes(ch1.view(N, vcap), ch2.view(N, vcap), vvalid, dedup_cap)
-            dids, dvalid, n_d = vs.compact_ids_lanes(reps, rcap)
-            src = (lane_c[:, None] + vids.gather(1, dids) % C).view(-1)  # parent row
-            gd = (lane_v + dids).view(-1)
-            dp1 = torch.where(dvalid, row_h1.index_select(0, src).view(N, rcap), 0)
-            dp2 = torch.where(dvalid, row_h2.index_select(0, src).view(N, rcap), 0)
-            ddepth = depth.index_select(0, src) + 1
-            dh1 = ch1.index_select(0, gd).view(N, rcap)
-            dh2 = ch2.index_select(0, gd).view(N, rcap)
-            c_new, unresolved = vs.insert_lanes(table, dh1, dh2, dp1, dp2, dvalid)
-            # The inserted prefix is enqueued even on an overflow step, as
-            # in the solo engine.
-            fr.ring_scatter_lanes(
-                rings, tail_t,
-                torch.cat([cl.index_select(1, gd), ex.ebits.index_select(0, src)[None], ddepth[None]]),
-                c_new,
-            )
-            unres = unresolved.sum(1)
-            stats = [n_val, n_d, unres, c_new.sum(1), valid.sum((0, 2))]
-            if P:
-                hits = torch.stack(ex.prop_hits)
-                new_hit = hits & ~hseen
-                facc1 = torch.where(new_hit, row_h1, facc1)
-                facc2 = torch.where(new_hit, row_h2, facc2)
-                faccd = torch.where(new_hit, depth, faccd)
-                hseen |= hits
-                hs = hits.view(P, N, C).sum(2)
-                stats.append(hs.view(-1))
-            if self.cov:
-                # Per-action and per-property counts skip an overflowing
-                # lane's step (it re-runs); inserts count always.
-                ovf = (n_val > vcap) | (n_d > rcap) | (unres > 0)
-                act += torch.where(ovf[:, None], 0, valid.sum(2).T)
-                if P:
-                    covp += torch.where(ovf[None, :], 0, hs)
-                dhist.index_add_(
-                    0, (lane_d + ddepth.view(N, rcap).clamp(max=DEPTH_CAP - 1)).view(-1),
-                    c_new.view(-1).to(torch.int64),
-                )
-            vals = torch.cat(stats).cpu().numpy()  # the one sync
-            n_val, n_d, unres_n, new_count, generated = vals[: 5 * N].reshape(5, N)
-            hs_np = vals[5 * N:].reshape(P, N)
-
-            # ---- the host's rules, per lane; a closed lane took 0 rows ----
-            err += np.where(gate & (take <= 1), unres_n, 0)
-            ovf = (n_val > vcap) | (n_d > rcap) | (unres_n > 0)
-            consumed = np.where(ovf, 0, take)
-            head = (head + consumed) & qmask
-            count = count - consumed + new_count
-            unique += new_count
-            partial += gate & ovf
-            gen += np.where(ovf, 0, generated)
-            steps += gate & ~ovf
-            take_cap = np.where(
-                gate,
-                np.where(ovf, np.maximum(take >> 1, 1), np.minimum(take_cap + max(1, C // 16), C)),
-                take_cap,
-            )
-            expanded += consumed
-            for i in range(P):
-                rec_acc |= (hs_np[i] > 0).astype(np.int64) << i
-
-        # ---- epilogue, per lane (tpu_bfs.py:781-810) ----
-        last = rings[torch.arange(N, device=dev), S + 1, torch.from_numpy((head - 1) & qmask).to(dev)]
-        parts = [last]
-        if P:
-            sel = torch.where(hseen, faccd, U32_MAX).view(P, N, C).argmin(2, keepdim=True)
-            parts += [
-                hseen.view(P, N, C).any(2).to(torch.int64).view(-1),
-                facc1.view(P, N, C).gather(2, sel).view(-1),
-                facc2.view(P, N, C).gather(2, sel).view(-1),
-            ]
-        if self.cov:
-            parts += [act.view(-1), covp.view(-1), dhist]
-        out = torch.cat(parts).cpu().numpy()
+        vals = self.launch_batch()
         secs = time.monotonic() - t0
-        last, out = out[:N], out[N:]
-        found = out[: P * N].reshape(P, N)
-        fp1 = out[P * N: 2 * P * N].reshape(P, N)
-        fp2 = out[2 * P * N: 3 * P * N].reshape(P, N)
-        out = out[3 * P * N:]
+        x = self.plen
+        rec = vals[:, eo.P_REC]
+        fp1 = vals[:, eo.P_LEN:eo.P_LEN + P]
+        fp2 = vals[:, eo.P_LEN + P:eo.P_LEN + 2 * P]
         discovery_fps = [
-            {p.name: combine64(int(fp1[i, l]), int(fp2[i, l]))
-             for i, p in enumerate(self.props) if found[i, l]}
+            {p.name: combine64(int(fp1[l, i]), int(fp2[l, i]))
+             for i, p in enumerate(self.props) if (rec[l] >> i) & 1}
             for l in range(N)
         ]
         res = SimpleNamespace(
-            unique=unique, count=count, steps=steps, partial=partial, gen=gen,
-            expanded=expanded, err=err, secs=secs, iterations=iterations,
-            max_depth=np.where(steps > 0, last, 0),
-            discovery_fps=discovery_fps,
+            params=vals[:, :x], unique=vals[:, eo.P_UNIQUE], count=vals[:, eo.P_COUNT],
+            steps=vals[:, eo.P_STEPS], partial=vals[:, x + eo.X_PARTIAL], gen=vals[:, eo.P_GEN],
+            err=vals[:, eo.P_ERR], secs=secs, iterations=int(vals[:, x + eo.X_ITER].max()),
+            max_depth=vals[:, eo.P_MAXD], discovery_fps=discovery_fps,
+            graph_captures=self.graph_captures, capture_secs=self.capture_secs,
+            readbacks=self.readbacks,
         )
         if self.cov:
-            res.act = out[: N * A].reshape(N, A)
-            res.covp = out[N * A: N * A + P * N].reshape(P, N)
-            res.dhist = out[N * A + P * N:].reshape(N, DEPTH_CAP)
+            b = self.cov_base
+            res.act = vals[:, b:b + A]
+            res.covp = vals[:, b + A:b + A + P].T
+            res.expanded = vals[:, b + A + P]
+            res.dhist = vals[:, b + A + P + 1:b + eo.cov_len(A, P)]
         return res
 
     def walk(self, lane_fps: List[Tuple[int, int]]) -> List[List[int]]:
@@ -370,6 +448,10 @@ class MultiplexLaneChecker(Checker):
             # The batch's: its step-loop iterations and their wall time.
             "batch_steps": res.iterations,
             "device_era_secs": res.secs,
+            # The warm program's graph captures so far (one on the card).
+            "graph_captures": res.graph_captures,
+            "capture_secs": res.capture_secs,
+            "batch_readbacks": res.readbacks,
         }
         self._coverage = Coverage(enabled=cov_enabled)
         self._coverage.register_properties(p.name for p in tprops)
@@ -497,13 +579,6 @@ def run_multiplexed(
             "lane table_capacity too small for this model's init count + "
             "insert batch; raise table_capacity"
         )
-    init_ebits = 0
-    e = 0
-    for p in tprops:
-        if p.expectation == Expectation.EVENTUALLY:
-            init_ebits |= 1 << e
-            e += 1
-
     program = (LANE_PROGRAMS if cache is None else cache).get(tm, "multiplex", **shape)[0].program
     model = TensorModelAdapter(tm)
     out: List[MultiplexLaneChecker] = []
@@ -512,7 +587,7 @@ def run_multiplexed(
         masks = np.array([b.finish_when_.device_masks(tprops) for b in batch], dtype=np.int64)
         with program.lock:
             res = program.run(
-                inits.astype(np.int64), init_ebits, len(batch),
+                inits.astype(np.int64), len(batch),
                 np.array([U32_MAX if b.target_max_depth_ is None else b.target_max_depth_
                           for b in batch], dtype=np.int64),
                 masks[:, 0], masks[:, 1], masks[:, 2],

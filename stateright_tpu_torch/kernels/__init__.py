@@ -13,11 +13,11 @@ returns ``cudaGetLastError()`` (0 = launched). `Kernel.launch` raises on
 anything else and then adds one to the kernel's ``launches`` count — the
 count a run reads to show its main path went through the kernel.
 
-A launch made while a CUDA graph captures is not a launch: the era graph
-(engines/era.py) takes the counts its captures added back off
-(`restore_launches`) and adds each captured segment's launches once per
-run of the segment on the card (`add_launches`), from the run counts the
-era's state vector reports.
+A launch made while a CUDA graph captures is not a launch: the device
+programs' graphs (engines/graph.py) take the counts their captures added
+back off (`restore_launches`) and add each captured segment's launches
+once per run of the segment on the card (`add_launches`), from the run
+counts the program's state vector reports.
 
 Nothing here builds or loads at import: the CPU tests import every
 module on machines with no CUDA toolkit.
@@ -143,15 +143,16 @@ SLAB_BOTTOMK = Kernel(
     "stateright_tpu/engines/tpu_bfs.py:995",
 )
 
-# K8f: the era's gate and step commit, and its epilogue (engines/era.py).
-ERA_STEP = Kernel(
+# K8f: the era's gate and step commit, and its epilogue (engines/era.py);
+# with a lane axis, K14f's (engines/multiplex.py), counted on the twins.
+ERA_STEP, ERA_STEP_LANES = _with_lanes(
     "era_step", "era_step.cu", "srt_era_step",
-    [_I32, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U64],
+    [_I32, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U64],
     "stateright_tpu/engines/tpu_bfs.py:403",
 )
-ERA_EPILOGUE = Kernel(
+ERA_EPILOGUE, ERA_EPILOGUE_LANES = _with_lanes(
     "era_epilogue", "era_epilogue.cu", "srt_era_epilogue",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _U64],
+    [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P, _U64],
     "stateright_tpu/engines/tpu_bfs.py:781",
 )
 
@@ -175,8 +176,14 @@ WALK_PROLOGUE = Kernel(
 )
 WALK_CAPTURE = Kernel(
     "walk_capture", "walk_capture.cu", "srt_walk_capture",
-    [_P, _P, _P, _P, _I32, _I64, _U64, _U64, _P, _I64, _P, _P, _I64],
+    [_P, _P, _P, _P, _I32, _I64, _P, _P, _I64, _P, _P, _I64],
     "stateright_tpu/engines/tpu_simulation.py:219",
+)
+# K13f: the simulation era's gate, commit and epilogue (engines/gpu_simulation.py).
+WALK_ERA = Kernel(
+    "walk_era", "walk_era.cu", "srt_walk_era",
+    [_I32, _P, _P, _P, _P, _P, _U64],
+    "stateright_tpu/engines/tpu_simulation.py:168",
 )
 WALK_SLAB = Kernel(
     "walk_slab", "walk_slab.cu", "srt_walk_slab",
@@ -185,19 +192,20 @@ WALK_SLAB = Kernel(
 )
 
 # The kernels of each engine's path: the BFS step and its epilogue, the
-# simulation step and its epilogue, and the multiplexed lane step, its
-# seed and its path walks (K1 runs on all three). KERNELS has one entry a
+# simulation step, its era kernel and its epilogue, and the multiplexed
+# lane step, its seed, its era kernels and its path walks (K1 runs on
+# all three). KERNELS has one entry a
 # source; ENTRIES adds the second entry points.
 BFS_KERNELS = (
     HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT,
     RING, SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT, ERA_STEP, ERA_EPILOGUE,
 )
-SIM_KERNELS = (HASH_LANES, WALK_RECORD, WALK_STEP, WALK_PROLOGUE, WALK_CAPTURE, WALK_SLAB)
+SIM_KERNELS = (HASH_LANES, WALK_RECORD, WALK_STEP, WALK_PROLOGUE, WALK_CAPTURE, WALK_SLAB, WALK_ERA)
 LANE_KERNELS = (
     HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES,
-    RING_LANES, LOOKUP_PARENT_LANES,
+    RING_LANES, LOOKUP_PARENT_LANES, ERA_STEP_LANES, ERA_EPILOGUE_LANES,
 )
-KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB)
+KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA)
 ENTRIES = KERNELS + (WALK_PROLOGUE,) + LANE_KERNELS[1:]
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-// K8f, the era half: the BFS era's epilogue, on the card.
+// K8f, the era half: the BFS era's epilogue, on the card; with a lane
+// axis, K14f's (the multiplexed lanes' era epilogue, under jax.vmap).
 //
 // Replaces, in stateright_tpu/engines/tpu_bfs.py:361 `_build_loop.loop`,
 // the once-per-era epilogue of `run_era` (:781-853) and the continuation
@@ -22,7 +23,13 @@
 // A conditional-node handle other than 0 receives the continuation: it
 // ends the outer (fusion) WHILE loop of the era graph (engines/era.py).
 //
-// Design: one block of 1,024 threads. Each property's first-hit lanes
+// Lanes (engines/multiplex.py): one block a lane, on lane l's state row
+// (state [lanes, stride]), its first-hit lanes (position p of property i
+// at i * lanes * chunk + l * chunk + p) and its ring's depth lane
+// (ring_depth + l * ring_stride). Lanes have no sample slab and no
+// fusion tail, so nothing crosses lanes.
+//
+// Design: one block of 1,024 threads a lane. Each property's first-hit lanes
 // (chunk wide) are scanned by the whole block for the minimum of
 // depth << 32 | position among the hit positions (a block min over 64-bit
 // keys: the lowest position wins a depth tie, as argmin's first index
@@ -43,18 +50,28 @@ constexpr int kMaxProps = 32;
 constexpr unsigned long long kNone = ~0ull;
 
 __global__ void __launch_bounds__(kThreads)
-    era_epilogue_kernel(const Cfg c, long long* s, bool* hseen, long long* facc1,
-                        long long* facc2, long long* faccd, const long long* ring_depth,
+    era_epilogue_kernel(const Cfg c, long long* s0, long long stride, bool* hseen0,
+                        long long* facc10, long long* facc20, long long* faccd0,
+                        const long long* ring_depth0, long long ring_stride,
                         const long long* slab_counts, cudaGraphConditionalHandle h) {
   __shared__ unsigned long long warp_min[kThreads / 32];
   __shared__ unsigned long long best[kMaxProps];
   __shared__ long long fp[2][kMaxProps];
   const int t = threadIdx.x;
+  const long long l = blockIdx.x, lanes = gridDim.x;
   const long long C = c.chunk;
+  long long* s = s0 + l * stride;
+  const long long* ring_depth = ring_depth0 + l * ring_stride;
+  // Lane l's first-hit lanes: property i's row starts at i * lanes * C.
+  bool* hseen = hseen0 + l * C;
+  long long* facc1 = facc10 + l * C;
+  long long* facc2 = facc20 + l * C;
+  long long* faccd = faccd0 + l * C;
+  const long long row = lanes * C;
   for (long long i = 0; i < c.P; ++i) {
     unsigned long long key = kNone;
     for (long long p = t; p < C; p += kThreads) {
-      const long long j = i * C + p;
+      const long long j = i * row + p;
       if (hseen[j]) {
         const unsigned long long k = ((unsigned long long)(faccd[j] & M32) << 32) | (unsigned long long)p;
         key = k < key ? k : key;
@@ -71,17 +88,19 @@ __global__ void __launch_bounds__(kThreads)
       for (int w = 0; w < kThreads / 32; ++w) m = warp_min[w] < m ? warp_min[w] : m;
       best[i] = m;
       if (m != kNone) {
-        const long long sel = i * C + (long long)(m & M32);
+        const long long sel = i * row + (long long)(m & M32);
         fp[0][i] = facc1[sel];
         fp[1][i] = facc2[sel];
       }
     }
     __syncthreads();
   }
-  for (long long j = t; j < c.P * C; j += kThreads) {
-    hseen[j] = false;
-    facc1[j] = facc2[j] = faccd[j] = 0;
-  }
+  for (long long i = 0; i < c.P; ++i)
+    for (long long p = t; p < C; p += kThreads) {
+      const long long j = i * row + p;
+      hseen[j] = false;
+      facc1[j] = facc2[j] = faccd[j] = 0;
+    }
   if (t != 0) return;
   long long* x = s + c.x;
   const long long rec0 = x[X_REC0];
@@ -111,11 +130,11 @@ __global__ void __launch_bounds__(kThreads)
   long long k = x[X_K];
   bool more = false;
   if (c.f_base >= 0) {
-    long long* lanes = s + c.f_base + 2;
-    lanes[k] = steps;
-    lanes[c.fuse + k] = x[X_EGEN];
-    lanes[2 * c.fuse + k] = (unique - x[X_UNIQ_IN]) & M32;
-    lanes[3 * c.fuse + k] = count;
+    long long* fl = s + c.f_base + 2;
+    fl[k] = steps;
+    fl[c.fuse + k] = x[X_EGEN];
+    fl[2 * c.fuse + k] = (unique - x[X_UNIQ_IN]) & M32;
+    fl[3 * c.fuse + k] = count;
     k += 1;
     s[c.f_base + 1] = k;
     const bool room = c.s_base < 0 || slab_counts[0] <= c.s_high;
@@ -130,20 +149,24 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// cfg: the host's config vector (era.cuh Cfg). hseen bool [P, chunk] and
-// facc1/facc2/faccd int64 [P, chunk]: the era's first-hit lanes.
-// ring_depth: the ring's depth lane (qcap + 1 int64). slab_counts: the
-// sample slab's [occupied, dropped], or null without sampling. handle: a
-// conditional node's handle, or 0. P <= 32.
-extern "C" int srt_era_epilogue(const void* cfg, void* state, void* hseen, void* facc1,
-                                void* facc2, void* faccd, const void* ring_depth,
+// cfg: the host's config vector (era.cuh Cfg). state: [lanes, stride]
+// int64. hseen bool [P, lanes * chunk] and facc1/facc2/faccd int64
+// [P, lanes * chunk]: the era's first-hit lanes. ring_depth: lane 0's
+// ring depth lane (qcap + 1 int64), lane l's at + l * ring_stride.
+// slab_counts: the sample slab's [occupied, dropped], or null without
+// sampling. handle: a conditional node's handle, or 0. P <= 32; with
+// lanes > 1 no slab, no fusion tail and no handle.
+extern "C" int srt_era_epilogue(const void* cfg, void* state, long long lanes, long long stride,
+                                void* hseen, void* facc1, void* facc2, void* faccd,
+                                const void* ring_depth, long long ring_stride,
                                 const void* slab_counts, unsigned long long handle,
                                 void* stream) {
   const Cfg c = load_cfg((const long long*)cfg);
-  if (c.P < 0 || c.P > kMaxProps) return (int)cudaErrorInvalidValue;
-  era_epilogue_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      c, (long long*)state, (bool*)hseen, (long long*)facc1, (long long*)facc2,
-      (long long*)faccd, (const long long*)ring_depth, (const long long*)slab_counts,
-      (cudaGraphConditionalHandle)handle);
+  if (c.P < 0 || c.P > kMaxProps || lanes < 1) return (int)cudaErrorInvalidValue;
+  if (lanes > 1 && (c.s_base >= 0 || c.f_base >= 0 || handle)) return (int)cudaErrorInvalidValue;
+  era_epilogue_kernel<<<(unsigned)lanes, kThreads, 0, (cudaStream_t)stream>>>(
+      c, (long long*)state, stride, (bool*)hseen, (long long*)facc1, (long long*)facc2,
+      (long long*)faccd, (const long long*)ring_depth, ring_stride,
+      (const long long*)slab_counts, (cudaGraphConditionalHandle)handle);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// K8f, the step half: the BFS era's gate and step commit, on the card.
+// K8f, the step half: the BFS era's gate and step commit, on the card;
+// with a lane axis, K14f's (the multiplexed lanes' era, under jax.vmap).
 //
 // Replaces, in stateright_tpu/engines/tpu_bfs.py:361 `_build_loop.loop`,
 // the `lax.while_loop` predicate `cond` (:403-426), the take (:449-455),
@@ -9,7 +10,7 @@
 // (:884-937). One launch a step, after it: it commits the step and
 // decides the next one, so the era needs no host round trip.
 //
-// Modes (one block each):
+// Modes (one block a lane):
 //   START   once a dispatch: zero the dispatch's outputs (generated,
 //           steps, max depth, the coverage tail, the fusion lanes), clamp
 //           fuse_lim, zero the sample slab, and open the outer (fusion)
@@ -26,14 +27,25 @@
 // take_cap) and, while the sample threshold is still (MAX, MAX), at most
 // s_take; 0 when the gate is closed, so a closed step changes nothing.
 //
-// A conditional-node handle other than 0 receives the gate (BEGIN,
-// COMMIT) or 1 (START): that is what ends the era's CUDA-graph WHILE
-// loop on the card (engines/era.py). This source also holds the host
-// functions that build that graph (srt_graph_*).
+// Lanes (engines/multiplex.py): the state is [lanes, stride], one JAX
+// params row (then the X_* words) a lane, and the step operands are per
+// lane (n_val[N], n_d[N], unresolved / c_new [N, n], generated[N],
+// hs[P, N], pa[N, A]). Block l commits and gates lane l alone; a lane
+// whose gate closed keeps every word, as vmap's select does in the JAX
+// lane program. The loop runs while ANY lane is open: the last block to
+// finish (a ticket taken with atomicAdd after a __threadfence) ORs the
+// lanes' gates, sets the conditional once, raises the epoch once and
+// resets the ticket. Lanes have no sample slab and no fusion tail.
 //
-// Bound on the card: latency. The work is a few dozen scalar words and
-// two sums over the rcap-wide insert masks; one block does it, and the
-// launch itself is the cost.
+// A conditional-node handle other than 0 receives the gate (BEGIN,
+// COMMIT; with lanes, the OR of the lanes' gates) or 1 (START): that is
+// what ends the era's CUDA-graph WHILE loop on the card (engines/graph.py).
+// This source also holds the host functions that build that graph
+// (srt_graph_*).
+//
+// Bound on the card: latency. The work is a few dozen scalar words a
+// lane and two sums over each lane's insert masks; one block a lane does
+// it, and the launch itself is the cost.
 
 #include "era.cuh"
 
@@ -45,21 +57,23 @@ constexpr int kThreads = 256;
 constexpr int MODE_START = 0, MODE_BEGIN = 1, MODE_COMMIT = 2;
 
 struct StepIn {
-  const long long* n_val;      // valid candidates (0-d)
-  const long long* n_d;        // distinct candidates (0-d)
-  const bool* unresolved;      // [n] insert left unresolved
-  const bool* c_new;           // [n] newly inserted
+  const long long* n_val;      // [N] valid candidates
+  const long long* n_d;        // [N] distinct candidates
+  const bool* unresolved;      // [N, n] insert left unresolved
+  const bool* c_new;           // [N, n] newly inserted
   long long n;
-  const long long* generated;  // valid successors of the active rows (0-d)
-  const long long* hs;         // [P] rows that hit each property
-  const long long* pa;         // [A] valid candidates of each action (coverage)
-  long long* slab[4];          // the sample slab's lanes (scap + 1 rows)
+  const long long* generated;  // [N] valid successors of the active rows
+  const long long* hs;         // [P, N] rows that hit each property
+  const long long* pa;         // [N, A] valid candidates of each action (coverage)
+  long long* slab[4];          // the sample slab's lanes (scap + 1 rows; one lane only)
   long long* slab_counts;      // [occupied, dropped]
   long long* epoch;            // the visited insert's epoch
+  long long lanes;             // N
+  long long stride;            // words of one lane's state row
+  unsigned long long* ticket;  // the last-block ticket (N > 1)
 };
 
-__device__ void gate(const Cfg& c, long long* s, const long long* slab_counts,
-                     cudaGraphConditionalHandle h) {
+__device__ void gate(const Cfg& c, long long* s, const long long* slab_counts) {
   long long* x = s + c.x;
   const long long count = s[P_COUNT];
   bool open = count > 0 && count <= s[P_HIGH_WATER] && s[P_UNIQUE] <= s[P_GROW_LIMIT] &&
@@ -74,7 +88,6 @@ __device__ void gate(const Cfg& c, long long* s, const long long* slab_counts,
   x[X_OPEN] = open;
   x[X_TAKE] = take;
   x[X_TAIL] = (s[P_HEAD] + count) & c.qmask;
-  if (h) cudaGraphSetConditional(h, open ? 1u : 0u);
 }
 
 __device__ long long block_count(const bool* v, long long n, long long* red) {
@@ -89,10 +102,49 @@ __device__ long long block_count(const bool* v, long long n, long long* red) {
   return total;
 }
 
+// Lane l's commit (thread 0, after the block's two sums).
+__device__ void commit(const Cfg& c, long long* s, const StepIn& in, long long l,
+                       long long unres, long long new_count) {
+  long long* x = s + c.x;
+  const long long take = x[X_TAKE];
+  if (take <= 1) s[P_ERR] = (s[P_ERR] + unres) & M32;
+  const bool ovf = in.n_val[l] > c.vcap || in.n_d[l] > c.rcap || unres > 0;
+  const long long consumed = ovf ? 0 : take;
+  s[P_HEAD] = (s[P_HEAD] + consumed) & c.qmask;
+  s[P_COUNT] = (s[P_COUNT] - consumed + new_count) & M32;
+  s[P_UNIQUE] = (s[P_UNIQUE] + new_count) & M32;
+  if (!ovf) {
+    const long long gen = in.generated[l];
+    x[X_EGEN] = (x[X_EGEN] + gen) & M32;
+    s[P_GEN] = (s[P_GEN] + gen) & M32;
+    x[X_ESTEPS] += 1;
+    s[P_STEPS] = (s[P_STEPS] + 1) & M32;
+    s[P_TAKE_CAP] = min(s[P_TAKE_CAP] + c.regrow, c.chunk);
+  } else {
+    s[P_TAKE_CAP] = max(take >> 1, 1ll);
+  }
+  if (c.cov_base >= 0) {
+    long long* cv = s + c.cov_base;
+    if (!ovf) {
+      for (long long a = 0; a < c.A; ++a) cv[a] = (cv[a] + in.pa[l * c.A + a]) & M32;
+      for (long long i = 0; i < c.P; ++i)
+        cv[c.A + i] = (cv[c.A + i] + in.hs[i * in.lanes + l]) & M32;
+    }
+    cv[c.A + c.P] = (cv[c.A + c.P] + consumed) & M32;
+  }
+  for (long long i = 0; i < c.P; ++i)
+    if (in.hs[i * in.lanes + l] > 0) s[P_REC] |= 1ll << i;
+  x[X_ITER] += 1;
+  x[X_PARTIAL] += ovf;
+}
+
 __global__ void __launch_bounds__(kThreads)
-    era_step_kernel(int mode, const Cfg c, long long* s, const __grid_constant__ StepIn in,
+    era_step_kernel(int mode, const Cfg c, long long* s0, const __grid_constant__ StepIn in,
                     cudaGraphConditionalHandle h) {
   __shared__ long long red[kThreads / 32];
+  __shared__ bool last;
+  const long long l = blockIdx.x;
+  long long* s = s0 + l * in.stride;
   long long* x = s + c.x;
   const int t = threadIdx.x;
   if (mode == MODE_START) {
@@ -101,8 +153,8 @@ __global__ void __launch_bounds__(kThreads)
     if (c.f_base >= 0)
       for (long long i = t; i < 4 * c.fuse; i += kThreads) s[c.f_base + 2 + i] = 0;
     if (c.s_base >= 0) {
-      for (int l = 0; l < 4; ++l)
-        for (long long i = t; i <= c.scap; i += kThreads) in.slab[l][i] = 0;
+      for (int k = 0; k < 4; ++k)
+        for (long long i = t; i <= c.scap; i += kThreads) in.slab[k][i] = 0;
       if (t < 2) in.slab_counts[t] = 0;
     }
     if (t == 0) {
@@ -122,66 +174,62 @@ __global__ void __launch_bounds__(kThreads)
       x[X_REC0] = s[P_REC];
       x[X_UNIQ_IN] = s[P_UNIQUE];
       s[P_TAKE_CAP] = min(max(s[P_TAKE_CAP], 1ll), c.chunk);
-      gate(c, s, in.slab_counts, h);
+      gate(c, s, in.slab_counts);
     }
+  } else if (x[X_OPEN]) {
+    // COMMIT of an open lane: every thread of the block read the same
+    // open flag, so the sums are reached by the whole block or by none.
+    const long long unres = block_count(in.unresolved + l * in.n, in.n, red);
+    const long long new_count = block_count(in.c_new + l * in.n, in.n, red);
+    if (t == 0) {
+      commit(c, s, in, l, unres, new_count);
+      if (in.lanes == 1) *in.epoch += 1;
+      gate(c, s, in.slab_counts);
+    }
+  }
+  if (in.lanes == 1) {
+    if (t == 0 && h) cudaGraphSetConditional(h, x[X_OPEN] ? 1u : 0u);
     return;
   }
-  // COMMIT: every thread reads the same open flag, so the sums below are
-  // reached by the whole block or by none of it.
-  if (!x[X_OPEN]) {
-    if (t == 0 && h) cudaGraphSetConditional(h, 0u);
-    return;
+  // Lanes: the last block to get here ORs every lane's gate.
+  if (t == 0) {
+    __threadfence();
+    last = atomicAdd(in.ticket, 1ull) == (unsigned long long)(in.lanes - 1);
   }
-  const long long unres = block_count(in.unresolved, in.n, red);
-  const long long new_count = block_count(in.c_new, in.n, red);
-  if (t != 0) return;
-  const long long take = x[X_TAKE];
-  if (take <= 1) s[P_ERR] = (s[P_ERR] + unres) & M32;
-  const bool ovf = *in.n_val > c.vcap || *in.n_d > c.rcap || unres > 0;
-  const long long consumed = ovf ? 0 : take;
-  s[P_HEAD] = (s[P_HEAD] + consumed) & c.qmask;
-  s[P_COUNT] = (s[P_COUNT] - consumed + new_count) & M32;
-  s[P_UNIQUE] = (s[P_UNIQUE] + new_count) & M32;
-  if (!ovf) {
-    const long long gen = *in.generated;
-    x[X_EGEN] = (x[X_EGEN] + gen) & M32;
-    s[P_GEN] = (s[P_GEN] + gen) & M32;
-    x[X_ESTEPS] += 1;
-    s[P_STEPS] = (s[P_STEPS] + 1) & M32;
-    s[P_TAKE_CAP] = min(s[P_TAKE_CAP] + c.regrow, c.chunk);
-  } else {
-    s[P_TAKE_CAP] = max(take >> 1, 1ll);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int any = 0;
+  const volatile long long* vs = s0;
+  for (long long j = t; j < in.lanes; j += kThreads) any |= vs[j * in.stride + c.x + X_OPEN] != 0;
+  any = __syncthreads_or(any);
+  if (t == 0) {
+    if (h) cudaGraphSetConditional(h, any ? 1u : 0u);
+    if (mode == MODE_COMMIT && in.epoch) *in.epoch += 1;
+    *in.ticket = 0;
   }
-  if (c.cov_base >= 0) {
-    long long* cv = s + c.cov_base;
-    if (!ovf) {
-      for (long long a = 0; a < c.A; ++a) cv[a] = (cv[a] + in.pa[a]) & M32;
-      for (long long i = 0; i < c.P; ++i) cv[c.A + i] = (cv[c.A + i] + in.hs[i]) & M32;
-    }
-    cv[c.A + c.P] = (cv[c.A + c.P] + consumed) & M32;
-  }
-  for (long long i = 0; i < c.P; ++i)
-    if (in.hs[i] > 0) s[P_REC] |= 1ll << i;
-  x[X_ITER] += 1;
-  x[X_PARTIAL] += ovf;
-  *in.epoch += 1;
-  gate(c, s, in.slab_counts, h);
 }
 
 }  // namespace
 
 // mode: 0 START, 1 BEGIN, 2 COMMIT. cfg: the host's config vector
-// (era.cuh Cfg). The step operands are read by COMMIT only, the slab
-// (null without sampling) by START and the gate. handle: a conditional
-// node's handle, or 0.
-extern "C" int srt_era_step(int mode, const void* cfg, void* state, const void* n_val,
-                            const void* n_d, const void* unresolved, const void* c_new,
-                            long long n, const void* generated, const void* hs,
-                            const void* pa, void* sfp1, void* sfp2, void* sdep, void* sact,
-                            void* slab_counts, void* epoch, unsigned long long handle,
-                            void* stream) {
-  if (mode < MODE_START || mode > MODE_COMMIT) return (int)cudaErrorInvalidValue;
+// (era.cuh Cfg). state: [lanes, stride] int64 (one lane: stride unused).
+// The step operands are read by COMMIT only, per lane (n: the width of
+// one lane's insert masks); the slab (null without sampling; one lane
+// only) by START and the gate. ticket: one zeroed uint64 on the card
+// when lanes > 1 (BEGIN, COMMIT). handle: a conditional node's handle,
+// or 0 (START: one lane only).
+extern "C" int srt_era_step(int mode, const void* cfg, void* state, long long lanes,
+                            long long stride, const void* n_val, const void* n_d,
+                            const void* unresolved, const void* c_new, long long n,
+                            const void* generated, const void* hs, const void* pa, void* sfp1,
+                            void* sfp2, void* sdep, void* sact, void* slab_counts, void* epoch,
+                            void* ticket, unsigned long long handle, void* stream) {
+  if (mode < MODE_START || mode > MODE_COMMIT || lanes < 1) return (int)cudaErrorInvalidValue;
   const Cfg c = load_cfg((const long long*)cfg);
+  if (lanes > 1 && (c.s_base >= 0 || c.f_base >= 0 ||
+                    (mode == MODE_START ? handle != 0 : ticket == nullptr)))
+    return (int)cudaErrorInvalidValue;
   StepIn in{};
   in.n_val = (const long long*)n_val;
   in.n_d = (const long long*)n_d;
@@ -197,12 +245,15 @@ extern "C" int srt_era_step(int mode, const void* cfg, void* state, const void* 
   in.slab[3] = (long long*)sact;
   in.slab_counts = (long long*)slab_counts;
   in.epoch = (long long*)epoch;
-  era_step_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+  in.lanes = lanes;
+  in.stride = stride;
+  in.ticket = (unsigned long long*)ticket;
+  era_step_kernel<<<(unsigned)lanes, kThreads, 0, (cudaStream_t)stream>>>(
       mode, c, (long long*)state, in, (cudaGraphConditionalHandle)handle);
   return (int)cudaGetLastError();
 }
 
-// The era graph (engines/era.py): conditional WHILE nodes whose bodies
+// The device-program graphs (engines/graph.py): conditional WHILE nodes whose bodies
 // hold the torch-captured segments as child graphs. Every function
 // returns a cudaError_t as int.
 namespace {

@@ -2,9 +2,12 @@
 //
 // Replaces stateright_tpu/engines/tpu_simulation.py:219-252 (`below` and
 // `_capture`, under its `lax.cond`). Walk w is captured iff it was
-// counted this step and its fingerprint is below the host threshold,
+// counted this step and its fingerprint is below the threshold,
 // (h1, h2) < (t1, t2) lexicographically, compared UNSIGNED on the uint32
-// halves held in int64. The captured walks are appended in walk order at
+// halves held in int64. thresh[0..1] = (t1, t2) is read on the card: the
+// simulation era's state vector holds it (the sample tail's first two
+// words, as the JAX loop reads it from its params), so a CUDA graph's
+// replay sees each era's threshold. The captured walks are appended in walk order at
 // slab rows occupied + rank: (h1, h2, ptr, the S state lanes). The slab
 // holds scap = slab_high_water(k) + B rows and the era ends once
 // occupied passes the high-water mark, so every capture fits (step_cap
@@ -22,11 +25,11 @@
 
 #include "capture_scan.cuh"
 
-// scratch holds at least ceil(B / 1024) + 1 int64.
+// thresh is int64[2] on the card; scratch holds at least
+// ceil(B / 1024) + 1 int64.
 extern "C" int srt_walk_capture(const void* counted, const void* h1,
                                 const void* h2, const void* walk, int S,
-                                long long B, unsigned long long t1,
-                                unsigned long long t2, void* slab,
+                                long long B, const void* thresh, void* slab,
                                 long long scap, void* stats, void* scratch,
                                 long long scratch_len, void* stream) {
   if (B < 1 || S < 0 || S + 3 > capture::kMaxLanes) return (int)cudaErrorInvalidValue;
@@ -42,7 +45,7 @@ extern "C" int srt_walk_capture(const void* counted, const void* h1,
   lanes.n = S + 3;
   long long* st = (long long*)stats;
   return capture::launch((const bool*)counted, (const long long*)h1,
-                         (const long long*)h2, B, (uint32_t)t1, (uint32_t)t2,
-                         nullptr, lanes, scap, st + 1, nullptr, B, (long long*)scratch,
+                         (const long long*)h2, B, 0u, 0u,
+                         (const long long*)thresh, lanes, scap, st + 1, nullptr, B, (long long*)scratch,
                          scratch_len, (cudaStream_t)stream);
 }

@@ -12,6 +12,13 @@ card: the JAX params, word for word (uint32 values), then the port's
 own words (X_*). `era_step` and `era_epilogue` run their kernels
 (kernels/csrc/era_step.cu, era_epilogue.cu) on CUDA tensors and their
 plain versions on CPU tensors.
+
+Both take a lane axis (K14f, the multiplexed lanes' era: the JAX era
+under `jax.vmap`, engines/multiplex.py): a state [N, params_len + X_LEN],
+one row a lane, with per-lane step operands. Each lane's row follows the
+solo rules alone; a lane whose gate closed keeps every word. The era's
+loop runs while any lane's gate is open. A one-dimensional state is the
+solo era, the one-lane case.
 """
 
 from __future__ import annotations
@@ -125,7 +132,9 @@ class StepOperands(NamedTuple):
     """What one step hands its commit: the valid and distinct candidate
     counts (0-d), the insert's unresolved and new masks, the generated
     count (0-d), each property's hit rows [P] and each action's valid
-    candidates [A] (None without properties / coverage)."""
+    candidates [A] (None without properties / coverage). With N lanes:
+    n_val, n_d and generated [N], the masks [N, m], hs [P, N], pa
+    [N, A]."""
 
     n_val: torch.Tensor
     n_d: torch.Tensor
@@ -163,11 +172,10 @@ def _gate(c: EraConfig, s, occupied: int) -> None:
     s[x + X_TAIL] = (s[P_HEAD] + count) & c.qmask
 
 
-def era_step_plain(mode: int, c: EraConfig, state, step: Optional[StepOperands] = None,
-                   slab=None, epoch=None) -> None:
-    s = state.tolist()
+def _step_row(mode: int, c: EraConfig, s: list, step, l: int, occupied: int, slab) -> None:
+    """One lane's row `s` (a list, in place) under `mode`; `step` holds
+    the per-lane operands as lists (COMMIT)."""
     x = c.x
-    occupied = int(slab.counts[0]) if slab is not None else 0
     if mode == START:
         if c.cov_base >= 0:
             s[c.cov_base:c.cov_base + c.n_cov] = [0] * c.n_cov
@@ -188,19 +196,20 @@ def era_step_plain(mode: int, c: EraConfig, state, step: Optional[StepOperands] 
     elif mode == COMMIT:
         if not s[x + X_OPEN]:
             return
-        unres = int(step.unresolved.sum())
-        new_count = int(step.c_new.sum())
+        n_val, n_d, unres_n, new_n, gen_n, hs_n, pa_n = step
+        unres = unres_n[l]
+        new_count = new_n[l]
         take = s[x + X_TAKE]
         if take <= 1:
             s[P_ERR] = (s[P_ERR] + unres) & M32
-        ovf = int(step.n_val) > c.vcap or int(step.n_d) > c.rcap or unres > 0
+        ovf = n_val[l] > c.vcap or n_d[l] > c.rcap or unres > 0
         consumed = 0 if ovf else take
         s[P_HEAD] = (s[P_HEAD] + consumed) & c.qmask
         s[P_COUNT] = (s[P_COUNT] - consumed + new_count) & M32
         s[P_UNIQUE] = (s[P_UNIQUE] + new_count) & M32
-        hs = step.hs.tolist() if step.hs is not None else []
+        hs = [row[l] for row in hs_n]
         if not ovf:
-            gen = int(step.generated)
+            gen = gen_n[l]
             s[x + X_EGEN] = (s[x + X_EGEN] + gen) & M32
             s[P_GEN] = (s[P_GEN] + gen) & M32
             s[x + X_ESTEPS] += 1
@@ -211,7 +220,7 @@ def era_step_plain(mode: int, c: EraConfig, state, step: Optional[StepOperands] 
         if c.cov_base >= 0:
             b = c.cov_base
             if not ovf:
-                for a, n in enumerate(step.pa.tolist()):
+                for a, n in enumerate(pa_n[l]):
                     s[b + a] = (s[b + a] + n) & M32
                 for i, n in enumerate(hs):
                     s[b + c.A + i] = (s[b + c.A + i] + n) & M32
@@ -221,16 +230,36 @@ def era_step_plain(mode: int, c: EraConfig, state, step: Optional[StepOperands] 
                 s[P_REC] |= 1 << i
         s[x + X_ITER] += 1
         s[x + X_PARTIAL] += int(ovf)
-        if epoch is not None:
-            epoch += 1
         _gate(c, s, occupied)
     else:
         raise ValueError(f"unknown era step mode {mode}")
-    state.copy_(torch.tensor(s, dtype=torch.int64))
+
+
+def era_step_plain(mode: int, c: EraConfig, state, step: Optional[StepOperands] = None,
+                   slab=None, epoch=None) -> None:
+    rows = state.view(-1, state.shape[-1])
+    N = rows.shape[0]
+    occupied = int(slab.counts[0]) if slab is not None else 0
+    ops = None
+    if mode == COMMIT:
+        ops = (
+            step.n_val.reshape(N).tolist(), step.n_d.reshape(N).tolist(),
+            step.unresolved.reshape(N, -1).sum(1).tolist(), step.c_new.reshape(N, -1).sum(1).tolist(),
+            step.generated.reshape(N).tolist(),
+            step.hs.reshape(-1, N).tolist() if step.hs is not None else [],
+            step.pa.reshape(N, -1).tolist() if step.pa is not None else None,
+        )
+    vals = rows.tolist()
+    was_open = [s[c.x + X_OPEN] for s in vals]
+    for l, s in enumerate(vals):
+        _step_row(mode, c, s, ops, l, occupied, slab)
+    if epoch is not None and mode == COMMIT and any(was_open):
+        epoch += 1
+    rows.copy_(torch.tensor(vals, dtype=torch.int64))
 
 
 def era_step(mode: int, c: EraConfig, state, step: Optional[StepOperands] = None,
-             slab=None, epoch=None, handle: int = 0) -> None:
+             slab=None, epoch=None, handle: int = 0, ticket=None) -> None:
     """One launch of K8f's step kernel on the era's state vector (int64,
     the JAX params then the X_* words), in place. START opens a dispatch
     (zeroes its outputs and the slab, clamps fuse_lim), BEGIN opens an
@@ -239,10 +268,17 @@ def era_step(mode: int, c: EraConfig, state, step: Optional[StepOperands] = None
     next step: X_OPEN, X_TAKE (0 when closed) and X_TAIL. `slab` (the
     sample slab, or None) is zeroed at START and its occupancy gates the
     era. `handle` (a CUDA graph's conditional handle, or 0) receives the
-    gate. On CPU tensors the plain version runs."""
+    gate. With a state [N, L] (N lanes, K14f) each lane's row is gated
+    and committed alone, `handle` receives the OR of the lanes' gates,
+    `epoch` rises once a step, and `ticket` (one zeroed int64 on the
+    card) carries the kernel's last-block ticket; no slab. On CPU
+    tensors the plain version runs."""
     if not kernels.on_card(state):
         return era_step_plain(mode, c, state, step, slab, epoch)
     p = kernels.ptr
+    lanes = state.shape[0] if state.dim() == 2 else 1
+    if lanes > 1 and ticket is None and mode != START:
+        raise ValueError("the lane era step needs its ticket word")
 
     def opt(t):
         return None if t is None else p(t)
@@ -251,23 +287,16 @@ def era_step(mode: int, c: EraConfig, state, step: Optional[StepOperands] = None
         ops = [None, None, None, None, 0, None, None, None]
     else:
         ops = [p(step.n_val), p(step.n_d), p(step.unresolved), p(step.c_new),
-               step.c_new.numel(), p(step.generated), opt(step.hs), opt(step.pa)]
-    lanes = [None] * 5 if slab is None else [p(t) for t in slab]
-    kernels.ERA_STEP.launch(mode, c.ptr, p(state), *ops, *lanes, opt(epoch), int(handle))
+               step.c_new.shape[-1], p(step.generated), opt(step.hs), opt(step.pa)]
+    slab_lanes = [None] * 5 if slab is None else [p(t) for t in slab]
+    kernel = kernels.ERA_STEP if state.dim() == 1 else kernels.ERA_STEP_LANES
+    kernel.launch(mode, c.ptr, p(state), lanes, state.shape[-1], *ops, *slab_lanes, opt(epoch),
+                  opt(ticket), int(handle))
 
 
-def era_epilogue_plain(c: EraConfig, state, hseen, facc1, facc2, faccd, ring_depth,
-                       slab_counts=None) -> None:
-    s = state.tolist()
+def _epilogue_row(c: EraConfig, s: list, found, fp1, fp2, maxd_at, occupied: int) -> None:
     x = c.x
     P = c.P
-    if P:
-        found = hseen.any(1).tolist()
-        # The shallowest first hit, the lowest position among equals.
-        sel = torch.where(hseen, faccd, M32).argmin(1)
-        rows = torch.arange(P, device=hseen.device)
-        fp1 = facc1[rows, sel].tolist()
-        fp2 = facc2[rows, sel].tolist()
     rec0 = s[x + X_REC0]
     rec = rec0
     for i in range(P):
@@ -280,7 +309,7 @@ def era_epilogue_plain(c: EraConfig, state, hseen, facc1, facc2, faccd, ring_dep
     s[P_REC] = rec
     steps = s[x + X_ESTEPS]
     count, unique = s[P_COUNT], s[P_UNIQUE]
-    maxd = int(ring_depth[(s[P_HEAD] - 1) & c.qmask]) if steps > 0 else 0
+    maxd = maxd_at((s[P_HEAD] - 1) & c.qmask) if steps > 0 else 0
     s[P_MAXD] = max(s[P_MAXD], maxd)
     max_steps, cap = s[P_MAX_STEPS], s[P_BUDGET_CAP]
     pressure = count > s[P_HIGH_WATER] or unique > s[P_GROW_LIMIT]
@@ -308,15 +337,34 @@ def era_epilogue_plain(c: EraConfig, state, hseen, facc1, facc2, faccd, ring_dep
         s[lanes + 3 * c.fuse + k] = count
         k += 1
         s[c.f_base + 1] = k
-        room = c.s_base < 0 or int(slab_counts[0]) <= c.s_high
+        room = c.s_base < 0 or occupied <= c.s_high
         more = budget_only and room and k < s[c.f_base]
     else:
         k = 1
     s[x + X_K] = k
     s[x + X_MORE] = int(more)
+
+
+def era_epilogue_plain(c: EraConfig, state, hseen, facc1, facc2, faccd, ring_depth,
+                       slab_counts=None) -> None:
+    rows = state.view(-1, state.shape[-1])
+    N, P, C = rows.shape[0], c.P, c.chunk
+    depth = ring_depth.reshape(N, -1)
+    found = fp1 = fp2 = [[] for _ in range(N)]
+    if P:
+        seen = hseen.view(P, N, C)
+        found = seen.any(2).T.tolist()
+        # The shallowest first hit, the lowest position among equals.
+        sel = torch.where(seen, faccd.view(P, N, C), M32).argmin(2, keepdim=True)
+        fp1 = facc1.view(P, N, C).gather(2, sel)[..., 0].T.tolist()
+        fp2 = facc2.view(P, N, C).gather(2, sel)[..., 0].T.tolist()
+    occupied = int(slab_counts[0]) if slab_counts is not None else 0
+    vals = rows.tolist()
+    for l, s in enumerate(vals):
+        _epilogue_row(c, s, found[l], fp1[l], fp2[l], lambda i, l=l: int(depth[l, i]), occupied)
     for t in (hseen, facc1, facc2, faccd):
         t.zero_()
-    state.copy_(torch.tensor(s, dtype=torch.int64))
+    rows.copy_(torch.tensor(vals, dtype=torch.int64))
 
 
 def era_epilogue(c: EraConfig, state, hseen, facc1, facc2, faccd, ring_depth,
@@ -328,11 +376,20 @@ def era_epilogue(c: EraConfig, state, hseen, facc1, facc2, faccd, ring_depth,
     slot head - 1 (`ring_depth`: the ring's depth lane), the next step
     budget, the fusion lanes and whether another inner era runs
     (X_MORE, and `handle`), the error word as 0/1; the first-hit lanes
-    are zeroed for the next era. On CPU tensors the plain version runs."""
+    are zeroed for the next era. With a state [N, L] (N lanes, K14f) the
+    first-hit lanes are [P, N * chunk] (lane l's at columns l * chunk ..)
+    and `ring_depth` is [N, qcap + 1] (each lane's ring depth lane, a
+    strided view); no slab, no fusion tail, no handle. On CPU tensors the
+    plain version runs."""
     if not kernels.on_card(state, ring_depth):
         return era_epilogue_plain(c, state, hseen, facc1, facc2, faccd, ring_depth, slab_counts)
     p = kernels.ptr
-    kernels.ERA_EPILOGUE.launch(
-        c.ptr, p(state), p(hseen), p(facc1), p(facc2), p(faccd), p(ring_depth),
+    lanes = state.shape[0] if state.dim() == 2 else 1
+    if ring_depth.stride(-1) != 1:
+        raise ValueError("the ring's depth lane must be contiguous")
+    kernel = kernels.ERA_EPILOGUE if state.dim() == 1 else kernels.ERA_EPILOGUE_LANES
+    kernel.launch(
+        c.ptr, p(state), lanes, state.shape[-1], p(hseen), p(facc1), p(facc2), p(faccd),
+        ring_depth.data_ptr(), ring_depth.stride(0) if ring_depth.dim() == 2 else 0,
         None if slab_counts is None else p(slab_counts), int(handle),
     )

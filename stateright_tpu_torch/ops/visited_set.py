@@ -264,12 +264,13 @@ def _insert(table: VisitedTable, h1, h2, p1, p2, active, kernel, epoch=None):
     return is_new, unresolved
 
 
-def insert_lanes(table: VisitedTable, h1, h2, p1, p2, active):
+def insert_lanes(table: VisitedTable, h1, h2, p1, p2, active, epoch=None):
     """`insert` into each lane's table (the vmapped JAX insert): `table`
     holds [N, capacity] keys, parents and stamps, the candidates are
     [N, m], and candidate (l, i) probes only table l. Returns (is_new,
-    unresolved), each [N, m]; the winner rule holds within each lane."""
-    return _insert(table, h1, h2, p1, p2, active, kernels.VISITED_INSERT_LANES)
+    unresolved), each [N, m]; the winner rule holds within each lane.
+    `epoch` as for `insert`."""
+    return _insert(table, h1, h2, p1, p2, active, kernels.VISITED_INSERT_LANES, epoch)
 
 
 def insert_plain(table: VisitedTable, h1, h2, p1, p2, active):

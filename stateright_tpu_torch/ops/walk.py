@@ -17,7 +17,8 @@ Walk state is structure-of-arrays on the engine's device:
 - ``stats`` int64 [5]: the era's ``gen`` (counted walks), the sample
   slab's ``occupied``, ``rec_acc`` (the recorded-property bits),
   ``maxd`` (the longest path seen) and ``frozen`` (the walks frozen this
-  era), read once a step by the host gate;
+  era), which the era's gate reads after every step (K13f,
+  ops/walk_era.py: they are words of the era's state vector);
 - ``hseen`` bool [P, B] and ``plen`` int64 [P, B]: per property and walk,
   hit this era, and the path length at its first hit;
 - ``cov`` int64 [A + P + DEPTH_CAP]: per-action taken counts,
@@ -262,9 +263,10 @@ def empty_walk_slab(S: int, scap: int, device) -> torch.Tensor:
     return torch.zeros((3 + S, scap + 1), dtype=torch.int64, device=device)
 
 
-def capture_plain(slab, stats, counted, h1, h2, walk, t1, t2):
+def capture_plain(slab, stats, counted, h1, h2, walk, thresh):
     S, B = walk.shape[0] - 4, walk.shape[1]
     scap = slab.shape[1] - 1
+    t1, t2 = thresh[0], thresh[1]
     below = counted & ((h1 < t1) | ((h1 == t1) & (h2 < t2)))
     cids, cvalid, n_c = compact_ids(below, B)
     pos = stats[OCC] + torch.arange(B, dtype=torch.int64, device=h1.device)
@@ -274,13 +276,15 @@ def capture_plain(slab, stats, counted, h1, h2, walk, t1, t2):
     stats[OCC] += n_c
 
 
-def capture(slab, stats, counted, h1, h2, walk, t1: int, t2: int) -> None:
-    """Append the counted walks whose fingerprint is below (t1, t2),
-    lexicographically and unsigned, to the slab at ``stats[OCC]``, in walk
-    order, with their depth (``ptr``) and state lanes (tpu_simulation.py:
-    219-252); ``stats[OCC]`` counts them. Updates slab and stats in place."""
-    if not kernels.on_card(slab, stats, counted, h1, h2, walk):
-        return capture_plain(slab, stats, counted, h1, h2, walk, t1, t2)
+def capture(slab, stats, counted, h1, h2, walk, thresh) -> None:
+    """Append the counted walks whose fingerprint is below the threshold
+    (t1, t2) = thresh[0..1] (int64 [2] on the walks' device: the era's
+    state vector holds it), lexicographically and unsigned, to the slab
+    at ``stats[OCC]``, in walk order, with their depth (``ptr``) and state
+    lanes (tpu_simulation.py:219-252); ``stats[OCC]`` counts them.
+    Updates slab and stats in place."""
+    if not kernels.on_card(slab, stats, counted, h1, h2, walk, thresh):
+        return capture_plain(slab, stats, counted, h1, h2, walk, thresh)
     S, B = walk.shape[0] - 4, walk.shape[1]
     if slab.shape[0] != 3 + S or counted.dtype != torch.bool:
         raise ValueError("capture: the slab must hold 3 + S lanes; counted is bool")
@@ -290,7 +294,7 @@ def capture(slab, stats, counted, h1, h2, walk, t1: int, t2: int) -> None:
     scratch = kernels.capture_scratch(B, walk.device)
     kernels.WALK_CAPTURE.launch(
         kernels.ptr(counted), kernels.ptr(h1), kernels.ptr(h2), kernels.ptr(walk),
-        S, B, int(t1) & M32, int(t2) & M32, kernels.ptr(slab), slab.shape[1] - 1,
+        S, B, kernels.ptr(thresh), kernels.ptr(slab), slab.shape[1] - 1,
         kernels.ptr(stats), kernels.ptr(scratch), scratch.shape[0],
     )
 

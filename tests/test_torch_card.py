@@ -250,8 +250,9 @@ def test_walk_capture_kernel(dev):
     stats = [torch.tensor([0, 100, 0, 0, 0], device=dev) for _ in range(2)]
     for t1, t2 in ((0x01000000, 0x80000000), (0, 0), (0xFFFFFFFF, 0xFFFFFFFF)):
         stats[0][1] = stats[1][1] = 100
-        wk.capture(slabs[0], stats[0], counted, h1, h2, walk, t1, t2)
-        wk.capture_plain(slabs[1], stats[1], counted, h1, h2, walk, t1, t2)
+        thresh = torch.tensor([t1, t2], device=dev)  # read on the card
+        wk.capture(slabs[0], stats[0], counted, h1, h2, walk, thresh)
+        wk.capture_plain(slabs[1], stats[1], counted, h1, h2, walk, thresh)
         assert torch.equal(slabs[0][:, :scap], slabs[1][:, :scap])
         assert torch.equal(stats[0], stats[1])
 
@@ -469,3 +470,146 @@ def test_graph_recaptured_after_growth(dev):
     assert tel["table_growths"] >= 1
     assert tel["graph_captures"] == tel["table_growths"] + 1
     assert big.telemetry()["graph_captures"] == 1
+
+
+# -- simulation eras and lane batches as graphs (K13f, K14f) -----------------
+
+def _sim_program(device, tm, B=512, L=32, k=64):
+    from stateright_tpu_torch.engines.gpu_simulation import SimProgram
+
+    return SimProgram(tm, tm.tensor_properties(), B, L, True, k, device)
+
+
+def test_walk_era_kernel_matches_plain(dev):
+    """K13f's three modes on the card against the plain version, on the
+    state of a real era (first hits, coverage and the sample included),
+    with the all-frozen rule and a closed gate among the cases."""
+    from stateright_tpu_torch.ops import walk_era as we
+
+    tm = TwoPhaseTensor(4)
+    progs = [_sim_program(d, tm) for d in (dev, "cpu")]
+    for p in progs:
+        p.seed(5)
+        p.era(p.walk, p.path, rec_bits=0, max_steps=6, fin_any=0, fin_all=0, fin_all_en=0,
+              target_gen=0, gen0=0)
+    a, b = progs
+    c = a.cfg
+    rng = np.random.default_rng(3)
+    for case in range(6):
+        inputs = torch.tensor([int(rng.integers(0, 4)), int(rng.integers(0, 5)), int(rng.integers(0, 4)),
+                               7, int(rng.integers(0, 2)), int(rng.choice([0, 600, 5000])),
+                               int(rng.integers(0, 1000)), 0, 0, 0, 5, 0xFFFFFFFF, 0xFFFFFFFF])
+        frozen = case == 4  # every walk frozen: steps jump to max_steps
+        for mode in (we.BEGIN, we.COMMIT, we.COMMIT, we.EPILOGUE):
+            for p in progs:
+                p.era_in.copy_(inputs.to(p.device))
+                if mode == we.COMMIT and frozen:
+                    p.stats[we.X_FROZEN] = p.B
+                we.walk_era(mode, c, p.state, p.era_in, p.hseen, p.plen)
+            assert torch.equal(a.state.cpu(), b.state), (case, mode)
+            assert torch.equal(a.hseen.cpu(), b.hseen) and torch.equal(a.plen.cpu(), b.plen)
+
+
+def test_simulation_graph_eras_match_cpu_eras(dev):
+    """Eras through the captured graph (one launch and one readback an
+    era, captured once) against eager cpu eras: walks, path rows below
+    ptr and the params_out words, with a target, finish masks and a
+    tightening threshold."""
+    from stateright_tpu_torch import kernels
+
+    tm = TwoPhaseTensor(4)
+    progs = [_sim_program(d, tm) for d in (dev, "cpu")]
+    for p in progs:
+        p.seed(9)
+    kernels.reset_launches()
+    rec = gen = 0
+    thr = (0xFFFFFFFF, 0xFFFFFFFF)
+    for era in range(8):
+        kw = dict(rec_bits=rec, max_steps=1 + era % 3, fin_any=0, fin_all=7, fin_all_en=era % 2,
+                  target_gen=6000, gen0=gen, threshold=thr)
+        ra, rb = (p.era(p.walk, p.path, **kw) for p in progs)
+        assert np.array_equal(ra.params, rb.params), era
+        a, b = progs
+        assert torch.equal(a.walk.cpu(), b.walk)
+        S = tm.state_width
+        below = torch.arange(a.L)[None, :] < b.walk[S + 1][:, None]
+        assert torch.equal(a.path.cpu()[below], b.path[below])
+        rec, gen = ra.rec_bits, gen + ra.gen
+        thr = (0x40000000 >> era, 0)
+    a = progs[0]
+    assert a.graph_captures == 1 and a.readbacks == 8
+    counts = kernels.launch_counts()
+    for k in kernels.SIM_KERNELS:
+        assert counts[k.name] > 0, k.name
+
+
+def test_lane_era_kernels_match_plain_and_solo(dev):
+    """The lane-axis era kernels (K14f) against their plain versions on
+    random lane states, and at one lane against the solo kernels."""
+    from stateright_tpu_torch.ops import era as eo
+
+    rng = np.random.default_rng(4)
+    N, C, A, P, qcap = 64, 32, 5, 3, 1 << 10
+    vcap, rcap = 60, 40
+    plen = eo.params_len(A, P, True, 0)
+    cfg = eo.EraConfig(chunk=C, qmask=qcap - 1, vcap=vcap, rcap=rcap, P=P, A=A, cov_base=eo.P_LEN + 2 * P,
+                       s_base=-1, s_high=0, s_take=C, f_base=-1, fuse=1, x=plen, regrow=2,
+                       budget_min=eo.BUDGET_MIN, n_cov=eo.cov_len(A, P), scap=0)
+    state = torch.from_numpy(rng.integers(0, 50, (N, plen + eo.X_LEN)))
+    state[:, eo.P_COUNT] = torch.from_numpy(rng.integers(0, 3, N))
+    state[:, eo.P_HIGH_WATER] = 40
+    state[:, eo.P_GROW_LIMIT] = 1000
+    state[:, eo.P_MAX_STEPS] = torch.from_numpy(rng.integers(1, 4, N))
+    state[:, eo.P_ERR] = torch.from_numpy((rng.random(N) < 0.1).astype(np.int64))
+    state[:, eo.P_BUDGET_CAP] = 0
+    step = eo.StepOperands(
+        torch.from_numpy(rng.integers(0, 70, N)), torch.from_numpy(rng.integers(0, 45, N)),
+        torch.from_numpy(rng.random((N, rcap)) < 0.01), torch.from_numpy(rng.random((N, rcap)) < 0.3),
+        torch.from_numpy(rng.integers(0, 100, N)), torch.from_numpy(rng.integers(0, 3, (P, N))),
+        torch.from_numpy(rng.integers(0, 9, (N, A))),
+    )
+    hseen = torch.from_numpy(rng.random((P, N * C)) < 0.05)
+    facc = [torch.from_numpy(_u32(rng, P, N * C)) for _ in range(3)]
+    ring_depth = torch.from_numpy(rng.integers(0, 30, (N, qcap + 1)))
+    ticket = torch.zeros(1, dtype=torch.int64, device=dev)
+    on = [state.to(dev)] + [t.to(dev) for t in (hseen, *facc, ring_depth)]
+    off = [state.clone(), hseen.clone(), *(t.clone() for t in facc), ring_depth]
+    card_step = eo.StepOperands(*(t.to(dev) for t in step))
+    for mode in (eo.START, eo.BEGIN, eo.COMMIT, eo.COMMIT):
+        eo.era_step(mode, cfg, on[0], card_step if mode == eo.COMMIT else None, ticket=ticket)
+        eo.era_step_plain(mode, cfg, off[0], step if mode == eo.COMMIT else None)
+        assert torch.equal(on[0].cpu(), off[0]), mode
+    eo.era_epilogue(cfg, on[0], *on[1:5], on[5])
+    eo.era_epilogue_plain(cfg, off[0], *off[1:5], off[5])
+    assert torch.equal(on[0].cpu(), off[0]) and not bool(on[1].any())
+    assert int(ticket) == 0
+    # One lane: the lane kernels equal the solo ones on the same row.
+    solo, lane = state[3].clone().to(dev), state[3:4].clone().to(dev)
+    one = eo.StepOperands(step.n_val[3].to(dev), step.n_d[3].to(dev), step.unresolved[3].to(dev),
+                          step.c_new[3].to(dev), step.generated[3].to(dev), step.hs[:, 3].contiguous().to(dev),
+                          step.pa[3].to(dev))
+    one_l = eo.StepOperands(one.n_val.reshape(1), one.n_d.reshape(1), one.unresolved[None], one.c_new[None],
+                            one.generated.reshape(1), one.hs[:, None].contiguous(), one.pa[None])
+    for mode in (eo.START, eo.BEGIN, eo.COMMIT):
+        eo.era_step(mode, cfg, solo, one if mode == eo.COMMIT else None, epoch=torch.ones(1, dtype=torch.int64, device=dev))
+        eo.era_step(mode, cfg, lane, one_l if mode == eo.COMMIT else None, ticket=ticket,
+                    epoch=torch.ones(1, dtype=torch.int64, device=dev))
+        assert torch.equal(solo, lane[0]), mode
+
+
+def test_warm_lane_program_captures_once(dev):
+    """A warm lane program captures its graph on the first batch only;
+    each batch is one graph launch and one readback, equal to the cpu
+    lanes."""
+    from stateright_tpu_torch import ExecutableCache, run_multiplexed
+    from stateright_tpu_torch.models import IncrementTensor
+
+    cache = ExecutableCache()
+    compiled, _hit = cache.get(IncrementTensor(2), "multiplex", lanes=8, device="cuda")
+    prog = compiled.program
+    for _ in range(3):
+        got = run_multiplexed([compiled.builder() for _ in range(5)], lanes=8, device="cuda", cache=cache)
+        assert [c.unique_state_count() for c in got] == [13] * 5
+    assert prog.graph_captures == 1 and prog.builds == 1 and prog.readbacks == 3
+    want = run_multiplexed([compiled.builder() for _ in range(5)], lanes=8, device="cpu")
+    assert [c.telemetry()["steps"] for c in got] == [c.telemetry()["steps"] for c in want]

@@ -91,6 +91,9 @@ def test_warm_multiplex_executable_serves_every_batch():
     assert again[0].unique_state_count() == 13
     assert cache.stats() == {"hits": 2, "misses": 1, "size": 1, "capacity": 8}
     assert cache.get(torch_models.IncrementTensor(2), "multiplex", lanes=4, device="cpu")[0].program is warm
+    # Three batches on one warm program: its batch segments were built
+    # once (on the card: one graph capture, tests/test_torch_card.py).
+    assert warm.builds == 1 and warm.graph_captures == 0
 
 
 def test_evicting_a_multiplex_entry_frees_its_lane_workspace():

@@ -15,6 +15,8 @@ import stateright_tpu_torch
 for mod in pkgutil.walk_packages(stateright_tpu_torch.__path__, "stateright_tpu_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
+# The device-program modules: the shared graph builder and the simulation era.
+import stateright_tpu_torch.engines.graph, stateright_tpu_torch.ops.walk_era
 from stateright_tpu_torch import TensorModelAdapter
 from stateright_tpu_torch.models import TwoPhaseTensor
 c = TensorModelAdapter(TwoPhaseTensor(2)).checker().spawn_gpu_bfs(
