@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (stateright_tpu_torch) on one card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
-    python3 chip_smoke.py --skip-full   # without the 2pc-10 phases (7, 11)
+    python3 chip_smoke.py --skip-full   # without the 2pc-10 phases (7, 11; 17's 2pc-10 run)
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
@@ -87,6 +87,20 @@ exits non-zero:
      readbacks, host launch calls and device kernels a step (one profiled
      run in a fresh process), wall a step, the busy share and peak memory.
 
+ 17. the stage profiler (K12): K12a's lanes and loop kernel
+     (`stage_loop.cu`) at the 2pc-7 and paxos-3 BFS widths and K12b
+     (`stage_walk.cu`: CYCLE, RECORD, CHOOSE) at the paxos-3 simulation
+     widths against their plain versions, exactly; 2pc-7, paxos-3 and
+     2pc-5 with .symmetry() (for the canon stage) BFS and the paxos-3
+     simulation to 2,000,000 states, each with and without
+     .stage_profile(): equal results, no stage_profile_error, the stage_*
+     phases summing to device_era within 10%, the split, the profiler's
+     own seconds and both peaks printed; every stage program and the null
+     loop of those runs' widths and state through its graph and through
+     the plain versions (4 rounds): equal accumulators; and, unless
+     --skip-full, 2pc-10 BFS with .stage_profile() (its probe stage forks
+     the 2^28-slot table).
+
 Every device program runs as CUDA graphs (engines/graph.py): a BFS
 dispatch (engines/era.py), a simulation era (engines/gpu_simulation.py)
 and a lane batch (engines/multiplex.py) are one graph launch and one
@@ -96,7 +110,8 @@ each captured segment's launches once per run of it on the card.
 Every engine phase resets the kernels' launch counts just before its run
 and checks, just after, that each kernel of its path (the BFS kernels,
 K1, K13a-d, K13b's prologue and K13f, or K1 and the lane entry points of
-K2, K3, K4, K6, K7 and K8f) was launched. Before
+K2, K3, K4, K6, K7 and K8f; with the stage profiler, K12a and the
+stage programs' kernels too) was launched. Before
 the last line it prints the `kernels` JSON line and the card's name and
 power limit; the last line is the JSON result. It imports nothing of JAX
 or of the JAX package.
@@ -555,10 +570,22 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     }
     check(grown["bad"] == 0, "rehash left rows unresolved")
     init = gpu(np.zeros((S, 1), dtype=np.int64))
+
+    def seed_plain(table, ring, rows, ebits):
+        # `seed` through the plain versions of K1 and K4.
+        h1, h2 = hash_lanes_plain(rows)
+        zero = torch.zeros_like(h1)
+        vs.insert_plain(table, h1, h2, zero, zero, torch.ones_like(h1, dtype=torch.bool))
+        ring[:S, :rows.shape[1]] = rows
+        ring[S, :rows.shape[1]] = ebits
+        ring[S + 1, :rows.shape[1]] = 1
+
     extra["K10 seed"] = dict(
         max_abs_err=None,
         ms=time_ms(torch, lambda _: seed(vs.empty_table(tcap, dev), fr.empty_ring(W, qcap, dev), init, 1), reps=5),
-        plain_ms=None, library_ms=None,
+        plain_ms=time_ms(torch, lambda _: seed_plain(vs.empty_table(tcap, dev), fr.empty_ring(W, qcap, dev), init, 1),
+                         reps=5),
+        library_ms=None,
         bytes=tcap * 24 + W * (qcap + 1) * 8, ops=S * 8,
         shape=f"1 init row, {tcap}-slot table, {qcap}-row ring",
     )
@@ -1675,6 +1702,279 @@ def era_runs(torch, kernels, card, label, golden, checks=lambda c: None):
     return out
 
 
+# -- phase 17: the stage profiler (K12) ---------------------------------------
+
+STAGE_ITERS = 32  # CheckerBuilder.stage_profile's default
+
+
+def stage_kernel_parity(torch, np, label, S, A, C=None, B=None, L=None):
+    """K12a (LANES: MIX, XOR, MASK, RING; FOLD with START and ADD) at the
+    BFS widths C, A, S, or, with B and L, K12a's XOR and FOLD and K12b
+    (CYCLE, RECORD, CHOOSE) at the simulation widths B walks, paths of L:
+    each against its plain version on the same card tensors, exactly,
+    with CUDA-event times; returns {kernel: timing dict} (K12a's FOLD as
+    `stage_loop`, its lanes as `stage_lanes`, K12b as `stage_walk`)."""
+    from stateright_tpu_torch.engines.gpu_bfs import widths
+    from stateright_tpu_torch.ops import stage as sg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    M = 0xFFFFFFFF
+
+    def u32(*shape):
+        return torch.from_numpy(rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.int64)).to(dev)
+
+    def z(*shape, dtype=torch.int64):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    st0 = torch.tensor([0x9E3779B1, 5, 1, 0, 0], dtype=torch.int64, device=dev)
+    errs = {"stage_loop": [], "stage_lanes": [], "stage_walk": []}
+
+    def pair(name, fn, *outs):
+        """fn(kernel) on copies of `outs`, kernel then plain: equal."""
+        a, b = [t.clone() for t in outs], [t.clone() for t in outs]
+        fn(True, *a)
+        fn(False, *b)
+        errs[name].append(max_abs_err(torch, zip(a, b)))
+
+    mods = dict(mix=(sg.mix_lanes, sg.mix_lanes_plain), xor=(sg.xor_lanes, sg.xor_lanes_plain),
+                mask=(sg.mask_lanes, sg.mask_lanes_plain), ring=(sg.ring_lanes, sg.ring_lanes_plain),
+                cycle=(sg.cycle, sg.cycle_plain), record=(sg.record, sg.record_plain),
+                choose=(sg.choose, sg.choose_plain))
+
+    def k(name, kern):
+        return mods[name][0 if kern else 1]
+
+    results = {}
+    if C is not None:
+        vcap, rcap, _dc = widths(A, C)
+        W = S + 2
+        print(f"stage widths ({label}): C={C} A={A} S={S} vcap={vcap} rcap={rcap}", flush=True)
+        src, flat, popped = u32(S, C), u32(S, C * A), u32(W, C)
+        head0 = torch.tensor([0xFFFFF0], dtype=torch.int64, device=dev)
+        pair("stage_lanes", lambda kern, o: k("mix", kern)(o, 41), z(S, C * A))
+        pair("stage_lanes", lambda kern, o: k("mix", kern)(o, 71, mask=7), z(S, vcap))
+        pair("stage_lanes", lambda kern, o: k("mix", kern)(o, 0x6C62272E, src=flat), z(S, C * A))
+        pair("stage_lanes", lambda kern, o, st: k("xor", kern)(o, src, st), z(S, C), st0)
+        pair("stage_lanes", lambda kern, o, st: k("xor", kern)(o, flat[:2], st, xor_rows=2), z(2, C * A), st0)
+        pair("stage_lanes", lambda kern, o, st: k("mask", kern)(o, flat[0], st, 3), z(C * A, dtype=torch.bool), st0)
+        pair("stage_lanes", lambda kern, o, h: k("ring", kern)(o, popped, h, (1 << 24) - 1), z(W, rcap), head0)
+        # FOLD with the compact stage's terms: two counts, a gather and the
+        # S distinct lanes at rcap.
+        n1, n2, g, dl = u32(1), u32(1), u32(rcap), u32(S * rcap)
+        terms = [sg.term(n1), sg.term(n2), sg.term(g), sg.term(dl)]
+        epoch = torch.ones(1, dtype=torch.int64, device=dev)
+
+        def fold(kern, st, ep):
+            if kern:
+                sg.start(st, 3)
+                sg.fold(st, terms, 3, add=1, epoch=ep)
+                sg.add(st, [sg.term(dl[:1], shift=3, mask=1)])
+            else:
+                sg.start_plain(st, 3)
+                sg.fold_plain(sg.FOLD, st, terms, 3, 1, ep)
+                sg.fold_plain(sg.ADD, st, [sg.term(dl[:1], shift=3, mask=1)], 0)
+
+        pair("stage_loop", fold, st0, epoch)
+        out, ring_out, mix_out = z(S, C), z(W, rcap), z(S, C * A)
+        nterm = 2 + rcap + S * rcap
+        results["stage_lanes"] = dict(
+            max_abs_err=max(errs["stage_lanes"]),
+            ms=time_ms(torch, lambda st: sg.xor_lanes(out, src, st), prep=st0.clone),
+            plain_ms=time_ms(torch, lambda st: sg.xor_lanes_plain(out, src, st), prep=st0.clone),
+            bytes=16 * S * C + 8, ops=3 * S * C, library_ms=None,
+            shape=f"XOR [{S}, {C}] (a round's perturbed rows)",
+            ring_ms=time_ms(torch, lambda h: sg.ring_lanes(ring_out, popped, h, M), prep=head0.clone),
+            mix_ms=time_ms(torch, lambda _: sg.mix_lanes(mix_out, 41)),
+        )
+        results["stage_loop"] = dict(
+            max_abs_err=max(errs["stage_loop"]),
+            ms=time_ms(torch, lambda st: sg.fold(st, terms, 3), prep=st0.clone),
+            plain_ms=time_ms(torch, lambda st: sg.fold_plain(sg.FOLD, st, terms, 3), prep=st0.clone),
+            bytes=8 * nterm + 16, ops=3 * nterm, library_ms=None,
+            shape=f"FOLD of the compact stage's terms ({nterm} words)",
+        )
+    else:
+        print(f"stage widths ({label}): B={B} L={L} S={S} A={A}", flush=True)
+        path = u32(B, L) | (u32(B, L) << 32)
+        h0, g0, l227 = u32(B), u32(B), u32(B)
+        ptr = torch.from_numpy(rng.integers(0, L, size=B)).to(dev)
+        # A third of the walks hold their key below ptr.
+        hit = torch.from_numpy(np.flatnonzero(rng.random(B) < 0.3)).to(dev)
+        col = ptr.index_select(0, hit) // 2
+        path[hit, col] = ((h0.index_select(0, hit) ^ 1) << 32) | g0.index_select(0, hit)
+        restart = torch.from_numpy(rng.random(B) < 1 / 16).to(dev)
+        rows, succs = u32(S, B), u32(A * S, B)
+        valid = torch.from_numpy(rng.random((A, B)) < 0.5).to(dev)
+        stw = st0.clone()
+        stw[0] = 0x12345  # acc & 1 == 1: the planted keys
+        pair("stage_walk", lambda kern, o: k("cycle", kern)(stw, path, h0, g0, ptr, o), z(B, dtype=torch.bool))
+        pair("stage_walk", lambda kern, p: k("record", kern)(stw, p, h0, restart), path)
+        pair("stage_walk", lambda kern, o: k("choose", kern)(stw, rows, succs, valid, ptr, l227, o), z(S, B))
+        pair("stage_lanes", lambda kern, o, st: k("xor", kern)(o, rows, st, mask=7), z(S, B), stw)
+        cyc = z(B, dtype=torch.bool)
+        # The slots CYCLE must read: up to a planted key, else all below ptr.
+        need = ptr.clone()
+        below = col < ptr.index_select(0, hit)
+        need[hit[below]] = col[below] + 1
+        scanned = int(need.sum())
+        n_restart = int(restart.sum())
+        out = z(S, B)
+        results["stage_walk"] = dict(
+            max_abs_err=max(errs["stage_walk"]),
+            ms=time_ms(torch, lambda _: sg.cycle(stw, path, h0, g0, ptr, cyc)),
+            plain_ms=time_ms(torch, lambda _: sg.cycle_plain(stw, path, h0, g0, ptr, cyc)),
+            # CYCLE: the slots it must read, and h0, g0, ptr and the flag.
+            bytes=8 * scanned + 25 * B, ops=3 * scanned + 4 * B, library_ms=None,
+            shape=f"CYCLE [{B}, {L}]",
+            record_ms=time_ms(torch, lambda p: sg.record(stw, p, h0, restart), prep=path.clone),
+            record_plain_ms=time_ms(torch, lambda p: sg.record_plain(stw, p, h0, restart), prep=path.clone),
+            record_bound_ms=(9 * B + 8 * (B - n_restart) + 8 * L * n_restart) / HBM_BYTES_PER_S * 1e3,
+            choose_ms=time_ms(torch, lambda _: sg.choose(stw, rows, succs, valid, ptr, l227, out)),
+            choose_plain_ms=time_ms(torch, lambda _: sg.choose_plain(stw, rows, succs, valid, ptr, l227, out)),
+            choose_bound_ms=max((B * (16 + A) + 16 * S * B) / HBM_BYTES_PER_S,
+                                B * (3 * A + 20) / INT32_OPS_PER_S) * 1e3,
+        )
+    for name, e in errs.items():
+        check(max(e or [0]) == 0, f"{name} disagrees with its plain version at the {label} widths")
+    return finish(results)
+
+
+def grab_stage_state(stages):
+    """Wrap the stage programs' `load` to keep what each profiled run hands
+    them (its final table and ring, or path rows; no stage writes them),
+    for the graph against plain check."""
+    grabbed = {}
+    for cls, kind in ((stages.BfsStages, "bfs"), (stages.SimStages, "sim")):
+        orig = cls.load
+
+        def load(self, *state, _orig=orig, _kind=kind):
+            grabbed[_kind] = (self, state)
+            return _orig(self, *state)
+
+        cls.load = load
+    return grabbed
+
+
+def stage_programs_match_plain(torch, label, progs, state, iters=4):
+    """Every stage program and the null loop of `progs`' kind and widths
+    through its CUDA graph and through the plain versions (a cpu copy of
+    the run's state), `iters` rounds: the same accumulator."""
+    from stateright_tpu_torch.engines import stages
+    from stateright_tpu_torch.ops import visited_set as vs
+
+    cpu = torch.device("cpu")
+    built = []
+    for dev in (torch.device("cuda"), cpu):
+        if isinstance(progs, stages.BfsStages):
+            table, ring = state
+            p = stages.BfsStages(progs.tm, progs.props, progs.C, progs.qcap, progs.canon, iters, dev)
+            p.load(vs.VisitedTable(*(t.to(dev) for t in (table.keys, table.parents, table.stamps))), ring.to(dev))
+        else:
+            (path,) = state
+            p = stages.SimStages(progs.tm, progs.props, progs.B, progs.L, iters, dev)
+            p.load(path.to(dev))
+        built.append(p)
+    accs = []
+    for p in built:
+        named, null = p.programs()
+        accs.append({n: q.run(1) for n, q in dict(named, null=null).items()})
+        p.release()
+        p.free()
+    check(accs[0] == accs[1], f"{label} stage programs: graph {accs[0]} != plain {accs[1]}")
+    print(f"{label} stage programs, graph == plain ({iters} rounds from seed 1): {accs[0]}", flush=True)
+
+
+def profiled_pair(torch, kernels, card, label, run, result, path, want=None):
+    """`run(profile)` -> (checker, wall) without and with .stage_profile():
+    equal results (or, with `want`, the profiled run's result checked by
+    it alone), no stage_profile_error, the stage phases summing to
+    device_era within 10%, and every kernel of `path` (the engine's and
+    the stage programs') launched in the profiled run. Prints the split,
+    the profiler's own seconds and the peak memory of both runs."""
+    t0 = peak0 = None
+    if want is None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        c0, t0 = run(False)
+        want, peak0 = result(c0), torch.cuda.max_memory_allocated()
+        del c0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def profiled():
+        c, t = run(True)
+        return c, t, torch.cuda.max_memory_allocated(), result(c)
+
+    (c, t1, peak1, got), launches = counted(torch, kernels, f"{label} profiled", profiled, path)
+    check(got == want, f"{label}: the profiled run differs from the plain one")
+    tel = c.telemetry()
+    check("stage_profile_error" not in tel, f"{label}: stage_profile_error {tel.get('stage_profile_error')}")
+    ph = tel["phase_ms"]
+    split = {k[len("stage_"):]: v for k, v in ph.items() if k.startswith("stage_")}
+    era = ph["device_era"]
+    check(split and abs(sum(split.values()) - era) <= 0.1 * era, f"{label}: stages {split} vs device_era {era}")
+    out = dict(label=label, wall_secs=t0, profiled_wall_secs=t1, steps=tel["steps"],
+               steps_run=tel.get("steps_run"), device_era_ms=era, stage_ms=split,
+               stage_us_per_step=tel["stage_us_per_step"], stage_profile_iters=tel["stage_profile_iters"],
+               stage_profile_model_pct=tel.get("stage_profile_model_pct"),
+               profiler_overhead_ms=ph["profiler_overhead"], max_memory_allocated=peak0,
+               max_memory_allocated_profiled=peak1, card=card)
+    print(f"stage profile {label}: {json.dumps(out)}", flush=True)
+    return out, launches
+
+
+def stage_phase(torch, np, kernels, card, skip_full):
+    """Phase 17: K12a and K12b against their plain versions, the profiled
+    runs and the stage programs' graphs against their plain versions;
+    returns the kernels' timing dicts and the launches of the profiled
+    2pc-7 BFS and paxos-3 simulation runs."""
+    from stateright_tpu_torch.engines import stages as stage_mod
+    from stateright_tpu_torch.models import PaxosTensor, PaxosTensorExhaustive
+
+    stage_res = stage_kernel_parity(torch, np, "2pc-7", 3, 37, C=6144)
+    stage_kernel_parity(torch, np, "paxos-3", 30, 21, C=16384)
+    stage_res.update(stage_kernel_parity(torch, np, "paxos-3 simulation", 30, 21, B=SIM_PAXOS3["walks"], L=SIM_L))
+    grabbed = grab_stage_state(stage_mod)
+    bfs_stage_path = kernels.BFS_KERNELS + kernels.BFS_STAGE_KERNELS
+    sim_stage_path = kernels.SIM_KERNELS + kernels.SIM_STAGE_KERNELS
+
+    def profiled_bfs(make, opts, configure=lambda b: b):
+        return lambda prof: bfs(make(), "cuda", opts, (lambda b: configure(b).stage_profile()) if prof else configure)
+
+    _out, launches_stage = profiled_pair(
+        torch, kernels, card, "2pc-7", profiled_bfs(lambda: two_pc(7), BENCH7), result_dict, bfs_stage_path)
+    stage_programs_match_plain(torch, "2pc-7", *grabbed.pop("bfs"))
+    profiled_pair(
+        torch, kernels, card, "paxos-3", profiled_bfs(lambda: PaxosTensorExhaustive(3), PAXOS3), result_dict,
+        bfs_stage_path)
+    stage_programs_match_plain(torch, "paxos-3", *grabbed.pop("bfs"))
+    profiled_pair(
+        torch, kernels, card, "2pc-5 symmetry", profiled_bfs(lambda: two_pc(5), TEST_OPTS, lambda b: b.symmetry()),
+        result_dict, bfs_stage_path)
+    progs, state = grabbed.pop("bfs")
+    check("canon" in progs.stages, "2pc-5 symmetry: no canon stage")
+    stage_programs_match_plain(torch, "2pc-5 symmetry", progs, state)
+    _out, launches_stage_sim = profiled_pair(
+        torch, kernels, card, "paxos-3 simulation",
+        lambda prof: simulate(PaxosTensor(3), "cuda", 0,
+                              (lambda b: b.target_state_count(2_000_000).stage_profile()) if prof
+                              else (lambda b: b.target_state_count(2_000_000)), SIM_PAXOS3),
+        sim_dict, sim_stage_path)
+    stage_programs_match_plain(torch, "paxos-3 simulation", *grabbed.pop("sim"))
+    if not skip_full:
+        # The probe stage forks the full 2^28-slot table.
+        profiled_pair(
+            torch, kernels, card, "2pc-10", profiled_bfs(lambda: two_pc(10), FULL10),
+            lambda c: (c.unique_state_count(), sorted(check_paths(c))), bfs_stage_path,
+            want=(GOLDEN[10], ["abort agreement", "commit agreement"]))
+        grabbed.pop("bfs")
+    del grabbed
+    torch.cuda.empty_cache()
+
+    return stage_res, launches_stage, launches_stage_sim
+
+
 def main(argv) -> int:
     try:
         import numpy as np
@@ -2074,6 +2374,9 @@ def main(argv) -> int:
         cells[label], _ = graph_cell(torch, kernels, card, cell_run, label, kernels.LANE_KERNELS)
     torch.cuda.empty_cache()
 
+    phase("17 the stage profiler (K12): K12a and K12b; stage graphs == plain; profiled runs")
+    stage_res, launches_stage, launches_stage_sim = stage_phase(torch, np, kernels, card, skip_full)
+
     # The loop rows' bounds: the sum of their kernels' bounds (one call at
     # the run's widths) times their launches in the run; a step is one
     # K3 launch (BFS), one K13b launch (simulation), one lane K3 launch.
@@ -2093,10 +2396,18 @@ def main(argv) -> int:
           f"card={card}", flush=True)
 
     line = {"kernels": []}
-    for k in kernels.KERNELS:
+    for k in kernels.KERNELS + (kernels.STAGE_LANES,):
         # BFS kernels at the 2pc-7 widths and launches; the walk kernels
-        # at the paxos-3 simulation widths and launches.
-        r, n = (results[k.name], launches[k.name]) if k.name in results else (sim_px[k.name], launches_sim[k.name])
+        # at the paxos-3 simulation widths and launches; the stage
+        # profiler's at the 2pc-7 widths (K12a) and the paxos-3 simulation
+        # widths (K12b), with the launches of its profiled runs of phase 17.
+        if k.name in stage_res:
+            r = stage_res[k.name]
+            n = (launches_stage_sim if k is kernels.STAGE_WALK else launches_stage)[k.name]
+        elif k.name in results:
+            r, n = results[k.name], launches[k.name]
+        else:
+            r, n = sim_px[k.name], launches_sim[k.name]
         entry = dict(
             name=k.name, route="cuda", source=os.path.relpath(k.source_path, HERE),
             replaces=k.replaces, launches=n, max_abs_err=r["max_abs_err"],
@@ -2106,7 +2417,8 @@ def main(argv) -> int:
         if k is kernels.WALK_STEP:
             # The same source's second entry point, the era prologue.
             entry["prologue_launches"] = launches_sim[kernels.WALK_PROLOGUE.name]
-        for extra in ("begin_ms", "epilogue_ms", "epilogue_plain_ms"):
+        for extra in ("begin_ms", "epilogue_ms", "epilogue_plain_ms", "ring_ms", "mix_ms", "record_ms",
+                      "record_plain_ms", "record_bound_ms", "choose_ms", "choose_plain_ms", "choose_bound_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         line["kernels"].append(entry)

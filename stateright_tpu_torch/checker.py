@@ -4,8 +4,8 @@
 The builder carries the model and the options the port supports —
 `finish_when`, `target_state_count`, `target_max_depth`, `coverage`,
 `sample` (on by default, k = 64, as in the JAX package), `symmetry`,
-`pipeline` (on by default: a chain of depth 2, no fusion, as in JAX)
-and `timeout` — and spawns the device engines:
+`pipeline` (on by default: a chain of depth 2, no fusion, as in JAX),
+`timeout` and `stage_profile` — and spawns the device engines:
 `spawn_gpu_bfs(**kw)`, the counterpart of `spawn_tpu_bfs`, and
 `spawn_gpu_simulation(seed, **kw)`, the counterpart of
 `spawn_tpu_simulation`; `engines.multiplex.run_multiplexed` runs many
@@ -53,6 +53,8 @@ class CheckerBuilder:
         self.pipeline_: bool = True
         self.pipeline_depth_: Optional[int] = None
         self.fuse_eras_: Optional[int] = None
+        self.stage_profile_: bool = False
+        self.stage_profile_iters_: int = 32
 
     def finish_when(self, has_discoveries: HasDiscoveries) -> "CheckerBuilder":
         self.finish_when_ = has_discoveries
@@ -120,6 +122,22 @@ class CheckerBuilder:
             if fuse < 1:
                 raise ValueError(f"pipeline fuse must be >= 1, got {fuse}")
         self.fuse_eras_ = fuse
+        return self
+
+    def stage_profile(self, enable: bool = True, iters: int = 32) -> "CheckerBuilder":
+        """Attribute the device engines' era time across the stages of one
+        BFS or simulation step (expand / hash / probe / claim / compact /
+        ring / canon; hash / cycle / record / expand / choose —
+        obs/stageprof.py). After the run, the engine times each stage
+        alone at the run's widths (`iters` rounds a dispatch: on the card
+        one CUDA graph of the stage's kernels) and scales the measured
+        `device_era` time by the resulting shares: `telemetry()["phase_ms"]`
+        gains the `stage_*` keys, and the gauges `stage_us_per_step`,
+        `stage_profile_iters` and `stage_profile_model_pct` appear. A
+        profiler failure sets `stage_profile_error` and leaves the run's
+        results alone. The multiplexed lanes refuse it."""
+        self.stage_profile_ = enable
+        self.stage_profile_iters_ = max(1, int(iters))
         return self
 
     def threads(self, thread_count: int) -> "CheckerBuilder":

@@ -1,16 +1,20 @@
 """The lean part of `stateright_tpu/engines/common.py HostEngineBase`: the
-run thread, join, counters, coverage, sampling, the run deadline and
-discovery bookkeeping that the port's device engines need.
+run thread, join, counters, phase timers, coverage, sampling, the run
+deadline, discovery bookkeeping and the stage profiler's hook that the
+port's device engines need.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import warnings
 from typing import Any, Dict, Optional
 
 from ..checker import Checker, CheckerBuilder
+from ..obs import stageprof
 from ..obs.coverage import Coverage
+from ..obs.metrics import MetricsRegistry
 from ..obs.sample import SpaceSampler, build_space_profile
 
 
@@ -38,6 +42,10 @@ class HostEngineBase(Checker):
         # Run counters (eras, steps, table growths, ...) and gauges,
         # read by telemetry().
         self._counters: Dict[str, int] = {}
+        # Phase timers (device_era, the stage profiler's) and its gauges.
+        self._metrics = MetricsRegistry()
+        self._stage_profile = builder.stage_profile_
+        self._stage_iters = builder.stage_profile_iters_
         self._coverage = Coverage(enabled=builder.coverage_)
         self._coverage.register_properties(p.name for p in self._properties)
         tm = getattr(self._model, "tm", None)
@@ -85,6 +93,10 @@ class HostEngineBase(Checker):
 
     def telemetry(self) -> Dict[str, Any]:
         tel: Dict[str, Any] = dict(self._counters)
+        tel.update(self._metrics.gauges())
+        phases = self._metrics.phase_ms()
+        if phases:
+            tel["phase_ms"] = phases
         if self._sampler is not None and self._sampler.size():
             tel["space"] = self._sampler.snapshot()
         return tel
@@ -114,6 +126,35 @@ class HostEngineBase(Checker):
     def _gauge(self, name: str, value) -> None:
         """Set a telemetry value that is not a running count."""
         self._counters[name] = value
+
+    def _profile_stages(self, build, steps: int) -> None:
+        """Post-run per-stage attribution of the device_era time
+        (CheckerBuilder.stage_profile(); obs/stageprof.py): `build()`
+        returns the run's stage programs (engines/stages.py, cached and
+        shared between runs: held under their lock) and the run's final
+        state for their `load`. Never fatal: a finished run's results
+        survive a profiler failure, which sets the `stage_profile_error`
+        gauge."""
+        if not self._stage_profile:
+            return
+        try:
+            era_secs = self._metrics.phase_ms().get("device_era", 0.0) / 1e3
+            if steps <= 0 or era_secs <= 0.0:
+                return
+            with self._metrics.phase("profiler_overhead"):
+                progs, state = build()
+                with progs.lock:
+                    try:
+                        progs.load(*state)
+                        stages, null = progs.programs()
+                        timed = stageprof.measure_stage_programs(stages, null, self._stage_iters)
+                    finally:
+                        progs.release()
+            stageprof.attribute_stages(self._metrics, timed, era_secs, steps, self._stage_iters)
+        except Exception as exc:
+            self._metrics.set_gauge("stage_profile_error", repr(exc)[:200])
+            warnings.warn(f"stage profiling failed (run results unaffected): {exc!r}",
+                          RuntimeWarning, stacklevel=2)
 
     def _timed_out(self) -> bool:
         return self._deadline is not None and time.monotonic() >= self._deadline

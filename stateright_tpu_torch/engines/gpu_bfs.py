@@ -47,7 +47,7 @@ from ..ops import era as eo
 from ..ops import visited_set as vs
 from ..path import Path
 from ..tensor import CanonicalTensorAdapter, TensorModel, TensorModelAdapter
-from . import era
+from . import era, stages
 from .common import HostEngineBase
 from .era import widths
 
@@ -307,6 +307,13 @@ class GpuBfsChecker(HostEngineBase):
             prog.free_graph()
         self._table = prog.table
 
+        def stage_programs():
+            progs = stages.bfs_stages(tm, self._tprops, C, self._qcap, self._canon,
+                                      self._stage_iters, dev)
+            return progs, (prog.table, prog.ring)
+
+        self._profile_stages(stage_programs, self._counters.get("steps", 0))
+
     def _run_eras(self, prog, inits, vcap, high_water, depth_limit, fin, adaptive, max_sync,
                   pipeline, depth) -> None:
         tm, dev = self.tm, self.device
@@ -374,6 +381,10 @@ class GpuBfsChecker(HostEngineBase):
             take_cap = int(vals[eo.P_TAKE_CAP])
             budget = int(vals[eo.P_MAX_STEPS])
             self._gauge("era_step_budget", last_max_steps)
+            if era_dt > 0.0:
+                # The era's time from dispatch through its readback
+                # (tpu_bfs.py:1790-1796).
+                self._metrics.add_phase("device_era", era_dt)
             if poll_target is not None and era_dt > 0.0:
                 per_era_dt = era_dt / n_inner
                 if per_era_dt < poll_target / 2 and budget_cap < cap_limit:

@@ -47,6 +47,7 @@ plain torch version, and the host reads the gate after each step.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -61,6 +62,7 @@ from ..path import Path
 from ..tensor import TensorModel, TensorModelAdapter
 from ..xp import TorchXP
 from . import graph as gr
+from . import stages
 from .common import HostEngineBase
 from .gpu_bfs import resolve_device
 
@@ -333,11 +335,15 @@ class GpuSimulationChecker(HostEngineBase):
         walk, path = prog.seed(self._seed)
         rec_bits = gen_total = 0
         while True:
+            era_t0 = time.monotonic()
             out = prog.era(
                 walk, path, rec_bits=rec_bits, max_steps=max_sync, fin_any=fin_any,
                 fin_all=fin_all, fin_all_en=fin_all_en, target_gen=target_gen,
                 gen0=gen_total, threshold=threshold,
             )
+            # The era's time: its upload, graph launch and readback
+            # (tpu_simulation.py:885).
+            self._metrics.add_phase("device_era", time.monotonic() - era_t0)
             self._inc("eras")
             self._inc("steps", out.steps)
             self._inc("steps_run", out.steps_run)
@@ -380,6 +386,15 @@ class GpuSimulationChecker(HostEngineBase):
         self._gauge("graph_captures", prog.graph_captures)
         self._gauge("capture_secs", prog.capture_secs)
         self._gauge("readbacks", prog.readbacks)
+
+        def stage_programs():
+            progs = stages.sim_stages(self.tm, self._tprops, self._B, L, self._stage_iters,
+                                      self.device)
+            return progs, (path,)
+
+        # The steps the card ran (steps counts an era's no-op steps too,
+        # which the port skips once every walk is frozen).
+        self._profile_stages(stage_programs, self._counters.get("steps_run", 0))
 
     def _harvest(self, path, out: EraResult, L: int) -> None:
         """Read each newly hit property's fingerprint chain, the first plen

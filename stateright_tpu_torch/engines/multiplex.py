@@ -510,6 +510,10 @@ def _reject_unsupported(builder: CheckerBuilder) -> None:
                 f"multiplexed lanes do not support {what}; run this check "
                 "solo via spawn_gpu_bfs"
             )
+    if builder.stage_profile_:
+        raise ValueError(
+            "multiplexed lanes do not support stage profiling; run solo"
+        )
 
 
 def run_multiplexed(

@@ -191,6 +191,25 @@ WALK_SLAB = Kernel(
     "stateright_tpu/engines/tpu_simulation.py:502",
 )
 
+# K12: the stage profiler (engines/stages.py). K12a's loop kernel (START,
+# FOLD, ADD) and, a second entry point of the same source, its synthetic
+# lanes; K12b, the simulation's walk stages (CYCLE, RECORD, CHOOSE).
+STAGE_LOOP = Kernel(
+    "stage_loop", "stage_loop.cu", "srt_stage_loop",
+    [_I32, _P, _I64, _U64, _P, _I32, _P, _U64],
+    "stateright_tpu/obs/stageprof.py:60",
+)
+STAGE_LANES = Kernel(
+    "stage_lanes", "stage_loop.cu", "srt_stage_lanes",
+    [_I32, _P, _P, _P, _P, _P],
+    "stateright_tpu/engines/tpu_bfs.py:1180",
+)
+STAGE_WALK = Kernel(
+    "stage_walk", "stage_walk.cu", "srt_stage_walk",
+    [_I32, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P],
+    "stateright_tpu/engines/tpu_simulation.py:622",
+)
+
 # The kernels of each engine's path: the BFS step and its epilogue, the
 # simulation step, its era kernel and its epilogue, and the multiplexed
 # lane step, its seed, its era kernels and its path walks (K1 runs on
@@ -205,8 +224,14 @@ LANE_KERNELS = (
     HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES,
     RING_LANES, LOOKUP_PARENT_LANES, ERA_STEP_LANES, ERA_EPILOGUE_LANES,
 )
-KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA)
-ENTRIES = KERNELS + (WALK_PROLOGUE,) + LANE_KERNELS[1:]
+# The stage profiler's paths: each stage program's kernels and the loop's.
+BFS_STAGE_KERNELS = (
+    STAGE_LOOP, STAGE_LANES, HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT, RING,
+)
+SIM_STAGE_KERNELS = (STAGE_LOOP, STAGE_LANES, STAGE_WALK, HASH_LANES)
+KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA,
+                         STAGE_LOOP, STAGE_WALK)
+ENTRIES = KERNELS + (WALK_PROLOGUE, STAGE_LANES) + LANE_KERNELS[1:]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

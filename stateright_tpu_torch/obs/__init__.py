@@ -1,1 +1,2 @@
-"""Run observability the port carries: the coverage accumulator."""
+"""Run observability the port carries: coverage, the bottom-k sample, phase
+timers and gauges, and the stage profiler."""

@@ -613,3 +613,144 @@ def test_warm_lane_program_captures_once(dev):
     assert prog.graph_captures == 1 and prog.builds == 1 and prog.readbacks == 3
     want = run_multiplexed([compiled.builder() for _ in range(5)], lanes=8, device="cpu")
     assert [c.telemetry()["steps"] for c in got] == [c.telemetry()["steps"] for c in want]
+
+
+# -- the stage profiler (K12a, K12b) ------------------------------------------
+
+def test_stage_loop_kernel_matches_plain(dev):
+    """K12a on the card against its plain version: each lane mode (MIX with
+    and without a source, a mask and a modulus; XOR; MASK; RING with its
+    head), then START, FOLD (first elements, a strided column, full-width
+    int64 and bool sums, a shifted bit, the epoch) and ADD."""
+    from stateright_tpu_torch.ops import stage as sg
+
+    rng = np.random.default_rng(12)
+    src = torch.from_numpy(_u32(rng, 3, 5000))
+    mask = torch.from_numpy(rng.random((2, 3000)) < 0.5)
+    st0 = torch.tensor([0xDEADBEEF, 2, 1, 0, 0], dtype=torch.int64)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        st, s = st0.to(d), src.to(d)
+        a = torch.zeros((3, 5000), dtype=torch.int64, device=d)
+        sg.mix_lanes(a, 41)
+        b = torch.zeros((2, 777), dtype=torch.int64, device=d)
+        sg.mix_lanes(b, 101, step=6, mask=7, mod=5)
+        c = torch.zeros_like(s)
+        sg.mix_lanes(c, 0x6C62272E, src=s)
+        x = torch.zeros_like(s)
+        sg.xor_lanes(x, s, st, xor_rows=2, acc_mask=1, mask=7)
+        y = torch.zeros_like(s)
+        sg.xor_lanes(y, s, st, acc_mask=0xFFFFFFFF)
+        m = torch.zeros(s.shape, dtype=torch.bool, device=d)
+        sg.mask_lanes(m, s, st, 3)
+        head = torch.tensor([0xFFF0], dtype=torch.int64, device=d)
+        ring = torch.zeros((3, 900), dtype=torch.int64, device=d)
+        sg.ring_lanes(ring, s[:, :300], head, (1 << 16) - 1)
+        epoch = torch.ones(1, dtype=torch.int64, device=d)
+        sg.start(st, 3)
+        terms = [sg.term(a[:, 0]), sg.term(a.view(-1)), sg.term(m.view(-1)), sg.term(s[0, :1], shift=32),
+                 sg.term(c[1, :1], shift=3, mask=1)]
+        sg.fold(st, terms, 3, add=5, epoch=epoch)
+        sg.fold(st, [sg.term(mask.to(d).view(-1))], 3)
+        sg.add(st, [sg.term(b.view(-1))])
+        outs.append([t.cpu() for t in (a, b, c, x, y, m, head, ring, epoch, st)])
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+def test_stage_walk_kernel_matches_plain(dev):
+    """K12b's CYCLE, RECORD (rows cleared and the column at (acc + i) % L)
+    and CHOOSE on the card against the plain versions."""
+    from stateright_tpu_torch.ops import stage as sg
+
+    rng = np.random.default_rng(13)
+    B, L, S, A = 3000, 40, 5, 7
+    path = torch.from_numpy(_u32(rng, B, L) | (_u32(rng, B, L) << 32))
+    h0, g0 = (torch.from_numpy(_u32(rng, B)) for _ in range(2))
+    ptr = torch.from_numpy(rng.integers(0, L + 1, size=B))
+    # A third of the walks look for a key their row holds below ptr.
+    hit = rng.random(B) < 0.3
+    col = rng.integers(0, L, size=B)
+    for w in np.flatnonzero(hit):
+        path[w, col[w]] = int(vs.pack64(h0[w:w + 1] ^ 1, g0[w:w + 1]))
+    restart = torch.from_numpy(rng.random(B) < 0.06)
+    rows, succs = torch.from_numpy(_u32(rng, S, B)), torch.from_numpy(_u32(rng, A * S, B))
+    valid = torch.from_numpy(rng.random((A, B)) < 0.4)
+    l227 = torch.from_numpy(_u32(rng, B))
+    st0 = torch.tensor([0x12345, 3, 1, 0, 0], dtype=torch.int64)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        st = st0.to(d)
+        cyc = torch.zeros(B, dtype=torch.bool, device=d)
+        sg.cycle(st, path.to(d), h0.to(d), g0.to(d), ptr.to(d), cyc)
+        p = path.to(d)
+        sg.record(st, p, h0.to(d), restart.to(d))
+        out = torch.zeros((S, B), dtype=torch.int64, device=d)
+        sg.choose(st, rows.to(d), succs.to(d), valid.to(d), ptr.to(d), l227.to(d), out)
+        outs.append([t.cpu() for t in (cyc, p, out)])
+    assert outs[1][0].any()
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+def test_stage_programs_cuda_match_cpu(dev):
+    """Every BFS and simulation stage program and the null loop through its
+    CUDA graph against the plain versions on the same run state: the same
+    accumulator, twice (each dispatch starts from fresh forks)."""
+    from stateright_tpu_torch.engines import stages
+    from stateright_tpu_torch.models import IncrementTensor
+
+    tm = TwoPhaseTensor(5)
+    c = TensorModelAdapter(tm).checker().symmetry().spawn_gpu_bfs(
+        device="cpu", chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 12).join()
+    ring = torch.zeros((tm.state_width + 2, (1 << 12) + 1), dtype=torch.int64)
+    ring[:, :1 << 12] = torch.from_numpy(_u32(np.random.default_rng(4), tm.state_width + 2, 1 << 12) & 7)
+    accs = []
+    for d in (dev, torch.device("cpu")):
+        progs = stages.BfsStages(tm, tm.tensor_properties(), 64, 1 << 12, True, 4, d)
+        table = vs.VisitedTable(*(t.to(d) for t in (c._table.keys, c._table.parents, c._table.stamps)))
+        progs.load(table, ring.to(d))
+        named, null = progs.programs()
+        accs.append({n: (p.run(3), p.run(3)) for n, p in dict(named, null=null).items()})
+        progs.release()
+        progs.free()
+    assert accs[0] == accs[1] and set(accs[0]) >= {"canon", "probe", "ring", "null"}
+    sim = []
+    itm = IncrementTensor(2)
+    path = torch.from_numpy(_u32(np.random.default_rng(5), 64, 16) | (_u32(np.random.default_rng(6), 64, 16) << 32))
+    for d in (dev, torch.device("cpu")):
+        progs = stages.SimStages(itm, itm.tensor_properties(), 64, 16, 4, d)
+        progs.load(path.to(d))
+        named, null = progs.programs()
+        sim.append({n: (p.run(3), p.run(3)) for n, p in dict(named, null=null).items()})
+        progs.release()
+        progs.free()
+    assert sim[0] == sim[1] and len(sim[0]) == 6
+
+
+@pytest.mark.parametrize("engine", ["bfs", "simulation"])
+def test_stage_profile_on_the_card(dev, engine):
+    """`.stage_profile()` on the card: no error, the stage phases sum to
+    device_era, and the run equals the unprofiled one."""
+    from stateright_tpu_torch.models import IncrementTensor
+
+    def run(profile):
+        if engine == "bfs":
+            b = TensorModelAdapter(TwoPhaseTensor(5)).checker()
+            b = b.stage_profile(iters=8) if profile else b
+            c = b.spawn_gpu_bfs(device="cuda", chunk_size=256, queue_capacity=1 << 14,
+                                table_capacity=1 << 16).join()
+            return c, (c.unique_state_count(), c.state_count(), dict(c._discovery_fps))
+        b = TensorModelAdapter(IncrementTensor(2)).checker().target_state_count(20_000)
+        b = b.stage_profile(iters=8) if profile else b
+        c = b.spawn_gpu_simulation(7, walks=256, walk_cap=32, device="cuda").join()
+        return c, (c.state_count(), dict(c._discovery_paths))
+
+    c, got = run(True)
+    _plain, want = run(False)
+    assert got == want
+    tel = c.telemetry()
+    assert "stage_profile_error" not in tel, tel.get("stage_profile_error")
+    phases = {k: v for k, v in tel["phase_ms"].items() if k.startswith("stage_")}
+    era = tel["phase_ms"]["device_era"]
+    assert len(phases) >= 5 and abs(sum(phases.values()) - era) <= 0.1 * era

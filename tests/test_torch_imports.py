@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of it and
 `chip_smoke.py`, and running a BFS (serial, pipelined and fused, and
-timed), a simulation, multiplexed lanes and the executable cache, loads
-neither jax nor any module of the JAX package."""
+timed), a simulation, both with the stage profiler, multiplexed lanes
+and the executable cache, loads neither jax nor any module of the JAX
+package."""
 
 import os
 import subprocess
@@ -15,8 +16,10 @@ import stateright_tpu_torch
 for mod in pkgutil.walk_packages(stateright_tpu_torch.__path__, "stateright_tpu_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
-# The device-program modules: the shared graph builder and the simulation era.
+# The device-program modules: the shared graph builder, the simulation era
+# and the stage profiler.
 import stateright_tpu_torch.engines.graph, stateright_tpu_torch.ops.walk_era
+import stateright_tpu_torch.engines.stages, stateright_tpu_torch.obs.stageprof, stateright_tpu_torch.ops.stage
 from stateright_tpu_torch import TensorModelAdapter
 from stateright_tpu_torch.models import TwoPhaseTensor
 c = TensorModelAdapter(TwoPhaseTensor(2)).checker().spawn_gpu_bfs(
@@ -29,6 +32,10 @@ for configure in (lambda b: b.pipeline(False), lambda b: b.pipeline(depth=3, fus
 s = TensorModelAdapter(TwoPhaseTensor(2)).checker().target_state_count(200).spawn_gpu_simulation(
     1, device="cpu", walks=16, walk_cap=8).join()
 assert s.state_count() >= 200
+for spawn in (lambda b: b.spawn_gpu_bfs(device="cpu", chunk_size=16, queue_capacity=1 << 10, table_capacity=1 << 10),
+              lambda b: b.target_state_count(200).spawn_gpu_simulation(1, device="cpu", walks=16, walk_cap=8)):
+    tel = spawn(TensorModelAdapter(TwoPhaseTensor(2)).checker().stage_profile(iters=2)).join().telemetry()
+    assert "stage_profile_error" not in tel and "stage_hash" in tel["phase_ms"], tel
 from stateright_tpu_torch import ExecutableCache, run_multiplexed
 compiled, _hit = ExecutableCache().get(TwoPhaseTensor(2), "multiplex", lanes=4, chunk=16, device="cpu")
 lanes = run_multiplexed([compiled.builder() for _ in range(3)], lanes=4, chunk=16, device="cpu")
