@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (stateright_tpu_torch) on one card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
-    python3 chip_smoke.py --skip-full   # without the 2pc-10 phases (7, 11; 17's 2pc-10 run)
+    python3 chip_smoke.py --skip-full   # without the 2pc-10 phases (7, 11; 17's and 18's 2pc-10 runs)
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
@@ -67,9 +67,9 @@ exits non-zero:
      each other (the bottom-k sample aside: a chained era's stale
      threshold changes the captures a step drops, in the JAX engine too)
      and to the goldens, with wall, steps, eras, dispatches,
-     graph captures and capture seconds, host launch calls and device
-     kernels a step, wall a step, the device's busy share
-     (torch.profiler) and peak memory.
+     graph captures and capture seconds, wall a step and peak memory,
+     and for the default pipeline host launch calls and device kernels a
+     step and the device's busy share (torch.profiler).
 
  16. simulation eras and lane batches as device programs: K13f's
      walk-era kernel (BEGIN, COMMIT under every exit, EPILOGUE) against
@@ -101,17 +101,37 @@ exits non-zero:
      --skip-full, 2pc-10 BFS with .stage_profile() (its probe stage forks
      the 2^28-slot table).
 
+ 18. the sharded mesh (K15): K15a (`exchange.cu`, the owner buckets) and
+     K15f (`mesh_era.cu`, the shard-coupled gate, commit, epilogue and
+     tail) against their plain versions, exactly, at the 2pc-7 (chunk
+     1,024) and paxos-3 (chunk 2,048) widths at 1 and 8 shards, with
+     buckets past the quota, vetoed and unresolved commits and every
+     budget rule; 2pc-5 and paxos-2 at 8 shards on cuda == cpu (the
+     sample and the paths included; 2pc-5 takes partial commits); 2pc-7
+     and paxos-3 at 8 shards on one card and at 1 shard: the goldens,
+     the single-device run's discoveries (the same properties at the same
+     depth), wall a lockstep step, kernel launches a step, peak memory
+     and the cross-shard imbalance; 2pc-7 and paxos-3 at 8 shards with
+     .stage_profile() (the exchange stage; 2pc-7's mesh stage programs
+     through their graphs == their plain versions); and, unless
+     --skip-full, 2pc-10 at 8 shards (61,515,776 states, capacities that
+     need no growth and no spill). World size 1 only: two ranks cannot
+     share one card under NCCL (tests/test_torch_mesh_dist.py runs ranks
+     over gloo on the CPU).
+
 Every device program runs as CUDA graphs (engines/graph.py): a BFS
-dispatch (engines/era.py), a simulation era (engines/gpu_simulation.py)
-and a lane batch (engines/multiplex.py) are one graph launch and one
-readback each, so phases 3-16 run through graphs; the launch counts add
+dispatch (engines/era.py), a simulation era (engines/gpu_simulation.py),
+a lane batch (engines/multiplex.py) and a sharded dispatch at world size
+1 (parallel/mesh.py) are one graph launch and one readback each, so
+phases 3-18 run through graphs; the launch counts add
 each captured segment's launches once per run of it on the card.
 
 Every engine phase resets the kernels' launch counts just before its run
 and checks, just after, that each kernel of its path (the BFS kernels,
 K1, K13a-d, K13b's prologue and K13f, or K1 and the lane entry points of
-K2, K3, K4, K6, K7 and K8f; with the stage profiler, K12a and the
-stage programs' kernels too) was launched. Before
+K2, K3, K4, K6, K7 and K8f, or the sharded path's `MESH_KERNELS`; with
+the stage profiler, K12a and the stage programs' kernels too) was
+launched. Before
 the last line it prints the `kernels` JSON line and the card's name and
 power limit; the last line is the JSON result. It imports nothing of JAX
 or of the JAX package.
@@ -1655,8 +1675,9 @@ def era_runs(torch, kernels, card, label, golden, checks=lambda c: None):
     """Phase 15's runs of one model at its phase 4-6 options: the default
     pipeline, the serial dispatch loop and (depth 4, fuse 4), each counted from
     0 (every BFS kernel launched, the path walks included), timed (the
-    wall ends before the paths are walked), then run once more under
-    torch.profiler in a fresh process (`profile_in_child`); all three
+    wall ends before the paths are walked), the default pipeline's run
+    then once more under torch.profiler in a fresh process
+    (`profile_in_child`); all three
     equal to each other (the sample aside) and to the golden. Prints and
     returns each run's numbers."""
     make_model, opts = ERA_MODELS[label]
@@ -1676,7 +1697,10 @@ def era_runs(torch, kernels, card, label, golden, checks=lambda c: None):
         checks(c)
         tel = c.telemetry()
         del c
-        prof = profile_in_child(label, name)
+        # The default pipeline's run only: a profiled child is a fresh
+        # process (tens of seconds on the card's host), and the script
+        # must stay well inside its time limit.
+        prof = profile_in_child(label, name) if name == "default" else {}
         steps = tel["steps"] + tel.get("partial_steps", 0)
         out[name] = dict(
             label=label, pipeline=name, wall_secs=wall, steps=tel["steps"],
@@ -1975,6 +1999,375 @@ def stage_phase(torch, np, kernels, card, skip_full):
     return stage_res, launches_stage, launches_stage_sim
 
 
+# -- phase 18: the sharded mesh (K15) ----------------------------------------
+
+MESH_N = 8
+# Full-width runs at N = 8 shards on one card (world size 1): per-shard
+# capacities with no growth and no spill, chunks that keep each shard's
+# sample slab (its high water plus the receive width N * quota) within
+# the 16,384 rows K9b sorts; beside each, the same model at N = 1.
+MESH_RUNS = {
+    "2pc-7": (lambda: two_pc(7), GOLDEN[7], {
+        MESH_N: dict(chunk_size=1024, queue_capacity_per_shard=1 << 17, table_capacity_per_shard=1 << 18),
+        1: dict(chunk_size=1024, queue_capacity_per_shard=1 << 18, table_capacity_per_shard=1 << 21)}),
+    "paxos-3": (None, PAXOS3_GOLDEN, {
+        MESH_N: dict(chunk_size=2048, queue_capacity_per_shard=1 << 18, table_capacity_per_shard=1 << 20),
+        1: dict(chunk_size=2048, queue_capacity_per_shard=1 << 21, table_capacity_per_shard=1 << 23)}),
+}
+MESH10 = dict(chunk_size=1024, queue_capacity_per_shard=1 << 23, table_capacity_per_shard=1 << 25)
+# Phase 18's 2pc-5 at 8 shards: the test options, and tables of 2^12 a
+# shard, so that the run grows them mid-run (K15g, then a new graph).
+MESH_SMALL = dict(chunk_size=64, sync_steps=4, table_capacity_per_shard=1 << 12)
+
+
+def mesh_bfs(model, device, n, opts, configure=lambda b: b):
+    from stateright_tpu_torch import TensorModelAdapter
+
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    b = configure(TensorModelAdapter(model).checker().coverage())
+    c = b.spawn_sharded_bfs(devices=n, device=device, **opts).join()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return c, time.monotonic() - t0
+
+
+def mesh_kernel_parity(torch, np, label, tm, C):
+    """K15a and K15f against their plain versions on the same card
+    tensors, at the widths one sharded step of `tm` at chunk C gives
+    them, for N = 1 and N = 8 shards: the exchange with the quota the
+    engine takes and with a quarter of it (buckets overflow), and every
+    mode of the mesh era kernel — START, BEGIN, COMMIT (clean, an
+    overflow at some senders, unresolved inserts with takes that can
+    shrink and with takes of 1), EPILOGUE (budget-only with fusion on,
+    pressure on one shard, a finish mask met, sparse first hits with
+    depth ties) and TAIL. Returns {kernel: timing dict} at N = 8."""
+    from stateright_tpu_torch.engines.era import widths
+    from stateright_tpu_torch.ops import exchange as xc
+    from stateright_tpu_torch.ops import mesh_era as me
+    from stateright_tpu_torch.ops import visited_set as vs
+    from stateright_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+    S, A = tm.state_width, tm.max_actions
+    props = tm.tensor_properties()
+    P = len(props)
+    V, X = widths(A, C)[0], S + 4
+    results = {}
+    for n in (1, MESH_N):
+        quota = mesh.quota_for(C, A, n)
+        h1 = torch.from_numpy(rng.integers(0, 1 << 32, size=n * V)).to(dev)
+        reps = torch.from_numpy(rng.random((n, V)) < 0.75).to(dev)
+        vals = torch.from_numpy(rng.integers(0, 1 << 32, size=(X, n * V))).to(dev)
+        errs = []
+        for q in (quota, max(1, quota // 4)):
+            got, ovf = xc.exchange(h1, reps, vals, n, q)
+            want, ovf_p = xc.exchange_plain(h1, reps, vals, n, q)
+            errs.append(max_abs_err(torch, [(got, want), (ovf, ovf_p)]))
+            if q < quota:
+                check(int(ovf.sum()) > 0, f"{label} N={n}: no bucket overflowed at quota {q}")
+        owner = h1.view(n, V) % n
+        key = torch.where(reps, owner, n)
+
+        def library(_):
+            order = torch.argsort(key, dim=1, stable=True)
+            return vals.view(X, n, V).gather(2, order[None].expand(X, n, V))
+
+        r = dict(
+            max_abs_err=max(errs),
+            ms=time_ms(torch, lambda _: xc.exchange(h1, reps, vals, n, quota)),
+            plain_ms=time_ms(torch, lambda _: xc.exchange_plain(h1, reps, vals, n, quota), reps=5),
+            library_ms=time_ms(torch, library),
+            # h1, reps and the X lanes read once; the receive buffer written once
+            bytes=n * V * (8 + 1 + 8 * X) + 8 * X * n * n * quota, ops=n * V * (X + 4),
+            shape=f"N={n} V={V} X={X} quota={quota}",
+        )
+        print(f"{label} K15a N={n}: {r['shape']} max_abs_err={r['max_abs_err']}", flush=True)
+        check(r["max_abs_err"] == 0, f"{label} N={n}: K15a disagrees with its plain version")
+        if n == MESH_N:
+            results["exchange"] = r
+
+        prog = mesh.MeshProgram(tm, props, C, 1 << 16, 1 << 12, n, quota, True, 64, 4, dev)
+        c, x, L, R = prog.cfg, prog.x, prog.L, prog.R
+        qcap = prog.qcap
+
+        def state(count=None, its=3, max_steps=64, cap=64, rec=0, k=0, take=None, pressure=False):
+            s = rng.integers(0, 1 << 20, size=(n, L)).astype(np.int64)
+            cnt = rng.integers(0, 3 * C, size=n) if count is None else np.full(n, count)
+            for l in range(n):
+                s[l, :me.P_LEN] = [int(rng.integers(0, qcap)), cnt[l], 10 ** 6, rec, 0xFFFFFFFF, 2 * 10 ** 6,
+                                   qcap - R, max_steps, 5, 7, 2, 0, C, 1 << (P - 1), 0, 0, cap]
+            if pressure:
+                s[n - 1, me.P_COUNT] = qcap
+            s[:, prog.s_base:prog.s_base + 2] = 0xFFFFFFFF
+            s[:, prog.f_base] = 4
+            s[:, prog.d_base + 2 * P:prog.d_base + 3 * P] = 0xFFFFFFFF
+            s[:, x + me.X_ITS] = s[:, x + me.X_ESTEPS] = its
+            s[:, x + me.X_REC0], s[:, x + me.X_K], s[:, x + me.X_OPEN] = rec, k, 1
+            s[:, x + me.X_TAKE] = np.minimum(cnt, C) if take is None else take
+            return torch.from_numpy(s).to(dev)
+
+        def operands(unres=0.0, ovf=0.0, density=0.01):
+            return me.MeshOperands(
+                is_new=torch.from_numpy(rng.random((n, R)) < 0.4).to(dev),
+                unresolved=torch.from_numpy(rng.random((n, R)) < unres).to(dev),
+                n_ovf=torch.from_numpy(np.where(rng.random(n) < ovf, rng.integers(1, 9, size=n), 0)).to(dev),
+                n_val=torch.from_numpy(rng.integers(0, 2 * V, size=n)).to(dev),
+                generated=torch.from_numpy(rng.integers(0, C * A, size=n)).to(dev),
+                hs=torch.from_numpy(rng.integers(0, C, size=(P, n))).to(dev),
+                pa=torch.from_numpy(rng.integers(0, C, size=(n, A))).to(dev),
+                hseen=torch.from_numpy(rng.random((P, n * C)) < density).to(dev),
+                facc1=torch.from_numpy(rng.integers(0, 1 << 32, size=(P, n * C))).to(dev),
+                facc2=torch.from_numpy(rng.integers(0, 1 << 32, size=(P, n * C))).to(dev),
+                faccd=torch.from_numpy(rng.integers(5, 9, size=(P, n * C))).to(dev),
+                ring_depth=prog.rings[:, S + 1],
+                slab=torch.from_numpy(rng.integers(0, 1 << 32, size=(4, n, prog.scap + 1))).to(dev),
+                slab_counts=torch.from_numpy(rng.integers(0, 600, size=(n, 2))).to(dev),
+            )
+
+        def clone(ops):
+            return ops._replace(**{f: getattr(ops, f).clone() for f in ops._fields
+                                   if f != "ring_depth" and getattr(ops, f) is not None})
+
+        def pairs(a, b):
+            return [(getattr(a, f), getattr(b, f)) for f in a._fields if getattr(a, f) is not None]
+
+        cases = [
+            (me.START, state(), operands()),
+            (me.BEGIN, state(), operands()),
+            (me.COMMIT, state(), operands()),
+            (me.COMMIT, state(), operands(ovf=0.5)),
+            (me.COMMIT, state(), operands(unres=0.001)),
+            (me.COMMIT, state(count=1, take=1), operands(unres=0.01)),
+            (me.EPILOGUE, state(count=3 * C, its=64, k=0), operands(density=0.01)),
+            (me.EPILOGUE, state(its=10, k=1, pressure=True), operands(density=0.001)),
+            (me.EPILOGUE, state(count=3 * C, its=64, rec=1 << (P - 1), k=2), operands(density=0.02)),
+            (me.TAIL, state(), operands()),
+        ]
+        errs = []
+        for i, (mode, st, ops) in enumerate(cases):
+            if os.environ.get("MESH_TRACE"):
+                print(f"K15f case {i} mode {mode}", flush=True)
+            sa, sb, oa, ob = st.clone(), st.clone(), clone(ops), clone(ops)
+            za = torch.zeros_like(prog.sums)
+            zb = torch.zeros_like(prog.sums)
+            me.mesh_era(mode, c, sa, za, oa)
+            me.mesh_era_plain(mode, c, sb, zb, ob)
+            errs.append(max_abs_err(torch, [(sa, sb), (za, zb)] + pairs(oa, ob)))
+        print(f"{label} K15f N={n}: {len(cases)} cases, max_abs_err={max(errs)}", flush=True)
+        check(max(errs) == 0, f"{label} N={n}: K15f disagrees with its plain version")
+        if n == MESH_N:
+            _m, st_c, ops_c = cases[2]
+            _m, st_e, ops_e = cases[6]
+
+            def run_k(mode, st_, ops_, plain):
+                def go(a):
+                    (me.mesh_era_plain if plain else me.mesh_era)(mode, c, a[0], a[1], a[2])
+                return go
+
+            def prep(st_, ops_):
+                return lambda: (st_.clone(), torch.zeros_like(prog.sums), clone(ops_))
+
+            results["mesh_era"] = dict(
+                max_abs_err=max(errs),
+                ms=time_ms(torch, run_k(me.COMMIT, st_c, ops_c, False), prep=prep(st_c, ops_c)),
+                plain_ms=time_ms(torch, run_k(me.COMMIT, st_c, ops_c, True), prep=prep(st_c, ops_c), reps=5),
+                epilogue_ms=time_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, False), prep=prep(st_e, ops_e)),
+                epilogue_plain_ms=time_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, True), prep=prep(st_e, ops_e),
+                                          reps=5),
+                library_ms=None,
+                # the two insert masks once, the state read and written, the
+                # first-hit lanes' any per (property, shard)
+                bytes=2 * n * R + 2 * 8 * n * L + P * n * C + 8 * n * (P + A + 2), ops=2 * n * R,
+                shape=f"COMMIT of N={n} shards over [{R}] insert masks, {L} state words a shard",
+            )
+        del prog
+    # K15g (mesh.py:1089 _build_grow): every shard's table rehashed into
+    # one twice as large, K4's lane form over the occupied rows, against
+    # the plain version: the same key -> parent map in every shard.
+    n, tcap = MESH_N, 1 << 16
+    table = vs.empty_table(tcap, dev, lanes=n)
+    keys = torch.from_numpy(rng.integers(1, 1 << 32, size=(2, n, tcap // 5))).to(dev)
+    vs.insert_lanes(table, keys[0], keys[1], keys[1], keys[0], torch.ones_like(keys[0], dtype=torch.bool))
+    k1, k2 = vs.unpack64(table.keys)
+    v1, v2 = vs.unpack64(table.parents)
+    occ = vs.occupied_mask(table)
+    grown = {}
+
+    def grow(plain):
+        def go(t):
+            fn = vs.insert_lanes_plain if plain else vs.insert_lanes
+            grown[plain] = (t, fn(t, k1, k2, v1, v2, occ)[1])
+        return go
+
+    def table_map(t):
+        order = t.keys.sort(1)
+        return order.values, t.parents.gather(1, order.indices)
+
+    fresh = lambda: vs.empty_table(2 * tcap, dev, lanes=n)  # noqa: E731
+    ms = time_ms(torch, grow(False), prep=fresh, reps=5)
+    plain_ms = time_ms(torch, grow(True), prep=fresh, reps=1)
+    (ta, ua), (tb, ub) = grown[False], grown[True]
+    n_occ = int(occ.sum())
+    results["K15g grow"] = dict(
+        max_abs_err=max_abs_err(torch, list(zip(table_map(ta), table_map(tb))) + [(ua, ub)]),
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+        bytes=n * tcap * 16 + n_occ * 24, ops=n_occ * 8,
+        shape=f"{n} shards x {n_occ // n} rows of {tcap} slots into {2 * tcap}",
+    )
+    return finish(results)
+
+
+def mesh_dict(c):
+    return dict(result_dict(c), eras=c.telemetry()["eras"], steps=c.telemetry()["steps"])
+
+
+def grab_mesh_state(stages):
+    """Wrap MeshStages.load to keep the profiled run's final tables and
+    rings, for the graph against plain check."""
+    grabbed = {}
+    orig = stages.MeshStages.load
+
+    def load(self, *state):
+        grabbed["mesh"] = (self, state)
+        return orig(self, *state)
+
+    stages.MeshStages.load = load
+    return grabbed
+
+
+def mesh_stages_match_plain(torch, label, progs, state, iters=4):
+    """Every mesh stage program through its CUDA graph and through the
+    plain versions (a cpu copy of the run's tables and rings), `iters`
+    rounds from seed 1: the same accumulator."""
+    from stateright_tpu_torch.engines import stages
+    from stateright_tpu_torch.ops import visited_set as vs
+
+    table, rings = state
+    accs = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        p = stages.MeshStages(progs.tm, progs.props, progs.C, progs.qcap, progs.n_total, progs.quota,
+                              iters, dev)
+        p.load(vs.VisitedTable(*(t.to(dev) for t in (table.keys, table.parents, table.stamps))), rings.to(dev))
+        named, null = p.programs()
+        accs.append({n: q.run(1) for n, q in dict(named, null=null).items()})
+        p.release()
+        p.free()
+    check(accs[0] == accs[1], f"{label} mesh stage programs: graph {accs[0]} != plain {accs[1]}")
+    check("exchange" in accs[0], f"{label}: no exchange stage")
+    print(f"{label} mesh stage programs, graph == plain ({iters} rounds from seed 1): {accs[0]}", flush=True)
+
+
+def mesh_phase(torch, np, kernels, card, skip_full, single):
+    """Phase 18: K15a and K15f against their plain versions; 2pc-5 and
+    paxos-2 at 8 shards cuda == cpu; the full-width runs at 8 shards on one
+    card against the goldens and the single-device discoveries, beside
+    N = 1; a profiled 2pc-7 run with its exchange stage; 2pc-10 at 8
+    shards unless skip_full. Returns the kernels' timing dicts and the
+    launches of the 2pc-7 run at 8 shards."""
+    from stateright_tpu_torch.engines import stages as stage_mod
+    from stateright_tpu_torch.models import PaxosTensor, PaxosTensorExhaustive
+
+    res = mesh_kernel_parity(torch, np, "2pc-7", two_pc(7), 1024)
+    mesh_kernel_parity(torch, np, "paxos-3", PaxosTensorExhaustive(3), 2048)
+    path = kernels.MESH_KERNELS
+    threads = torch.get_num_threads()
+    for label, make, opts in (("2pc-5", lambda: two_pc(5), MESH_SMALL),
+                              ("paxos-2", lambda: PaxosTensor(2), dict(chunk_size=256))):
+        def on_card():
+            c, t = mesh_bfs(make(), "cuda", MESH_N, opts)
+            return c, t, mesh_dict(c)  # its paths walk through K6
+
+        (c_gpu, t_gpu, d_gpu), _ = counted(torch, kernels, f"{label} at 8 shards", on_card, path)
+        torch.set_num_threads(1)
+        c_cpu, t_cpu = mesh_bfs(make(), "cpu", MESH_N, opts)
+        torch.set_num_threads(threads)
+        d_cpu = mesh_dict(c_cpu)
+        check(d_gpu == d_cpu, f"{label} at 8 shards: cuda {d_gpu} != cpu {d_cpu}")
+        tel = c_gpu.telemetry()
+        print(f"{label} at 8 shards equal on cuda ({t_gpu:.2f}s) and cpu ({t_cpu:.2f}s): unique={d_gpu['unique']} "
+              f"eras={d_gpu['eras']} steps={d_gpu['steps']} partial_steps={tel['partial_steps']} "
+              f"table_growths={tel.get('table_growths', 0)} sample of {len(d_gpu['sample'])}", flush=True)
+        if label == "2pc-5":
+            check(tel["partial_steps"] > 0 and tel.get("table_growths", 0) > 0,
+                  f"2pc-5 at 8 shards: {tel['partial_steps']} partial steps, "
+                  f"{tel.get('table_growths', 0)} growths")
+    launches_mesh = None
+    for label, (make, golden, by_n) in MESH_RUNS.items():
+        make = make or (lambda: PaxosTensorExhaustive(3))
+        fps_1, lens_1 = single[label]
+        # A warm-up run first: the first launch of each torch kernel the
+        # mesh step uses loads its module, which no timed run should pay.
+        mesh_bfs(make(), "cuda", MESH_N, by_n[MESH_N])
+        for n, opts in by_n.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()  # what earlier phases left allocated
+
+            def go():
+                c, wall = mesh_bfs(make(), "cuda", n, opts)
+                return c, wall, torch.cuda.max_memory_allocated(), check_paths(c)
+
+            (c, wall, peak, lens), launches = counted(torch, kernels, f"{label} at {n} shards", go, path)
+            check(c.unique_state_count() == golden, f"{label} at {n} shards: {c.unique_state_count()} != {golden}")
+            check(lens == lens_1, f"{label} at {n} shards: discoveries {lens} != single-device {lens_1}")
+            tel = c.telemetry()
+            iters = launches["exchange"]
+            out = dict(label=label, shards=n, options=opts, wall_secs=wall, steps=tel["steps"],
+                       partial_steps=tel["partial_steps"], lockstep_steps=iters, eras=tel["eras"],
+                       dispatches=tel["dispatches"], graph_captures=tel["graph_captures"],
+                       capture_secs=tel["capture_secs"], wall_ms_per_step=wall * 1e3 / iters,
+                       launches_per_step=sum(launches[k.name] for k in path) / iters,
+                       max_memory_allocated=peak, peak_above_live=peak - live,
+                       shard_imbalance_max=tel.get("shard_imbalance_max"),
+                       quota=tel["quota"], chunk=tel["chunk"], discovery_lengths=lens,
+                       discovery_fps_equal_single_device=dict(c._discovery_fps) == fps_1, card=card)
+            print(f"mesh {label}: {json.dumps(out)}", flush=True)
+            if label == "2pc-7" and n == MESH_N:
+                launches_mesh = launches
+            del c
+    grabbed = grab_mesh_state(stage_mod)
+    _make7, _g, by_n7 = MESH_RUNS["2pc-7"]
+    profiled_pair(torch, kernels, card, "2pc-7 at 8 shards",
+                  lambda prof: mesh_bfs(two_pc(7), "cuda", MESH_N, by_n7[MESH_N],
+                                        (lambda b: b.stage_profile()) if prof else (lambda b: b)),
+                  result_dict, path + kernels.MESH_STAGE_KERNELS)
+    progs, state = grabbed.pop("mesh")
+    mesh_stages_match_plain(torch, "2pc-7 at 8 shards", progs, state)
+    # Where a paxos-3 lockstep step goes at 8 shards (its split only).
+    _make, _g, by_npx = MESH_RUNS["paxos-3"]
+    profiled_pair(torch, kernels, card, "paxos-3 at 8 shards",
+                  lambda prof: mesh_bfs(PaxosTensorExhaustive(3), "cuda", MESH_N, by_npx[MESH_N],
+                                        (lambda b: b.stage_profile()) if prof else (lambda b: b)),
+                  result_dict, path + kernels.MESH_STAGE_KERNELS)
+    grabbed.pop("mesh")
+    if not skip_full:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        print(f"2pc-10 at 8 shards, capacities: {MESH10}", flush=True)
+
+        def run10():
+            c, t = mesh_bfs(two_pc(10), "cuda", MESH_N, MESH10)
+            return c, t, check_paths(c)
+
+        (c10, t10, lens), _ = counted(torch, kernels, "2pc-10 at 8 shards", run10, path)
+        check(c10.unique_state_count() == GOLDEN[10], f"2pc-10 at 8 shards: {c10.unique_state_count()}")
+        tel = c10.telemetry()
+        print(f"mesh 2pc-10: shards={MESH_N} unique={c10.unique_state_count()} states={c10.state_count()} "
+              f"wall_secs={t10:.3f} steps={tel['steps']} partial_steps={tel['partial_steps']} "
+              f"table_growths={tel.get('table_growths', 0)} max_memory_allocated={torch.cuda.max_memory_allocated()} "
+              f"peak_above_live={torch.cuda.max_memory_allocated() - live} "
+              f"shard_imbalance_max={tel.get('shard_imbalance_max')} paths={lens} card={card}", flush=True)
+        del c10
+    torch.cuda.empty_cache()
+    return res, launches_mesh
+
+
 def main(argv) -> int:
     try:
         import numpy as np
@@ -2047,6 +2440,8 @@ def main(argv) -> int:
     print(f"2pc-7: unique={c7.unique_state_count()} states={c7.state_count()} wall_secs={t7:.3f} "
           f"generated_states_per_sec={c7.state_count() / t7:.1f} unique_per_sec={c7.unique_state_count() / t7:.1f} "
           f"telemetry={c7.telemetry()} card={card}", flush=True)
+    # Phase 18 holds the sharded runs' discoveries against these.
+    single = {"2pc-7": (dict(c7._discovery_fps), check_paths(c7))}
     c7g, t7g = bfs(two_pc(7), "cuda", dict(BENCH7, table_capacity=1 << 16))
     check(result_dict(c7g) == d7, "2pc-7 with growth differs from the run without")
     print(f"2pc-7 with growth from 2^16: equal, wall_secs={t7g:.3f} telemetry={c7g.telemetry()}", flush=True)
@@ -2078,6 +2473,7 @@ def main(argv) -> int:
         cpx.assert_no_discovery(name)
     check("value chosen" in lens, "paxos-3: value chosen not found")
     check(prof["samples"] == 64 and prof["unresolved"] == 0, "paxos-3 sample rows unresolved")
+    single["paxos-3"] = (dict(cpx._discovery_fps), lens)
     tel = cpx.telemetry()
     print(f"paxos-3: unique={cpx.unique_state_count()} states={cpx.state_count()} wall_secs={tpx:.3f} "
           f"generated_states_per_sec={cpx.state_count() / tpx:.1f} steps={tel.get('steps')} "
@@ -2377,6 +2773,9 @@ def main(argv) -> int:
     phase("17 the stage profiler (K12): K12a and K12b; stage graphs == plain; profiled runs")
     stage_res, launches_stage, launches_stage_sim = stage_phase(torch, np, kernels, card, skip_full)
 
+    phase("18 the sharded mesh (K15): K15a, K15f; 8 shards cuda == cpu; 2pc-7, paxos-3 (and 2pc-10) at 8 shards")
+    mesh_res, launches_mesh = mesh_phase(torch, np, kernels, card, skip_full, single)
+
     # The loop rows' bounds: the sum of their kernels' bounds (one call at
     # the run's widths) times their launches in the run; a step is one
     # K3 launch (BFS), one K13b launch (simulation), one lane K3 launch.
@@ -2404,6 +2803,10 @@ def main(argv) -> int:
         if k.name in stage_res:
             r = stage_res[k.name]
             n = (launches_stage_sim if k is kernels.STAGE_WALK else launches_stage)[k.name]
+        elif k.name in mesh_res:
+            # K15a and K15f at the 2pc-7 widths at 8 shards, with the
+            # launches of phase 18's 2pc-7 run at 8 shards.
+            r, n = mesh_res[k.name], launches_mesh[k.name]
         elif k.name in results:
             r, n = results[k.name], launches[k.name]
         else:

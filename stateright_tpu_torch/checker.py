@@ -163,6 +163,16 @@ class CheckerBuilder:
 
         return GpuBfsChecker(self, **kw)
 
+    def spawn_sharded_bfs(self, **kw) -> "Checker":
+        """Sharded exhaustive BFS over a TensorModel (parallel/mesh.py):
+        `devices` shards (an int, or a list of devices) own the states by
+        fingerprint, and candidates cross to their owner once a step. One
+        process holds its shards on one device; `group=` (a
+        torch.distributed process group) spreads them over ranks."""
+        from .parallel.mesh import ShardedGpuBfsChecker
+
+        return ShardedGpuBfsChecker(self, **kw)
+
     def spawn_gpu_simulation(self, seed: int, *, walks: int = 1024, walk_cap: int = 256,
                              sync_steps: int = 1024, device=None) -> "Checker":
         """Batched random-walk simulation over a TensorModel on the card:

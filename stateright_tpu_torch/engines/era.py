@@ -304,9 +304,12 @@ class EraProgram:
         read, g = handle
         vals = self._readback.wait(read)
         x = self.plen
-        iters, inner = int(vals[x + eo.X_ITER]), int(vals[x + eo.X_K])
-        g.count(dict(start=1, begin=inner, step=iters, epilogue=inner, tail=1))
+        gr.count_era(g, int(vals[x + eo.X_ITER]), int(vals[x + eo.X_K]))
         return vals
+
+    def ran(self, vals: np.ndarray) -> bool:
+        """Whether the dispatch that left `vals` ran a step body."""
+        return vals[self.plen + eo.X_ITER] != 0
 
     # -- the graph -----------------------------------------------------------
 
@@ -319,20 +322,8 @@ class EraProgram:
         self.state[x + eo.X_OPEN] = 0
         self.state[x + eo.X_TAKE] = 0
         self._step()
-
-        def describe(g: gr.Graph) -> None:
-            outer = g.handle(g.root)
-            start = g.child(g.root, None, g.capture("start", lambda: self._start(outer.value)))
-            outer_loop, outer_body = g.loop(g.root, start, outer)
-            inner = g.handle(outer_body)
-            begin = g.child(outer_body, None, g.capture("begin", lambda: self._begin(inner.value)))
-            inner_loop, inner_body = g.loop(outer_body, begin, inner)
-            g.child(inner_body, None, g.capture("step", lambda: self._step(inner.value)))
-            g.child(outer_body, inner_loop, g.capture("epilogue", lambda: self._epilogue(outer.value)))
-            if self.slab is not None:
-                g.child(g.root, outer_loop, g.capture("tail", self._tail))
-
-        self._graph = gr.build(self.device, describe)
+        self._graph = gr.build_era(self.device, self._start, self._begin, self._step, self._epilogue,
+                                   self._tail if self.slab is not None else None)
         self.graph_captures += 1
         self.capture_secs += self._graph.secs
 

@@ -145,6 +145,63 @@ def parent_chains(table, fps, lanes=None) -> List[List[int]]:
     return chains
 
 
+def adapt_budget_cap(cap: int, era_dt: float, n_inner: int, poll_target, cap_limit: int) -> int:
+    """The host's move of the adaptive step budget's cap after a dispatch
+    of `n_inner` eras that took `era_dt` seconds (tpu_bfs.py:1790-1806,
+    mesh.py:1690-1697): doubled while an era takes under half the poll
+    target, halved (to BUDGET_MIN at least) above it."""
+    if poll_target is None or era_dt <= 0.0:
+        return cap
+    per_era = era_dt / n_inner
+    if per_era < poll_target / 2 and cap < cap_limit:
+        return min(cap * 2, cap_limit)
+    if per_era > poll_target and cap > eo.BUDGET_MIN:
+        return max(cap // 2, eo.BUDGET_MIN)
+    return cap
+
+
+def run_chain(engine, prog, pending, t0: float, depth: int, consume, clean, advance) -> int:
+    """Read back the dispatch `pending` (launched at `t0`) and drive the
+    K-deep speculative chain behind it (tpu_bfs.py:2204-2301,
+    mesh.py:2048-2160): up to `depth` dispatches launched off the
+    still-on-device state while earlier readbacks are in flight. Sound
+    because the device gate re-derives every exit from the state: a
+    dispatch chained past a boundary that needs the host runs no step.
+
+    `consume(vals, secs)` takes each readback in order; while `clean()`
+    says the boundary needs no host work, the oldest chained dispatch is
+    the next one; otherwise the chain is drained in order — a dispatch
+    that ran no step (`prog.ran`) was wasted speculation, one that ran
+    steps (partial ones included, or a timeout landing mid-chain) is real
+    work and is consumed. `advance()` runs before the host moves on to a
+    chained dispatch. Returns the deepest chain reached."""
+    chain = []
+    deepest = 0
+    while True:
+        while len(chain) < depth and not engine._timed_out():
+            chain.append((prog.launch(), time.monotonic()))
+            engine._inc("dispatches")
+            engine._inc("spec_dispatch")
+            deepest = max(deepest, len(chain))
+        consume(prog.result(pending), time.monotonic() - t0)
+        if not chain:
+            return deepest
+        if clean():
+            pending, _launched = chain.pop(0)
+            t0 = time.monotonic()
+            advance()
+            continue
+        while chain:
+            spec, spec_t0 = chain.pop(0)
+            vals = prog.result(spec)
+            if not prog.ran(vals):
+                engine._inc("spec_wasted")
+                continue
+            advance()
+            consume(vals, time.monotonic() - spec_t0)
+        return deepest
+
+
 class GpuBfsChecker(HostEngineBase):
     """Batched BFS over a TensorModel on one CUDA device."""
 
@@ -294,7 +351,7 @@ class GpuBfsChecker(HostEngineBase):
         adaptive = self._timeout is not None
         max_sync = self._max_sync_steps if not adaptive else min(eo.BUDGET_MIN, self._max_sync_steps)
         pipeline = self._pipeline and self._target_state_count is None
-        depth = self._chain_depth if pipeline else 0
+        depth = self._chain_depth if pipeline else 0  # 0: no chain
 
         prog = era.EraProgram(
             tm, self._tprops, C, self._qcap, self._tcap, self._canon, self._cov,
@@ -302,7 +359,7 @@ class GpuBfsChecker(HostEngineBase):
         )
         try:
             self._run_eras(prog, inits, vcap, high_water, depth_limit, (fin_any, fin_all, fin_all_en),
-                           adaptive, max_sync, pipeline, depth)
+                           adaptive, max_sync, depth)
         finally:
             prog.free_graph()
         self._table = prog.table
@@ -315,7 +372,7 @@ class GpuBfsChecker(HostEngineBase):
         self._profile_stages(stage_programs, self._counters.get("steps", 0))
 
     def _run_eras(self, prog, inits, vcap, high_water, depth_limit, fin, adaptive, max_sync,
-                  pipeline, depth) -> None:
+                  depth) -> None:
         tm, dev = self.tm, self.device
         A, C, P = tm.max_actions, self._chunk, len(self._tprops)
         n_init = len(inits)
@@ -385,12 +442,7 @@ class GpuBfsChecker(HostEngineBase):
                 # The era's time from dispatch through its readback
                 # (tpu_bfs.py:1790-1796).
                 self._metrics.add_phase("device_era", era_dt)
-            if poll_target is not None and era_dt > 0.0:
-                per_era_dt = era_dt / n_inner
-                if per_era_dt < poll_target / 2 and budget_cap < cap_limit:
-                    budget_cap = min(budget_cap * 2, cap_limit)
-                elif per_era_dt > poll_target and budget_cap > eo.BUDGET_MIN:
-                    budget_cap = max(budget_cap // 2, eo.BUDGET_MIN)
+            budget_cap = adapt_budget_cap(budget_cap, era_dt, n_inner, poll_target, cap_limit)
             self._inc("eras", n_inner)
             self._inc("steps", vals[eo.P_STEPS])
             self._inc("states_generated", vals[eo.P_GEN])
@@ -442,8 +494,28 @@ class GpuBfsChecker(HostEngineBase):
             elif self._timed_out():
                 stop = True
 
-        mirror = prog.result(pending)
-        process_result(mirror, time.monotonic() - era_t0)
+        def consume(vals, era_dt: float) -> None:
+            nonlocal mirror
+            mirror = vals  # the state vector as last read back
+            process_result(vals, era_dt)
+
+        def clean() -> bool:
+            # The era ended inside every gate: the oldest chained era is
+            # the next era.
+            return (
+                not stop and count > 0 and not dirty
+                and self._unique + vcap <= vs.MAX_LOAD * self._tcap
+            )
+
+        def advance() -> None:
+            # A chained era's output is the state the next era starts
+            # from, as JAX takes it (params_dev = spec): only its own
+            # drain can ask for a fresh upload.
+            nonlocal dirty, last_max_steps
+            dirty = False
+            last_max_steps = budget
+
+        consume(prog.result(pending), time.monotonic() - era_t0)
 
         while not stop and count > 0:
             host_dirty = dirty
@@ -481,50 +553,13 @@ class GpuBfsChecker(HostEngineBase):
             era_t0 = time.monotonic()
             pending = prog.launch()
             self._inc("dispatches")
-            # The K-deep speculative chain (tpu_bfs.py:2204-2301): eras
-            # launched off the still-on-device state while earlier
-            # readbacks are in flight. Sound because the device gate
-            # re-derives every exit from the state vector: an era chained
-            # past a boundary that needs the host runs no step. Each
-            # chained era carries the threshold of the era it chains off.
-            chain = []
-            while True:
-                while pipeline and len(chain) < depth and not self._timed_out():
-                    chain.append((prog.launch(), time.monotonic()))
-                    self._inc("dispatches")
-                    self._inc("spec_dispatch")
-                    chain_max = max(chain_max, len(chain))
-                mirror = prog.result(pending)
-                process_result(mirror, time.monotonic() - era_t0)
-                if not chain:
-                    break
-                if (
-                    not stop and count > 0 and not dirty
-                    and self._unique + vcap <= vs.MAX_LOAD * self._tcap
-                ):
-                    # The era ended inside every gate: the oldest chained
-                    # era is the next era.
-                    pending, _t0 = chain.pop(0)
-                    last_max_steps = budget
-                    era_t0 = time.monotonic()
-                    continue
-                # The host acts at this boundary: drain the chain in order.
-                # An era that ran no step was a no-op (wasted speculation);
-                # one that ran steps (a timeout landing mid-chain) is real
-                # work and is consumed.
-                while chain:
-                    spec, spec_t0 = chain.pop(0)
-                    mirror = prog.result(spec)
-                    if mirror[eo.P_STEPS] == 0:
-                        self._inc("spec_wasted")
-                        continue
-                    # Its output is the state the next era starts from, as
-                    # JAX takes it (params_dev = spec): only its own drain
-                    # can ask for a fresh upload.
-                    dirty = False
-                    last_max_steps = budget
-                    process_result(mirror, time.monotonic() - spec_t0)
-                break
+            # Each chained era carries the threshold of the era it chains
+            # off. A chained era of partial steps only is consumed: its
+            # delivered rows were inserted and enqueued (the JAX driver
+            # reads the clean steps, P_STEPS, there, tpu_bfs.py:2289, and
+            # drops such an era with its states).
+            chain_max = max(chain_max, run_chain(self, prog, pending, era_t0, depth, consume, clean,
+                                                 advance))
 
         self._gauge("spec_chain_depth", chain_max)
         self._gauge(

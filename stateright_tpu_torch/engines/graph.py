@@ -155,6 +155,35 @@ def build(device, describe: Callable[[Graph], None]) -> Graph:
     return g
 
 
+def build_era(device, start, begin, step, epilogue, tail=None) -> Graph:
+    """The era graph of both BFS programs (engines/era.py, parallel/
+    mesh.py): START, then a WHILE node over the inner eras — BEGIN, a
+    WHILE node over the step, the epilogue — then the tail. Each segment
+    is called with the conditional handle it sets (START and the
+    epilogue the outer loop's, BEGIN and the step the inner loop's); the
+    segments' launches are counted as `count_era` runs them."""
+
+    def describe(g: Graph) -> None:
+        outer = g.handle(g.root)
+        first = g.child(g.root, None, g.capture("start", lambda: start(outer.value)))
+        outer_loop, outer_body = g.loop(g.root, first, outer)
+        inner = g.handle(outer_body)
+        opened = g.child(outer_body, None, g.capture("begin", lambda: begin(inner.value)))
+        inner_loop, inner_body = g.loop(outer_body, opened, inner)
+        g.child(inner_body, None, g.capture("step", lambda: step(inner.value)))
+        g.child(outer_body, inner_loop, g.capture("epilogue", lambda: epilogue(outer.value)))
+        if tail is not None:
+            g.child(g.root, outer_loop, g.capture("tail", tail))
+
+    return build(device, describe)
+
+
+def count_era(g: Graph, steps: int, eras: int) -> None:
+    """Add the launches of one run of an era graph that ran `steps` step
+    bodies over `eras` inner eras."""
+    g.count(dict(start=1, begin=eras, step=steps, epilogue=eras, tail=1))
+
+
 class Readback:
     """Pinned host copies of one device tensor, filled asynchronously on a
     side stream after a launch: `slots` of them, one for each result that

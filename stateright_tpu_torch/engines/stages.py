@@ -39,7 +39,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..fingerprint import hash_lanes
+from ..fingerprint import hash_lanes, mul32
 from ..ops import frontier as fr
 from ..ops import stage as sg
 from ..ops import visited_set as vs
@@ -60,13 +60,15 @@ class StageProgram:
 
     def __init__(self, name: str, device, iters: int, round_fn: Callable[[int], None],
                  after_fn: Optional[Callable[[], None]] = None,
-                 reset_fn: Optional[Callable[[int], None]] = None):
+                 reset_fn: Optional[Callable[[int], None]] = None, eager: bool = False):
         self.name = name
         self.device = torch.device(device)
         self.iters = iters
         self.st = sg.new_state(self.device)
         self._round, self._after, self._reset = round_fn, after_fn, reset_fn
-        self._on_card = self.device.type == "cuda"
+        # `eager`: the host runs the rounds, also on the card (a round
+        # with a collective across ranks cannot be captured).
+        self._on_card = self.device.type == "cuda" and not eager
         self._graph: Optional[gr.Graph] = None
         if self._on_card:
             self._acc = torch.zeros(1, dtype=torch.int64).pin_memory()
@@ -141,9 +143,10 @@ class StageProgram:
 class _Programs:
     """A set of stage programs and the null program on one device."""
 
-    def __init__(self, device, iters: int):
+    def __init__(self, device, iters: int, eager: bool = False):
         self.device = torch.device(device)
         self.iters = iters
+        self.eager = eager
         self.xp = TorchXP(self.device)
         self._card = self.device.type == "cuda"
         self.stages: Dict[str, StageProgram] = {}
@@ -155,7 +158,7 @@ class _Programs:
         self._forking = ()
 
     def _program(self, name, round_fn, after_fn=None, reset_fn=None) -> StageProgram:
-        return StageProgram(name, self.device, self.iters, round_fn, after_fn, reset_fn)
+        return StageProgram(name, self.device, self.iters, round_fn, after_fn, reset_fn, self.eager)
 
     def _add(self, name, round_fn, after_fn=None, reset_fn=None) -> None:
         self.stages[name] = self._program(name, round_fn, after_fn, reset_fn)
@@ -430,6 +433,237 @@ class SimStages(_Programs):
         self.path = self._run_path = None
 
 
+class MeshStages(_Programs):
+    """The sharded engine's stage programs (`parallel/mesh.py:863
+    _build_mesh_stage_kernels`) at one run's widths: chunk C, the mesh's
+    vcap and dedup scratch, the receive width R = N * quota, on a rank's
+    NL local shards of N.
+
+    Every shard keeps its own accumulator (`accs`, one int64 a local
+    shard, seeded with SEED + its global index as the JAX kernels' seeds
+    are), and each round runs the stage of every local shard at once on
+    the shard axis, then adds each shard's terms to its accumulator; the
+    program's value is the sum over all shards (the JAX kernel's final
+    psum), mod 2^32. K12a's FOLD runs the loop. Stages: expand, hash,
+    compact (one compaction to vcap and its gathers), claim (the mesh's
+    dedup scratch), exchange (owner buckets of synthetic candidates by
+    K15a, and across ranks the all_to_all), probe (K4 at R per shard into
+    forks of the shard tables, from per-shard key pools) and ring (K7 at
+    C and R per shard on forks of the rings). Across ranks the rounds
+    run from the host (`eager`) and the sums are all-reduced."""
+
+    def __init__(self, tm, props, chunk: int, qcap: int, n_total: int, quota: int, iters: int,
+                 device, group=None):
+        from ..ops import exchange as xc
+        from ..parallel.mesh import dedup_cap_for, world_of
+
+        world, rank = world_of(group)
+        super().__init__(device, iters, eager=world > 1)
+        self.tm, self.props = tm, list(props)
+        self.n_total, self.quota = n_total, quota
+        self.group, self.world, self.rank = group, world, rank
+        NL = self.NL = n_total // world
+        S, A, C = tm.state_width, tm.max_actions, chunk
+        W, X = S + 2, S + 4
+        self.S, self.A, self.C, self.W, self.qcap = S, A, C, W, qcap
+        vcap = widths(A, C)[0]
+        dedup_cap = dedup_cap_for(vcap)
+        R = n_total * quota
+        z = self._zeros
+        dev = self.device
+        # Each program's per-shard accumulators.
+        self.accs: Dict[str, torch.Tensor] = {}
+        first = torch.arange(NL, dtype=torch.int64, device=dev) + rank * NL
+        lane_c = (torch.arange(NL, device=dev) * C)[:, None]
+
+        def add(name, round_fn, after_fn=None, reset_fn=None):
+            acc = self.accs[name] = z(NL)
+
+            def reset(seed):
+                acc.copy_((first + seed) & M32)
+                if reset_fn is not None:
+                    reset_fn(seed)
+
+            def after():
+                if after_fn is not None:
+                    after_fn()
+                total = acc.sum().reshape(1)
+                if world > 1:
+                    import torch.distributed as dist
+
+                    dist.all_reduce(total, group=group)
+                self.stages[name].st[sg.ST_ACC:sg.ST_ACC + 1].copy_(total & M32)
+
+            self._add(name, round_fn, after, reset)
+
+        def fold(name, h, *terms):
+            acc = self.accs[name]
+            acc.copy_((acc + sum(terms)) & M32)
+            sg.fold(self.stages[name].st, [], iters, handle=h)
+
+        def flip(name):
+            return (self.accs[name] & 1)[:, None]
+
+        # The run's first C ring rows of every shard (`load`).
+        self.rows0, self.ebits0, self.depth0 = z(S, NL * C), z(NL * C), z(NL * C)
+        self.lanes4 = z(min(4, W), NL * C)
+        active = torch.ones(NL * C, dtype=torch.bool, device=dev)
+        expand = build_expand_lean(tm, list(props), NL * C, self.xp)
+
+        ex_rows = z(S, NL * C)
+
+        def expand_round(h):
+            ex_rows.copy_(self.rows0)
+            ex_rows[0].view(NL, C).copy_(self.rows0[0].view(NL, C) ^ flip("expand"))
+            ex = expand(ex_rows, self.ebits0, self.depth0, active, M32)
+            fold("expand", h, ex.valid.view(A, NL, C).sum((0, 2)))
+
+        add("expand", expand_round)
+
+        h_rows = z(S, NL * C)
+        cl0 = self._lane(S, vcap, salt=11)
+        cl = z(S, NL, vcap)
+
+        def hash_round(h):
+            f = flip("hash")
+            h_rows.copy_(self.rows0)
+            h_rows[0].view(NL, C).copy_(self.rows0[0].view(NL, C) ^ f)
+            h1, h2 = hash_lanes(h_rows)
+            cl.copy_(cl0[:, None, :].expand(S, NL, vcap))
+            cl[0].copy_(cl0[0][None, :] ^ f)
+            g1, g2 = hash_lanes(cl.view(S, NL * vcap))
+            fold("hash", h, h1.view(NL, C)[:, 0], h2.view(NL, C)[:, 0],
+                 g1.view(NL, vcap)[:, 0], g2.view(NL, vcap)[:, 0])
+
+        add("hash", hash_round)
+
+        flat0 = self._lane(S, C * A, salt=41)
+        r1 = self._lane(C * A, salt=53)
+        m1 = torch.zeros((NL, C * A), dtype=torch.bool, device=dev)
+
+        def compact_round(h):
+            m1.copy_(((r1[None, :] ^ self.accs["compact"][:, None]) & 3) == 0)
+            vids, _vv, n1 = vs.compact_ids_lanes(m1, vcap)
+            src = (lane_c + vids % C).view(-1)
+            g = flat0.index_select(1, vids.view(-1)).view(S, NL, vcap).sum((0, 2))
+            r = self.lanes4.index_select(1, src).view(-1, NL, vcap).sum((0, 2))
+            fold("compact", h, n1, g, r)
+
+        add("compact", compact_round)
+
+        p1, p2 = self._lane(vcap, salt=31), self._lane(vcap, salt=37)
+        ones_v = torch.ones((NL, vcap), dtype=torch.bool, device=dev)
+        ch1 = z(NL, vcap)
+
+        def claim_round(h):
+            ch1.copy_(p1[None, :] ^ flip("claim"))
+            reps = fr.claim_dedup_lanes(ch1, p2.expand(NL, vcap).contiguous(), ones_v, dedup_cap)
+            fold("claim", h, reps.sum(1))
+
+        add("claim", claim_round)
+
+        ch0 = self._lane(vcap, salt=61)
+        lanes0 = self._lane(X, vcap, salt=67)
+        xh1 = z(NL, vcap)
+        xvals = z(X, NL, vcap)
+        send = z(*xc.send_shape(world, X, NL, quota))
+        delivered = torch.empty_like(send) if world > 1 else None
+
+        def exchange_round(h):
+            acc = self.accs["exchange"]
+            xh1.copy_(ch0[None, :] ^ (acc & 1)[:, None])
+            reps = ((xh1 >> 4) & 3) != 3  # ~75% survive the dedup
+            xvals.copy_(lanes0[:, None, :] ^ acc[None, :, None])
+            out, _ovf = xc.exchange(xh1.view(-1), reps, xvals.view(X, NL * vcap), n_total, quota,
+                                    world, out=send)
+            if world > 1:
+                import torch.distributed as dist
+
+                dist.all_to_all_single(delivered.view(-1), out.view(-1), group=group)
+                recv = xc.receive(delivered)
+            else:
+                recv = out.view(X, NL, R)
+            fold("exchange", h, recv.sum((0, 2)))
+
+        add("exchange", exchange_round)
+
+        # probe: per-shard key pools (the shard's global index in the
+        # salt) into forks of the run's shard tables.
+        pool1 = z(NL, R)
+        sg.mix_lanes(pool1, (21 + rank * NL * 0x85EBCA77) & M32, 0x85EBCA77)
+        pool2 = z(NL, R)
+        sg.mix_lanes(pool2, 0x6C62272E, 0, src=pool1)
+        k1, k2 = z(NL, R), z(NL, R)
+        ones_r = torch.ones((NL, R), dtype=torch.bool, device=dev)
+        self.fork: Optional[vs.VisitedTable] = None
+        self._run_table: Optional[vs.VisitedTable] = None
+        self.epoch = torch.ones(1, dtype=torch.int64, device=dev)
+
+        def probe_round(h):
+            f = flip("probe")
+            k1.copy_(pool1 ^ f)
+            k2.copy_(pool2 ^ f)
+            c_new, _unres = vs.insert_lanes(self.fork, k1, k2, k1, k2, ones_r,
+                                            epoch=self.epoch if self._card else None)
+            acc = self.accs["probe"]
+            acc.copy_((acc + c_new.sum(1)) & M32)
+            sg.fold(self.stages["probe"].st, [], iters, epoch=self.epoch, handle=h)
+
+        def probe_after():
+            acc = self.accs["probe"]
+            acc.copy_((acc + ((self.fork.keys[:, 0] >> 32) & 1)) & M32)
+
+        def probe_reset(_seed):
+            self.fork.keys.copy_(self._run_table.keys)
+
+        add("probe", probe_round, probe_after, probe_reset)
+
+        # ring: pop C and append R rows on forks of the run's rings; each
+        # shard's head starts at its seed, as the JAX carry (queue, s0, s0).
+        self.rings: Optional[torch.Tensor] = None
+        self._run_rings: Optional[torch.Tensor] = None
+        self.heads = z(NL)
+        base = mul32(torch.arange(R, dtype=torch.int64, device=dev), sg.RING_MUL)[None, None, :]
+        w17 = (17 * torch.arange(W, dtype=torch.int64, device=dev))[:, None, None]
+        cand = z(W, NL, R)
+
+        def ring_round(h):
+            popped = fr.ring_pop_lanes(self.rings, self.heads, C)
+            sums = popped.view(W, NL, C).sum(2) & M32
+            cand.copy_(sg.mix((base + sums[:, :, None] + w17) & M32))
+            nxt = (self.heads + C) & (qcap - 1)
+            fr.ring_scatter_lanes(self.rings, nxt, cand.view(W, NL * R), ones_r)
+            self.heads.copy_(nxt)
+            fold("ring", h, cand[0, :, 0])
+
+        def ring_reset(seed):
+            self.rings.copy_(self._run_rings)
+            self.heads.copy_((first + seed) & M32)
+
+        add("ring", ring_round, reset_fn=ring_reset)
+        self._forking = ("probe", "ring")
+
+    def load(self, table: vs.VisitedTable, rings: torch.Tensor) -> None:
+        """Take the run's final shard tables [NL, tcap] and rings [NL, W,
+        qcap + 1] (read, never written: the stages fork them)."""
+        S, C, NL = self.S, self.C, self.NL
+        if rings.shape != (NL, self.W, self.qcap + 1):
+            raise ValueError("the rings do not match the stage programs' widths")
+        self.release()
+        first = rings[:, :, :C].transpose(0, 1).reshape(self.W, NL * C)
+        self.rows0.copy_(first[:S])
+        self.ebits0.copy_(first[S])
+        self.depth0.copy_(first[S + 1])
+        self.lanes4.copy_(first[:self.lanes4.shape[0]])
+        self._run_rings, self._run_table = rings, table
+        self.fork = vs.empty_table(table.capacity, self.device, lanes=NL)
+        self.rings = torch.zeros_like(rings)
+
+    def _drop_forks(self) -> None:
+        self.fork = self.rings = None
+        self._run_table = self._run_rings = None
+
+
 # Stage programs: (kind, id(tm), widths, P, canon, iters, device) ->
 # (tm, programs), bounded like the JAX engine's _STAGE_KERNEL_CACHE and
 # keyed, like it, without the table capacity (the probe fork follows the
@@ -452,6 +686,13 @@ def _cached(key: Tuple, tm, build: Callable[[], _Programs]) -> _Programs:
 def bfs_stages(tm, props, chunk: int, qcap: int, canon: bool, iters: int, device) -> BfsStages:
     key = ("bfs", id(tm), chunk, qcap, len(props), canon, iters, str(device))
     return _cached(key, tm, lambda: BfsStages(tm, props, chunk, qcap, canon, iters, device))
+
+
+def mesh_stages(tm, props, chunk: int, qcap: int, n_total: int, quota: int, iters: int, device,
+                group=None) -> MeshStages:
+    key = ("mesh", id(tm), chunk, qcap, n_total, quota, len(props), iters, str(device), id(group))
+    return _cached(key, tm, lambda: MeshStages(tm, props, chunk, qcap, n_total, quota, iters,
+                                               device, group))
 
 
 def sim_stages(tm, props, B: int, L: int, iters: int, device) -> SimStages:

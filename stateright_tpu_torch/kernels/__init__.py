@@ -210,6 +210,20 @@ STAGE_WALK = Kernel(
     "stateright_tpu/engines/tpu_simulation.py:622",
 )
 
+# K15a and K15f: the sharded era's owner exchange and its shard-coupled
+# gate, commit, epilogue and tail (parallel/mesh.py).
+EXCHANGE = Kernel(
+    "exchange", "exchange.cu", "srt_exchange",
+    [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P],
+    "stateright_tpu/parallel/mesh.py:337",
+)
+MESH_ERA = Kernel(
+    "mesh_era", "mesh_era.cu", "srt_mesh_era",
+    [_I32, _I32, _I32, _P, _P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+     _P, _I64, _P, _P, _U64],
+    "stateright_tpu/parallel/mesh.py:257",
+)
+
 # The kernels of each engine's path: the BFS step and its epilogue, the
 # simulation step, its era kernel and its epilogue, and the multiplexed
 # lane step, its seed, its era kernels and its path walks (K1 runs on
@@ -224,13 +238,23 @@ LANE_KERNELS = (
     HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES,
     RING_LANES, LOOKUP_PARENT_LANES, ERA_STEP_LANES, ERA_EPILOGUE_LANES,
 )
+# The sharded engine's path: the lane forms of the BFS kernels with the
+# shard axis, K9a/K9b per shard, K15a and K15f.
+MESH_KERNELS = (
+    HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES, RING_LANES,
+    SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT_LANES, EXCHANGE, MESH_ERA,
+)
 # The stage profiler's paths: each stage program's kernels and the loop's.
 BFS_STAGE_KERNELS = (
     STAGE_LOOP, STAGE_LANES, HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT, RING,
 )
 SIM_STAGE_KERNELS = (STAGE_LOOP, STAGE_LANES, STAGE_WALK, HASH_LANES)
+MESH_STAGE_KERNELS = (
+    STAGE_LOOP, STAGE_LANES, HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES,
+    RING_LANES, EXCHANGE,
+)
 KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA,
-                         STAGE_LOOP, STAGE_WALK)
+                         STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA)
 ENTRIES = KERNELS + (WALK_PROLOGUE, STAGE_LANES) + LANE_KERNELS[1:]
 
 _lock = threading.Lock()

@@ -13,7 +13,9 @@
 // sort is total and the order is exactly top_k's: key descending, then
 // index ascending. Padding up to the next power of two sorts as 0, below
 // every real word. scap = 1,024 at the default k = 64 (8 KB of shared
-// memory); the wrapper takes slabs of up to 4,096 rows.
+// memory); the words live in dynamic shared memory, so a slab of up to
+// 16,384 rows (128 KB, the sharded engine's per-shard slab of s_high + R
+// rows, parallel/mesh.py) sorts in the same block.
 //
 // Bound on the card: bytes (read fp1 and occupied, gather and write
 // 5 x sk2 values: about 13 KB at scap = 1,024), far under one launch's
@@ -24,7 +26,7 @@
 
 namespace {
 
-constexpr int kMaxRows = 4096;
+constexpr int kMaxRows = 16384;
 constexpr int kThreads = 1024;
 
 __global__ void __launch_bounds__(kThreads)
@@ -36,7 +38,7 @@ __global__ void __launch_bounds__(kThreads)
                    long long* __restrict__ o1, long long* __restrict__ o2,
                    long long* __restrict__ od, long long* __restrict__ oa,
                    bool* __restrict__ ovalid) {
-  __shared__ unsigned long long word[kMaxRows];
+  extern __shared__ unsigned long long word[];
   const long long occ = counts[0];
   for (int i = threadIdx.x; i < npow2; i += blockDim.x) {
     unsigned long long w = 0ull;
@@ -75,7 +77,7 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// scap <= 4096 slab rows, k_out <= scap; counts[0] = occupied.
+// scap <= 16384 slab rows, k_out <= scap; counts[0] = occupied.
 extern "C" int srt_slab_bottomk(const void* sfp1, const void* sfp2,
                                 const void* sdep, const void* sact,
                                 long long scap, const void* counts,
@@ -85,7 +87,13 @@ extern "C" int srt_slab_bottomk(const void* sfp1, const void* sfp2,
   int npow2 = 1;
   while (npow2 < scap) npow2 <<= 1;
   cudaStream_t st = (cudaStream_t)stream;
-  bottomk_kernel<<<1, kThreads, 0, st>>>(
+  const size_t bytes = (size_t)npow2 * sizeof(unsigned long long);
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(bottomk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  bottomk_kernel<<<1, kThreads, bytes, st>>>(
       (const long long*)sfp1, (const long long*)sfp2, (const long long*)sdep,
       (const long long*)sact, (int)scap, npow2, (const long long*)counts,
       (int)k_out, (long long*)o1, (long long*)o2, (long long*)od,

@@ -34,8 +34,8 @@ import torch
 
 # Canonical display order for the per-stage breakdown (engines populate
 # the subset their architecture has; e.g. `canon` only under symmetry,
-# the walk stages only on the simulation engine; `exchange` is the
-# sharded engine's, which the port does not have yet).
+# the walk stages only on the simulation engine; `exchange` only on the
+# sharded engine, parallel/mesh.py).
 STAGE_ORDER = (
     "expand",
     "hash",

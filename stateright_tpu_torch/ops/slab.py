@@ -24,6 +24,7 @@ from .. import kernels
 from .visited_set import compact_ids
 
 M32 = 0xFFFFFFFF
+SLAB_MAX_ROWS = 16384  # K9b sorts one slab in one block's shared memory
 
 
 class Slab(NamedTuple):
@@ -107,8 +108,8 @@ def bottom_k(slab: Slab, k: int):
         raise ValueError("bottom_k takes at most the slab's capacity")
     if not kernels.on_card(slab.fp1):
         return bottom_k_plain(slab, k)
-    if slab.capacity > 4096:
-        raise ValueError("the slab kernel sorts at most 4,096 rows")
+    if slab.capacity > SLAB_MAX_ROWS:
+        raise ValueError(f"the slab kernel sorts at most {SLAB_MAX_ROWS:,} rows")
     dev = slab.fp1.device
     out = [torch.empty(k, dtype=torch.int64, device=dev) for _ in range(4)]
     valid = torch.empty(k, dtype=torch.bool, device=dev)

@@ -754,3 +754,34 @@ def test_stage_profile_on_the_card(dev, engine):
     phases = {k: v for k, v in tel["phase_ms"].items() if k.startswith("stage_")}
     era = tel["phase_ms"]["device_era"]
     assert len(phases) >= 5 and abs(sum(phases.values()) - era) <= 0.1 * era
+
+
+@pytest.mark.parametrize("n,quota", [(1, 2048), (8, 256), (8, 40)])
+def test_exchange_kernel_matches_plain(dev, n, quota):
+    """K15a: the owner buckets (stable ranks, overflow counts) and the
+    receive layout, against the plain version; at quota 40 buckets
+    overflow."""
+    from stateright_tpu_torch.ops import exchange as xc
+
+    rng = np.random.default_rng(n * quota)
+    V, X = 5000, 7
+    h1 = torch.from_numpy(_u32(rng, n * V)).to(dev)
+    reps = torch.from_numpy(rng.random((n, V)) < 0.75).to(dev)
+    vals = torch.from_numpy(_u32(rng, X, n * V)).to(dev)
+    got, ovf = xc.exchange(h1, reps, vals, n, quota)
+    want, ovf_p = xc.exchange_plain(h1, reps, vals, n, quota)
+    assert torch.equal(got, want) and torch.equal(ovf, ovf_p)
+
+
+def test_sharded_bfs_cuda_matches_cpu(dev):
+    """K15 at 8 shards on one card (one CUDA graph a dispatch, K15f's
+    kernel) against the plain versions on the cpu: counts, discoveries,
+    coverage and the sample."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        c = TensorModelAdapter(TwoPhaseTensor(5)).checker().coverage().spawn_sharded_bfs(
+            devices=8, device=device, chunk_size=64, sync_steps=4).join()
+        cov = c.coverage()
+        runs.append((c.unique_state_count(), c.state_count(), dict(c._discovery_fps), cov["actions"],
+                     cov["depths"], tuple(c._sampler.fingerprints()), c.telemetry()["partial_steps"]))
+    assert runs[0] == runs[1] and runs[0][0] == 8832 and runs[0][-1] > 0

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of it and
 `chip_smoke.py`, and running a BFS (serial, pipelined and fused, and
-timed), a simulation, both with the stage profiler, multiplexed lanes
-and the executable cache, loads neither jax nor any module of the JAX
-package."""
+timed), a simulation, both with the stage profiler, the sharded BFS
+(`parallel/`, with its stage profiler and discovery paths), multiplexed
+lanes and the executable cache, loads neither jax nor any module of the
+JAX package."""
 
 import os
 import subprocess
@@ -36,6 +37,11 @@ for spawn in (lambda b: b.spawn_gpu_bfs(device="cpu", chunk_size=16, queue_capac
               lambda b: b.target_state_count(200).spawn_gpu_simulation(1, device="cpu", walks=16, walk_cap=8)):
     tel = spawn(TensorModelAdapter(TwoPhaseTensor(2)).checker().stage_profile(iters=2)).join().telemetry()
     assert "stage_profile_error" not in tel and "stage_hash" in tel["phase_ms"], tel
+import stateright_tpu_torch.parallel.mesh, stateright_tpu_torch.ops.exchange, stateright_tpu_torch.ops.mesh_era
+m = TensorModelAdapter(TwoPhaseTensor(2)).checker().stage_profile(iters=2).spawn_sharded_bfs(
+    devices=4, device="cpu", chunk_size=16, sync_steps=2).join()
+assert m.unique_state_count() == c.unique_state_count() and m.discoveries() is not None
+assert "stage_exchange" in m.telemetry()["phase_ms"], m.telemetry()
 from stateright_tpu_torch import ExecutableCache, run_multiplexed
 compiled, _hit = ExecutableCache().get(TwoPhaseTensor(2), "multiplex", lanes=4, chunk=16, device="cpu")
 lanes = run_multiplexed([compiled.builder() for _ in range(3)], lanes=4, chunk=16, device="cpu")

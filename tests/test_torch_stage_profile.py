@@ -233,3 +233,91 @@ def test_lanes_refuse_stage_profiling():
     b = TensorModelAdapter(torch_models.TwoPhaseTensor(3)).checker().stage_profile()
     with pytest.raises(ValueError, match="multiplexed lanes do not support stage profiling; run solo"):
         run_multiplexed([b], lanes=4, chunk=16, device="cpu")
+
+
+# -- the sharded engine's stage programs (K12's mesh part) ---------------------------
+
+MESH_STAGES = ("expand", "hash", "compact", "claim", "exchange", "probe", "ring")
+# case -> (model class, args, shards)
+MESH_MODELS = {"2pc-3 n8": ("TwoPhaseTensor", (3,), 8), "2pc-5 n2": ("TwoPhaseTensor", (5,), 2)}
+MESH_OPTS = dict(chunk_size=64, sync_steps=4)
+_MESH = {}
+
+
+def _jax_mesh_accs(case, monkeypatch):
+    """The JAX sharded run's final tables and queues, and every JAX mesh
+    stage kernel's accumulator on them from the seeds 1..N. The stage
+    kernels' fori_loop carry is bool[512] going in and bool[512]{V:shards}
+    coming out, which jax 0.9's varying-axes check rejects; here, and only
+    here, shard_map runs with check_vma=False (mesh.py reads
+    `compat.get_shard_map` at call time)."""
+    if case in _MESH:
+        return _MESH[case]
+    import functools
+
+    from jax.sharding import Mesh
+
+    from stateright_tpu import compat
+    from stateright_tpu.parallel import mesh as jax_mesh
+
+    name, args, n = MESH_MODELS[case]
+    seen = {}
+    monkeypatch.setattr(jax_mesh.ShardedBfsChecker, "_profile_stages",
+                        lambda self, table, queue: seen.setdefault("state", (table, queue)))
+    c = JaxAdapter(getattr(jax_models, name)(*args)).checker().spawn_sharded_bfs(
+        devices=jax.devices()[:n], **MESH_OPTS).join()
+    monkeypatch.setattr(compat, "get_shard_map", lambda: functools.partial(jax.shard_map, check_vma=False))
+    table, queue = seen["state"]
+    kernels = jax_mesh._build_mesh_stage_kernels(
+        c.tm, c._tprops, c._chunk, c._qcap, n, c._quota, Mesh(np.array(jax.devices()[:n]), ("shards",)),
+        "shards", ITERS)
+    seeds = jnp.arange(1, n + 1, dtype=jnp.uint32)
+    accs = {k: np.asarray(fn(table, queue, seeds)) for k, fn in kernels.items()}
+    for k, a in accs.items():
+        assert (a == a[0]).all(), k  # the psum: one value on every shard
+    _MESH[case] = (c, jax.tree.map(np.asarray, (table, queue)), {k: int(a[0]) for k, a in accs.items()})
+    return _MESH[case]
+
+
+def _port_mesh(c, table, queue, name, args, n):
+    tm = getattr(torch_models, name)(*args)
+    progs = stages.MeshStages(tm, tm.tensor_properties(), c._chunk, c._qcap, n, c._quota, ITERS, "cpu")
+    keys, v1, v2 = table
+    tcap = keys.shape[1] // 2
+    lanes = [vs.table_from_lanes(keys[s, :tcap], keys[s, tcap:], v1[s], v2[s], "cpu") for s in range(n)]
+    t = vs.VisitedTable(*(torch.stack([getattr(x, f) for x in lanes]) for f in ("keys", "parents", "stamps")))
+    rings = fr.empty_ring(len(queue), c._qcap, "cpu", lanes=n)
+    rings[:, :, :c._qcap] = torch.from_numpy(np.stack(queue, 1).astype(np.int64))
+    progs.load(t, rings)
+    return progs
+
+
+@pytest.mark.parametrize("case,stage", [(m, s) for m in MESH_MODELS for s in MESH_STAGES],
+                         ids=[f"{m}-{s}" for m in MESH_MODELS for s in MESH_STAGES])
+def test_mesh_stage_acc_matches_the_jax_kernel(case, stage, monkeypatch):
+    c, (table, queue), want = _jax_mesh_accs(case, monkeypatch)
+    name, args, n = MESH_MODELS[case]
+    progs = _port_mesh(c, table, queue, name, args, n)
+    stage_progs, _null = progs.programs()
+    assert set(stage_progs) == set(MESH_STAGES)
+    with progs.lock:
+        assert stage_progs[stage].run(SEED) == want[stage]
+        progs.release()
+
+
+def test_sharded_stage_breakdown_includes_exchange():
+    """The port's counterpart of tests/test_stage_profile.py's sharded
+    test: the breakdown has every mesh stage, `stage_exchange` among
+    them, sums to device_era, and profiling changes no result."""
+    opts = dict(devices=["cpu"] * 4, chunk_size=64, sync_steps=8)
+    b = TensorModelAdapter(torch_models.TwoPhaseTensor(3)).checker().coverage()
+    plain = b.spawn_sharded_bfs(**opts).join()
+    c = TensorModelAdapter(torch_models.TwoPhaseTensor(3)).checker().coverage().stage_profile(
+        iters=2).spawn_sharded_bfs(**opts).join()
+    tel = c.telemetry()
+    assert "stage_profile_error" not in tel, tel.get("stage_profile_error")
+    phases = tel["phase_ms"]
+    assert {f"stage_{s}" for s in MESH_STAGES} <= set(phases)
+    total = sum(v for k, v in phases.items() if k.startswith("stage_"))
+    assert abs(total - phases["device_era"]) <= 0.1 * phases["device_era"]
+    assert parity_dict(c) == parity_dict(plain)
