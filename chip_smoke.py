@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
     python3 chip_smoke.py --skip-full   # without the 2pc-10 phases (7, 11; 17's and 18's 2pc-10 runs)
+    python3 chip_smoke.py --lint-only   # phases 0, 1 and 19 alone
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
@@ -119,19 +120,36 @@ exits non-zero:
      share one card under NCCL (tests/test_torch_mesh_dist.py runs ranks
      over gloo on the CPU).
 
+ 19. the speclint pre-flight (K16, K16a): K16a (`lane_agree.cu`, the
+     numpy-against-card agreement table) against its plain version, bit
+     for bit, at the paxos-3 (A=21, S=30, B=16,384) and 2pc-7 (A=37, S=3,
+     B=6,144) widths on reachable rows from the port's own BFS, as they
+     are and with a lane, a mask and high bits planted; analyze() at the
+     reference defaults (256 samples, 128 device rows) of 2pc-5 (with
+     symmetry), 2pc-7, paxos-3, abd-ordered-3 and increment-2 on the card
+     == on the cpu (K16a must launch: `kernels.LINT_KERNELS`); the device
+     and symmetry rules on 16,384 reachable paxos-3 and 8,192 2pc-10 rows
+     (K16: the captured step_lanes replayed and timed); every fixture whose
+     error comes from the card (tests/torch_lint_fixtures.py: a refused
+     capture, the lane types, STR205 and STR404 through K16a) == its cpu
+     report, torch's capture state clean after each; a strict 2pc-7 run
+     at the bench options (296,448, `lint_*` telemetry), and a strict spawn
+     of a broken fixture refused with no engine kernel launched.
+
 Every device program runs as CUDA graphs (engines/graph.py): a BFS
 dispatch (engines/era.py), a simulation era (engines/gpu_simulation.py),
 a lane batch (engines/multiplex.py) and a sharded dispatch at world size
 1 (parallel/mesh.py) are one graph launch and one readback each, so
-phases 3-18 run through graphs; the launch counts add
+phases 3-18 run through graphs (phase 19 captures each model's lane
+programs as the era does, and replays them); the launch counts add
 each captured segment's launches once per run of it on the card.
 
 Every engine phase resets the kernels' launch counts just before its run
 and checks, just after, that each kernel of its path (the BFS kernels,
 K1, K13a-d, K13b's prologue and K13f, or K1 and the lane entry points of
 K2, K3, K4, K6, K7 and K8f, or the sharded path's `MESH_KERNELS`; with
-the stage profiler, K12a and the stage programs' kernels too) was
-launched. Before
+the stage profiler, K12a and the stage programs' kernels too; for the
+speclint pre-flight, K16a) was launched. Before
 the last line it prints the `kernels` JSON line and the card's name and
 power limit; the last line is the JSON result. It imports nothing of JAX
 or of the JAX package.
@@ -618,8 +636,6 @@ def time_expand(torch, np, label, tm, C):
     reachable-looking rows (its init row repeated), timed with CUDA events;
     counts the torch launches and the elements they write (the operation
     count of the bound) under a dispatch mode."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from stateright_tpu_torch.ops.expand import build_expand_lean
     from stateright_tpu_torch.xp import TorchXP
 
@@ -632,30 +648,14 @@ def time_expand(torch, np, label, tm, C):
     depth = torch.ones(C, dtype=torch.int64, device=dev)
     active = torch.ones(C, dtype=torch.bool, device=dev)
 
-    class Count(TorchDispatchMode):
-        launches = 0
-        elements = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            seen = {a.untyped_storage().data_ptr() for a in args if isinstance(a, torch.Tensor)}
-            for t in out if isinstance(out, (tuple, list)) else (out,):
-                # Views share an input's storage and launch nothing.
-                if (isinstance(t, torch.Tensor) and t.device.type == "cuda" and t.numel()
-                        and t.untyped_storage().data_ptr() not in seen):
-                    Count.launches += 1
-                    Count.elements += t.numel()
-            return out
-
-    with Count():
-        expand(rows, ebits, depth, active, 0xFFFFFFFF)
+    launches, elements = torch_launches(torch, lambda: expand(rows, ebits, depth, active, 0xFFFFFFFF))
     r = dict(
         max_abs_err=None,
         ms=time_ms(torch, lambda _: expand(rows, ebits, depth, active, 0xFFFFFFFF)),
         plain_ms=None, library_ms=None,
         bytes=S * C * 8 + 2 * C * 8 + S * C * A * 8 + C * A,
-        ops=Count.elements,
-        shape=f"{label}: C={C}, A={A}, S={S}; {Count.launches} torch launches",
+        ops=elements,
+        shape=f"{label}: C={C}, A={A}, S={S}; {launches} torch launches",
     )
     return r
 
@@ -2368,6 +2368,296 @@ def mesh_phase(torch, np, kernels, card, skip_full, single):
     return res, launches_mesh
 
 
+# -- phase 19: the speclint pre-flight (K16, K16a) ----------------------------
+
+# The reachable rows of the full-width device and symmetry rules, and the
+# BFS runs they come from (the first rows the ring took, of a run stopped
+# at a target before the ring wraps): paxos-3 at its BFS chunk, 2pc-10 at
+# its symmetry chunk; 2pc-7's rows at its bench chunk for K16a's second
+# width.
+LINT_ROWS = {
+    "paxos-3": (16384, dict(PAXOS3, table_capacity=1 << 22), 400_000),
+    "2pc-7": (6144, BENCH7, 60_000),
+    "2pc-10": (8192, dict(SYM10, table_capacity=1 << 22), 200_000),
+}
+# The reference defaults of analyze() (samples 256, 128 device rows) on
+# the bundled models.
+LINT_MODELS = ("2pc-5", "2pc-7", "paxos-3", "abd-ordered-3", "increment-2")
+
+
+def lint_model(name):
+    from stateright_tpu_torch.models import AbdOrderedTensor, IncrementTensor, PaxosTensorExhaustive
+
+    return {"2pc-5": lambda: two_pc(5), "2pc-7": lambda: two_pc(7), "2pc-10": lambda: two_pc(10),
+            "paxos-3": lambda: PaxosTensorExhaustive(3), "abd-ordered-3": lambda: AbdOrderedTensor(3),
+            "increment-2": lambda: IncrementTensor(2)}[name]()
+
+
+def reachable_rows(torch, np, label, device="cuda"):
+    """LINT_ROWS[label]'s rows from the port's own BFS: a run stopped at
+    its target, whose ring (width S + 2, not wrapped) holds every state it
+    took in order; its first n columns are n distinct reachable states."""
+    from stateright_tpu_torch.engines import era
+
+    n, opts, target = LINT_ROWS[label]
+    kept = []
+    free = era.EraProgram.free_graph
+
+    def keep(self):
+        kept.append(self)
+        free(self)
+
+    era.EraProgram.free_graph = keep
+    try:
+        c, t = bfs(lint_model(label), device, opts, lambda b: b.target_state_count(target))
+    finally:
+        era.EraProgram.free_graph = free
+    tm = c.tm
+    unique = c.unique_state_count()
+    check(n <= unique <= opts["queue_capacity"], f"{label}: {unique} states for {n} rows")
+    rows = kept[-1].ring[:tm.state_width, :n].T.cpu().numpy().astype(np.uint32)
+    kept.clear()
+    check(len(np.unique(rows, axis=0)) == n, f"{label}: the ring's rows are not distinct")
+    print(f"{label}: {n} reachable rows from a BFS stopped at {unique} states ({t:.2f}s)", flush=True)
+    return rows
+
+
+def torch_launches(torch, fn):
+    """(torch launches, elements they write) of one call of fn, counted
+    under a dispatch mode: an op whose output is a new CUDA storage."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        launches = 0
+        elements = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            seen = {a.untyped_storage().data_ptr() for a in args if isinstance(a, torch.Tensor)}
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                # Views share an input's storage and launch nothing.
+                if (isinstance(t, torch.Tensor) and t.device.type == "cuda" and t.numel()
+                        and t.untyped_storage().data_ptr() not in seen):
+                    Count.launches += 1
+                    Count.elements += t.numel()
+            return out
+
+    with Count():
+        fn()
+    return Count.launches, Count.elements
+
+
+def agree_parity(torch, np, label, tm, rows):
+    """K16a against its plain version on one table: the card's step_lanes
+    (eager, through xp) and numpy's over `rows`, first as they are (they
+    must agree: STR205 at full width), then with a mismatched lane, a
+    flipped mask and high bits planted at known rows; bit for bit, the
+    walk's first finding where it was planted, CUDA-event times."""
+    from stateright_tpu_torch.ops.agree import agree, agree_plain, read_table, table_words
+    from stateright_tpu_torch.xp import TorchXP
+
+    dev = torch.device("cuda")
+    S, A = tm.state_width, tm.max_actions
+    B = rows.shape[0]
+    lanes_np = tuple(np.ascontiguousarray(rows[:, s]) for s in range(S))
+    succs, masks = tm.step_lanes(TorchXP(dev), tuple(torch.from_numpy(l.astype(np.int64)).to(dev)
+                                                       for l in lanes_np))
+    card = torch.stack([torch.stack(tuple(succs[a])) for a in range(A)]).contiguous()
+    dmask = torch.stack(tuple(masks)).contiguous()
+    h_succs, h_masks = tm.step_lanes(np, lanes_np)
+    host_np = np.stack([np.stack([np.asarray(h_succs[a][s]).astype(np.uint32) for s in range(S)])
+                        for a in range(A)])
+    hmask_np = np.stack([np.asarray(m) for m in h_masks])
+    host, hmask = torch.from_numpy(host_np).to(dev), torch.from_numpy(hmask_np).to(dev)
+    errs = []
+
+    def both(*args):
+        t_k, t_p = agree(*args), agree_plain(*args)
+        errs.append(max_abs_err(torch, [(t_k, t_p)]))
+        return t_k.cpu().numpy()
+
+    clean = both(card, dmask, host, hmask)
+    check(read_table(clean, A, S, B) is None, f"{label}: step_lanes on the card disagrees with numpy on reachable rows")
+    # Plant: high bits on every seventh row (must still agree), a lane
+    # mismatch at the last (action, lane) valid on a late row, and a mask
+    # flip on a later action.
+    planted = card.clone()
+    planted[:, :, ::7] += 3 << 32
+    valid = np.nonzero(hmask_np.any(1))[0]
+    a_l = int(valid[len(valid) // 2])
+    r_l = int(np.nonzero(hmask_np[a_l])[0][-1])
+    planted[a_l, S - 1, r_l] ^= 1 << 5
+    dflip = dmask.clone()
+    if a_l + 1 < A:
+        dflip[a_l + 1, B // 3] = ~dflip[a_l + 1, B // 3]
+    found = read_table(both(planted, dflip, host, hmask), A, S, B)
+    check(found is not None and (found.action, found.lane, found.row) == (a_l, S - 1, r_l),
+          f"{label}: K16a's first finding {found} is not the planted (action {a_l}, lane {S - 1}, row {r_l})")
+    if a_l + 1 < A:
+        nolane = read_table(both(card, dflip, host, hmask), A, S, B)
+        check(nolane == (a_l + 1, None, B // 3, int(dflip[a_l + 1].sum()), int(hmask_np[a_l + 1].sum())),
+              f"{label}: K16a's mask finding {nolane}")
+    check(max(errs) == 0, f"{label}: K16a disagrees with its plain version")
+    args = (planted, dflip, host, hmask)
+    r = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda _: agree(*args)),
+        plain_ms=time_ms(torch, lambda _: agree_plain(*args)),
+        bytes=12 * A * S * B + 2 * A * B + 4 * table_words(A, S),
+        ops=3 * A * S * B + 2 * A * B, library_ms=None,
+        shape=f"{label}: A={A}, S={S}, B={B} reachable rows",
+    )
+    print(f"K16a at the {label} widths: {len(errs)} tables equal to the plain version; the planted "
+          f"findings read back where they were planted", flush=True)
+    return r
+
+
+def same_report(a, b):
+    """Equal reports: the dict form, the messages of STR201 and STR401
+    aside (a refused capture says where the lane program was captured and
+    what refused it: the card, or meta lanes on the cpu)."""
+    da, db = a.to_dict(), b.to_dict()
+    for d in (da, db):
+        for diag in d["diagnostics"]:
+            if diag["code"] in ("STR201", "STR401"):
+                diag["message"] = ""
+    return da == db
+
+
+def lint_phase(torch, np, kernels, card):
+    """Phase 19: K16a against its plain version at the paxos-3 and 2pc-7
+    widths on reachable rows; analyze() on the card == on the cpu for the
+    bundled models (the main path: K16a must launch); the device and
+    symmetry rules at full width on reachable paxos-3 and 2pc-10 rows
+    (K16: the captured step_lanes timed); every card-side fixture == its
+    cpu report, capture state clean after each; the strict path. Returns
+    K16a's timing dict (paxos-3 widths) and the launches of the main path."""
+    from stateright_tpu_torch import SpecLintError, TensorModelAdapter, analyze
+    from stateright_tpu_torch.analysis import device as lint_device
+    from stateright_tpu_torch.analysis import symmetry as lint_symmetry
+    from stateright_tpu_torch.analysis.diagnostics import AnalysisReport
+    from stateright_tpu_torch.analysis.probe import LaneProbe
+    from stateright_tpu_torch.xp import TorchXP
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_lint_fixtures as fx
+
+    rows = {label: reachable_rows(torch, np, label) for label in LINT_ROWS}
+    res = finish({"lane_agree": agree_parity(torch, np, "paxos-3", lint_model("paxos-3"), rows["paxos-3"])})
+    finish({"lane_agree at 2pc-7": agree_parity(torch, np, "2pc-7", two_pc(7), rows["2pc-7"])})
+    torch.cuda.empty_cache()
+
+    # The main path: analyze() at the reference defaults on the card.
+    def lint_all():
+        out = {}
+        for name in LINT_MODELS:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            r = analyze(lint_model(name))
+            out[name] = (r, time.monotonic() - t0)
+        return out
+
+    on_card, launches = counted(torch, kernels, "speclint", lint_all, kernels.LINT_KERNELS)
+    threads = torch.get_num_threads()
+    for name in LINT_MODELS:
+        r, wall = on_card[name]
+        torch.set_num_threads(1)
+        t0 = time.monotonic()
+        r_cpu = analyze(lint_model(name), device="cpu")
+        t_cpu = time.monotonic() - t0
+        torch.set_num_threads(threads)
+        check(r.to_dict() == r_cpu.to_dict(), f"{name}: the card's report differs from the cpu's:\n"
+              f"{r.format()}\n{r_cpu.format()}")
+        check(r.ok, f"{name} does not lint clean:\n{r.format()}")
+        print(f"lint {name}: card == cpu, wall_secs={wall:.3f} (cpu {t_cpu:.3f}) "
+              f"families={r.families_run} counts={r.counts_by_code()} sample={r.sample.to_dict()} "
+              f"captures={r.probes['captures']} capture_secs={r.probes['capture_secs']:.3f} "
+              f"graph_launches={r.probes['graph_launches']} card={card}", flush=True)
+
+    # The device and symmetry rules at full width on reachable rows.
+    bad = {"STR201", "STR202", "STR205", "STR401", "STR404"}
+    k16 = {}
+    for label in ("paxos-3", "2pc-10"):
+        tm, rws = lint_model(label), rows[label]
+        report = AnalysisReport(type(tm).__name__)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        lint_device.run(tm, rws, report, torch.device("cuda"))
+        if tm.representative_lanes is not None:
+            lint_symmetry._check_lanes(tm, rws, report, torch.device("cuda"))
+        wall = time.monotonic() - t0
+        found = {d.code for d in report.diagnostics} & bad
+        check(not found, f"{label} at {len(rws)} rows: {report.format()}")
+        print(f"full width {label}, {len(rws)} reachable rows: {report.families_run} "
+              f"{'and symmetry lanes ' if tm.representative_lanes is not None else ''}clean of "
+              f"{sorted(bad)}; findings {report.counts_by_code()}; captures={report.probes['captures']} "
+              f"capture_secs={report.probes['capture_secs']:.3f} graph_launches={report.probes['graph_launches']} "
+              f"wall_secs={wall:.3f} card={card}", flush=True)
+        # K16: the captured step_lanes program at these widths, one replay.
+        S, A, B = tm.state_width, tm.max_actions, len(rws)
+        lanes = tuple(np.ascontiguousarray(rws[:, s]) for s in range(S))
+        probe = LaneProbe(tm.step_lanes, lanes, "cuda")
+        probe.structure(lint_device._pack_step(A, S, B))
+        dev_lanes = tuple(torch.from_numpy(l.astype(np.int64)).cuda() for l in lanes)
+        xp = TorchXP("cuda")
+        n_launch, elements = torch_launches(torch, lambda: tm.step_lanes(xp, dev_lanes))
+        k16[f"K16 step_lanes ({label})"] = dict(
+            max_abs_err=None,
+            ms=time_ms(torch, lambda _: probe.graph.replay()),
+            plain_ms=time_ms(torch, lambda _: tm.step_lanes(xp, dev_lanes)),
+            bytes=8 * S * B + 8 * A * S * B + A * B, ops=elements, library_ms=None,
+            shape=f"the captured graph (+ the stack K16a reads) at B={B}; "
+                  f"{n_launch} torch launches a call, capture {probe.capture_secs:.3f}s",
+        )
+        probe.release()
+    finish(k16)
+
+    # Every fixture whose error comes from the card: the cpu's finding.
+    for cls, code in fx.CARD_FIXTURES:
+        torch.cuda.synchronize()
+        r, r_cpu = analyze(cls()), analyze(cls(), device="cpu")
+        check(code in {d.code for d in r.errors}, f"{cls.__name__}: no {code} on the card:\n{r.format()}")
+        check(same_report(r, r_cpu), f"{cls.__name__}: card != cpu:\n{r.format()}\n{r_cpu.format()}")
+        # A refused capture leaves torch's capture state clean: not
+        # capturing, the caller's stream, and a launch that runs.
+        check(not torch.cuda.is_current_stream_capturing()
+              and torch.cuda.current_stream() == torch.cuda.default_stream(), f"{cls.__name__}: capture state")
+        probe = torch.arange(1024, device="cuda").sum()
+        torch.cuda.synchronize()
+        check(int(probe) == 523776, f"{cls.__name__}: the card is unusable after the fixture")
+        print(f"fixture {cls.__name__}: {code} on the card == cpu "
+              f"{[(d.code, d.severity.value, d.location) for d in r.diagnostics]}; "
+              f"{r.errors[0].message[:160] if r.errors else ''}", flush=True)
+
+    # The strict path: a clean 2pc-7 run at the bench options, and a broken
+    # fixture refused before any engine kernel launches.
+    def strict7():
+        c, t = bfs(two_pc(7), "cuda", BENCH7, lambda b: b.strict())
+        check_2pc(c, 7)  # its paths walk through K6
+        return c, t
+
+    (c7, t7), _ = counted(torch, kernels, "strict 2pc-7", strict7, kernels.BFS_KERNELS + kernels.LINT_KERNELS)
+    tel = c7.telemetry()
+    lint_tel = {k: v for k, v in tel.items() if k.startswith("lint_")}
+    check(lint_tel.get("lint_errors") == 0 and "lint_warnings" in lint_tel, f"strict 2pc-7 telemetry {lint_tel}")
+    print(f"strict 2pc-7: unique={c7.unique_state_count()} wall_secs={t7:.3f} lint telemetry {lint_tel} "
+          f"card={card}", flush=True)
+    kernels.reset_launches()
+    try:
+        TensorModelAdapter(fx.WrapShiftTensor()).checker().strict().spawn_gpu_bfs(**BENCH7)
+        refused = None
+    except SpecLintError as e:
+        refused = e
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(refused is not None and "STR205" in str(refused), "strict spawn of a broken fixture was not refused")
+    check(not any(counts[k.name] for k in kernels.BFS_KERNELS),
+          f"a refused strict spawn launched engine kernels: {counts}")
+    print(f"strict spawn of WrapShiftTensor refused (STR205) with no engine kernel launched; "
+          f"lane_agree launches {counts['lane_agree']}", flush=True)
+    return res, launches
+
+
 def main(argv) -> int:
     try:
         import numpy as np
@@ -2386,6 +2676,7 @@ def main(argv) -> int:
         print(json.dumps(profiled_run(torch, argv[1], argv[2])), flush=True)
         return 0
     skip_full = "--skip-full" in argv
+    lint_only = "--lint-only" in argv
     from stateright_tpu_torch import kernels
     from stateright_tpu_torch.has_discoveries import HasDiscoveries
     from stateright_tpu_torch.models import AbdOrderedTensor, IncrementTensor, PaxosTensor, PaxosTensorExhaustive
@@ -2399,6 +2690,11 @@ def main(argv) -> int:
     phase("1 build")
     secs = kernels.build_all(verbose=True)
     print(f"build_secs={secs:.2f}", flush=True)
+    if lint_only:
+        phase("19 the speclint pre-flight (K16, K16a)")
+        lint_phase(torch, np, kernels, card)
+        print(f"chip_smoke --lint-only: phases 0, 1 and 19 passed in {time.monotonic() - T0:.1f} s", flush=True)
+        return 0
 
     phase("2 kernel parity (2pc-7 and paxos-3 widths)")
     results, extra7 = kernel_parity(torch, np, "2pc-7", 6144, 37, 3, 1 << 22, 1 << 20)
@@ -2776,6 +3072,15 @@ def main(argv) -> int:
     phase("18 the sharded mesh (K15): K15a, K15f; 8 shards cuda == cpu; 2pc-7, paxos-3 (and 2pc-10) at 8 shards")
     mesh_res, launches_mesh = mesh_phase(torch, np, kernels, card, skip_full, single)
 
+    # The lane forms at one sharded step of phase 18's 2pc-7 run (8 shards,
+    # chunk 1,024, table 2^18 and ring 2^17 a shard), for K15's bound.
+    lane_mesh = lane_kernel_parity(torch, np, MESH_N, 1024, 37, 3, 1 << 18, 1 << 17)
+    torch.cuda.empty_cache()
+
+    phase("19 the speclint pre-flight (K16, K16a): K16a; analyze() cuda == cpu; full width; fixtures; strict")
+    torch.cuda.empty_cache()
+    lint_res, launches_lint = lint_phase(torch, np, kernels, card)
+
     # The loop rows' bounds: the sum of their kernels' bounds (one call at
     # the run's widths) times their launches in the run; a step is one
     # K3 launch (BFS), one K13b launch (simulation), one lane K3 launch.
@@ -2788,6 +3093,18 @@ def main(argv) -> int:
         + sim_px["model step"]["bound_ms"] * launches_sim["walk_step"],
         "K14 (2pc-5 sweep, lane kernels)": sum(
             lane_res[k.name]["bound_ms"] * launches_lanes[k.name] for k in kernels.LANE_KERNELS[1:]),
+        # The stage programs' launches: the profiled 2pc-7 run's less the
+        # same run's unprofiled launches (phase 4); K12a at phase 17's
+        # widths, the BFS kernels at the 2pc-7 widths.
+        "K12 (2pc-7 profiled run, the stage programs' kernels)": sum(
+            {**results, **stage_res}[k.name]["bound_ms"] * (launches_stage[k.name] - launches.get(k.name, 0))
+            for k in kernels.BFS_STAGE_KERNELS),
+        # K15a and K15f at the mesh's 2pc-7 widths, the lane forms at one
+        # step of 8 shards (above), K1 and K9a/b at the solo 2pc-7 widths
+        # (6,144 rows a step against the mesh's 8 x 1,024: a lower bound).
+        "K15 (2pc-7 at 8 shards, its kernels)": sum(
+            {**results, **lane_mesh, **mesh_res}[k.name]["bound_ms"] * launches_mesh[k.name]
+            for k in kernels.MESH_KERNELS),
     }
     print(f"loop bounds (ms over the run): {json.dumps(loops)} steps: 2pc-7 {bfs_steps} "
           f"(telemetry {tel7['steps']} + {tel7.get('partial_steps', 0)} partial), "
@@ -2807,6 +3124,10 @@ def main(argv) -> int:
             # K15a and K15f at the 2pc-7 widths at 8 shards, with the
             # launches of phase 18's 2pc-7 run at 8 shards.
             r, n = mesh_res[k.name], launches_mesh[k.name]
+        elif k.name in lint_res:
+            # K16a at the paxos-3 widths, with the launches of phase 19's
+            # analyze() runs of the bundled models.
+            r, n = lint_res[k.name], launches_lint[k.name]
         elif k.name in results:
             r, n = results[k.name], launches[k.name]
         else:

@@ -11,9 +11,11 @@ slab's dedup and bottom-k; and many small same-shape checks as lanes of
 one BFS step loop (`run_multiplexed`), through the same BFS kernels
 with a lane axis, with a cache of warm executables (`ExecutableCache`).
 Models: two-phase commit, Paxos, ABD and the increment race
-(`stateright_tpu_torch.models`). It imports torch and
-numpy, never jax and nothing of the JAX package, and keeps its own copy
-of the host layers it needs.
+(`stateright_tpu_torch.models`). `analyze`, `CheckerBuilder.lint()` and
+`.strict()` are the speclint pre-flight (`analysis/`), which runs a
+model's lane programs on the card as the engines capture them. It
+imports torch and numpy, never jax and nothing of the JAX package, and
+keeps its own copy of the host layers it needs.
 
     from stateright_tpu_torch import TensorModelAdapter, run_multiplexed
     from stateright_tpu_torch.models import TwoPhaseTensor
@@ -41,8 +43,10 @@ from .engines.multiplex import run_multiplexed
 from .has_discoveries import HasDiscoveries
 from .path import Path
 from .tensor import TensorModel, TensorModelAdapter, TensorProperty
+from .analysis import AnalysisReport, SpecLintError, analyze
 
 __all__ = [
+    "AnalysisReport",
     "Checker",
     "CheckerBuilder",
     "CompiledCheck",
@@ -52,8 +56,10 @@ __all__ = [
     "Model",
     "Path",
     "Property",
+    "SpecLintError",
     "TensorModel",
     "TensorModelAdapter",
     "TensorProperty",
+    "analyze",
     "run_multiplexed",
 ]

@@ -5,7 +5,8 @@ The builder carries the model and the options the port supports —
 `finish_when`, `target_state_count`, `target_max_depth`, `coverage`,
 `sample` (on by default, k = 64, as in the JAX package), `symmetry`,
 `pipeline` (on by default: a chain of depth 2, no fusion, as in JAX),
-`timeout` and `stage_profile` — and spawns the device engines:
+`timeout`, `stage_profile` and the speclint pre-flight (`lint`,
+`strict`) — and spawns the device engines:
 `spawn_gpu_bfs(**kw)`, the counterpart of `spawn_tpu_bfs`, and
 `spawn_gpu_simulation(seed, **kw)`, the counterpart of
 `spawn_tpu_simulation`; `engines.multiplex.run_multiplexed` runs many
@@ -23,6 +24,7 @@ from .path import Path
 
 # Later slices of the port, numbered as in ROADMAP.md Queue 1.
 SLICE_CHECKPOINTS = "slice 7 (spill tiers and checkpoints)"
+SLICE_PROGLINT = "slice 6c (the program lint over the port's CUDA graphs)"
 
 
 def not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -55,6 +57,9 @@ class CheckerBuilder:
         self.fuse_eras_: Optional[int] = None
         self.stage_profile_: bool = False
         self.stage_profile_iters_: int = 32
+        self.strict_: bool = False
+        self.strict_samples_: int = 128
+        self.lint_report_: Optional[Any] = None
 
     def finish_when(self, has_discoveries: HasDiscoveries) -> "CheckerBuilder":
         self.finish_when_ = has_discoveries
@@ -138,6 +143,44 @@ class CheckerBuilder:
         results alone. The multiplexed lanes refuse it."""
         self.stage_profile_ = enable
         self.stage_profile_iters_ = max(1, int(iters))
+        return self
+
+    # -- static analysis (speclint; analysis/) --------------------------------
+
+    def lint(self, samples: int = 256, device=None) -> Any:
+        """Run the speclint pre-flight over this builder's model and
+        symmetry options WITHOUT launching an engine; tensor models' lane
+        programs run on `device` (the card unless it is "cpu").
+
+        Returns an `analysis.AnalysisReport`; its diagnostic counts are
+        also exported through `Checker.telemetry()` (as ``lint_<code>``
+        counters) by any engine subsequently spawned from this builder.
+        """
+        from . import tensor as _tensor
+        from .analysis import analyze
+
+        # Tensor-backed models canonicalize via representative_lanes (what
+        # the device engines run); the host-level symmetry lambda only
+        # applies to rich host states.
+        tensorish = isinstance(self.model, (_tensor.TensorModel, _tensor.TensorModelAdapter))
+        self.lint_report_ = analyze(
+            self.model,
+            samples=samples,
+            symmetry_fn=None if tensorish else self.symmetry_fn_,
+            device=device,
+        )
+        return self.lint_report_
+
+    def strict(self, enable: bool = True, samples: int = 128) -> "CheckerBuilder":
+        """Refuse to launch any engine while speclint finds error-severity
+        diagnostics: every spawn first runs `lint()` on the engine's own
+        device (reusing an explicit earlier `lint()` result) and raises
+        `SpecLintError`, before any kernel launch, when the model's
+        determinism, device encoding, properties or symmetry are broken.
+        `samples` bounds the pre-flight state sample. `run_multiplexed`
+        does not lint, as in the JAX package."""
+        self.strict_ = enable
+        self.strict_samples_ = samples
         return self
 
     def threads(self, thread_count: int) -> "CheckerBuilder":

@@ -1,7 +1,7 @@
 """The lean part of `stateright_tpu/engines/common.py HostEngineBase`: the
 run thread, join, counters, phase timers, coverage, sampling, the run
-deadline, discovery bookkeeping and the stage profiler's hook that the
-port's device engines need.
+deadline, discovery bookkeeping, the speclint pre-flight and the stage
+profiler's hook that the port's device engines need.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from ..obs.sample import SpaceSampler, build_space_profile
 class HostEngineBase(Checker):
     """Runs `_run` on a background thread; exceptions surface at join()."""
 
-    def __init__(self, builder: CheckerBuilder, model=None):
+    def __init__(self, builder: CheckerBuilder, model=None, device=None):
         self._model = model if model is not None else builder.model
         self._properties = self._model.properties()
         self._target_state_count = builder.target_state_count_
@@ -44,6 +44,11 @@ class HostEngineBase(Checker):
         self._counters: Dict[str, int] = {}
         # Phase timers (device_era, the stage profiler's) and its gauges.
         self._metrics = MetricsRegistry()
+        # Speclint pre-flight (analysis/) on the engine's own device, before
+        # any kernel launch: in strict mode the engine refuses to launch
+        # over error-severity findings; whenever a report exists (strict
+        # or an explicit builder.lint()), its counts ride into telemetry.
+        self._lint_preflight(builder, device)
         self._stage_profile = builder.stage_profile_
         self._stage_iters = builder.stage_profile_iters_
         self._coverage = Coverage(enabled=builder.coverage_)
@@ -56,6 +61,21 @@ class HostEngineBase(Checker):
         self._done = threading.Event()
         self._error: Optional[BaseException] = None
         self._thread: Optional[threading.Thread] = None
+
+    def _lint_preflight(self, builder: CheckerBuilder, device) -> None:
+        report = builder.lint_report_
+        if builder.strict_ and report is None:
+            report = builder.lint(samples=builder.strict_samples_, device=device)
+        if report is None:
+            return
+        for code, n in report.counts_by_code().items():
+            self._inc(f"lint_{code}", n)
+        self._metrics.set_gauge("lint_errors", len(report.errors))
+        self._metrics.set_gauge("lint_warnings", len(report.warnings))
+        if builder.strict_ and not report.ok:
+            from ..analysis import SpecLintError
+
+            raise SpecLintError(report)
 
     def _start(self) -> None:
         self._thread = threading.Thread(target=self._run_guarded, daemon=True)

@@ -244,8 +244,8 @@ class GpuBfsChecker(HostEngineBase):
                 )
             if model.tm is not compiled.tm:
                 model = TensorModelAdapter(compiled.tm)
-        super().__init__(builder, model=model)
         self.device = resolve_device(device)
+        super().__init__(builder, model=model, device=self.device)
         self.tm: TensorModel = model.tm
         # Symmetry reduction on the card: candidates are canonicalized by
         # the model's batched representative_lanes before hashing, so the

@@ -296,12 +296,12 @@ class GpuSimulationChecker(HostEngineBase):
             model = TensorModelAdapter(model)
         if not isinstance(model, TensorModelAdapter):
             raise TypeError("spawn_gpu_simulation requires a TensorModel (or its adapter)")
-        super().__init__(builder, model=model)
+        self.device = resolve_device(device)
+        super().__init__(builder, model=model, device=self.device)
         if self._symmetry is not None:
             raise ValueError(
                 "the device simulation engine does not support symmetry reduction"
             )
-        self.device = resolve_device(device)
         self.tm: TensorModel = model.tm
         self._tprops = self.tm.tensor_properties()
         if len(self._tprops) > 32:

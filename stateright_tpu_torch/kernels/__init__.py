@@ -224,6 +224,14 @@ MESH_ERA = Kernel(
     "stateright_tpu/parallel/mesh.py:257",
 )
 
+# K16a: the speclint probes' agreement table (analysis/device.py STR205,
+# analysis/symmetry.py STR404; ops/agree.py).
+LANE_AGREE = Kernel(
+    "lane_agree", "lane_agree.cu", "srt_lane_agree",
+    [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "stateright_tpu/analysis/device.py:336",
+)
+
 # The kernels of each engine's path: the BFS step and its epilogue, the
 # simulation step, its era kernel and its epilogue, and the multiplexed
 # lane step, its seed, its era kernels and its path walks (K1 runs on
@@ -253,8 +261,10 @@ MESH_STAGE_KERNELS = (
     STAGE_LOOP, STAGE_LANES, HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES,
     RING_LANES, EXCHANGE,
 )
+# The speclint pre-flight's path (analysis/): the agreement table.
+LINT_KERNELS = (LANE_AGREE,)
 KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA,
-                         STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA)
+                         STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA, LANE_AGREE)
 ENTRIES = KERNELS + (WALK_PROLOGUE, STAGE_LANES) + LANE_KERNELS[1:]
 
 _lock = threading.Lock()

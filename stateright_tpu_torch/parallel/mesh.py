@@ -533,14 +533,14 @@ class ShardedGpuBfsChecker(HostEngineBase):
             model = TensorModelAdapter(model)
         if not isinstance(model, TensorModelAdapter):
             raise TypeError("spawn_sharded_bfs requires a TensorModel (or its adapter)")
-        super().__init__(builder, model=model)
+        self._group = group
+        self._world, self._rank = world_of(group)
+        self.n_shards, self.device = self._placement(devices, device)
+        super().__init__(builder, model=model, device=self.device)
         self.tm: TensorModel = model.tm
         self._tprops = self.tm.tensor_properties()
         if len(self._tprops) > 32:
             raise ValueError("at most 32 tensor properties supported")
-        self._group = group
-        self._world, self._rank = world_of(group)
-        self.n_shards, self.device = self._placement(devices, device)
         if self.n_shards % self._world:
             raise ValueError(
                 f"the world size {self._world} must divide the shard count {self.n_shards}"

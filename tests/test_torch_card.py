@@ -785,3 +785,42 @@ def test_sharded_bfs_cuda_matches_cpu(dev):
         runs.append((c.unique_state_count(), c.state_count(), dict(c._discovery_fps), cov["actions"],
                      cov["depths"], tuple(c._sampler.fingerprints()), c.telemetry()["partial_steps"]))
     assert runs[0] == runs[1] and runs[0][0] == 8832 and runs[0][-1] > 0
+
+
+@pytest.mark.parametrize("A,S,B", [(21, 30, 16384), (52, 3, 8192), (1, 5, 1000), (3, 4, 33)])
+def test_lane_agree_kernel_matches_plain(dev, A, S, B):
+    """K16a against its plain version, bit for bit, with disagreements
+    planted at known rows and lanes that carry high bits."""
+    from stateright_tpu_torch.ops.agree import agree, agree_plain, read_table
+
+    rng = np.random.default_rng(A * S + B)
+    host = rng.integers(0, 1 << 32, size=(A, S, B), dtype=np.uint64).astype(np.uint32)
+    hmask = rng.random((A, B)) < 0.7
+    lanes = host.astype(np.int64) + (rng.integers(0, 3, size=(A, S, B)) << 32)
+    dmask = hmask.copy()
+    lanes[A - 1, S - 1, B - 1] ^= 1
+    hmask[A - 1, B - 1] = dmask[A - 1, B - 1] = True
+    if A > 1:
+        dmask[0, B // 2] = not dmask[0, B // 2]
+    args = [torch.from_numpy(x).to(dev) for x in (lanes, dmask, host, hmask)]
+    table = agree(*args)
+    assert torch.equal(table, agree_plain(*args))
+    found = read_table(table.cpu().numpy(), A, S, B)
+    want = (0, None, B // 2) if A > 1 else (A - 1, S - 1, B - 1)
+    assert (found.action, found.lane, found.row) == want
+
+
+def test_analyze_on_the_card_matches_cpu(dev):
+    from stateright_tpu_torch import analyze
+    from torch_lint_fixtures import CARD_FIXTURES
+
+    for model in (TwoPhaseTensor(5), TwoPhaseTensor(3)):
+        on_card, on_cpu = analyze(model, device=dev), analyze(model, device="cpu")
+        assert on_card.to_dict() == on_cpu.to_dict()
+        assert on_card.probes["captures"] >= 2 and on_card.probes["graph_launches"] >= 1
+    for cls, code in CARD_FIXTURES:
+        on_card, on_cpu = analyze(cls(), device=dev), analyze(cls(), device="cpu")
+        assert code in {d.code for d in on_card.errors}, cls.__name__
+        assert [(d.code, d.location) for d in on_card.diagnostics] == \
+            [(d.code, d.location) for d in on_cpu.diagnostics]
+        assert not torch.cuda.is_current_stream_capturing()

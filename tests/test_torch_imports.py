@@ -1,9 +1,10 @@
-"""The port stands alone: importing every module of it and
+"""The port stands alone: importing every module of it (the speclint
+CLI `analysis/__main__.py` included, without running it) and
 `chip_smoke.py`, and running a BFS (serial, pipelined and fused, and
 timed), a simulation, both with the stage profiler, the sharded BFS
 (`parallel/`, with its stage profiler and discovery paths), multiplexed
-lanes and the executable cache, loads neither jax nor any module of the
-JAX package."""
+lanes and the executable cache, and the speclint pre-flight (`analyze`, a
+strict spawn), loads neither jax nor any module of the JAX package."""
 
 import os
 import subprocess
@@ -46,6 +47,13 @@ from stateright_tpu_torch import ExecutableCache, run_multiplexed
 compiled, _hit = ExecutableCache().get(TwoPhaseTensor(2), "multiplex", lanes=4, chunk=16, device="cpu")
 lanes = run_multiplexed([compiled.builder() for _ in range(3)], lanes=4, chunk=16, device="cpu")
 assert [c.unique_state_count() for c in lanes] == [c.unique_state_count()] * 3
+import stateright_tpu_torch.analysis.__main__ as lint_cli
+assert lint_cli.__name__ == "stateright_tpu_torch.analysis.__main__"
+from stateright_tpu_torch import analyze
+assert analyze(TwoPhaseTensor(2), device="cpu").ok
+st = TensorModelAdapter(TwoPhaseTensor(2)).checker().strict().spawn_gpu_bfs(
+    device="cpu", chunk_size=16, queue_capacity=1 << 10, table_capacity=1 << 10).join()
+assert st.telemetry()["lint_errors"] == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "stateright_tpu" or m.startswith("stateright_tpu."))
 print("LOADED", bad)
