@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA device
     python3 chip_smoke.py --skip-full   # without the 2pc-10 phases (7, 11; 17's and 18's 2pc-10 runs)
     python3 chip_smoke.py --lint-only   # phases 0, 1 and 19 alone
+    python3 chip_smoke.py --spill-only  # phases 0, 1 and 20 alone (with its own references)
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
@@ -134,7 +135,23 @@ exits non-zero:
      capture, the lane types, STR205 and STR404 through K16a) == its cpu
      report, torch's capture state clean after each; a strict 2pc-7 run
      at the bench options (296,448, `lint_*` telemetry), and a strict spawn
-     of a broken fixture refused with no engine kernel launched.
+     of a broken fixture refused with no engine kernel launched;
+ 20. the host spill, checkpoints and the degraded regrow (K7s,
+     `ring_spill.cu`): DRAIN and REFILL against their plain versions,
+     exactly, at the 2pc-10 spilling run's widths (a 2^22 ring, its
+     largest drain, from a head that wraps) and over 8 shards' rings with
+     ragged counts, beside `index_select` / `index_copy_`; 2pc-10 at phase
+     7's options through a 2^22 ring (61,515,776, the unspilled run's
+     states and sample), again under a host budget of a quarter of its
+     peak (the disk tier gives back every row it took); paxos-3 killed at
+     600,000 states with a checkpoint at every era (two deltas or more)
+     and resumed to 1,194,428, equal to phase 5's unbroken run (states,
+     discovery fingerprints and path lengths), its sample its table's
+     exact bottom-k, each save's seconds and bytes; a probe error faked
+     at era 1 of 2pc-7 (one degraded regrow, 296,448); 2pc-7 spilling
+     at 8 shards and at 1 shard (chunk 55 in a 2^12 ring a shard), equal
+     to each other, the sample the table's bottom-k (K7s must launch:
+     `kernels.SPILL_KERNELS`).
 
 Every device program runs as CUDA graphs (engines/graph.py): a BFS
 dispatch (engines/era.py), a simulation era (engines/gpu_simulation.py),
@@ -149,7 +166,7 @@ and checks, just after, that each kernel of its path (the BFS kernels,
 K1, K13a-d, K13b's prologue and K13f, or K1 and the lane entry points of
 K2, K3, K4, K6, K7 and K8f, or the sharded path's `MESH_KERNELS`; with
 the stage profiler, K12a and the stage programs' kernels too; for the
-speclint pre-flight, K16a) was launched. Before
+speclint pre-flight, K16a; with a spill, K7s) was launched. Before
 the last line it prints the `kernels` JSON line and the card's name and
 power limit; the last line is the JSON result. It imports nothing of JAX
 or of the JAX package.
@@ -2658,6 +2675,311 @@ def lint_phase(torch, np, kernels, card):
     return res, launches
 
 
+# -- phase 20: the host spill, checkpoints and the degraded regrow (K7s) -----
+
+# 2pc-10 at phase 7's options through a ring of 2^22 rows, a sixteenth of
+# its 2^26; paxos-3 killed at a target and resumed; 2pc-7 at 8 shards with
+# chunk 1,024 asked and 55 taken (the clamp of a 2^12 ring a shard, whose
+# high water of 3,584 rows 2pc-7's frontier passes), and at 1 shard.
+SPILL10 = dict(FULL10, queue_capacity=1 << 22)
+PAXOS3_KILL = 600_000
+SPILL_MESH = {MESH_N: dict(chunk_size=1024, queue_capacity_per_shard=1 << 12, table_capacity_per_shard=1 << 18),
+              1: dict(chunk_size=1024, queue_capacity_per_shard=1 << 12, table_capacity_per_shard=1 << 21)}
+SPILL_LANES = 8
+
+
+def spill_kernel_parity(torch, np):
+    """K7s DRAIN and REFILL against their plain versions on the same card
+    tensors, exactly: one ring at the 2pc-10 spilling run's widths (its
+    largest drain, from a head that wraps) and 8 shards' rings with
+    ragged row counts (a shard with none, one with its whole ring)."""
+    from stateright_tpu_torch.ops import frontier as fr
+
+    dev = torch.device("cuda")
+    tm = two_pc(10)
+    S, A, qcap = tm.state_width, tm.max_actions, SPILL10["queue_capacity"]
+    C = min(SPILL10["chunk_size"], qcap // (2 * A))
+    W = S + 2
+    hw = qcap - C * A
+    k = qcap - max(hw // 2, hw - 64 * C * A)
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def ring_of(*shape):
+        r = torch.randint(0, 1 << 32, shape, dtype=torch.int64, device=dev, generator=gen)
+        r[..., -1] = 0
+        return r
+
+    ring = ring_of(W, qcap + 1)
+    start = qcap - 12_345
+    out = torch.empty((k, W), dtype=torch.int32, device=dev)
+    drained = fr.ring_drain(ring, start, k, out).clone()
+    errs_d = [max_abs_err(torch, [(drained, fr.ring_drain_plain(ring, start, k))])]
+    tail = start + 777
+    r1, r2 = ring.clone(), ring.clone()
+    fr.ring_refill(r1, tail, drained)
+    fr.ring_refill_plain(r2, tail, drained)
+    errs_r = [max_abs_err(torch, [(r1, r2)])]
+    # 8 shards, ragged.
+    q8 = 1 << 15
+    rings = ring_of(SPILL_LANES, W, q8 + 1)
+    ks = [0, 17, q8, 4_096, 1, 30_000, 12_345, 999]
+    starts = [q8 - 5, 3, 0, q8 - 2_000, 77, 10, q8 - 1, 31_000]
+    lanes = fr.ring_drain_lanes(rings, starts, ks).clone()
+    errs_d.append(max_abs_err(torch, [(lanes, fr.ring_drain_lanes_plain(rings, starts, ks))]))
+    g1, g2 = rings.clone(), rings.clone()
+    tails = [s + 100 for s in starts]
+    fr.ring_refill_lanes(g1, tails, ks, lanes)
+    fr.ring_refill_lanes_plain(g2, tails, ks, lanes)
+    errs_r.append(max_abs_err(torch, [(g1, g2)]))
+    torch.cuda.synchronize()
+    idx = fr.ring_indices(start, k, qcap, dev)
+    idx_t = fr.ring_indices(tail, k, qcap, dev)
+    rows64 = fr.from_u32_bits(drained).T.contiguous()
+    K8 = sum(ks)
+    shape = f"[{k}, {W}] of a 2^{qcap.bit_length() - 1} ring; 8 rings of 2^15, {K8} ragged rows"
+    return {
+        "ring_drain": dict(
+            max_abs_err=max(errs_d),
+            ms=time_ms(torch, lambda _: fr.ring_drain(ring, start, k, out)),
+            plain_ms=time_ms(torch, lambda _: fr.ring_drain_plain(ring, start, k)),
+            lanes_ms=time_ms(torch, lambda _: fr.ring_drain_lanes(rings, starts, ks, out)),
+            # Each row read once (8 bytes a lane) and written once (4).
+            bytes=k * W * 12, ops=k * W,
+            library_ms=time_ms(torch, lambda _: ring.index_select(1, idx)),
+            shape=shape,
+        ),
+        "ring_refill": dict(
+            max_abs_err=max(errs_r),
+            ms=time_ms(torch, lambda _: fr.ring_refill(r1, tail, drained)),
+            plain_ms=time_ms(torch, lambda _: fr.ring_refill_plain(r2, tail, drained)),
+            lanes_ms=time_ms(torch, lambda _: fr.ring_refill_lanes(g1, tails, ks, lanes)),
+            bytes=k * W * 12, ops=k * W,
+            library_ms=time_ms(torch, lambda _: r2.index_copy_(1, idx_t, rows64)),
+            shape=shape,
+        ),
+    }
+
+
+def timed_saves(common):
+    """Wrap the checkpoint IO so that each save's seconds and bytes are
+    kept; returns (log, undo)."""
+    log = []
+    orig = common.save_checkpoint_atomic, common.save_checkpoint_delta
+
+    def wrap(fn, kind):
+        def run(path, *a, **k):
+            t0 = time.monotonic()
+            out = fn(path, *a, **k)
+            log.append(dict(kind=kind, secs=round(time.monotonic() - t0, 4), bytes=os.path.getsize(path)))
+            return out
+        return run
+
+    common.save_checkpoint_atomic = wrap(orig[0], "base")
+    common.save_checkpoint_delta = wrap(orig[1], "delta")
+
+    def undo():
+        common.save_checkpoint_atomic, common.save_checkpoint_delta = orig
+
+    return log, undo
+
+
+def exact_bottom_k(torch, table, k=64):
+    """The k smallest fingerprints (as unsigned 64-bit keys) of every
+    state in a visited table, on the card: what a bottom-k sample is
+    when no capture was dropped."""
+    keys = table.keys.reshape(-1)
+    flip = torch.iinfo(torch.int64).min  # signed order of key ^ 2^63 = unsigned order of key
+    keys = keys[keys != 0] ^ flip
+    low = torch.topk(keys, min(k, keys.numel()), largest=False).values ^ flip
+    return tuple(sorted(int(v) % (1 << 64) for v in low.tolist()))
+
+
+def spill_phase(torch, np, kernels, card, skip_full, ref10, ref_px, single):
+    """Phase 20: K7s against its plain versions; 2pc-10 spilling (and
+    under a host budget, through the disk tier) against the unspilled
+    run; paxos-3 killed and resumed; the degraded regrow on 2pc-7; 2pc-7
+    spilling at 8 shards against 1 shard. `ref10`, `ref_px`: the
+    unspilled 2pc-10 and unbroken paxos-3 results of phases 7 and 5
+    (run here when None). Returns the K7s timing dicts and its launches
+    in the spilling runs (2pc-10 and 8 shards)."""
+    import shutil
+    import tempfile
+
+    from stateright_tpu_torch.engines import common
+    from stateright_tpu_torch.engines.gpu_bfs import GpuBfsChecker
+    from stateright_tpu_torch.models import PaxosTensorExhaustive
+
+    res = finish(spill_kernel_parity(torch, np))
+    for name, r in res.items():
+        print(f"kernel {name} at 8 shards: lanes_ms={r['lanes_ms']:.4f} card={card}", flush=True)
+    torch.cuda.empty_cache()
+    launches_spill = {k.name: 0 for k in kernels.SPILL_KERNELS}
+    solo_path = kernels.BFS_KERNELS + kernels.SPILL_KERNELS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-spill-")
+
+    def summary(c, wall):
+        tel = c.telemetry()
+        ph = tel.get("phase_ms", {})
+        return dict(unique=c.unique_state_count(), states=c.state_count(), wall_secs=round(wall, 3),
+                    eras=tel["eras"], steps=tel["steps"], dispatches=tel["dispatches"],
+                    spill_rows=tel.get("spill_rows", 0), refill_rows=tel.get("refill_rows", 0),
+                    spill_ms=ph.get("spill", 0.0), refill_ms=ph.get("refill", 0.0),
+                    device_era_ms=ph.get("device_era", 0.0),
+                    spill_host_peak_bytes=tel.get("spill_host_peak_bytes", 0),
+                    spill_tier_rows=tel.get("spill_tier_rows", 0),
+                    spill_tier_refill_rows=tel.get("spill_tier_refill_rows", 0),
+                    spill_disk_bytes=tel.get("spill_disk_bytes", 0), card=card)
+
+    try:
+        if not skip_full:
+            if ref10 is None:
+                c, _t = bfs(two_pc(10), "cuda", FULL10)
+                ref10 = dict(states=c.state_count(), sample=tuple(c._sampler.fingerprints()))
+                del c
+                torch.cuda.empty_cache()
+            print(f"2pc-10 spilling, options: {SPILL10}", flush=True)
+            def run10():
+                c, wall = bfs(two_pc(10), "cuda", SPILL10)
+                return c, wall, check_paths(c)  # its paths walk through K6
+
+            (c, wall, lens10), launches = counted(torch, kernels, "2pc-10 spilling", run10, solo_path)
+            for k in kernels.SPILL_KERNELS:
+                launches_spill[k.name] += launches[k.name]
+            out = dict(summary(c, wall), paths=lens10)
+            check(out["spill_rows"] > 0, "2pc-10 through a 2^22 ring did not spill")
+            check(out["unique"] == GOLDEN[10], f"2pc-10 spilling: {out['unique']}")
+            check(out["states"] == ref10["states"], "2pc-10 spilling: states differ from the unspilled run")
+            check(tuple(c._sampler.fingerprints()) == ref10["sample"],
+                  "2pc-10 spilling: the sample differs from the unspilled run")
+            print(f"spill 2pc-10: {json.dumps(out)}", flush=True)
+            budget = max(1, out["spill_host_peak_bytes"] // 4)
+            del c
+            torch.cuda.empty_cache()
+            os.environ["STPU_SPILL_HOST_BUDGET_BYTES"] = str(budget)
+            try:
+                c, wall = bfs(two_pc(10), "cuda", SPILL10)
+            finally:
+                del os.environ["STPU_SPILL_HOST_BUDGET_BYTES"]
+            out = dict(summary(c, wall), host_budget_bytes=budget)
+            check(out["unique"] == GOLDEN[10] and tuple(c._sampler.fingerprints()) == ref10["sample"],
+                  "2pc-10 through the disk tier differs from the unspilled run")
+            check(out["spill_tier_rows"] > 0 and out["spill_tier_refill_rows"] == out["spill_tier_rows"],
+                  f"2pc-10 disk tier: {out['spill_tier_rows']} rows down, {out['spill_tier_refill_rows']} back")
+            print(f"spill 2pc-10 disk tier: {json.dumps(out)}", flush=True)
+            del c
+            torch.cuda.empty_cache()
+
+        # paxos-3 killed at a target with a checkpoint at every era, then
+        # resumed; beside an unbroken run.
+        if ref_px is None:
+            c, _t = bfs(PaxosTensorExhaustive(3), "cuda", PAXOS3)
+            ref_px = dict(states=c.state_count(), max_depth=c.max_depth(), fps=dict(c._discovery_fps),
+                          sample=tuple(c._sampler.fingerprints()), lens=check_paths(c),
+                          drops=c._sampler.device_drops)
+            del c
+        path = os.path.join(tmp, "paxos3.npz")
+        saves, undo = timed_saves(common)
+        try:
+            part, wall_part = bfs(PaxosTensorExhaustive(3), "cuda",
+                                  dict(PAXOS3, checkpoint_path=path, checkpoint_every=1e-3),
+                                  lambda b: b.target_state_count(PAXOS3_KILL))
+        finally:
+            undo()
+        ptel = part.telemetry()
+        part_unique = part.unique_state_count()
+        check(part_unique < PAXOS3_GOLDEN, "paxos-3 kill: the target did not stop the run")
+        check(ptel.get("checkpoint_delta_saves", 0) >= 2, f"paxos-3 kill: {ptel.get('checkpoint_delta_saves')} deltas")
+        files = common.checkpoint_generations(path)[:1] + common.delta_chain_paths(path)
+        del part
+        torch.cuda.empty_cache()
+        resumed, wall_res = bfs(PaxosTensorExhaustive(3), "cuda", dict(PAXOS3, resume_from=path))
+        rtel = resumed.telemetry()
+        lens = check_paths(resumed)
+        # What a resume carries (ROADMAP Queue 3): not `max_depth`, read at
+        # era ends, which a resumed run places elsewhere (in the JAX
+        # engine too); it is printed beside the unbroken run's.
+        got = dict(states=resumed.state_count(), fps=dict(resumed._discovery_fps), lens=lens)
+        check(resumed.unique_state_count() == PAXOS3_GOLDEN, f"paxos-3 resumed: {resumed.unique_state_count()}")
+        check(got == {k: ref_px[k] for k in got},
+              f"paxos-3 resumed differs from the unbroken run: {got['states']} states, paths {got['lens']}")
+        # The resumed run's sample is its table's exact bottom-k: the
+        # restored sample's threshold is tight from its first step, so no
+        # step drops a capture past its cap (the reference's
+        # DEVICE_STEP_CAP). The unbroken run's early steps do drop
+        # captures, so its sample is printed beside it and not held.
+        exact = exact_bottom_k(torch, resumed._table)
+        sample = tuple(resumed._sampler.fingerprints())
+        for label, smp, drops in (("resumed", sample, resumed._sampler.device_drops),
+                                  ("unbroken", ref_px["sample"], ref_px["drops"])):
+            off = len(set(smp) ^ set(exact)) // 2
+            print(f"paxos-3 {label} sample: {off} of 64 off the table's bottom-k, {drops} captures dropped",
+                  flush=True)
+        check(tuple(sorted(sample)) == exact, "paxos-3 resumed: the sample is not the table's bottom-k")
+        out = dict(kill_at=PAXOS3_KILL, partial_unique=part_unique, partial_wall_secs=round(wall_part, 3),
+                   saves=saves, checkpoint_save_ms=ptel["phase_ms"].get("checkpoint_save"),
+                   checkpoint_saves=ptel.get("checkpoint_saves"), checkpoint_delta_saves=ptel["checkpoint_delta_saves"],
+                   load_files_bytes=[os.path.getsize(f) for f in files],
+                   checkpoint_load_ms=rtel["phase_ms"].get("checkpoint_load"),
+                   delta_folds=rtel.get("checkpoint_delta_folds", 0), resumed_wall_secs=round(wall_res, 3),
+                   resumed_states=resumed.state_count(),
+                   max_depth=dict(resumed=resumed.max_depth(), unbroken=ref_px["max_depth"]), card=card)
+        print(f"checkpoint paxos-3: {json.dumps(out)}", flush=True)
+        del resumed
+        torch.cuda.empty_cache()
+
+        # The degraded regrow: a probe error faked at era 1 of 2pc-7.
+        orig_start = GpuBfsChecker._start
+
+        def start(self):
+            self._chaos_probe_error_era = 1
+            orig_start(self)
+
+        GpuBfsChecker._start = start
+        try:
+            c, wall = bfs(two_pc(7), "cuda", dict(BENCH7, checkpoint_path=os.path.join(tmp, "regrow.npz"),
+                                                  checkpoint_every=1e-3))
+        finally:
+            GpuBfsChecker._start = orig_start
+        tel = c.telemetry()
+        check(tel.get("degraded_regrow") == 1, f"2pc-7 regrow: degraded_regrow={tel.get('degraded_regrow')}")
+        check_2pc(c, 7)
+        print(f"regrow 2pc-7: unique={c.unique_state_count()} wall_secs={wall:.3f} "
+              f"degraded_regrow={tel['degraded_regrow']} table_growths={tel.get('table_growths')} "
+              f"table_capacity={tel['table_capacity']} checkpoint_saves={tel.get('checkpoint_saves')} "
+              f"checkpoint_load_ms={tel['phase_ms'].get('checkpoint_load')} card={card}", flush=True)
+        del c
+        torch.cuda.empty_cache()
+
+        # 2pc-7 spilling at 8 shards and at 1 shard.
+        mesh_path = kernels.MESH_KERNELS + kernels.SPILL_KERNELS
+        results = {}
+        for n, opts in SPILL_MESH.items():
+            def go():
+                c, wall = mesh_bfs(two_pc(7), "cuda", n, opts)
+                return c, wall, check_paths(c)
+
+            (c, wall, lens), launches = counted(torch, kernels, f"2pc-7 spilling at {n} shards", go, mesh_path)
+            if n == MESH_N:
+                for k in kernels.SPILL_KERNELS:
+                    launches_spill[k.name] += launches[k.name]
+            out = dict(summary(c, wall), shards=n, chunk=c.telemetry()["chunk"], quota=c.telemetry()["quota"],
+                       max_depth=c.max_depth(), paths=lens)
+            check(out["spill_rows"] > 0, f"2pc-7 at {n} shards did not spill")
+            check(out["unique"] == GOLDEN[7], f"2pc-7 spilling at {n} shards: {out['unique']}")
+            results[n] = (out["states"], tuple(c._sampler.fingerprints()), lens)
+            check(results[n][1] == exact_bottom_k(torch, c._prog.table),
+                  f"2pc-7 spilling at {n} shards: the sample is not the table's bottom-k")
+            print(f"spill 2pc-7 at {n} shards: {json.dumps(out)}", flush=True)
+            del c
+        check(results[MESH_N] == results[1], "2pc-7 spilling: 8 shards differ from 1 shard")
+        print(f"2pc-7 spilling: 8 shards == 1 shard (states, sample, path lengths); the sample equals the "
+              f"solo run's (phase 4): {results[1][1] == single['2pc-7 sample']}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res, launches_spill
+
+
 def main(argv) -> int:
     try:
         import numpy as np
@@ -2677,6 +2999,7 @@ def main(argv) -> int:
         return 0
     skip_full = "--skip-full" in argv
     lint_only = "--lint-only" in argv
+    spill_only = "--spill-only" in argv
     from stateright_tpu_torch import kernels
     from stateright_tpu_torch.has_discoveries import HasDiscoveries
     from stateright_tpu_torch.models import AbdOrderedTensor, IncrementTensor, PaxosTensor, PaxosTensorExhaustive
@@ -2694,6 +3017,19 @@ def main(argv) -> int:
         phase("19 the speclint pre-flight (K16, K16a)")
         lint_phase(torch, np, kernels, card)
         print(f"chip_smoke --lint-only: phases 0, 1 and 19 passed in {time.monotonic() - T0:.1f} s", flush=True)
+        return 0
+    if spill_only:
+        phase("20 the host spill, checkpoints and the degraded regrow (K7s)")
+        c7, _t = bfs(two_pc(7), "cuda", BENCH7)
+        single = {"2pc-7 sample": tuple(c7._sampler.fingerprints())}
+        del c7
+        spill_res, launches_spill = spill_phase(torch, np, kernels, card, skip_full, None, None, single)
+        print(json.dumps({"kernels": [
+            dict(name=k.name, route="cuda", source=os.path.relpath(k.source_path, HERE), replaces=k.replaces,
+                 launches=launches_spill[k.name], **{key: spill_res[k.name][key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            for k in kernels.SPILL_KERNELS]}))
+        print(f"chip_smoke --spill-only: phases 0, 1 and 20 passed in {time.monotonic() - T0:.1f} s", flush=True)
         return 0
 
     phase("2 kernel parity (2pc-7 and paxos-3 widths)")
@@ -2736,8 +3072,9 @@ def main(argv) -> int:
     print(f"2pc-7: unique={c7.unique_state_count()} states={c7.state_count()} wall_secs={t7:.3f} "
           f"generated_states_per_sec={c7.state_count() / t7:.1f} unique_per_sec={c7.unique_state_count() / t7:.1f} "
           f"telemetry={c7.telemetry()} card={card}", flush=True)
-    # Phase 18 holds the sharded runs' discoveries against these.
-    single = {"2pc-7": (dict(c7._discovery_fps), check_paths(c7))}
+    # Phase 18 holds the sharded runs' discoveries against these, phase 20
+    # the sample.
+    single = {"2pc-7": (dict(c7._discovery_fps), check_paths(c7)), "2pc-7 sample": d7["sample"]}
     c7g, t7g = bfs(two_pc(7), "cuda", dict(BENCH7, table_capacity=1 << 16))
     check(result_dict(c7g) == d7, "2pc-7 with growth differs from the run without")
     print(f"2pc-7 with growth from 2^16: equal, wall_secs={t7g:.3f} telemetry={c7g.telemetry()}", flush=True)
@@ -2770,6 +3107,9 @@ def main(argv) -> int:
     check("value chosen" in lens, "paxos-3: value chosen not found")
     check(prof["samples"] == 64 and prof["unresolved"] == 0, "paxos-3 sample rows unresolved")
     single["paxos-3"] = (dict(cpx._discovery_fps), lens)
+    # Phase 20's resumed run is held against this one.
+    ref_px = dict(states=cpx.state_count(), max_depth=cpx.max_depth(), fps=dict(cpx._discovery_fps),
+                  sample=tuple(cpx._sampler.fingerprints()), lens=lens, drops=cpx._sampler.device_drops)
     tel = cpx.telemetry()
     print(f"paxos-3: unique={cpx.unique_state_count()} states={cpx.state_count()} wall_secs={tpx:.3f} "
           f"generated_states_per_sec={cpx.state_count() / tpx:.1f} steps={tel.get('steps')} "
@@ -2799,6 +3139,8 @@ def main(argv) -> int:
               f"generated_states_per_sec={c10.state_count() / t10:.1f} "
               f"max_memory_allocated={torch.cuda.max_memory_allocated()} telemetry={c10.telemetry()} card={card}",
               flush=True)
+        # Phase 20's spilling runs are held against this one.
+        ref10 = dict(states=c10.state_count(), sample=tuple(c10._sampler.fingerprints()))
         del c10
         torch.cuda.empty_cache()
         (c10s, t10s, lens), _ = counted(torch, kernels, "2pc-10 symmetry",
@@ -3081,6 +3423,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     lint_res, launches_lint = lint_phase(torch, np, kernels, card)
 
+    phase("20 the host spill, checkpoints and the degraded regrow (K7s): K7s; 2pc-10 spilling; "
+          "paxos-3 killed and resumed; 2pc-7 regrow; 2pc-7 spilling at 8 shards")
+    spill_res, launches_spill = spill_phase(torch, np, kernels, card, skip_full,
+                                            None if skip_full else ref10, ref_px, single)
+
     # The loop rows' bounds: the sum of their kernels' bounds (one call at
     # the run's widths) times their launches in the run; a step is one
     # K3 launch (BFS), one K13b launch (simulation), one lane K3 launch.
@@ -3112,7 +3459,7 @@ def main(argv) -> int:
           f"card={card}", flush=True)
 
     line = {"kernels": []}
-    for k in kernels.KERNELS + (kernels.STAGE_LANES,):
+    for k in kernels.KERNELS + (kernels.STAGE_LANES, kernels.RING_REFILL):
         # BFS kernels at the 2pc-7 widths and launches; the walk kernels
         # at the paxos-3 simulation widths and launches; the stage
         # profiler's at the 2pc-7 widths (K12a) and the paxos-3 simulation
@@ -3128,6 +3475,10 @@ def main(argv) -> int:
             # K16a at the paxos-3 widths, with the launches of phase 19's
             # analyze() runs of the bundled models.
             r, n = lint_res[k.name], launches_lint[k.name]
+        elif k.name in spill_res:
+            # K7s at the 2pc-10 spilling run's widths, with the launches of
+            # phase 20's spilling runs (2pc-10 and 2pc-7 at 8 shards).
+            r, n = spill_res[k.name], launches_spill[k.name]
         elif k.name in results:
             r, n = results[k.name], launches[k.name]
         else:
@@ -3142,7 +3493,8 @@ def main(argv) -> int:
             # The same source's second entry point, the era prologue.
             entry["prologue_launches"] = launches_sim[kernels.WALK_PROLOGUE.name]
         for extra in ("begin_ms", "epilogue_ms", "epilogue_plain_ms", "ring_ms", "mix_ms", "record_ms",
-                      "record_plain_ms", "record_bound_ms", "choose_ms", "choose_plain_ms", "choose_bound_ms"):
+                      "record_plain_ms", "record_bound_ms", "choose_ms", "choose_plain_ms", "choose_bound_ms",
+                      "lanes_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         line["kernels"].append(entry)

@@ -23,7 +23,6 @@ from .has_discoveries import HasDiscoveries
 from .path import Path
 
 # Later slices of the port, numbered as in ROADMAP.md Queue 1.
-SLICE_CHECKPOINTS = "slice 7 (spill tiers and checkpoints)"
 SLICE_PROGLINT = "slice 6c (the program lint over the port's CUDA graphs)"
 
 

@@ -96,7 +96,8 @@ class EraProgram:
     """One run's era program and workspace (see the module doc)."""
 
     def __init__(self, tm, props, chunk: int, qcap: int, tcap: int, canon: bool,
-                 cov: bool, sample_k: int, fuse: int, device, in_flight: int = 1):
+                 cov: bool, sample_k: int, fuse: int, device, in_flight: int = 1,
+                 table: Optional[vs.VisitedTable] = None):
         self.tm, self.props = tm, list(props)
         self.device = dev = torch.device(device)
         S, A, P, C = tm.state_width, tm.max_actions, len(self.props), chunk
@@ -122,8 +123,9 @@ class EraProgram:
         )
         self.state = torch.zeros(self.plen + eo.X_LEN, dtype=torch.int64, device=dev)
         self.ring = fr.empty_ring(S + 2, qcap, dev)
-        self.table = vs.empty_table(tcap, dev)
-        self.epoch = torch.ones(1, dtype=torch.int64, device=dev)
+        # `table`: a table to run on from the start (a resumed run's).
+        self.table = vs.empty_table(tcap, dev) if table is None else table
+        self.epoch = torch.full((1,), self.table.epoch + 1, dtype=torch.int64, device=dev)
         self.slab = sl.empty_slab(scap, dev) if sample_k else None
         self.hseen = torch.zeros((P, C), dtype=torch.bool, device=dev)
         self.facc1, self.facc2, self.faccd = (

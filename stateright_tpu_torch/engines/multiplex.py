@@ -65,12 +65,15 @@ holds it: the `ExecutableCache` entry (engines/compiled.py) of its
 signature and shape, so the cache's capacity bounds the workspaces on
 the device and an evicted entry frees its own.
 
-Not here: the batch snapshots of `checkpoint_path` / `resume_from`
-(slice 7) and the run service that feeds this engine (slice 4b).
+`run_multiplexed(checkpoint_path=, resume_from=)` snapshots each
+completed batch and resumes from the snapshots that verify (JAX
+multiplex.py:342-395). Not here: the run service that feeds this
+engine (slice 4b).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from types import SimpleNamespace
@@ -80,7 +83,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..checker import SLICE_CHECKPOINTS, Checker, CheckerBuilder, not_ported
+from ..checker import Checker, CheckerBuilder
 from ..core import Expectation
 from ..fingerprint import combine64, hash_lanes
 from ..obs.coverage import DEPTH_CAP, Coverage
@@ -92,6 +95,10 @@ from ..path import Path
 from ..tensor import TensorModel, TensorModelAdapter
 from ..xp import TorchXP
 from . import graph as gr
+from .common import (
+    CheckpointCorruptError, checkpoint_meta, load_checkpoint_verified, save_checkpoint_atomic,
+    validate_checkpoint_meta,
+)
 from .compiled import ExecutableCache, intern_model, model_signature
 from .gpu_bfs import U32_MAX, parent_chains, resolve_device, seed_lanes, widths
 
@@ -367,7 +374,12 @@ class LaneProgram:
         self.load(inits, n_init, self.lane_params(n, depth_limit, fin_any, fin_all, fin_all_en))
         t0 = time.monotonic()
         vals = self.launch_batch()
-        secs = time.monotonic() - t0
+        return self.result(vals, time.monotonic() - t0)
+
+    def result(self, vals: np.ndarray, secs: float) -> SimpleNamespace:
+        """The batch's outcome from its state rows [N, plen + X_LEN] (a
+        run's readback, or a batch snapshot's)."""
+        N, P, A = self.lanes, self.P, self.A
         x = self.plen
         rec = vals[:, eo.P_REC]
         fp1 = vals[:, eo.P_LEN:eo.P_LEN + P]
@@ -383,7 +395,7 @@ class LaneProgram:
             err=vals[:, eo.P_ERR], secs=secs, iterations=int(vals[:, x + eo.X_ITER].max()),
             max_depth=vals[:, eo.P_MAXD], discovery_fps=discovery_fps,
             graph_captures=self.graph_captures, capture_secs=self.capture_secs,
-            readbacks=self.readbacks,
+            readbacks=self.readbacks, rows=vals,
         )
         if self.cov:
             b = self.cov_base
@@ -393,14 +405,15 @@ class LaneProgram:
             res.dhist = vals[:, b + A + P + 1:b + eo.cov_len(A, P)]
         return res
 
-    def walk(self, lane_fps: List[Tuple[int, int]]) -> List[List[int]]:
+    def walk(self, lane_fps: List[Tuple[int, int]], table: Optional[vs.VisitedTable] = None
+             ) -> List[List[int]]:
         """The parent chains (leaf first) of (lane, fp) pairs of the last
-        run, walked in the lanes' stacked tables by K6, every chain in one
-        launch a hop."""
+        run (or in `table`, a snapshot's [N, tcap] tables), walked in the
+        lanes' stacked tables by K6, every chain in one launch a hop."""
         if not lane_fps:
             return []
         lanes, fps = zip(*lane_fps)
-        return parent_chains(self.table, fps, lanes)
+        return parent_chains(self.table if table is None else table, fps, lanes)
 
 
 def warm_lane_program(tm: TensorModel, **options) -> LaneProgram:
@@ -539,10 +552,14 @@ def run_multiplexed(
     `device="cpu"`, which runs each kernel's plain version. The warm lane
     program is `cache`'s "multiplex" entry for this signature and shape
     (default: `LANE_PROGRAMS`), built on a miss.
+
+    `checkpoint_path` writes one crash-safe snapshot a completed batch
+    (`<path>.batch<off>.npz`: each lane's params row, the JAX layout, the
+    port's own step words and the lanes' tables as uint32 [N, 4, tcap]);
+    `resume_from` rebuilds the lanes of every snapshot that verifies and
+    runs only the other batches (JAX multiplex.py:342-395, :495-583). A
+    missing or corrupt snapshot re-runs its batch.
     """
-    for name, value in (("checkpoint_path", checkpoint_path), ("resume_from", resume_from)):
-        if value is not None:
-            raise not_ported(f"run_multiplexed({name}=) batch snapshots", SLICE_CHECKPOINTS)
     if not builders:
         return []
     tm, sig = intern_model(builders[0].model)
@@ -585,18 +602,48 @@ def run_multiplexed(
         )
     program = (LANE_PROGRAMS if cache is None else cache).get(tm, "multiplex", **shape)[0].program
     model = TensorModelAdapter(tm)
+    # A snapshot resumes only under the lane shape that wrote it.
+    snap_shape = dict(lanes=lanes, chunk=chunk, qcap=shape["queue_capacity"], tcap=tcap, icap=icap,
+                      cov=cov)
     out: List[MultiplexLaneChecker] = []
     for off in range(0, len(builders), lanes):
         batch = builders[off: off + lanes]
-        masks = np.array([b.finish_when_.device_masks(tprops) for b in batch], dtype=np.int64)
-        with program.lock:
-            res = program.run(
-                inits.astype(np.int64), len(batch),
-                np.array([U32_MAX if b.target_max_depth_ is None else b.target_max_depth_
-                          for b in batch], dtype=np.int64),
-                masks[:, 0], masks[:, 1], masks[:, 2],
+        snap = None
+        if resume_from is not None:
+            snap = _load_batch_snapshot(resume_from, off, len(batch), tm, tprops, snap_shape)
+        if snap is not None:
+            rows = np.zeros((lanes, program.plen + eo.X_LEN), dtype=np.int64)
+            rows[:, :program.plen] = snap["vals"]
+            if "x_words" in snap:
+                rows[:, program.plen:] = snap["x_words"]
+            res = program.result(rows, 0.0)
+            # uint32 [N, 4, tcap]: key halves, parent halves.
+            table = vs.table_from_lanes(*np.asarray(snap["tables"]).swapaxes(0, 1), device=program.device)
+            with program.lock:
+                chains = _validate_and_walk(program, res, batch, off, model, table)
+            tables = snap["tables"]
+        else:
+            masks = np.array([b.finish_when_.device_masks(tprops) for b in batch], dtype=np.int64)
+            with program.lock:
+                res = program.run(
+                    inits.astype(np.int64), len(batch),
+                    np.array([U32_MAX if b.target_max_depth_ is None else b.target_max_depth_
+                              for b in batch], dtype=np.int64),
+                    masks[:, 0], masks[:, 1], masks[:, 2],
+                )
+                chains = _validate_and_walk(program, res, batch, off, model)
+                tables = None
+                if checkpoint_path is not None:
+                    tables = np.stack([lane.reshape(lanes, -1) for lane in vs.table_to_lanes(program.table)], 1)
+        # Snapshot only after every lane of the batch validated: a snapshot
+        # says "this batch is done and correct", never partial work.
+        if checkpoint_path is not None and not (snap is not None and checkpoint_path == resume_from):
+            save_checkpoint_atomic(
+                _batch_snapshot_path(checkpoint_path, off),
+                checkpoint_meta(tm, tprops, batch_off=off, batch_n=len(batch), **snap_shape),
+                {"vals": res.params.astype(np.uint32), "x_words": res.rows[:, program.plen:],
+                 "tables": tables},
             )
-            chains = _validate_and_walk(program, res, batch, off, model)
         by_lane: List[Dict[str, List[int]]] = [{} for _ in batch]
         for (i, name), chain in chains:
             by_lane[i][name] = chain
@@ -608,10 +655,33 @@ def run_multiplexed(
     return out
 
 
-def _validate_and_walk(program: LaneProgram, res, batch, off: int, model):
+def _batch_snapshot_path(base: str, off: int) -> str:
+    return f"{base}.batch{off}.npz"
+
+
+def _load_batch_snapshot(base: str, off: int, n: int, tm: TensorModel, tprops, shape: dict):
+    """A verifiable snapshot of this exact batch, or None: a missing or
+    corrupt snapshot re-runs the batch (snapshots save work, they are
+    never needed for a right answer)."""
+    path = _batch_snapshot_path(base, off)
+    if not os.path.exists(path):
+        return None
+    try:
+        arrays, meta = load_checkpoint_verified(path)
+        validate_checkpoint_meta(
+            meta, tm, tprops,
+            exact={"batch_off": off, "batch_n": n, "state_width": tm.state_width, **shape},
+        )
+    except (CheckpointCorruptError, ValueError):
+        return None
+    return arrays
+
+
+def _validate_and_walk(program: LaneProgram, res, batch, off: int, model, table=None):
     """Raise the reference's error for the first lane (in order) that hit
     a probe error or left its era unfinished; then walk every lane's
-    discovery paths in the batch's tables: [((lane, name), chain)]."""
+    discovery paths in the batch's tables (`table`: a snapshot's):
+    [((lane, name), chain)]."""
     for i, b in enumerate(batch):
         if res.err[i]:
             raise RuntimeError(
@@ -632,5 +702,5 @@ def _validate_and_walk(program: LaneProgram, res, batch, off: int, model):
                 "spawn_gpu_bfs"
             )
     found = [((i, name), fp) for i in range(len(batch)) for name, fp in res.discovery_fps[i].items()]
-    chains = program.walk([(i, fp) for (i, _name), fp in found])
+    chains = program.walk([(i, fp) for (i, _name), fp in found], table)
     return [(key, chain) for (key, _fp), chain in zip(found, chains)]

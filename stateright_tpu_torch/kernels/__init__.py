@@ -232,6 +232,18 @@ LANE_AGREE = Kernel(
     "stateright_tpu/analysis/device.py:336",
 )
 
+# K7s: the host spill's ring drain and refill (ops/frontier.py), one
+# source with two entry points, each counted.
+_SPILL_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _P, _I64, _I64, _P]
+RING_DRAIN = Kernel(
+    "ring_drain", "ring_spill.cu", "srt_ring_drain", _SPILL_ARGS,
+    "stateright_tpu/engines/tpu_bfs.py:1924",
+)
+RING_REFILL = Kernel(
+    "ring_refill", "ring_spill.cu", "srt_ring_refill", _SPILL_ARGS,
+    "stateright_tpu/engines/tpu_bfs.py:2071",
+)
+
 # The kernels of each engine's path: the BFS step and its epilogue, the
 # simulation step, its era kernel and its epilogue, and the multiplexed
 # lane step, its seed, its era kernels and its path walks (K1 runs on
@@ -263,9 +275,12 @@ MESH_STAGE_KERNELS = (
 )
 # The speclint pre-flight's path (analysis/): the agreement table.
 LINT_KERNELS = (LANE_AGREE,)
+# The spill tier's path (a BFS run past its ring's high water, solo or
+# sharded): K7s's two entry points.
+SPILL_KERNELS = (RING_DRAIN, RING_REFILL)
 KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA,
-                         STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA, LANE_AGREE)
-ENTRIES = KERNELS + (WALK_PROLOGUE, STAGE_LANES) + LANE_KERNELS[1:]
+                         STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA, LANE_AGREE, RING_DRAIN)
+ENTRIES = KERNELS + (WALK_PROLOGUE, STAGE_LANES, RING_REFILL) + LANE_KERNELS[1:]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -340,6 +340,61 @@ class SpaceSampler:
             "degraded": self.degraded,
         }
 
+    # -- checkpointing ------------------------------------------------------
+
+    def export_state(self) -> Dict[str, Any]:
+        """JSON-safe sampler state for checkpoint meta: kill -> resume
+        must restore the threshold and kept set exactly, or the resumed
+        run's sample set would diverge from an uninterrupted one."""
+        recs = []
+        for rec in self.records():
+            recs.append(
+                {
+                    "fp": str(rec["fp"]),
+                    "depth": int(rec["depth"]),
+                    "action": (
+                        int(rec["action"])
+                        if isinstance(rec["action"], (int, np.integer))
+                        else None
+                    ),
+                    "state": (
+                        [int(v) for v in rec["state"]]
+                        if isinstance(rec["state"], (tuple, list))
+                        else None
+                    ),
+                }
+            )
+        return {
+            "k": self.k,
+            "records": recs,
+            "offered": self.offered,
+            "candidates": self.candidates,
+            "device_drops": self.device_drops,
+            "degraded": bool(self.degraded),
+        }
+
+    def restore_state(self, st: Dict[str, Any]) -> None:
+        if not st:
+            return
+        with self._lock:
+            self._samples.clear()
+            self._heap = []
+        for rec in st.get("records", ()):
+            self.offer(
+                int(rec["fp"]),
+                depth=rec.get("depth", 0),
+                action=rec.get("action"),
+                state=(
+                    tuple(rec["state"]) if rec.get("state") is not None else None
+                ),
+            )
+        with self._lock:
+            self.offered = int(st.get("offered", 0))
+            self.candidates = int(st.get("candidates", 0))
+            self.device_drops = int(st.get("device_drops", 0))
+            self.degraded = bool(st.get("degraded", False))
+
+
 # -- profile building ---------------------------------------------------------
 
 # Field-flattening caps: a pathological decode_state cannot balloon the

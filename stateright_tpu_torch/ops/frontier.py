@@ -12,10 +12,19 @@ the multiplexed engine (engines/multiplex.py) runs side by side, with
 one ring a lane stacked as [lanes, W, qcap + 1]. A lane there is one
 check; the ring's W rows stay its state-row lanes. The solo functions
 are the one-lane case: one kernel source serves both.
+
+The host spill (K7s, `ring_drain` and `ring_refill`, with the lane forms
+the sharded engine runs over its shards) moves ring rows to and from
+row-major uint32 blocks [k, W], the JAX engines' spill layout, held in
+torch as int32 bits; `SpillStaging` carries them through one pinned host
+buffer a run.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
+import numpy as np
 import torch
 
 from .. import kernels
@@ -226,3 +235,190 @@ def ring_scatter(ring: torch.Tensor, tail, cand: torch.Tensor, valid: torch.Tens
     plain version sends unused id slots to the trash column). The
     one-lane case of `ring_scatter_lanes`."""
     _append(ring[None], *_solo_position(tail), cand, valid[None], kernels.COMPACT_IDS, kernels.RING)
+
+
+# ---------------------------------------------------------------------------
+# K7s: the host spill's drain and refill.
+# ---------------------------------------------------------------------------
+
+U32_SIGN = 1 << 31
+
+
+def to_u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 lanes holding uint32 values as int32 tensors of the same bits."""
+    return torch.where(x >= U32_SIGN, x - (1 << 32), x).to(torch.int32)
+
+
+def from_u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits back to int64 lanes holding the uint32 values."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def _spans(positions: Sequence[int], ks: Sequence[int]):
+    """(off, k, pos) per ring as Python ints, off the exclusive sum of k."""
+    ks = [int(k) for k in ks]
+    if len(ks) != len(positions) or min(ks, default=0) < 0:
+        raise ValueError("one non-negative row count a ring")
+    off = np.concatenate([[0], np.cumsum(ks)[:-1]]).astype(np.int64).tolist() if ks else []
+    return off, ks, [int(p) for p in positions]
+
+
+def _flat_rows(rings: torch.Tensor, positions, ks) -> torch.Tensor:
+    """The flat ring index of every (row, lane w) of the spans: [K, W]."""
+    L, W, q1 = rings.shape
+    off, ks, pos = _spans(positions, ks)
+    dev = rings.device
+    K = sum(ks)
+    lane = torch.repeat_interleave(torch.arange(L, device=dev), torch.tensor(ks, device=dev), output_size=K)
+    i = torch.arange(K, device=dev) - torch.tensor(off, dtype=torch.int64, device=dev).index_select(0, lane)
+    at = (torch.tensor(pos, dtype=torch.int64, device=dev).index_select(0, lane) + i) & (q1 - 2)
+    return (lane * (W * q1) + at)[:, None] + torch.arange(W, device=dev)[None, :] * q1
+
+
+def ring_drain_lanes_plain(rings: torch.Tensor, starts: Sequence[int], ks: Sequence[int]) -> torch.Tensor:
+    flat = _flat_rows(rings, starts, ks)
+    return to_u32_bits(rings.reshape(-1).index_select(0, flat.reshape(-1)).view(flat.shape))
+
+
+def ring_refill_lanes_plain(rings: torch.Tensor, tails: Sequence[int], ks: Sequence[int],
+                            rows: torch.Tensor) -> None:
+    flat = _flat_rows(rings, tails, ks)
+    rings.view(-1).index_copy_(0, flat.reshape(-1), from_u32_bits(rows).reshape(-1))
+
+
+def _spill_launch(kernel, rings, positions, ks, rows) -> None:
+    L, W, q1 = rings.shape
+    if not rings.is_contiguous() or not rows.is_contiguous():
+        raise ValueError("the rings and the rows must be contiguous")
+    if L > 65535:
+        raise ValueError("at most 65,535 rings a launch")
+    off, ks, pos = _spans(positions, ks)
+    spans = torch.tensor([off, ks, pos], dtype=torch.int64).to(rings.device, non_blocking=True)
+    tile = max(1, min(128, 8192 // W))  # <= 32 KiB of shared rows a block
+    kernel.launch(
+        kernels.ptr(rings), L, W, q1, W * q1, q1 - 2, kernels.ptr(spans), max(ks, default=0), tile,
+        kernels.ptr(rows),
+    )
+
+
+def ring_drain_lanes(rings: torch.Tensor, starts: Sequence[int], ks: Sequence[int],
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The newest rows of each ring [L, W, qcap + 1]: ring l's k_l rows
+    from position starts[l] (its head + count - k_l), wrapping, stacked
+    row-major as uint32 bits [sum k, W] int32, ring after ring (K7s
+    DRAIN, the S1/S3 gather). `out`: a device staging buffer with room
+    for the rows (the result is its first sum(k) rows)."""
+    K = sum(int(k) for k in ks)
+    if not kernels.on_card(rings):
+        return ring_drain_lanes_plain(rings, starts, ks)
+    W = rings.shape[1]
+    if K == 0:
+        return torch.empty((0, W), dtype=torch.int32, device=rings.device)
+    if out is None:
+        out = torch.empty((K, W), dtype=torch.int32, device=rings.device)
+    elif out.dtype != torch.int32 or out.shape[1:] != (W,) or out.shape[0] < K:
+        raise ValueError("the staging buffer is too small for the drain")
+    out = out[:K]
+    _spill_launch(kernels.RING_DRAIN, rings, starts, ks, out)
+    return out
+
+
+def ring_refill_lanes(rings: torch.Tensor, tails: Sequence[int], ks: Sequence[int],
+                      rows: torch.Tensor) -> None:
+    """Write each ring's block of `rows` ([sum k, W] int32 uint32 bits,
+    ring after ring) at its tail: ring l's rows at tails[l], tails[l] +
+    1, ... wrapping, in place (K7s REFILL, the S2/S4 scatter)."""
+    K = sum(int(k) for k in ks)
+    if rows.dtype != torch.int32 or rows.shape != (K, rings.shape[1]):
+        raise ValueError("refill rows must be int32 [sum k, W]")
+    if not kernels.on_card(rings, rows):
+        return ring_refill_lanes_plain(rings, tails, ks, rows)
+    if K == 0:
+        return
+    _spill_launch(kernels.RING_REFILL, rings, tails, ks, rows)
+
+
+def ring_drain_plain(ring: torch.Tensor, start: int, k: int) -> torch.Tensor:
+    return ring_drain_lanes_plain(ring[None], [start], [k])
+
+
+def ring_drain(ring: torch.Tensor, start: int, k: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The k ring rows from `start` (head + count - k), wrapping, as
+    uint32 bits [k, W] int32: the one-ring case of `ring_drain_lanes`."""
+    return ring_drain_lanes(ring[None], [start], [k], out)
+
+
+def ring_refill_plain(ring: torch.Tensor, tail: int, rows: torch.Tensor) -> None:
+    ring_refill_lanes_plain(ring[None], [tail], [rows.shape[0]], rows)
+
+
+def ring_refill(ring: torch.Tensor, tail: int, rows: torch.Tensor) -> None:
+    """Write `rows` [k, W] at the ring's tail: the one-ring case of
+    `ring_refill_lanes`."""
+    ring_refill_lanes(ring[None], [tail], [rows.shape[0]], rows)
+
+
+class SpillStaging:
+    """A run's spill transfers (the JAX engines' one stacked download a
+    drain and one upload a refill): on the card one pinned host buffer
+    and one device buffer of `rows` rows (the run's largest drain),
+    allocated at the first spill, each drain one K7s launch and one copy
+    into pinned memory, each refill one copy out of it and one K7s
+    launch a buffer's worth of rows; on the CPU the plain versions.
+    Blocks are numpy uint32 [k, W], the JAX layout."""
+
+    def __init__(self, width: int, device, rows: int = 0):
+        self.width = width
+        self.device = torch.device(device)
+        self.rows = rows
+        self._host: Optional[torch.Tensor] = None
+        self._dev: Optional[torch.Tensor] = None
+
+    def _room(self, rows: int) -> None:
+        if self._host is None or self._host.shape[0] < rows:
+            rows = max(rows, self.rows)
+            self._host = torch.empty((rows, self.width), dtype=torch.int32, pin_memory=True)
+            self._dev = torch.empty((rows, self.width), dtype=torch.int32, device=self.device)
+
+    def drain(self, rings: torch.Tensor, starts: Sequence[int], ks: Sequence[int]) -> np.ndarray:
+        """Ring l's newest ks[l] rows from starts[l], ring after ring."""
+        K = sum(int(k) for k in ks)
+        if self.device.type != "cuda":
+            return ring_drain_lanes(rings, starts, ks).numpy().view(np.uint32).copy()
+        self._room(K)
+        rows = ring_drain_lanes(rings, starts, ks, self._dev)
+        host = self._host[:K]
+        host.copy_(rows, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return host.numpy().view(np.uint32).copy()
+
+    def refill(self, rings: torch.Tensor, tails: Sequence[int], ks: Sequence[int], blocks: np.ndarray) -> None:
+        """Write `blocks` (uint32 [sum k, W], ring after ring) at each
+        ring's tail, in pieces of at most `rows` rows (all at once when
+        `rows` is 0)."""
+        rows = torch.from_numpy(np.ascontiguousarray(blocks, dtype=np.uint32).view(np.int32))
+        on_card = self.device.type == "cuda"
+        tails, left = [int(t) for t in tails], [int(k) for k in ks]
+        cap = self.rows or rows.shape[0]
+        pos = 0
+        while pos < rows.shape[0]:
+            # A piece takes the rings in order, so its rows are contiguous.
+            take, n = [], 0
+            for k in left:
+                take.append(min(k, cap - n))
+                n += take[-1]
+            piece = rows[pos:pos + n]
+            if on_card:
+                self._room(n)
+                # The previous transfer's copy out of the pinned buffer is
+                # done: every drain and refill waits for its stream before
+                # the host moves on.
+                self._host[:n].copy_(piece)
+                piece = self._dev[:n]
+                piece.copy_(self._host[:n], non_blocking=True)
+            ring_refill_lanes(rings, tails, take, piece)
+            if on_card:
+                torch.cuda.current_stream(self.device).synchronize()
+            tails = [t + k for t, k in zip(tails, take)]
+            left = [k - t for k, t in zip(left, take)]
+            pos += n

@@ -320,15 +320,16 @@ def rehash(old: VisitedTable, new: VisitedTable) -> int:
 
 
 def table_from_lanes(k1, k2, v1, v2, device) -> VisitedTable:
-    """Build the port's table from the four flat uint32 lanes of the JAX
-    layout (`unpack_lanes_np` / checkpoint table0..3), slot for slot."""
+    """Build the port's table from the four uint32 lanes of the JAX layout
+    (`unpack_lanes_np` / checkpoint table0..3: key halves, parent halves),
+    slot for slot: flat [tcap], or [n, tcap] for n shard or lane tables."""
     def pack_np(hi, lo):
         hi = np.asarray(hi, dtype=np.uint32).astype(np.uint64)
         lo = np.asarray(lo, dtype=np.uint32).astype(np.uint64)
         return torch.from_numpy(((hi << np.uint64(32)) | lo).view(np.int64))
 
     keys = pack_np(k1, k2).to(device)
-    if keys.shape[0] & (keys.shape[0] - 1):
+    if keys.shape[-1] & (keys.shape[-1] - 1):
         raise ValueError("visited-set capacity must be a power of two")
     return VisitedTable(
         keys, pack_np(v1, v2).to(device), torch.zeros_like(keys)

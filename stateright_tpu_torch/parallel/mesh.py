@@ -56,9 +56,20 @@ are collective).
 Symmetry: as the JAX sharded engine, this engine does not canonicalize;
 under `.symmetry()` it explores the full space, as JAX does.
 
-Not ported: checkpoints and the host spill (slice 7; a frontier past
-high water raises), and the proactive reshard, which needs the memory
-ledger (slice 4b).
+**Spill and checkpoints** (mesh.py:1229-1245, :1776-1800, :1952-1985,
+:2281-2410). Past a shard's high water its newest rows go to that
+shard's host LIFO (ops/tiering.py, the host budget split across the
+shards): one K7s DRAIN launch over every shard past high water and one
+download, kept in blocks of N * quota rows; before each dispatch one
+K7s REFILL launch puts whole blocks back at every shard's tail. Spill
+is local to a rank, and the ranks exchange the rows each shard took back
+(one all_reduce). A checkpoint gathers every rank's shards to rank 0,
+which writes the one file in the JAX layout; a resume gives each rank
+its shards of the file. A probe error with a checkpoint on disk reloads
+it and doubles every shard's table (the degraded regrow, K15g).
+
+Not ported: the proactive reshard, which needs the memory ledger
+(slice 4b).
 """
 
 from __future__ import annotations
@@ -70,12 +81,18 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..checker import SLICE_CHECKPOINTS, CheckerBuilder, not_ported
+from ..checker import CheckerBuilder
 from ..core import Expectation
 from ..engines import graph as gr
-from ..engines.common import HostEngineBase
+from ..engines.common import (
+    HostEngineBase, checkpoint_generations, checkpoint_meta, load_checkpoint_folded,
+    register_signal_checkpoint_flush, save_checkpoint_tiered, validate_checkpoint_cadence,
+    validate_checkpoint_meta,
+)
 from ..engines.era import widths
-from ..engines.gpu_bfs import GpuBfsChecker, adapt_budget_cap, resolve_device, run_chain
+from ..engines.gpu_bfs import (
+    GpuBfsChecker, ProbeBudgetExhausted, adapt_budget_cap, poll_target_of, resolve_device, run_chain,
+)
 from ..fingerprint import combine64, hash_lanes, hash_words_np, split64
 from ..obs.coverage import DEPTH_CAP
 from ..obs.sample import slab_entries, slab_high_water
@@ -85,6 +102,7 @@ from ..ops import mesh_era as me
 from ..ops import slab as sl
 from ..ops import visited_set as vs
 from ..ops.expand import build_expand_lean
+from ..ops.tiering import TieredSpillStore, spill_host_budget_bytes
 from ..ops.mesh_era import (
     P_COUNT, P_ERR, P_GEN, P_HEAD, P_MAX_STEPS, P_MAXD, P_REC, P_STEPS, P_TAKE_CAP, P_UNIQUE,
 )
@@ -123,7 +141,8 @@ class MeshProgram:
     chunk."""
 
     def __init__(self, tm, props, chunk: int, qcap: int, tcap: int, n_total: int, quota: int,
-                 cov: bool, sample_k: int, fuse: int, device, group=None, in_flight: int = 1):
+                 cov: bool, sample_k: int, fuse: int, device, group=None, in_flight: int = 1,
+                 table: Optional[vs.VisitedTable] = None):
         self.tm, self.props = tm, list(props)
         self.device = dev = torch.device(device)
         self.group = group
@@ -168,8 +187,9 @@ class MeshProgram:
         self.state = z((NL, self.L), dtype=torch.int64, device=dev)
         self.sums = z(me.sums_len(A, P, cov), dtype=torch.int64, device=dev)
         self.rings = fr.empty_ring(S + 2, qcap, dev, lanes=NL)
-        self.table = vs.empty_table(tcap, dev, lanes=NL)
-        self.epoch = torch.ones(1, dtype=torch.int64, device=dev)
+        # `table`: the local shards' tables to run on (a resumed run's).
+        self.table = vs.empty_table(tcap, dev, lanes=NL) if table is None else table
+        self.epoch = torch.full((1,), self.table.epoch + 1, dtype=torch.int64, device=dev)
         self.slab = self.slab_counts = None
         if sample_k:
             self.slab = z((4, NL, self.scap + 1), dtype=torch.int64, device=dev)
@@ -505,8 +525,6 @@ class ShardedGpuBfsChecker(HostEngineBase):
     `torch.distributed` process group over which the N shards are
     spread, N / W a rank."""
 
-    _NOT_PORTED = ("checkpoint_path", "checkpoint_every", "resume_from", "keep_checkpoints")
-
     def __init__(
         self,
         builder: CheckerBuilder,
@@ -516,18 +534,13 @@ class ShardedGpuBfsChecker(HostEngineBase):
         queue_capacity_per_shard: int = 1 << 16,
         table_capacity_per_shard: int = 1 << 18,
         sync_steps: int = 4096,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: Optional[float] = None,
+        resume_from: Optional[str] = None,
+        keep_checkpoints: int = 2,
         device=None,
         group=None,
-        **kw,
     ):
-        for name, value in kw.items():
-            if name in self._NOT_PORTED:
-                if name == "keep_checkpoints" and value == 2:
-                    continue
-                if value is not None:
-                    raise not_ported(f"{name}=", SLICE_CHECKPOINTS)
-                continue
-            raise TypeError(f"unexpected keyword argument {name!r}")
         model = builder.model
         if isinstance(model, TensorModel):
             model = TensorModelAdapter(model)
@@ -569,6 +582,29 @@ class ShardedGpuBfsChecker(HostEngineBase):
         self._unique = 0
         self._discovery_fps: Dict[str, int] = {}
         self._prog: Optional[MeshProgram] = None
+        # One spill LIFO a local shard, the host budget split evenly across
+        # all N shards (mesh.py:1229-1245).
+        budget = spill_host_budget_bytes()
+        if budget is not None:
+            budget = max(1, budget // self.n_shards)
+        nl = self.n_shards // self._world
+        self._spill: List[TieredSpillStore] = [
+            TieredSpillStore(host_budget_bytes=budget, on_tier=self._on_spill_tier,
+                             label=f"spill-s{self._rank * nl + s}")
+            for s in range(nl)
+        ]
+        # Checkpoints: the solo engine's protocol over the shards' state
+        # (mesh.py:1247-1276).
+        validate_checkpoint_cadence(checkpoint_every, checkpoint_path, keep_checkpoints)
+        self._ckpt_path = checkpoint_path
+        self._ckpt_every = checkpoint_every
+        self._ckpt_keep = keep_checkpoints
+        self._resume_from = resume_from
+        self._last_ckpt = time.monotonic()
+        self._ckpt_delta = None
+        self._chaos_probe_error_era: Optional[int] = None
+        if checkpoint_path is not None:
+            register_signal_checkpoint_flush(self)
         self._init_ebits = 0
         e = 0
         for p in self._tprops:
@@ -599,59 +635,89 @@ class ShardedGpuBfsChecker(HostEngineBase):
         return n, resolve_device(local[0])
 
     def _timed_out(self) -> bool:
-        return bool(self._all_max(float(super()._timed_out())))
+        return bool(self._host_flags()[0])
+
+    def _host_flags(self, ckpt_frac: float = 1.0, *extra: float) -> np.ndarray:
+        """[timed out, stop requested, checkpoint due at `ckpt_frac` of its
+        cadence, *extra], each the largest over every rank, in one
+        collective: a host decision that reads the wall clock or a signal
+        must come out the same on every rank, or the ranks' dispatches
+        (and collectives) part."""
+        due = self._ckpt_every is not None and (
+            time.monotonic() - self._last_ckpt >= self._ckpt_every * ckpt_frac)
+        return self._all_max(np.array(
+            [float(super()._timed_out()), float(self._ckpt_stop.is_set()), float(due), *extra]))
 
     # -- the run ---------------------------------------------------------------
 
     def _run(self) -> None:
+        try:
+            self._run_engine()
+        finally:
+            for store in self._spill:
+                store.close()
+
+    def _run_engine(self) -> None:
         tm = self.tm
         S, N = tm.state_width, self.n_shards
-        inits = np.asarray(tm.init_states_array(), dtype=np.uint32)
-        inb = np.asarray(
-            tm.within_boundary_lanes(np, tuple(inits[:, i] for i in range(S))), dtype=bool
-        )
-        inits = inits[inb]
-        self._state_count = len(inits)
-        if len(inits) == 0:
-            return
-        h1, h2 = hash_words_np(inits)
-        # Route the inits to their owners (every row, duplicates too) and
-        # seed the tables on the host with the device insert's probe
-        # sequence (mesh.py:1323-1370), keeping only the slots it fills.
-        owners = h1.astype(np.int64) % N
-        counts = np.bincount(owners, minlength=N).astype(np.int64)
-        if counts.max() > self._qcap:
-            raise ValueError(
-                f"shard {int(counts.argmax())} would receive {int(counts.max())} initial "
-                f"states, exceeding queue_capacity_per_shard={self._qcap}"
-            )
-        rows = np.zeros((N, int(counts.max()), S + 2), dtype=np.int64)
-        filled = np.zeros(N, dtype=np.int64)
-        slots: List[Dict[int, tuple]] = [{} for _ in range(N)]
-        for i in range(len(inits)):
-            o = int(owners[i])
-            rows[o, filled[o], :S] = inits[i]
-            rows[o, filled[o], S] = self._init_ebits
-            rows[o, filled[o], S + 1] = 1
-            filled[o] += 1
-            host_insert(slots[o], self._tcap, int(h1[i]), int(h2[i]))
-        per_shard_unique = [len(t) for t in slots]
-        self._unique = sum(per_shard_unique)
-        self._coverage.record_depth(1, self._unique)
-        if self._sampler is not None:
-            fps = (h1.astype(np.uint64) << np.uint64(32)) | h2.astype(np.uint64)
-            self._sampler.offer_array(fps, depths=np.ones(len(inits), dtype=np.int64), states=inits)
         # The host drives every step across ranks: nothing to chain there.
         pipeline = self._pipeline and self._target_state_count is None and self._world == 1
         depth = self._chain_depth if pipeline else 0
-        prog = MeshProgram(
-            tm, self._tprops, self._chunk, self._qcap, self._tcap, N, self._quota, self._cov,
-            self._sample_k, self._fuse, self.device, self._group, in_flight=depth + 1,
-        )
-        self._prog = prog
-        prog.seed(slots, rows)
+
+        def program(table=None):
+            return MeshProgram(
+                tm, self._tprops, self._chunk, self._qcap, self._tcap, N, self._quota, self._cov,
+                self._sample_k, self._fuse, self.device, self._group, in_flight=depth + 1,
+                table=table,
+            )
+
+        if self._resume_from is not None:
+            data, meta = self._read_checkpoint(self._resume_from)
+            prog = self._prog = program(self._table_of(data))
+            start = self._install_checkpoint(prog, data, meta, table_set=True)
+        else:
+            inits = np.asarray(tm.init_states_array(), dtype=np.uint32)
+            inb = np.asarray(
+                tm.within_boundary_lanes(np, tuple(inits[:, i] for i in range(S))), dtype=bool
+            )
+            inits = inits[inb]
+            self._state_count = len(inits)
+            if len(inits) == 0:
+                return
+            h1, h2 = hash_words_np(inits)
+            # Route the inits to their owners (every row, duplicates too) and
+            # seed the tables on the host with the device insert's probe
+            # sequence (mesh.py:1323-1370), keeping only the slots it fills.
+            owners = h1.astype(np.int64) % N
+            counts = np.bincount(owners, minlength=N).astype(np.int64)
+            if counts.max() > self._qcap:
+                raise ValueError(
+                    f"shard {int(counts.argmax())} would receive {int(counts.max())} initial "
+                    f"states, exceeding queue_capacity_per_shard={self._qcap}"
+                )
+            rows = np.zeros((N, int(counts.max()), S + 2), dtype=np.int64)
+            filled = np.zeros(N, dtype=np.int64)
+            slots: List[Dict[int, tuple]] = [{} for _ in range(N)]
+            for i in range(len(inits)):
+                o = int(owners[i])
+                rows[o, filled[o], :S] = inits[i]
+                rows[o, filled[o], S] = self._init_ebits
+                rows[o, filled[o], S + 1] = 1
+                filled[o] += 1
+                host_insert(slots[o], self._tcap, int(h1[i]), int(h2[i]))
+            per_shard_unique = [len(t) for t in slots]
+            self._unique = sum(per_shard_unique)
+            self._coverage.record_depth(1, self._unique)
+            if self._sampler is not None:
+                fps = (h1.astype(np.uint64) << np.uint64(32)) | h2.astype(np.uint64)
+                self._sampler.offer_array(fps, depths=np.ones(len(inits), dtype=np.int64), states=inits)
+            prog = self._prog = program()
+            prog.seed(slots, rows)
+            start = dict(heads=np.zeros(N, dtype=np.int64), counts=counts, take_caps=[self._chunk] * N,
+                         per_shard_unique=per_shard_unique, rec_bits=0, disc_depth_best={},
+                         spilled=np.zeros(N, dtype=np.int64))
         try:
-            self._run_loop(prog, counts, per_shard_unique, depth)
+            self._run_loop(prog, start, depth)
         finally:
             prog.free_graph()
 
@@ -666,57 +732,74 @@ class ShardedGpuBfsChecker(HostEngineBase):
         # attribution is a lockstep step (mesh.py:2246).
         self._profile_stages(stage_programs, self._counters.get("steps", 0) // N)
 
-    def _run_loop(self, prog: MeshProgram, counts, per_shard_unique, depth: int) -> None:
-        """The JAX engine's `_run_loop` (mesh.py:1498) without spill,
-        checkpoints, resharding and the flight recorder; the chain is
-        `gpu_bfs.run_chain`."""
+    def _run_loop(self, prog: MeshProgram, start: dict, depth: int) -> None:
+        """The JAX engine's `_run_loop` (mesh.py:1498) without resharding
+        and the flight recorder; the chain is `gpu_bfs.run_chain`."""
         tm = self.tm
-        A, C, N, P = tm.max_actions, self._chunk, self.n_shards, len(self._tprops)
+        S, A, C, N, P = tm.state_width, tm.max_actions, self._chunk, self.n_shards, len(self._tprops)
+        NL, lo = prog.NL, self._rank * prog.NL
         L, x = prog.L, prog.x
         d_base, s_base, f_base, sk2 = prog.d_base, prog.s_base, prog.f_base, prog.sk2
         cov_base = prog.cov_base
         depth_limit = self._target_max_depth if self._target_max_depth is not None else M32
         reserve = N * self._quota  # a step's receive width: its most inserts a shard
         high_water = self._qcap - reserve
+        # Spill hysteresis (mesh.py:1543): blocks of N * quota rows; the
+        # target is >= 1.5 blocks (qcap >= 4 N quota), so an empty shard
+        # always refills at least one.
+        spill_target = max(high_water // 2, high_water - 64 * reserve)
+        block = reserve
         fin_any, fin_all, fin_all_en = self._finish_when.device_masks(self._tprops)
-        adaptive = self._timeout is not None
+        adaptive = self._timeout is not None or self._ckpt_every is not None
         max_sync = self._max_sync_steps if not adaptive else min(me.BUDGET_MIN, self._max_sync_steps)
         budget = max_sync
         budget_cap = min(me.BUDGET_MIN, max_sync) if adaptive else 0
         cap_limit = min(self._max_sync_steps, 1 << 30)
-        poll_target = self._timeout / 4.0 if adaptive else None
+        poll_target = poll_target_of(self._timeout, self._ckpt_every)
         sampler = self._sampler
-        heads = np.zeros(N, dtype=np.int64)
-        take_caps = [C] * N
-        rec_bits = 0
-        disc_depth_best: Dict[str, int] = {}
+        heads, counts = start["heads"], start["counts"]
+        take_caps, per_shard_unique = start["take_caps"], start["per_shard_unique"]
+        rec_bits, disc_depth_best = start["rec_bits"], start["disc_depth_best"]
+        # Rows each shard holds in its spill, known on every rank.
+        spilled = start["spilled"]
+        # A shard drains at most qcap - spill_target rows; a larger refill
+        # goes up in pieces of that size.
+        staging = fr.SpillStaging(S + 2, self.device, NL * (self._qcap - spill_target))
         last_thresh = None
         stop = False
         imbalance_warned = False
         chain_max = 0
+        regrow_budget = 8  # each degraded regrow doubles every table
 
         def fuse_lim_now() -> int:
             # mesh.py:1585 without auto-N (it reads the flight recorder).
-            if self._fuse <= 1 or self._target_state_count is not None:
+            if self._fuse <= 1 or spilled.any() or self._target_state_count is not None:
                 return 1
-            if self._all_max(float(
-                self._deadline is not None and time.monotonic() >= self._deadline - self._timeout / 2
-            )):
-                return 1
-            return self._fuse
+            near_deadline = self._deadline is not None and (
+                time.monotonic() >= self._deadline - self._timeout / 2)
+            _, _, half_due, late = self._host_flags(0.5, float(near_deadline))
+            return 1 if half_due or late else self._fuse
 
-        def consume(vals, era_wall) -> None:
+        def consume(vals, era_wall, in_flight) -> None:
             """One dispatch's rows [N, L] (mesh.py:1612)."""
             nonlocal heads, counts, take_caps, per_shard_unique, rec_bits, budget, budget_cap
-            nonlocal stop, imbalance_warned
+            nonlocal stop, imbalance_warned, spilled
             n_inner = max(1, min(int(vals[0, f_base + 1]), self._fuse)) if f_base >= 0 else 1
-            if vals[:, P_ERR].any():
-                raise RuntimeError("visited-table probe budget exhausted despite headroom")
+            err = bool(vals[:, P_ERR].any())
+            if not err and self._chaos_probe_error_era is not None and (
+                self._counters.get("eras", 0) >= self._chaos_probe_error_era
+            ):
+                self._chaos_probe_error_era = None
+                err = True
+            if err:
+                raise ProbeBudgetExhausted("visited-table probe budget exhausted despite headroom")
             heads = vals[:, P_HEAD].astype(np.int64)
             counts = vals[:, P_COUNT].astype(np.int64)
             take_caps = list(vals[:, P_TAKE_CAP].astype(np.int64))
             budget = int(vals[0, P_MAX_STEPS])
-            era_wall = self._all_max(era_wall)  # the budget moves alike on every rank
+            # The budget moves alike on every rank: the era wall rides the
+            # boundary's one collective.
+            timed_out, stop_req, due, era_wall = self._host_flags(1.0, era_wall)
             self._metrics.add_phase("device_era", era_wall)
             budget_cap = adapt_budget_cap(budget_cap, era_wall, n_inner, poll_target, cap_limit)
             per_shard_unique = list(vals[:, P_UNIQUE].astype(np.int64))
@@ -771,12 +854,29 @@ class ShardedGpuBfsChecker(HostEngineBase):
                         disc_depth_best[p.name] = d
                         self._discovery_fps[p.name] = combine64(int(fp1[s, i]), int(fp2[s, i]))
                 rec_bits |= block_bits
-            if counts.max() > high_water:
-                raise RuntimeError(
-                    f"shard {int(counts.argmax())}'s frontier ({int(counts.max())} states) "
-                    f"outgrew queue_capacity_per_shard={self._qcap}: spilling to the host "
-                    f"comes with {SLICE_CHECKPOINTS}; raise queue_capacity_per_shard"
-                )
+            ks = np.where(counts > high_water, counts - spill_target, 0).astype(np.int64)
+            if ks.any():
+                # S3 (mesh.py:1776-1800): every local shard past high water
+                # in one K7s launch and one download; every rank takes the
+                # same decision from the all-gathered counts. A chained
+                # dispatch past this boundary ran no step.
+                local = ks[lo:lo + NL]
+                with self._metrics.phase("spill"):
+                    big = staging.drain(prog.rings, (heads + counts - ks)[lo:lo + NL].tolist(),
+                                        local.tolist())
+                off = 0
+                for j in range(NL):
+                    for b in range(0, int(local[j]), block):
+                        self._spill[j].append(big[off + b:off + min(int(local[j]), b + block)])
+                    off += int(local[j])
+                counts = counts - ks
+                spilled += ks
+                self._inc("spill_rows", int(ks.sum()))
+                deepest = float(big[:, S + 1].max()) if len(big) else 0.0
+                self._max_depth = max(self._max_depth, int(self._all_max(deepest)))
+                self._gauge("spill_host_peak_bytes", max(
+                    sum(st.host_bytes() for st in self._spill),
+                    self._counters.get("spill_host_peak_bytes", 0)))
             occ_mean = float(counts.mean())
             imbalance = float(counts.max()) / occ_mean if occ_mean > 0 else 1.0
             self._gauge("shard_imbalance", round(imbalance, 4))
@@ -790,6 +890,9 @@ class ShardedGpuBfsChecker(HostEngineBase):
                     "several times the mean occupancy (ownership hashing is skewed for this "
                     "model)", RuntimeWarning, stacklevel=2,
                 )
+            if not in_flight and self._ckpt_path is not None and due:
+                self._save_checkpoint(prog, heads, counts, rec_bits, take_caps, disc_depth_best,
+                                      per_shard_unique)
             if self._finish_matched(self._discovery_fps):
                 stop = True
             elif (
@@ -797,21 +900,67 @@ class ShardedGpuBfsChecker(HostEngineBase):
                 and self._state_count >= self._target_state_count
             ):
                 stop = True
-            elif self._timed_out():
+            elif timed_out:
                 stop = True
+            elif stop_req:
+                self._gauge("interrupted", 1)
+                stop = True
+
+        def quiet() -> bool:
+            # No host-only concern could fire (mesh.py:2084-2096).
+            return not (spilled.any() or self._host_flags().any())
 
         def clean() -> bool:
             # No host work due at this boundary (mesh.py:2120-2135): a
             # tightened sample threshold breaks the chain too.
             return (
-                not stop and counts.sum() > 0
+                not stop and counts.sum() > 0 and not spilled.any()
                 and max(per_shard_unique) + reserve <= vs.MAX_LOAD * self._tcap
                 and (sampler is None or sampler.threshold_parts() == last_thresh)
             )
 
-        while not stop and counts.sum() > 0:
+        while not stop and (counts.sum() > 0 or spilled.any()):
+            # S4 (mesh.py:1952-1985): whole LIFO blocks back to each local
+            # shard while they fit under the target, one upload and one
+            # K7s launch for every shard; the ranks exchange the rows taken.
+            local_k = np.zeros(NL, dtype=np.int64)
+            blocks: List[np.ndarray] = []
+            for j in range(NL):
+                s = lo + j
+                while self._spill[j] and (
+                    counts[s] + local_k[j] + self._spill[j].peek_rows() <= spill_target
+                ):
+                    blocks.append(self._spill[j].pop())
+                    local_k[j] += len(blocks[-1])
+            if blocks:
+                with self._metrics.phase("refill"):
+                    staging.refill(prog.rings, (heads + counts)[lo:lo + NL].tolist(), local_k.tolist(),
+                                   np.concatenate(blocks, axis=0))
+            refilled = np.zeros(N, dtype=np.int64)
+            refilled[lo:lo + NL] = local_k
+            # `spilled` comes from the all-gathered counts, so every rank
+            # takes this branch alike.
+            if self._world > 1 and spilled.any():
+                import torch.distributed as dist
+
+                t = torch.from_numpy(refilled)
+                if dist.get_backend(self._group) != "gloo":
+                    t = t.to(self.device)
+                dist.all_reduce(t, group=self._group)
+                refilled = t.cpu().numpy()
+            if refilled.any():
+                counts = counts + refilled
+                spilled -= refilled
+                self._inc("refill_rows", int(refilled.sum()))
+            if counts.sum() == 0:
+                if spilled.any():
+                    # Unreachable by the block-size invariant above; loud
+                    # beats silently dropping spilled states.
+                    raise RuntimeError("empty frontier with stranded spill")
+                break
             while max(per_shard_unique) + reserve > vs.MAX_LOAD * self._tcap:
-                self._tcap = prog.grow()
+                with self._metrics.phase("table_grow"):
+                    self._tcap = prog.grow()
                 self._inc("table_growths")
             grow_limit = max(0, int(vs.MAX_LOAD * self._tcap) - reserve)
             max_steps = min(budget, budget_cap) if adaptive else budget
@@ -836,8 +985,31 @@ class ShardedGpuBfsChecker(HostEngineBase):
             t0 = time.monotonic()
             pending = prog.launch()
             self._inc("dispatches")
-            chain_max = max(chain_max, run_chain(self, prog, pending, t0, depth, consume, clean,
-                                                 lambda: None))
+            try:
+                chain_max = max(chain_max, run_chain(self, prog, pending, t0, depth, consume, clean,
+                                                     lambda: None, quiet))
+            except ProbeBudgetExhausted:
+                # The degraded regrow (mesh.py:1636-1685): reload the last
+                # checkpoint and double every shard's table (K15g).
+                if (
+                    self._ckpt_path is None or regrow_budget == 0
+                    or not checkpoint_generations(self._ckpt_path)
+                ):
+                    raise
+                regrow_budget -= 1
+                data, meta = self._read_checkpoint(self._ckpt_path)
+                st = self._install_checkpoint(prog, data, meta)
+                heads, counts, take_caps = st["heads"], st["counts"], st["take_caps"]
+                per_shard_unique, rec_bits = st["per_shard_unique"], st["rec_bits"]
+                disc_depth_best, spilled = st["disc_depth_best"], st["spilled"]
+                with self._metrics.phase("table_grow"):
+                    self._tcap = prog.grow()
+                self._inc("degraded_regrow")
+                self._inc("table_growths")
+
+        if self._ckpt_path is not None:
+            self._save_checkpoint(prog, heads, counts, rec_bits, take_caps, disc_depth_best,
+                                  per_shard_unique)
         self._gauge("spec_chain_depth", chain_max)
         self._gauge(
             "fused_eras_per_dispatch",
@@ -846,19 +1018,177 @@ class ShardedGpuBfsChecker(HostEngineBase):
         self._gauge("graph_captures", prog.graph_captures)
         self._gauge("capture_secs", prog.capture_secs)
 
-    def _all_max(self, value: float) -> float:
-        """The largest of every rank's `value`: a host decision that reads
-        the wall clock must come out the same on every rank, or the ranks'
-        dispatches (and collectives) part."""
+    # -- spill tiers and checkpoints --------------------------------------------
+
+    def _on_spill_tier(self, direction, rows, nbytes, disk_bytes) -> None:
+        """The shards' tier moves: the reference's counters, the disk
+        gauge over this rank's shards (mesh.py:1391-1414)."""
+        self._inc("spill_tier_rows" if direction == "ram_to_disk" else "spill_tier_refill_rows", rows)
+        self._gauge("spill_disk_bytes", sum(st.disk_bytes() for st in self._spill))
+
+    def _gather(self, obj):
+        """Every rank's `obj`, in rank order, on rank 0 (None elsewhere)."""
+        if self._world == 1:
+            return [obj]
+        import torch.distributed as dist
+
+        out = [None] * self._world if self._rank == 0 else None
+        dist.gather_object(obj, out, dst=0, group=self._group)
+        return out
+
+    def _save_checkpoint(self, prog, heads, counts, rec_bits, take_caps, disc_depth_best,
+                         per_shard_unique) -> None:
+        """The sharded engine state (mesh.py:2281-2352): the shards'
+        tables as four [N, tcap] uint32 lanes, the rings [N, qcap] a lane,
+        each shard's spill blocks and the meta, one crash-safe npz (a full
+        base or a table delta). Rank 0 gathers every rank's shards and
+        writes it."""
+        P = len(self._tprops)
+        k1, k2, v1, v2 = (lane.reshape(prog.NL, -1) for lane in vs.table_to_lanes(prog.table))
+        state = prog.state.cpu().numpy()
+        local = dict(
+            tables=(k1, k2, v1, v2),
+            rings=prog.rings[:, :, :self._qcap].cpu().numpy().astype(np.uint32),
+            rec=state[:, prog.d_base:prog.d_base + 2 * P].astype(np.uint32),
+            spill=[list(st.iter_blocks()) for st in self._spill],
+        )
+        parts = self._gather(local)
+        if parts is not None:
+            self._write_checkpoint(parts, heads, counts, rec_bits, take_caps, disc_depth_best,
+                                   per_shard_unique, prog.rings.shape[1])
+        if self._world > 1:
+            import torch.distributed as dist
+
+            dist.barrier(group=self._group)  # the file is whole before any rank reads it
+        self._last_ckpt = time.monotonic()
+
+    def _write_checkpoint(self, parts, heads, counts, rec_bits, take_caps, disc_depth_best,
+                          per_shard_unique, ring_lanes: int) -> None:
+        P = len(self._tprops)
+        meta = checkpoint_meta(
+            self.tm,
+            self._tprops,
+            n_shards=self.n_shards,
+            ring_lanes=ring_lanes,
+            qcap=self._qcap,
+            tcap=self._tcap,
+            chunk=self._chunk,
+            quota=self._quota,
+            max_probes=vs.MAX_PROBES,
+            rec_bits=rec_bits,
+            state_count=self._state_count,
+            unique=self._unique,
+            max_depth=self._max_depth,
+            discovery_fps={k: str(v) for k, v in self._discovery_fps.items()},
+            disc_depth_best={k: int(v) for k, v in disc_depth_best.items()},
+            per_shard_unique=[int(u) for u in per_shard_unique],
+            take_caps=[int(t) for t in take_caps],
+            sampler=self._sampler.export_state() if self._sampler is not None else None,
+        )
+        rec = np.concatenate([p["rec"] for p in parts])
+        arrays = {
+            "heads": np.asarray(heads, dtype=np.int64),
+            "counts": np.asarray(counts, dtype=np.int64),
+            "rec_fp1": rec[:, :P],
+            "rec_fp2": rec[:, P:],
+        }
+        for t in range(4):
+            arrays[f"table{t}"] = np.concatenate([p["tables"][t] for p in parts])
+        rings = np.concatenate([p["rings"] for p in parts])
+        for w in range(rings.shape[1]):
+            arrays[f"queue{w}"] = np.ascontiguousarray(rings[:, w])
+        shard_blocks = [blocks for p in parts for blocks in p["spill"]]
+        for s, blocks in enumerate(shard_blocks):
+            for i, blk in enumerate(blocks):
+                arrays[f"spill_{s}_{i}"] = blk
+        self._ckpt_delta = save_checkpoint_tiered(
+            self._ckpt_path, meta, arrays, state=self._ckpt_delta, tcap=self._tcap,
+            keep=self._ckpt_keep, metrics=self._counted(),
+        )
+
+    def _read_checkpoint(self, path: str):
+        """Load and verify the newest good checkpoint (every rank reads
+        the one file), check it belongs to this checker and restore the
+        host's side: counters, discoveries, the sample and this rank's
+        shards' spill (mesh.py:2354-2410)."""
+        with self._metrics.phase("checkpoint_load"):
+            data, meta = load_checkpoint_folded(path, metrics=self._counted())
+        validate_checkpoint_meta(
+            meta, self.tm, self._tprops,
+            exact={
+                "n_shards": self.n_shards,
+                "qcap": self._qcap,
+                "state_width": self.tm.state_width,
+                "chunk": self._chunk,
+                "quota": self._quota,
+                "ring_lanes": self.tm.state_width + 2,
+                "max_probes": vs.MAX_PROBES,
+            },
+        )
+        self._tcap = meta["tcap"]
+        self._state_count = meta["state_count"]
+        self._unique = meta["unique"]
+        self._max_depth = meta["max_depth"]
+        self._discovery_fps = {k: int(v) for k, v in meta["discovery_fps"].items()}
+        if self._sampler is not None and meta.get("sampler"):
+            self._sampler.restore_state(meta["sampler"])
+        lo = self._rank * len(self._spill)
+        for j, store in enumerate(self._spill):
+            store.reset(data[k] for k in self._spill_keys(data, lo + j))
+        self._ckpt_delta = None  # the next save is a fresh base
+        return data, meta
+
+    @staticmethod
+    def _spill_keys(data, s: int) -> List[str]:
+        return sorted((k for k in data if k.startswith(f"spill_{s}_")),
+                      key=lambda n: int(n.rsplit("_", 1)[1]))
+
+    def _table_of(self, data) -> vs.VisitedTable:
+        """This rank's shards' tables from a checkpoint's [N, tcap] lanes."""
+        nl = self.n_shards // self._world
+        lo = self._rank * nl
+        return vs.table_from_lanes(*(np.asarray(data[f"table{t}"])[lo:lo + nl] for t in range(4)),
+                                   device=self.device)
+
+    def _install_checkpoint(self, prog, data, meta, table_set: bool = False) -> dict:
+        """Put a read checkpoint's shards (this rank's) on the device;
+        returns the loop's starting host state."""
+        if not table_set:
+            prog.set_table(self._table_of(data))
+        lo, nl = self._rank * prog.NL, prog.NL
+        W = prog.rings.shape[1]
+        q = np.stack([np.asarray(data[f"queue{w}"], dtype=np.uint32)[lo:lo + nl] for w in range(W)], 1)
+        prog.rings.zero_()
+        prog.rings[:, :, :self._qcap].copy_(torch.from_numpy(q.astype(np.int64)))
+        # The discovery outputs as the reference's carried operands hold them.
+        P = len(self._tprops)
+        rows = prog.state.cpu().numpy()
+        rows[:, prog.d_base:prog.d_base + P] = np.asarray(data["rec_fp1"])[lo:lo + nl]
+        rows[:, prog.d_base + P:prog.d_base + 2 * P] = np.asarray(data["rec_fp2"])[lo:lo + nl]
+        prog.state.copy_(torch.from_numpy(rows))
+        spilled = np.array([sum(len(data[k]) for k in self._spill_keys(data, s))
+                            for s in range(self.n_shards)], dtype=np.int64)
+        return dict(
+            heads=data["heads"].astype(np.int64), counts=data["counts"].astype(np.int64),
+            take_caps=list(meta["take_caps"]), per_shard_unique=list(meta["per_shard_unique"]),
+            rec_bits=meta["rec_bits"],
+            disc_depth_best={k: int(v) for k, v in meta["disc_depth_best"].items()},
+            spilled=spilled,
+        )
+
+    def _all_max(self, value):
+        """The largest of every rank's `value` (a float, or a float64 array
+        taken element by element), in one collective."""
         if self._world == 1:
             return value
         import torch.distributed as dist
 
-        t = torch.tensor([value], dtype=torch.float64)
+        t = torch.from_numpy(np.array(value, dtype=np.float64).reshape(-1))
         if dist.get_backend(self._group) != "gloo":
             t = t.to(self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
-        return float(t)
+        out = t.cpu().numpy()
+        return out if isinstance(value, np.ndarray) else float(out[0])
 
     # -- accessors -------------------------------------------------------------
 
@@ -930,15 +1260,8 @@ def state_from_jax(prog: MeshProgram, table, queue, params) -> None:
     lo, hi = prog.rank * prog.NL, (prog.rank + 1) * prog.NL
     keys = np.asarray(table[0], dtype=np.uint32)[lo:hi]
     tcap = keys.shape[1] // 2
-
-    def pack(a, b):
-        u = (np.asarray(a).astype(np.uint64) << np.uint64(32)) | np.asarray(b).astype(np.uint64)
-        return torch.from_numpy(np.ascontiguousarray(u.view(np.int64))).to(prog.device)
-
-    prog.set_table(vs.VisitedTable(
-        pack(keys[:, :tcap], keys[:, tcap:]), pack(table[1][lo:hi], table[2][lo:hi]),
-        torch.zeros((prog.NL, tcap), dtype=torch.int64, device=prog.device),
-    ))
+    prog.set_table(vs.table_from_lanes(keys[:, :tcap], keys[:, tcap:], table[1][lo:hi], table[2][lo:hi],
+                                       prog.device))
     q = np.stack([np.asarray(lane, dtype=np.uint32)[lo:hi] for lane in queue], 1).astype(np.int64)
     prog.rings.zero_()
     prog.rings[:, :, :prog.qcap].copy_(torch.from_numpy(q))

@@ -128,11 +128,8 @@ def test_discovery_paths_replay():
 @pytest.mark.parametrize(
     "configure",
     [
-        lambda b: b.spawn_gpu_bfs(device="cpu", resume_from="x"),
         lambda b: b.threads(4),
-        lambda b: b.spawn_gpu_bfs(device="cpu", keep_checkpoints=2),
         lambda b: b.visitor(print),
-        lambda b: b.spawn_gpu_bfs(device="cpu", checkpoint_path="x"),
     ],
 )
 def test_unported_options_raise(configure):

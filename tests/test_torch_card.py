@@ -824,3 +824,52 @@ def test_analyze_on_the_card_matches_cpu(dev):
         assert [(d.code, d.location) for d in on_card.diagnostics] == \
             [(d.code, d.location) for d in on_cpu.diagnostics]
         assert not torch.cuda.is_current_stream_capturing()
+
+
+@pytest.mark.parametrize("W,qcap,starts,ks", [
+    (5, 1 << 20, [(1 << 20) - 1000], [600_000]),          # one ring, wrapping
+    (32, 1 << 12, [7], [1 << 12]),                         # the whole ring, paxos width
+    (4, 1 << 14, [3, 16_000, 0, 8_000, 11, 5, 9, 1], [0, 900, 1 << 14, 1, 4_321, 77, 0, 16_383]),
+])
+def test_ring_spill_kernel_matches_plain(dev, W, qcap, starts, ks):
+    """K7s DRAIN and REFILL against their plain versions: one ring and 8
+    shards' rings with ragged counts (none, one row, a whole ring)."""
+    gen = torch.Generator(device=dev).manual_seed(W)
+    rings = torch.randint(0, 1 << 32, (len(ks), W, qcap + 1), dtype=torch.int64, device=dev, generator=gen)
+    rings[..., qcap] = 0
+    rows = fr.ring_drain_lanes(rings, starts, ks)
+    assert torch.equal(rows, fr.ring_drain_lanes_plain(rings, starts, ks))
+    staged = fr.SpillStaging(W, dev).drain(rings, starts, ks)
+    assert np.array_equal(staged, rows.cpu().numpy().view(np.uint32))
+    tails = [s + 333 for s in starts]
+    a, b, c, d = rings.clone(), rings.clone(), rings.clone(), rings.clone()
+    fr.ring_refill_lanes(a, tails, ks, rows)
+    fr.ring_refill_lanes_plain(b, tails, ks, rows)
+    fr.SpillStaging(W, dev).refill(c, tails, ks, staged)
+    # A staging buffer smaller than the refill: the rows go up in pieces.
+    fr.SpillStaging(W, dev, max(1, sum(ks) // 3 - 1)).refill(d, tails, ks, staged)
+    assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+    assert int(a[..., qcap].abs().sum()) == 0
+
+
+def test_spilling_run_matches_the_unspilled_run(dev):
+    """2pc-7 through a ring it outgrows (2^14 rows, chunk 221 after the
+    clamp) equals the unspilled run on counts and the sample; K7s
+    launched."""
+    from stateright_tpu_torch import kernels
+
+    opts = dict(chunk_size=512, queue_capacity=1 << 14, table_capacity=1 << 21)
+
+    def run(device, **kw):
+        c = TensorModelAdapter(TwoPhaseTensor(7)).checker().coverage().spawn_gpu_bfs(device=device, **kw).join()
+        return c, dict(unique=c.unique_state_count(), states=c.state_count(), fps=dict(c._discovery_fps),
+                       sample=tuple(c._sampler.fingerprints()), cov=c.coverage())
+
+    kernels.reset_launches()
+    c, spilled = run("cuda", **opts)
+    assert kernels.RING_DRAIN.launches > 0 and kernels.RING_REFILL.launches > 0
+    assert c.telemetry()["spill_rows"] > 0
+    _c, unspilled = run("cuda", **dict(opts, queue_capacity=1 << 20))
+    assert spilled["unique"] == 296_448
+    assert {k: spilled[k] for k in ("unique", "states", "sample")} == {
+        k: unspilled[k] for k in ("unique", "states", "sample")}

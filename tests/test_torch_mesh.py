@@ -344,18 +344,10 @@ def test_sharded_discovery_paths_replay_across_shards():
 
 def test_sharded_refusals():
     b = TensorModelAdapter(torch_models.TwoPhaseTensor(3)).checker()
-    for kw in (dict(checkpoint_path="x"), dict(resume_from="x"), dict(checkpoint_every=1.0)):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            b.spawn_sharded_bfs(devices=2, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="group="):
         b.spawn_sharded_bfs(devices=["cpu", "meta"])
     with pytest.raises(ValueError, match="4 \\* n_shards"):
         b.spawn_sharded_bfs(devices=8, device="cpu", queue_capacity_per_shard=1 << 8)
-    # A frontier past high water would spill to the host in JAX.
-    c = TensorModelAdapter(torch_models.TwoPhaseTensor(6)).checker().spawn_sharded_bfs(
-        devices=1, device="cpu", chunk_size=64, queue_capacity_per_shard=1 << 11)
-    with pytest.raises(RuntimeError, match="slice 7"):
-        c.join()
 
 
 def test_sharded_bfs_wrapper():

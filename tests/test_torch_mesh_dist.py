@@ -86,3 +86,42 @@ def test_ranks_match_the_jax_mesh(tmp_path, world, shards):
         assert got["paths"] == want_paths
     if shards == 8:
         assert results[1]["partial"] > 0  # 2pc-5 at 8 shards takes the partial-commit path
+
+
+def test_ranks_checkpoint_and_resume(tmp_path):
+    """Two ranks of one shard each, spilling, killed at a target: rank 0
+    writes the one file in the JAX layout, equal to the one-rank run's
+    file, and the two ranks resume it to the golden, equal to a one-rank
+    resume."""
+    import numpy as np
+    import torch
+
+    import stateright_tpu_torch.models as torch_models
+    from stateright_tpu_torch import TensorModelAdapter
+    from stateright_tpu_torch.engines import common
+    from torch_mesh_worker import parity
+
+    opts = dict(chunk_size=32, queue_capacity_per_shard=1 << 9)
+    ranks_ckpt, one_ckpt = str(tmp_path / "ranks.npz"), str(tmp_path / "one.npz")
+    jobs = [["TwoPhaseTensor", [5], dict(opts, checkpoint_path=ranks_ckpt), 6000],
+            ["TwoPhaseTensor", [5], dict(opts, resume_from=ranks_ckpt)]]
+    part, resumed = _run_ranks(tmp_path, 2, 2, jobs)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        b = TensorModelAdapter(torch_models.TwoPhaseTensor(5)).checker().coverage()
+        one = b.target_state_count(6000).spawn_sharded_bfs(devices=2, device="cpu", checkpoint_path=one_ckpt,
+                                                           **opts).join()
+        one_res = TensorModelAdapter(torch_models.TwoPhaseTensor(5)).checker().coverage().spawn_sharded_bfs(
+            devices=2, device="cpu", resume_from=one_ckpt, **opts).join()
+    finally:
+        torch.set_num_threads(threads)
+    assert part["parity"] == _normal(parity(one))
+    a, ma = common.load_checkpoint_verified(ranks_ckpt)
+    b, mb = common.load_checkpoint_verified(one_ckpt)
+    assert sorted(a) == sorted(b) and any(k.startswith("spill_") for k in a)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    assert ma == mb
+    assert resumed["parity"]["unique"] == 8_832
+    assert resumed["parity"] == _normal(parity(one_res))

@@ -149,12 +149,6 @@ def test_mixed_signatures_rejected():
         run_multiplexed(builders, lanes=4, device="cpu")
 
 
-@pytest.mark.parametrize("option", ["checkpoint_path", "resume_from"])
-def test_batch_snapshots_name_their_slice(option):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        run_multiplexed([_builder()], lanes=4, device="cpu", **{option: "snap"})
-
-
 def test_lane_budget_and_capacity_errors_use_the_reference_words():
     tm = torch_models.TwoPhaseTensor(5)
     # The table's growth limit (MAX_LOAD * 2^14 - vcap = 640 states)

@@ -4,9 +4,10 @@ Imports only the port (no jax, no JAX package).
     python tests/torch_mesh_worker.py INIT_FILE WORLD RANK SHARDS OUT JOBS_JSON
 
 joins the file:// rendezvous, runs every job — [model class, args,
-spawn options] — as `spawn_sharded_bfs(devices=SHARDS, device="cpu",
-group=WORLD)` and, on rank 0, writes each run's parity dict and
-discovery paths as JSON lines to OUT."""
+spawn options] and, optionally, a state-count target — as
+`spawn_sharded_bfs(devices=SHARDS, device="cpu", group=WORLD)` and, on
+rank 0, writes each run's parity dict and discovery paths as JSON lines
+to OUT."""
 
 import json
 import os
@@ -43,10 +44,13 @@ def main():
                             timeout=timedelta(seconds=60))
     try:
         lines = []
-        for name, args, opts in json.loads(jobs):
+        for job in json.loads(jobs):
+            name, args, opts = job[:3]
             tm = getattr(models, name)(*args)
-            c = TensorModelAdapter(tm).checker().coverage().spawn_sharded_bfs(
-                devices=shards, device="cpu", group=dist.group.WORLD, **opts).join()
+            b = TensorModelAdapter(tm).checker().coverage()
+            if len(job) > 3:
+                b = b.target_state_count(job[3])
+            c = b.spawn_sharded_bfs(devices=shards, device="cpu", group=dist.group.WORLD, **opts).join()
             paths = {k: p.encode(c.model()) for k, p in c.discoveries().items()}
             tel = c.telemetry()
             lines.append(json.dumps(dict(parity=parity(c), paths=paths, world=tel["world_size"],
