@@ -11,14 +11,20 @@ exits non-zero:
 
   0. environment: torch, CUDA, nvcc, the card's name and power limit;
   1. build: every kernel from kernels/csrc with nvcc, in parallel;
-  2. kernel parity: each of the eight BFS step kernels against its
-     plain torch version on the same card tensors, compared bit for bit,
-     with CUDA-event timings, at the 2pc-7 bench widths (C=6144, A=37)
-     and at the paxos-3 widths (C=16384, A=21); beside them the times of
-     K5 rehash, K10 seed and K11 expand, which run through those kernels
+  2. kernel parity: each of the BFS step kernels (K7's pop and append
+     apart; the append also at its tile edges, K9b also at 16,384 rows
+     with ties) against its plain torch version on the same card tensors,
+     compared bit for bit, at the 2pc-7 bench widths (C=6144, A=37) and
+     at the paxos-3 widths (C=16384, A=21); each timed on the device
+     alone (`time_device_ms`: CUDA events around back-to-back calls
+     queued behind a spin kernel, so the host's share is left out;
+     `call_ms` beside it is one call with the host's share), as is the
+     library call that does the same work; beside them the times of K5
+     rehash, K10 seed and K11 expand, which run through those kernels
      and torch;
   3. small engine runs (2pc-5, sampling on, and 2pc-5 with .symmetry())
      on cuda and on the cpu: equal results, sample and paths included;
+     each card run's kernel launches a step;
   4. the headline: 2pc-7 exhaustive at the bench options with sampling
      on (the default), with and without table growth, and its time with
      sampling off; the launch counts of that run show the main path went
@@ -45,8 +51,9 @@ exits non-zero:
      of 100,000,000 states): "abort agreement" found and replayed,
      "consistent" never ("commit agreement" is out of the walks' reach
      there, the reference's walks too: see phase 9 and PERF.md);
- 12. lane kernel parity: the lane forms of K2, K3, K4, K6 and K7 against
-     their plain versions, exactly, at the widths of 1,024 lanes of 2pc-5
+ 12. lane kernel parity: the lane forms of K2, K3, K4, K6 and K7 (pop and
+     append) against their plain versions, exactly, device-timed as in
+     phase 2, at the widths of 1,024 lanes of 2pc-5
      (the reference's default lane shape: chunk 151, ring 2^13, table
      2^16; 1.61 GB of tables), and each at one lane against its solo call;
  13. the service shape: 32 lanes of increment-2 (bench.py's service
@@ -70,8 +77,9 @@ exits non-zero:
      threshold changes the captures a step drops, in the JAX engine too)
      and to the goldens, with wall, steps, eras, dispatches,
      graph captures and capture seconds, wall a step and peak memory,
-     and for the default pipeline host launch calls and device kernels a
-     step and the device's busy share (torch.profiler).
+     each hand-written kernel's launches a step, and for the default
+     pipeline host launch calls and device kernels a step and the
+     device's busy share (torch.profiler).
 
  16. simulation eras and lane batches as device programs: K13f's
      walk-era kernel (BEGIN, COMMIT under every exit, EPILOGUE) against
@@ -103,10 +111,12 @@ exits non-zero:
      --skip-full, 2pc-10 BFS with .stage_profile() (its probe stage forks
      the 2^28-slot table).
 
- 18. the sharded mesh (K15): K15a (`exchange.cu`, the owner buckets) and
+ 18. the sharded mesh (K15): K15a (`exchange.cu`, the owner buckets),
      K15f (`mesh_era.cu`, the shard-coupled gate, commit, epilogue and
-     tail) against their plain versions, exactly, at the 2pc-7 (chunk
-     1,024) and paxos-3 (chunk 2,048) widths at 1 and 8 shards, with
+     tail) and K9b's lane form (every shard's slab in one launch, also at
+     16,384 rows with ties) against their plain versions, exactly, at
+     the 2pc-7 (chunk 1,024) and paxos-3 (chunk 2,048) widths at 1 and
+     8 shards, with
      buckets past the quota, vetoed and unresolved commits and every
      budget rule; 2pc-5 and paxos-2 at 8 shards on cuda == cpu (the
      sample and the paths included; 2pc-5 takes partial commits); 2pc-7
@@ -304,6 +314,88 @@ def time_ms(torch, fn, prep=None, reps=20):
     return times[len(times) // 2]
 
 
+SPIN_CYCLES_PER_S = 2e9  # torch.cuda._sleep's unit: SM clock cycles (the card's is under 2 GHz)
+
+
+def _spin_then_time(torch, calls, host_s):
+    """CUDA events around `calls()` queued behind a spin kernel that
+    holds the stream longer than the host takes to queue them, so the
+    events bracket device time only. Returns the device ms, or None when
+    the host took longer to queue the calls than the spin lasted (a full
+    launch queue blocks the host): the events would time the host."""
+    spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(int((2 * host_s + 2e-3) * SPIN_CYCLES_PER_S))
+    start.record()
+    t0 = time.perf_counter()
+    calls()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) if queued_ms < spin.elapsed_time(start) else None
+
+
+def time_device_ms(torch, fn, prep=None, reps=50, syncs=False):
+    """Device time of one call of fn(prep()), the host's share left out.
+    Without prep: `reps` back-to-back calls after a warm-up, one pair of
+    CUDA events around all of them behind a spin kernel, divided by reps
+    (halved while the launch queue cannot hold them all, down to 5).
+    With prep (a call that changes its input, so each needs a fresh one,
+    made outside the window): each call alone behind its own spin, the
+    median of 15. A call that synchronises the host (`syncs`, such as
+    torch.nonzero) cannot be queued ahead: its reps calls run between the
+    events with no spin, each paying its host round trip."""
+    torch.cuda.synchronize()
+    if prep is None:
+        fn(None)
+        torch.cuda.synchronize()
+        while True:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(None)
+            host_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+
+            def calls():
+                for _ in range(reps):
+                    fn(None)
+
+            if syncs:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                calls()
+                end.record()
+                torch.cuda.synchronize()
+                return start.elapsed_time(end) / reps
+            ms = _spin_then_time(torch, calls, host_s)
+            if ms is not None:
+                return ms / reps
+            check(reps > 5, "the host cannot queue 5 calls ahead of the card: the events would time the host")
+            reps = max(5, reps // 2)
+    times = []
+    for r in range(16):
+        arg = prep()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if r and syncs:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(arg)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        elif r:
+            ms = _spin_then_time(torch, lambda: fn(arg), host_s)
+            check(ms is not None, "the host took longer to queue one call than the spin lasted")
+            times.append(ms)
+        else:
+            fn(arg)  # the warm-up, which also times the host's share
+            host_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
 def max_abs_err(torch, pairs):
     err = 0
     for a, b in pairs:
@@ -323,7 +415,7 @@ def finish(results):
         r["bound_ms"] = max(bound_bytes, bound_ops)
         r["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
         print(f"kernel {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
-              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']} bound_ms={r['bound_ms']:.5f} "
+              f"ms={r['ms']:.4f} call_ms={r.get('call_ms')} plain_ms={r['plain_ms']} bound_ms={r['bound_ms']:.5f} "
               f"bound_by={r['bound_by']} library_ms={r['library_ms']}", flush=True)
         if r["max_abs_err"] is not None:
             check(r["max_abs_err"] == 0, f"kernel {name} disagrees with its plain version")
@@ -372,7 +464,8 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     n = vcap
     results["hash_lanes"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda _: hash_lanes(lanes)),
+        ms=time_device_ms(torch, lambda _: hash_lanes(lanes)),
+        call_ms=time_ms(torch, lambda _: hash_lanes(lanes)),
         plain_ms=time_ms(torch, lambda _: hash_lanes_plain(lanes)),
         bytes=S * n * 8 + 2 * n * 8,
         ops=n * (2 * S * 4 + 2 * 6),
@@ -395,11 +488,12 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     mask, cap = cases[0]
     results["compact_ids"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda _: vs.compact_ids(mask, cap)),
+        ms=time_device_ms(torch, lambda _: vs.compact_ids(mask, cap)),
+        call_ms=time_ms(torch, lambda _: vs.compact_ids(mask, cap)),
         plain_ms=time_ms(torch, lambda _: vs.compact_ids_plain(mask, cap)),
         bytes=CA + cap * 9 + 8,
         ops=CA,
-        library_ms=time_ms(torch, lambda _: torch.nonzero(mask)),
+        library_ms=time_device_ms(torch, lambda _: torch.nonzero(mask), syncs=True),
         shape=f"[{CA}] -> [{cap}]",
     )
 
@@ -415,7 +509,8 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     keep_plain = fr.claim_dedup_plain(h1, h2, valid, dedup_cap)
     results["claim_dedup"] = dict(
         max_abs_err=max_abs_err(torch, [(keep, keep_plain)]),
-        ms=time_ms(torch, lambda _: fr.claim_dedup(h1, h2, valid, dedup_cap)),
+        ms=time_device_ms(torch, lambda _: fr.claim_dedup(h1, h2, valid, dedup_cap)),
+        call_ms=time_ms(torch, lambda _: fr.claim_dedup(h1, h2, valid, dedup_cap)),
         plain_ms=time_ms(torch, lambda _: fr.claim_dedup_plain(h1, h2, valid, dedup_cap)),
         bytes=vcap * (8 + 8 + 1 + 1),
         ops=vcap * 8,
@@ -476,7 +571,8 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     del ta, tb
     results["visited_insert"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda t: vs.insert(t, b1, b2, p1, p2, act), prep=lambda: clone(base)),
+        ms=time_device_ms(torch, lambda t: vs.insert(t, b1, b2, p1, p2, act), prep=lambda: clone(base)),
+        call_ms=time_ms(torch, lambda t: vs.insert(t, b1, b2, p1, p2, act), prep=lambda: clone(base)),
         plain_ms=time_ms(torch, lambda t: vs.insert_plain(t, b1, b2, p1, p2, act), prep=lambda: clone(base), reps=5),
         bytes=rcap * (4 * 8 + 1 + 2) + n_act * 8 + n_new * 16,
         ops=n_act * 8,
@@ -485,47 +581,66 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     )
 
     # K7: pop C rows at a head that wraps, and append rcap candidates
-    # (about 40% new) at a tail that wraps.
+    # (about 40% new) at a tail that wraps; the append also at its edges
+    # (tests/test_torch_ring.py APPEND_EDGES: a tile's width -1, 0, +1,
+    # many tiles, all or no column valid, a wrap inside a tile).
     ring = fr.empty_ring(W, qcap, dev)
     ring[:, :qcap] = gpu(u32(W, qcap))
     head = qcap - C // 3
     cand = gpu(u32(W, rcap))
     cvalid = gpu(rng.random(rcap) < 0.4)
-    ra, rb = ring.clone(), ring.clone()
-    fr.ring_scatter(ra, head, cand, cvalid)
-    fr.ring_scatter_plain(rb, head, cand, cvalid)
-    errs = [max_abs_err(torch, [(fr.ring_pop(ring, head, C), fr.ring_pop_plain(ring, head, C)),
-                                (ra[:, :qcap], rb[:, :qcap])])]
-    del ra, rb
+    T = kernels.APPEND_TILE
+    cases = [(head, cand, cvalid)] + [
+        (tail, gpu(u32(W, m)), gpu(rng.random(m) < density))
+        for tail, m, density in ((100, T - 1, 0.4), (5000, T, 0.4), (qcap - 9, T + 1, 0.4), (7, 5 * T + 123, 0.5),
+                                 (50, T + 17, 1.0), (9, 2 * T, 0.0), (qcap - 1000, 3 * T, 0.6))
+    ]
+    errs = [max_abs_err(torch, [(fr.ring_pop(ring, head, C), fr.ring_pop_plain(ring, head, C))])]
+    for tail, cd, cv in cases:
+        ra, rb = ring.clone(), ring.clone()
+        fr.ring_scatter(ra, tail, cd, cv)
+        fr.ring_scatter_plain(rb, tail, cd, cv)
+        errs.append(max_abs_err(torch, [(ra[:, :qcap], rb[:, :qcap])]))
+    del ra, rb, cases
     n_app = int(cvalid.sum())
     idx = fr.ring_indices(head, C, qcap, dev)
-    ids, ok, _n = vs.compact_ids(cvalid, rcap)
-    pos = torch.where(ok, fr.ring_indices(head, rcap, qcap, dev), qcap)
 
     def pop_and_append(_):
         fr.ring_pop(ring, head, C)
         fr.ring_scatter(ring, head, cand, cvalid)
 
-    def plain_pop_and_append(_):
-        fr.ring_pop_plain(ring, head, C)
-        fr.ring_scatter_plain(ring, head, cand, cvalid)
+    def torch_append(_):
+        # The same work as the append: rank the mask (cumsum), place each
+        # valid column at tail + rank and every other in the trash column.
+        rank = torch.cumsum(cvalid, 0) - 1
+        ring.index_copy_(1, torch.where(cvalid, (head + rank) & (qcap - 1), qcap), cand)
 
-    def torch_indexing(_):
+    def torch_pop_and_append(_):
         ring.index_select(1, idx)
-        ring.index_copy_(1, pos, cand.index_select(1, ids))
+        torch_append(None)
 
     results["ring"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(torch, pop_and_append),
-        plain_ms=time_ms(torch, plain_pop_and_append),
-        # pop: W*C read + written; append: the mask, the valid rows read
-        # and written (the K2 compaction it launches is K2's bytes).
-        bytes=2 * W * C * 8 + rcap + 2 * W * n_app * 8,
-        ops=W * (C + n_app),
-        library_ms=time_ms(torch, torch_indexing),
-        shape=f"pop [{W}, {C}] + append [{W}, {rcap}] ({n_app} valid) in a 2^{qcap.bit_length() - 1} ring",
+        max_abs_err=errs[0],
+        ms=time_device_ms(torch, lambda _: fr.ring_pop(ring, head, C)),
+        call_ms=time_ms(torch, lambda _: fr.ring_pop(ring, head, C)),
+        plain_ms=time_ms(torch, lambda _: fr.ring_pop_plain(ring, head, C)),
+        bytes=2 * W * C * 8, ops=W * C,
+        library_ms=time_device_ms(torch, lambda _: ring.index_select(1, idx)),
+        # pop + append, as one BFS step runs them
+        pop_append_ms=time_device_ms(torch, pop_and_append),
+        pop_append_library_ms=time_device_ms(torch, torch_pop_and_append),
+        shape=f"pop [{W}, {C}] from a 2^{qcap.bit_length() - 1} ring (index_select)",
     )
-
+    results["ring_append"] = dict(
+        max_abs_err=max(errs[1:]),
+        ms=time_device_ms(torch, lambda _: fr.ring_scatter(ring, head, cand, cvalid)),
+        call_ms=time_ms(torch, lambda _: fr.ring_scatter(ring, head, cand, cvalid)),
+        plain_ms=time_ms(torch, lambda _: fr.ring_scatter_plain(ring, head, cand, cvalid)),
+        # the mask once, each valid column's W values read and written
+        bytes=rcap + 2 * W * n_app * 8, ops=rcap + W * n_app,
+        library_ms=time_device_ms(torch, torch_append),
+        shape=f"append [{W}, {rcap}] ({n_app} valid) (cumsum + where + index_copy_)",
+    )
     # K9a: captures at the rcap width: a loose threshold (every new
     # insert below it; a clamped step's few hundred, then a flood past
     # the per-step cap) and a tight one with ties on its high word.
@@ -551,7 +666,8 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
 
     results["sample_capture"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], DEVICE_STEP_CAP), prep=fresh_slab),
+        ms=time_device_ms(torch, lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], DEVICE_STEP_CAP), prep=fresh_slab),
+        call_ms=time_ms(torch, lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], DEVICE_STEP_CAP), prep=fresh_slab),
         plain_ms=time_ms(torch, lambda sb_: sl.capture_plain(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], DEVICE_STEP_CAP), prep=fresh_slab),
         # is_new once, h1 and h2 of each new candidate; a captured row
         # reads depth and action and writes its 4 slab lanes.
@@ -569,15 +685,27 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     for occ in (0, 9, 700, scap):
         slab = sl.Slab(*slanes, torch.tensor([occ, 0], device=dev))
         errs.append(max_abs_err(torch, zip(sl.bottom_k(slab, sk2), sl.bottom_k_plain(slab, sk2))))
+    # The largest slab the kernel takes, 40 distinct keys in all, at the
+    # occupancies around the kept count.
+    big = sl.SLAB_MAX_ROWS
+    blanes = [gpu(u32(big + 1)) for _ in range(4)]
+    blanes[0] = gpu(rng.integers(0, 40, size=big + 1) * 0x01000001)
+    for occ in (0, 1, sk2 - 1, sk2, sk2 + 1, big):
+        slab = sl.Slab(*blanes, torch.tensor([occ, 0], device=dev))
+        errs.append(max_abs_err(torch, zip(sl.bottom_k(slab, sk2), sl.bottom_k_plain(slab, sk2))))
+    del blanes
     slab = sl.Slab(*slanes, torch.tensor([700, 0], device=dev))
     skey = torch.where(torch.arange(scap, device=dev) < 700, (~slanes[0][:scap]) & 0xFFFFFFFF, 0)
     results["slab_bottomk"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda _: sl.bottom_k(slab, sk2)),
+        ms=time_device_ms(torch, lambda _: sl.bottom_k(slab, sk2)),
+        call_ms=time_ms(torch, lambda _: sl.bottom_k(slab, sk2)),
         plain_ms=time_ms(torch, lambda _: sl.bottom_k_plain(slab, sk2)),
         bytes=scap * 8 + 16 + sk2 * 4 * 8 + sk2 * (4 * 8 + 1),
-        ops=scap * 2 + (scap * 10 * 11 // 2) * 2,  # key, then the sort's compare-exchanges
-        library_ms=time_ms(torch, lambda _: torch.topk(skey, sk2)),
+        # the words, one histogram pass and the compaction over the slab,
+        # then the bitonic network over the sk2 kept words
+        ops=3 * scap + sk2 * (sk2.bit_length() - 1) * sk2.bit_length() // 2,
+        library_ms=time_device_ms(torch, lambda _: torch.topk(skey, sk2)),
         shape=f"[{scap}] -> [{sk2}] at occupancy 700",
     )
 
@@ -589,7 +717,8 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     check(bool(qa[0][:64].all()) and not bool(qa[0][64:].any()), "lookup_parent: found set")
     results["lookup_parent"] = dict(
         max_abs_err=max_abs_err(torch, zip(qa, qb)),
-        ms=time_ms(torch, lambda _: vs.lookup_parent(base, q[0], q[1])),
+        ms=time_device_ms(torch, lambda _: vs.lookup_parent(base, q[0], q[1])),
+        call_ms=time_ms(torch, lambda _: vs.lookup_parent(base, q[0], q[1])),
         plain_ms=time_ms(torch, lambda _: vs.lookup_parent_plain(base, q[0], q[1])),
         bytes=80 * (16 + 17) + 64 * 16 + 16 * 8,
         ops=80 * 8,
@@ -616,7 +745,8 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     extra = {
         "K5 rehash": dict(
             max_abs_err=None,
-            ms=time_ms(torch, rehash_into, prep=lambda: vs.empty_table(2 * tcap, dev), reps=5),
+            ms=time_device_ms(torch, rehash_into, prep=lambda: vs.empty_table(2 * tcap, dev), syncs=True),
+            call_ms=time_ms(torch, rehash_into, prep=lambda: vs.empty_table(2 * tcap, dev), reps=5),
             plain_ms=time_ms(torch, rehash_plain_into, prep=lambda: vs.empty_table(2 * tcap, dev), reps=1),
             library_ms=None,
             bytes=tcap * 16 + occ * 24, ops=occ * 8,
@@ -637,7 +767,9 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
 
     extra["K10 seed"] = dict(
         max_abs_err=None,
-        ms=time_ms(torch, lambda _: seed(vs.empty_table(tcap, dev), fr.empty_ring(W, qcap, dev), init, 1), reps=5),
+        ms=time_device_ms(torch, lambda _: seed(vs.empty_table(tcap, dev), fr.empty_ring(W, qcap, dev), init, 1),
+                          reps=5),
+        call_ms=time_ms(torch, lambda _: seed(vs.empty_table(tcap, dev), fr.empty_ring(W, qcap, dev), init, 1), reps=5),
         plain_ms=time_ms(torch, lambda _: seed_plain(vs.empty_table(tcap, dev), fr.empty_ring(W, qcap, dev), init, 1),
                          reps=5),
         library_ms=None,
@@ -745,6 +877,11 @@ def counted(torch, kernels, label, fn, path=None):
     for k in path:
         check(launches[k.name] > 0, f"kernel {k.name} was not launched on the {label} path")
     return out, launches
+
+
+def per_step(launches, steps):
+    """Each launched kernel's launches a step of a counted run."""
+    return {k: n / max(1, steps) for k, n in launches.items() if n}
 
 
 # -- phases 8 to 11: simulation ---------------------------------------------
@@ -1008,11 +1145,12 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
     solo_equal(zip(vs.compact_ids_lanes(view[:1], vcap), (x[None] for x in vs.compact_ids(view[0].reshape(-1), vcap))))
     results["compact_ids_lanes"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda _: vs.compact_ids_lanes(view, vcap)),
+        ms=time_device_ms(torch, lambda _: vs.compact_ids_lanes(view, vcap)),
+        call_ms=time_ms(torch, lambda _: vs.compact_ids_lanes(view, vcap)),
         plain_ms=time_ms(torch, lambda _: vs.compact_ids_lanes_plain(view, vcap)),
         bytes=N * A * C + N * vcap * 9 + N * 8,
         ops=N * A * C,
-        library_ms=time_ms(torch, lambda _: torch.nonzero(view)),
+        library_ms=time_device_ms(torch, lambda _: torch.nonzero(view), syncs=True),
         shape=f"[{A}, {N}, {C}] as [{N}, {A}*{C}] -> [{N}, {vcap}]",
     )
 
@@ -1030,7 +1168,8 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
                  fr.claim_dedup(h1[0], h2[0], valid[0], dedup_cap))])
     results["claim_dedup_lanes"] = dict(
         max_abs_err=err,
-        ms=time_ms(torch, lambda _: fr.claim_dedup_lanes(h1, h2, valid, dedup_cap)),
+        ms=time_device_ms(torch, lambda _: fr.claim_dedup_lanes(h1, h2, valid, dedup_cap)),
+        call_ms=time_ms(torch, lambda _: fr.claim_dedup_lanes(h1, h2, valid, dedup_cap)),
         plain_ms=time_ms(torch, lambda _: fr.claim_dedup_lanes_plain(h1, h2, valid, dedup_cap)),
         bytes=N * vcap * (8 + 8 + 1 + 1),
         ops=N * vcap * 8,
@@ -1076,7 +1215,8 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
                + list(zip(dump(one), dump(vs.VisitedTable(solo.keys[None], solo.parents[None], solo.stamps[None])))))
     results["visited_insert_lanes"] = dict(
         max_abs_err=err,
-        ms=time_ms(torch, lambda t: vs.insert_lanes(t, bh[0], bh[1], p[0], p[1], act), prep=lambda: clone(base), reps=10),
+        ms=time_device_ms(torch, lambda t: vs.insert_lanes(t, bh[0], bh[1], p[0], p[1], act), prep=lambda: clone(base)),
+        call_ms=time_ms(torch, lambda t: vs.insert_lanes(t, bh[0], bh[1], p[0], p[1], act), prep=lambda: clone(base), reps=10),
         plain_ms=time_ms(torch, lambda t: vs.insert_lanes_plain(t, bh[0], bh[1], p[0], p[1], act),
                          prep=lambda: clone(base), reps=3),
         bytes=N * rcap * (4 * 8 + 1 + 2) + n_act * 8 + n_new * 16,
@@ -1101,7 +1241,8 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
                    vs.lookup_parent(solo, q[0], q[1])))
     results["lookup_parent_lanes"] = dict(
         max_abs_err=err,
-        ms=time_ms(torch, lambda _: vs.lookup_parent_lanes(base, qlane, q[0], q[1])),
+        ms=time_device_ms(torch, lambda _: vs.lookup_parent_lanes(base, qlane, q[0], q[1])),
+        call_ms=time_ms(torch, lambda _: vs.lookup_parent_lanes(base, qlane, q[0], q[1])),
         plain_ms=time_ms(torch, lambda _: vs.lookup_parent_lanes_plain(base, qlane, q[0], q[1])),
         bytes=(nq + 64) * (16 + 8 + 17) + nq * 16 + 64 * 8,
         ops=(nq + 64) * 8,
@@ -1120,8 +1261,8 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
     ra, rb = rings.clone(), rings.clone()
     fr.ring_scatter_lanes(ra, heads, cand, cvalid)
     fr.ring_scatter_lanes_plain(rb, heads, cand, cvalid)
-    err = max_abs_err(torch, [(fr.ring_pop_lanes(rings, heads, C), fr.ring_pop_lanes_plain(rings, heads, C)),
-                              (ra[..., :qcap], rb[..., :qcap])])
+    err = max_abs_err(torch, [(fr.ring_pop_lanes(rings, heads, C), fr.ring_pop_lanes_plain(rings, heads, C))])
+    err_app = max_abs_err(torch, [(ra[..., :qcap], rb[..., :qcap])])
     del rb
     solo = rings[5].clone()
     fr.ring_scatter(solo, int(heads[5]), cand[:, 5 * rcap:6 * rcap].contiguous(), cvalid[5])
@@ -1130,34 +1271,35 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
     del ra, solo
     n_app = int(cvalid.sum())
     idx = ((heads[:, None] + torch.arange(C, device=dev)) & (qcap - 1))[:, None, :].expand(N, W, C)
+    lane_w = (torch.arange(N, device=dev)[None, :, None] * (W * (qcap + 1))
+              + torch.arange(W, device=dev)[:, None, None] * (qcap + 1))
 
-    def pop_and_append(_):
-        fr.ring_pop_lanes(rings, heads, C)
-        fr.ring_scatter_lanes(rings, heads, cand, cvalid)
+    def torch_append(_):
+        # The same work as the append: rank each lane's mask (cumsum),
+        # valid columns to tail + rank, the others to the trash column.
+        rank = torch.cumsum(cvalid, 1) - 1
+        pos = torch.where(cvalid, (heads[:, None] + rank) & (qcap - 1), qcap)
+        rings.view(-1).index_copy_(0, (lane_w + pos[None]).reshape(-1), cand.view(-1))
 
-    def plain_pop_and_append(_):
-        fr.ring_pop_lanes_plain(rings, heads, C)
-        fr.ring_scatter_lanes_plain(rings, heads, cand, cvalid)
-
-    def torch_indexing(_):
-        rings.gather(2, idx)
-        rings.view(-1).index_copy_(0, flat_pos, cand_sel)
-
-    ids, ok, _n = vs.compact_ids_lanes(cvalid, rcap)
-    pos = torch.where(ok, (heads[:, None] + torch.arange(rcap, device=dev)) & (qcap - 1), qcap)
-    flat_pos = ((torch.arange(N, device=dev)[None, :, None] * (W * (qcap + 1))
-                 + torch.arange(W, device=dev)[:, None, None] * (qcap + 1)) + pos[None]).reshape(-1)
-    cand_sel = cand.view(W, N, rcap).gather(2, ids[None].expand(W, N, rcap)).reshape(-1)
     results["ring_lanes"] = dict(
         max_abs_err=err,
-        ms=time_ms(torch, pop_and_append),
-        plain_ms=time_ms(torch, plain_pop_and_append),
-        bytes=2 * W * N * C * 8 + N * rcap + 2 * W * n_app * 8 + 2 * N * 8,
-        ops=W * (N * C + n_app),
-        library_ms=time_ms(torch, torch_indexing),
-        shape=f"pop [{W}, {N}*{C}] + append [{W}, {N}*{rcap}] ({n_app} valid) in [{N}, {W}, 2^{qcap.bit_length() - 1}]",
+        ms=time_device_ms(torch, lambda _: fr.ring_pop_lanes(rings, heads, C)),
+        call_ms=time_ms(torch, lambda _: fr.ring_pop_lanes(rings, heads, C)),
+        plain_ms=time_ms(torch, lambda _: fr.ring_pop_lanes_plain(rings, heads, C)),
+        bytes=2 * W * N * C * 8 + N * 8, ops=W * N * C,
+        library_ms=time_device_ms(torch, lambda _: rings.gather(2, idx)),
+        shape=f"pop [{W}, {N}*{C}] from [{N}, {W}, 2^{qcap.bit_length() - 1}] (gather)",
     )
-    del rings, cand, cvalid, idx, flat_pos, cand_sel
+    results["ring_append_lanes"] = dict(
+        max_abs_err=err_app,
+        ms=time_device_ms(torch, lambda _: fr.ring_scatter_lanes(rings, heads, cand, cvalid)),
+        call_ms=time_ms(torch, lambda _: fr.ring_scatter_lanes(rings, heads, cand, cvalid)),
+        plain_ms=time_ms(torch, lambda _: fr.ring_scatter_lanes_plain(rings, heads, cand, cvalid)),
+        bytes=N * rcap + 2 * W * n_app * 8 + N * 8, ops=N * rcap + W * n_app,
+        library_ms=time_device_ms(torch, torch_append),
+        shape=f"append [{W}, {N}*{rcap}] ({n_app} valid) (cumsum + where + index_copy_)",
+    )
+    del rings, cand, cvalid, idx, lane_w
     torch.cuda.empty_cache()
     return finish(results)
 
@@ -1727,6 +1869,7 @@ def era_runs(torch, kernels, card, label, golden, checks=lambda c: None):
             capture_secs=tel["capture_secs"], wall_ms_per_step=wall * 1e3 / steps,
             wall_ms_per_step_without_capture=(wall - tel["capture_secs"]) * 1e3 / steps,
             **prof, era_kernel_launches=launches["era_step"] + launches["era_epilogue"],
+            kernel_launches_per_step=per_step(launches, steps),
             max_memory_allocated=peak, card=card,
         )
         print(f"{label}: {json.dumps(out[name])}", flush=True)
@@ -2065,11 +2208,13 @@ def mesh_kernel_parity(torch, np, label, tm, C):
     from stateright_tpu_torch.engines.era import widths
     from stateright_tpu_torch.ops import exchange as xc
     from stateright_tpu_torch.ops import mesh_era as me
+    from stateright_tpu_torch.ops import slab as sl
     from stateright_tpu_torch.ops import visited_set as vs
     from stateright_tpu_torch.parallel import mesh
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(18)
+    M32 = 0xFFFFFFFF
     S, A = tm.state_width, tm.max_actions
     props = tm.tensor_properties()
     P = len(props)
@@ -2111,6 +2256,42 @@ def mesh_kernel_parity(torch, np, label, tm, C):
         prog = mesh.MeshProgram(tm, props, C, 1 << 16, 1 << 12, n, quota, True, 64, 4, dev)
         c, x, L, R = prog.cfg, prog.x, prog.L, prog.R
         qcap = prog.qcap
+
+        # K9b over every shard's slab (the tail's one launch) at this
+        # program's slab of s_high + R rows, and at the largest slab with
+        # 40 distinct keys; occupancies from empty to full.
+        sk2 = prog.sk2
+        errs = []
+        for scap, ties in ((prog.scap, False), (sl.SLAB_MAX_ROWS, True)):
+            slabs = torch.from_numpy(rng.integers(0, 1 << 32, size=(4, n, scap + 1))).to(dev)
+            if ties:
+                slabs[0] = torch.from_numpy(rng.integers(0, 40, size=(n, scap + 1)) * 0x01000001).to(dev)
+            occ = rng.integers(0, scap + 1, size=n)
+            occ[:6] = [scap, sk2 + 1, sk2, sk2 - 1, 1, 0][:n]
+            counts = torch.from_numpy(np.stack([occ, np.zeros(n, dtype=np.int64)], 1)).to(dev)
+            errs.append(max_abs_err(torch, zip(sl.bottom_k_lanes(slabs, counts, sk2),
+                                               sl.bottom_k_lanes_plain(slabs, counts, sk2))))
+            if not ties:
+                timed = slabs, counts
+        check(max(errs) == 0, f"{label} N={n}: K9b's lane form disagrees with its plain version")
+        if n == MESH_N:
+            slabs, counts = timed
+            scap = prog.scap
+            skey = torch.where(torch.arange(scap, device=dev)[None, :] < counts[:, :1], (~slabs[0, :, :scap]) & M32, 0)
+            results["slab_bottomk_lanes"] = dict(
+                max_abs_err=max(errs),
+                ms=time_device_ms(torch, lambda _: sl.bottom_k_lanes(slabs, counts, sk2)),
+                call_ms=time_ms(torch, lambda _: sl.bottom_k_lanes(slabs, counts, sk2)),
+                plain_ms=time_ms(torch, lambda _: sl.bottom_k_lanes_plain(slabs, counts, sk2)),
+                library_ms=time_device_ms(torch, lambda _: torch.topk(skey, sk2, dim=1)),
+                # the one-slab launch on each shard in turn, for comparison
+                per_shard_ms=time_device_ms(torch, lambda _: [
+                    sl.bottom_k(sl.Slab(*slabs[:, s], counts[s]), sk2) for s in range(n)]),
+                bytes=n * (scap * 8 + 16 + sk2 * 4 * 8 + sk2 * (4 * 8 + 1)),
+                ops=n * (3 * scap + sk2 * (sk2.bit_length() - 1) * sk2.bit_length() // 2),
+                shape=f"{n} slabs [{scap}] -> [{n}, {sk2}] (torch.topk along dim 1)",
+            )
+            del timed, slabs, counts, skey
 
         def state(count=None, its=3, max_steps=64, cap=64, rec=0, k=0, take=None, pressure=False):
             s = rng.integers(0, 1 << 20, size=(n, L)).astype(np.int64)
@@ -2339,6 +2520,7 @@ def mesh_phase(torch, np, kernels, card, skip_full, single):
                        dispatches=tel["dispatches"], graph_captures=tel["graph_captures"],
                        capture_secs=tel["capture_secs"], wall_ms_per_step=wall * 1e3 / iters,
                        launches_per_step=sum(launches[k.name] for k in path) / iters,
+                       kernel_launches_per_step=per_step(launches, iters),
                        max_memory_allocated=peak, peak_above_live=peak - live,
                        shard_imbalance_max=tel.get("shard_imbalance_max"),
                        quota=tel["quota"], chunk=tel["chunk"], discovery_lengths=lens,
@@ -3048,11 +3230,18 @@ def main(argv) -> int:
         ("2pc-5", lambda b: b, GOLDEN[5]),
         ("2pc-5 symmetry", lambda b: b.symmetry(), SYM_CLOSURE[5]),
     ):
-        c_gpu, t_gpu = bfs(two_pc(5), "cuda", TEST_OPTS, configure)
+        def on_card():
+            c, t = bfs(two_pc(5), "cuda", TEST_OPTS, configure)
+            return c, t, result_dict(c)  # its paths walk through K6
+
+        (c_gpu, t_gpu, d_gpu), launches3 = counted(torch, kernels, label, on_card)
+        tel3 = c_gpu.telemetry()
+        print(f"{label} kernel launches a step: "
+              f"{json.dumps(per_step(launches3, tel3['steps'] + tel3.get('partial_steps', 0)))}", flush=True)
         torch.set_num_threads(1)  # small CPU ops: the thread pool only slows them
         c_cpu, t_cpu = bfs(two_pc(5), "cpu", TEST_OPTS, configure)
         torch.set_num_threads(threads)
-        d_gpu, d_cpu = result_dict(c_gpu), result_dict(c_cpu)
+        d_cpu = result_dict(c_cpu)
         check(d_gpu == d_cpu, f"{label} cuda {d_gpu} != cpu {d_cpu}")
         check(d_gpu["unique"] == closure and len(d_gpu["sample"]) == 64, f"{label} golden / sample")
         print(f"{label} equal on cuda ({t_gpu:.2f}s) and cpu ({t_cpu:.2f}s), unique={closure}, "
@@ -3459,7 +3648,8 @@ def main(argv) -> int:
           f"card={card}", flush=True)
 
     line = {"kernels": []}
-    for k in kernels.KERNELS + (kernels.STAGE_LANES, kernels.RING_REFILL):
+    for k in kernels.KERNELS + (kernels.RING_APPEND, kernels.SLAB_BOTTOMK_LANES, kernels.STAGE_LANES,
+                                kernels.RING_REFILL):
         # BFS kernels at the 2pc-7 widths and launches; the walk kernels
         # at the paxos-3 simulation widths and launches; the stage
         # profiler's at the 2pc-7 widths (K12a) and the paxos-3 simulation
@@ -3492,7 +3682,8 @@ def main(argv) -> int:
         if k is kernels.WALK_STEP:
             # The same source's second entry point, the era prologue.
             entry["prologue_launches"] = launches_sim[kernels.WALK_PROLOGUE.name]
-        for extra in ("begin_ms", "epilogue_ms", "epilogue_plain_ms", "ring_ms", "mix_ms", "record_ms",
+        for extra in ("call_ms", "pop_append_ms", "pop_append_library_ms", "per_shard_ms", "begin_ms",
+                      "epilogue_ms", "epilogue_plain_ms", "ring_ms", "mix_ms", "record_ms",
                       "record_plain_ms", "record_bound_ms", "choose_ms", "choose_plain_ms", "choose_bound_ms",
                       "lanes_ms"):
             if extra in r:
@@ -3506,7 +3697,7 @@ def main(argv) -> int:
             name=k.name, route="cuda", source=os.path.relpath(k.source_path, HERE),
             replaces=k.replaces, launches=launches_lanes[k.name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"],
+            library_ms=r["library_ms"], call_ms=r.get("call_ms"),
         ))
     check(all(results_px[k]["max_abs_err"] == 0 for k in results_px), "paxos-3 widths parity")
     print(json.dumps(line))

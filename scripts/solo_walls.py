@@ -23,7 +23,10 @@ group; default `bfs`):
   lanes  the 1,024-lane 2pc-5 sweep (lane i at target_max_depth
          1 + i % 18, the default lane shape), 256 lanes of paxos-2
          (table 2^17, ring 2^14) and 32 lanes of increment-2, each lane
-         at its solo golden count.
+         at its solo golden count;
+  mesh   2pc-7 and paxos-3 at 8 shards on one card (`chip_smoke.py`
+         phase 18's options), each at its golden unique count; a step
+         is a lockstep step, one exchange launch.
 
 A simulation cell's result (states, steps, eras, max depth and the
 discoveries) and a lane cell's per-lane counts are printed with it:
@@ -87,7 +90,16 @@ LANES = {
                       lambda i, b: b, lambda i: 16_668),
     "increment-2 lanes": ("IncrementTensor", 2, 32, LANE_SHAPE, lambda i, b: b, lambda i: 13),
 }
-GROUPS = {"bfs": ["2pc-7", "paxos-3"], "sim": list(SIMS), "lanes": list(LANES)}
+# label: (model class, its argument, shards on one card, options, golden
+# unique count): chip_smoke.py phase 18's runs at 8 shards.
+MESHES = {
+    "2pc-7 x8": ("TwoPhaseTensor", 7, 8,
+                 dict(chunk_size=1024, queue_capacity_per_shard=1 << 17, table_capacity_per_shard=1 << 18), 296_448),
+    "paxos-3 x8": ("PaxosTensorExhaustive", 3, 8,
+                   dict(chunk_size=2048, queue_capacity_per_shard=1 << 18, table_capacity_per_shard=1 << 20),
+                   1_194_428),
+}
+GROUPS = {"bfs": ["2pc-7", "paxos-3"], "sim": list(SIMS), "lanes": list(LANES), "mesh": list(MESHES)}
 
 
 def _digest(lanes) -> list:
@@ -173,9 +185,24 @@ def _setup(tree: str):
                     peak=peak, generated=sum(c.state_count() for c in out),
                     result=_digest([uniq, [c.telemetry()["steps"] for c in out]]))
 
+    def sharded(label, _target):
+        cls, n, shards, opts, golden = MESHES[label]
+        b = TensorModelAdapter(getattr(models, cls)(n)).checker().coverage()
+        kernels.reset_launches()
+        c, secs, peak = timed(lambda: b.spawn_sharded_bfs(devices=shards, device="cuda", **opts).join())
+        if c.unique_state_count() != golden:
+            raise AssertionError(f"{label}: {c.unique_state_count()} != {golden}")
+        tel = c.telemetry()
+        # A lockstep step is one exchange launch (chip_smoke.py phase 18).
+        return dict(secs=secs, steps=kernels.launch_counts()["exchange"],
+                    capture_secs=tel.get("capture_secs"), graph_captures=tel.get("graph_captures"),
+                    peak=peak, result=c.unique_state_count())
+
     def run(label, target=None):
         if label in RUNS:
             return bfs(label, target)
+        if label in MESHES:
+            return sharded(label, target)
         if label in SIMS:
             return sim(label, target)
         return lanes(label, target)
@@ -288,7 +315,7 @@ def expand_cells(names, full: bool):
     cells = []
     for name in names:
         for label in GROUPS.get(name, [name]):
-            if label not in RUNS and label not in SIMS and label not in LANES:
+            if label not in RUNS and label not in SIMS and label not in LANES and label not in MESHES:
                 raise SystemExit(f"solo_walls: unknown cell {label!r}")
             cells.append(label)
     if full and "paxos-3" in cells:

@@ -20,6 +20,8 @@ falls back to running the segments from the host.
 from __future__ import annotations
 
 import ctypes
+import functools
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -52,6 +54,16 @@ def _ok(err: int, what: str) -> None:
         raise RuntimeError(f"device program graph: {what} failed: cudaError {err}")
 
 
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: int) -> torch.cuda.Stream:
+    """The stream every segment is captured on: one of the high-priority
+    pool. torch's default capture stream and the readbacks' side streams
+    come from the default-priority pool, handed out in turn, so a
+    readback's pinned slots could otherwise carry events of the stream a
+    later program captures on."""
+    return torch.cuda.Stream(device=device, priority=-1)
+
+
 class Graph:
     """One device program: the C-built graph and its instantiation, the
     torch graphs (and their memory pools) its child nodes copy, and each
@@ -70,8 +82,21 @@ class Graph:
         """Capture `fn` as the segment `name`: the raw graph to place."""
         before = kernels.launch_counts()
         tg = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(tg, capture_error_mode="thread_local"):
-            fn()
+        # No collection runs inside a capture: a pinned buffer that it frees
+        # records an event on each stream the buffer was used on, and on the
+        # capturing stream that record is captured, not made, so the host
+        # allocator's next query of the event fails ("invalid argument" at
+        # the next capture's _host_emptyCache). The segments are captured on
+        # a stream no readback draws (`_capture_stream`) for the same reason.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(tg, stream=_capture_stream(torch.cuda.current_device()),
+                                  capture_error_mode="thread_local"):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
         after = kernels.launch_counts()
         self.per_run[name] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         self.torch_graphs.append(tg)

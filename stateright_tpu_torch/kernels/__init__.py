@@ -100,7 +100,9 @@ HASH_LANES = Kernel(
 _COMPACT_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P]
 _DEDUP_ARGS = [_P, _P, _P, _I64, _I64, _P, _I64, _P]
 _INSERT_ARGS = [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P]
-_RING_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I64, _P, _P]
+_RING_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I64]
+_APPEND_ARGS = [_I32, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _P, _I64, _I64, _P]
+_BOTTOMK_ARGS = [_P, _P, _P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _P, _P, _I64]
 _LOOKUP_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P]
 
 
@@ -128,6 +130,12 @@ RING, RING_LANES = _with_lanes(
     "ring", "ring.cu", "srt_ring", _RING_ARGS,
     "stateright_tpu/ops/frontier.py:55",
 )
+# K7's append, the same source's second entry point: COUNT and WRITE,
+# one launch each (two a call).
+RING_APPEND, RING_APPEND_LANES = _with_lanes(
+    "ring_append", "ring.cu", "srt_ring_append", _APPEND_ARGS,
+    "stateright_tpu/ops/frontier.py:62",
+)
 LOOKUP_PARENT, LOOKUP_PARENT_LANES = _with_lanes(
     "lookup_parent", "lookup_parent.cu", "srt_lookup_parent", _LOOKUP_ARGS,
     "stateright_tpu/ops/visited_set.py:411",
@@ -138,9 +146,13 @@ SAMPLE_CAPTURE = Kernel(
     "stateright_tpu/engines/tpu_bfs.py:519",
 )
 SLAB_BOTTOMK = Kernel(
-    "slab_bottomk", "slab_bottomk.cu", "srt_slab_bottomk",
-    [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
+    "slab_bottomk", "slab_bottomk.cu", "srt_slab_bottomk", _BOTTOMK_ARGS,
     "stateright_tpu/engines/tpu_bfs.py:995",
+)
+# K9b over every shard's slab in one launch (the sharded tail).
+SLAB_BOTTOMK_LANES = Kernel(
+    "slab_bottomk_lanes", "slab_bottomk.cu", "srt_slab_bottomk", _BOTTOMK_ARGS,
+    "stateright_tpu/parallel/mesh.py:797",
 )
 
 # K8f: the era's gate and step commit, and its epilogue (engines/era.py);
@@ -251,36 +263,38 @@ RING_REFILL = Kernel(
 # source; ENTRIES adds the second entry points.
 BFS_KERNELS = (
     HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT,
-    RING, SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT, ERA_STEP, ERA_EPILOGUE,
+    RING, RING_APPEND, SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT, ERA_STEP, ERA_EPILOGUE,
 )
 SIM_KERNELS = (HASH_LANES, WALK_RECORD, WALK_STEP, WALK_PROLOGUE, WALK_CAPTURE, WALK_SLAB, WALK_ERA)
 LANE_KERNELS = (
     HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES,
-    RING_LANES, LOOKUP_PARENT_LANES, ERA_STEP_LANES, ERA_EPILOGUE_LANES,
+    RING_LANES, RING_APPEND_LANES, LOOKUP_PARENT_LANES, ERA_STEP_LANES, ERA_EPILOGUE_LANES,
 )
 # The sharded engine's path: the lane forms of the BFS kernels with the
-# shard axis, K9a/K9b per shard, K15a and K15f.
+# shard axis, K9a per shard, K9b over every shard, K15a and K15f.
 MESH_KERNELS = (
-    HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES, RING_LANES,
-    SAMPLE_CAPTURE, SLAB_BOTTOMK, LOOKUP_PARENT_LANES, EXCHANGE, MESH_ERA,
+    HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES, RING_LANES, RING_APPEND_LANES,
+    SAMPLE_CAPTURE, SLAB_BOTTOMK_LANES, LOOKUP_PARENT_LANES, EXCHANGE, MESH_ERA,
 )
 # The stage profiler's paths: each stage program's kernels and the loop's.
 BFS_STAGE_KERNELS = (
-    STAGE_LOOP, STAGE_LANES, HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT, RING,
+    STAGE_LOOP, STAGE_LANES, HASH_LANES, COMPACT_IDS, CLAIM_DEDUP, VISITED_INSERT, RING, RING_APPEND,
 )
 SIM_STAGE_KERNELS = (STAGE_LOOP, STAGE_LANES, STAGE_WALK, HASH_LANES)
 MESH_STAGE_KERNELS = (
     STAGE_LOOP, STAGE_LANES, HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES,
-    RING_LANES, EXCHANGE,
+    RING_LANES, RING_APPEND_LANES, EXCHANGE,
 )
 # The speclint pre-flight's path (analysis/): the agreement table.
 LINT_KERNELS = (LANE_AGREE,)
 # The spill tier's path (a BFS run past its ring's high water, solo or
 # sharded): K7s's two entry points.
 SPILL_KERNELS = (RING_DRAIN, RING_REFILL)
-KERNELS = BFS_KERNELS + (WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA,
-                         STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA, LANE_AGREE, RING_DRAIN)
-ENTRIES = KERNELS + (WALK_PROLOGUE, STAGE_LANES, RING_REFILL) + LANE_KERNELS[1:]
+KERNELS = tuple(k for k in BFS_KERNELS if k is not RING_APPEND) + (
+    WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA, STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA,
+    LANE_AGREE, RING_DRAIN,
+)
+ENTRIES = KERNELS + (RING_APPEND, WALK_PROLOGUE, STAGE_LANES, RING_REFILL, SLAB_BOTTOMK_LANES) + LANE_KERNELS[1:]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -390,6 +404,7 @@ def add_launches(per_run: Dict[str, int], runs: int) -> None:
 
 
 CAPTURE_TILE = 1024  # candidates a block in csrc/capture_scan.cuh (kTile)
+APPEND_TILE = 4096  # mask columns a block of K7's append (csrc/ring.cu kTile)
 
 
 def capture_scratch(n: int, device) -> torch.Tensor:

@@ -29,7 +29,6 @@ import torch
 
 from .. import kernels
 from ..fingerprint import mul32
-from .visited_set import _compact_ids
 
 DEDUP_MUL = 0x9E3779B9
 
@@ -134,7 +133,7 @@ def _pop(rings, base: int, bases, n: int, kernel) -> torch.Tensor:
     kernel.launch(
         kernels.ptr(rings), N, W, q1, W * q1, q1 - 2, base,
         None if bases is None else kernels.ptr(bases),
-        kernels.ptr(out), N * n, n, None, None,
+        kernels.ptr(out), N * n, n,
     )
     return out
 
@@ -180,17 +179,18 @@ def _append_plain(rings, base: int, bases, cand, valid) -> None:
     N, W, q1 = rings.shape
     m = valid.shape[1]
     qcap = q1 - 1
-    ids, ok, _n = _compact_ids(valid[:, None, :], m, kernels.COMPACT_IDS_LANES)
-    pos = torch.where(ok, _positions(rings, base, bases, m), qcap)
-    src = cand.view(W, N, m).gather(2, ids[None].expand(W, N, m))
+    rank = torch.cumsum(valid.to(torch.int64), 1) - 1
+    start = base if bases is None else (base + bases)[:, None]
+    # Invalid columns go to the trash column, valid ones to tail + rank.
+    pos = torch.where(valid, (start + rank) & (qcap - 1), qcap)
     lane_w = (
         torch.arange(N, device=rings.device)[None, :, None] * (W * q1)
         + torch.arange(W, device=rings.device)[:, None, None] * q1
     )
-    rings.view(-1).index_copy_(0, (lane_w + pos[None]).reshape(-1), src.reshape(-1))
+    rings.view(-1).index_copy_(0, (lane_w + pos[None]).reshape(-1), cand.reshape(-1))
 
 
-def _append(rings, base: int, bases, cand, valid, compact_kernel, kernel) -> None:
+def _append(rings, base: int, bases, cand, valid, kernel) -> None:
     tensors = (rings, cand, valid) + (() if bases is None else (bases,))
     if not kernels.on_card(*tensors):
         return _append_plain(rings, base, bases, cand, valid)
@@ -198,14 +198,19 @@ def _append(rings, base: int, bases, cand, valid, compact_kernel, kernel) -> Non
         raise ValueError("the ring and the candidates must be contiguous")
     N, W, q1 = rings.shape
     m = valid.shape[1]
-    if cand.shape != (W, N * m) or valid.shape[0] != N:
+    if cand.shape != (W, N * m) or valid.shape[0] != N or valid.dtype != torch.bool:
         raise ValueError("candidate lanes do not match the ring")
-    ids, _ok, n_set = _compact_ids(valid[:, None, :], m, compact_kernel)
-    kernel.launch(
-        kernels.ptr(rings), N, W, q1, W * q1, q1 - 2, base,
-        None if bases is None else kernels.ptr(bases),
-        kernels.ptr(cand), cand.stride(0), m, kernels.ptr(ids), kernels.ptr(n_set),
-    )
+    if N > 65535 or W > 65535:
+        raise ValueError("at most 65,535 rings and 65,535 state-row lanes a launch")
+    valid = valid.contiguous()
+    # One count a (lane, tile), rewritten by COUNT before WRITE reads it.
+    scratch = torch.empty((N, -(-m // kernels.APPEND_TILE)), dtype=torch.int32, device=rings.device)
+    for stage in (0, 1):  # COUNT, WRITE
+        kernel.launch(
+            stage, kernels.ptr(rings), N, W, q1, W * q1, q1 - 2, base,
+            None if bases is None else kernels.ptr(bases),
+            kernels.ptr(cand), cand.stride(0), kernels.ptr(valid), m, m, kernels.ptr(scratch),
+        )
 
 
 def ring_scatter_lanes_plain(rings, tails: torch.Tensor, cand, valid) -> None:
@@ -217,9 +222,9 @@ def ring_scatter_lanes(rings: torch.Tensor, tails: torch.Tensor, cand: torch.Ten
     """Append, in each lane's ring [N, W, qcap + 1], the `valid` [N, m]
     columns of its candidates (cand [W, N*m], lane l's at columns
     l*m ..) at tails[l], tails[l]+1, ... in candidate order, in place (the
-    vmapped `ring_scatter`): K2 compacts each lane's mask and one ring
-    launch writes every lane's rows."""
-    _append(rings, 0, tails, cand, valid, kernels.COMPACT_IDS_LANES, kernels.RING_LANES)
+    vmapped `ring_scatter`): two launches of K7's append (COUNT, WRITE)
+    rank and write every lane's rows, with no compaction between."""
+    _append(rings, 0, tails, cand, valid, kernels.RING_APPEND_LANES)
 
 
 def ring_scatter_plain(ring, tail, cand, valid) -> None:
@@ -230,11 +235,11 @@ def ring_scatter(ring: torch.Tensor, tail, cand: torch.Tensor, valid: torch.Tens
     """Append the `valid` columns of cand [W, m] at tail, tail+1, ... in
     candidate order, in place (K7 append, the counterpart of
     `ring_scatter`; `tail` an int or an int64 [1] tensor on the ring's
-    device): K2 compacts the mask and the ring kernel writes the r-th
-    valid column at tail + r. Other ring positions are untouched (the
-    plain version sends unused id slots to the trash column). The
-    one-lane case of `ring_scatter_lanes`."""
-    _append(ring[None], *_solo_position(tail), cand, valid[None], kernels.COMPACT_IDS, kernels.RING)
+    device): the append's COUNT and WRITE launches write the r-th valid
+    column at tail + r. Other ring positions are untouched (the plain
+    version sends invalid columns to the trash column). The one-lane case
+    of `ring_scatter_lanes`."""
+    _append(ring[None], *_solo_position(tail), cand, valid[None], kernels.RING_APPEND)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ from .. import kernels
 from .visited_set import compact_ids
 
 M32 = 0xFFFFFFFF
-SLAB_MAX_ROWS = 16384  # K9b sorts one slab in one block's shared memory
+SLAB_MAX_ROWS = 16384  # K9b holds one slab's words in one block's shared memory
 
 
 class Slab(NamedTuple):
@@ -90,31 +90,58 @@ def capture(slab: Slab, is_new, h1, h2, depth, action, thresh, step_cap: int) ->
     )
 
 
-def bottom_k_plain(slab: Slab, k: int):
-    scap = slab.capacity
-    occ = slab.counts[0]
-    used = torch.arange(scap, device=slab.fp1.device) < occ
-    key = torch.where(used, (~slab.fp1[:scap]) & M32, 0)
+def bottom_k_lanes_plain(slabs: torch.Tensor, counts: torch.Tensor, k: int):
+    N, scap = slabs.shape[1], slabs.shape[2] - 1
+    used = torch.arange(scap, device=slabs.device)[None, :] < counts[:, :1]
+    key = torch.where(used, (~slabs[0, :, :scap]) & M32, 0)
     # Stable descending sort: equal keys keep the lower row first, the
     # order lax.top_k gives.
-    top = torch.sort(key, descending=True, stable=True).indices[:k]
-    return tuple(lane.index_select(0, top) for lane in slab[:4]) + (used.index_select(0, top),)
+    top = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
+    return tuple(slabs[j, :, :scap].gather(1, top) for j in range(4)) + (used.gather(1, top),)
+
+
+def _bottom_k(lanes, counts: torch.Tensor, k: int, kernel):
+    """K9b over the slabs whose lanes (fp1, fp2, depth, action) are [N,
+    scap + 1] views with one row stride, counts [N, 2]."""
+    N, scap = lanes[0].shape[0], lanes[0].shape[1] - 1
+    if not 0 < k <= scap:
+        raise ValueError("bottom_k takes 0 < k <= the slab's capacity")
+    if scap > SLAB_MAX_ROWS:
+        raise ValueError(f"the slab kernel takes at most {SLAB_MAX_ROWS:,} rows a slab")
+    stride = lanes[0].stride(0)
+    if any(t.stride() != (stride, 1) for t in lanes) or counts.stride() != (2, 1):
+        raise ValueError("the slab lanes and counts must be rows of one stride")
+    dev = lanes[0].device
+    out = torch.empty((4, N, k), dtype=torch.int64, device=dev)
+    valid = torch.empty((N, k), dtype=torch.bool, device=dev)
+    kernel.launch(
+        *(t.data_ptr() for t in lanes), stride, scap, counts.data_ptr(), 2, k,
+        *(kernels.ptr(t) for t in out), kernels.ptr(valid), N,
+    )
+    return (*out, valid)
+
+
+def bottom_k_lanes(slabs: torch.Tensor, counts: torch.Tensor, k: int):
+    """`bottom_k` of every shard's slab in one launch: slabs int64 [4, N,
+    scap + 1] (fp1, fp2, depth, action), counts int64 [N, 2]; returns
+    (fp1, fp2, depth, action, valid), each [N, k] (the sharded tail,
+    mesh.py:797 on each shard)."""
+    if not kernels.on_card(slabs, counts):
+        return bottom_k_lanes_plain(slabs, counts, k)
+    return _bottom_k(tuple(slabs[j] for j in range(4)), counts, k, kernels.SLAB_BOTTOMK_LANES)
+
+
+def bottom_k_plain(slab: Slab, k: int):
+    return tuple(x[0] for x in bottom_k_lanes_plain(torch.stack(slab[:4])[:, None], slab.counts[None], k))
 
 
 def bottom_k(slab: Slab, k: int):
     """The k used slab rows with the smallest fp1 (ties: lower row first),
-    padded with unused rows: (fp1, fp2, depth, action, valid), each [k]."""
+    padded with unused rows: (fp1, fp2, depth, action, valid), each [k].
+    The one-slab case of `bottom_k_lanes`."""
     if k > slab.capacity:
         raise ValueError("bottom_k takes at most the slab's capacity")
     if not kernels.on_card(slab.fp1):
         return bottom_k_plain(slab, k)
-    if slab.capacity > SLAB_MAX_ROWS:
-        raise ValueError(f"the slab kernel sorts at most {SLAB_MAX_ROWS:,} rows")
-    dev = slab.fp1.device
-    out = [torch.empty(k, dtype=torch.int64, device=dev) for _ in range(4)]
-    valid = torch.empty(k, dtype=torch.bool, device=dev)
-    kernels.SLAB_BOTTOMK.launch(
-        *(kernels.ptr(t) for t in slab[:4]), slab.capacity,
-        kernels.ptr(slab.counts), k, *(kernels.ptr(t) for t in out), kernels.ptr(valid),
-    )
-    return (*out, valid)
+    got = _bottom_k(tuple(t[None] for t in slab[:4]), slab.counts[None], k, kernels.SLAB_BOTTOMK)
+    return tuple(x[0] for x in got)

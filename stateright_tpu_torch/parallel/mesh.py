@@ -36,7 +36,7 @@ the state [NL, L] (one JAX params row a shard, ops/mesh_era.py).
            12. first hits, depth histogram             (torch)
            13. COMMIT and the gate                     K15f COMMIT
         EPILOGUE                          K15f EPILOGUE
-    TAIL                                  K15f TAIL, K9b per shard
+    TAIL                                  K15f TAIL, K9b over every shard
 
 **One rank (W = 1).** On the card a dispatch is ONE CUDA graph
 (engines/graph.py), the step captured once in a conditional WHILE node
@@ -174,7 +174,7 @@ class MeshProgram:
         if sample_k and dev.type == "cuda" and self.scap > sl.SLAB_MAX_ROWS:
             raise ValueError(
                 f"the per-shard sample slab ({self.scap:,} rows: its high water plus the receive "
-                f"width {R:,}) exceeds the {sl.SLAB_MAX_ROWS:,} rows K9b sorts; lower chunk_size "
+                f"width {R:,}) exceeds the {sl.SLAB_MAX_ROWS:,} rows K9b holds; lower chunk_size "
                 "or turn sampling off with .sample(False)"
             )
         self.cfg = me.MeshConfig(
@@ -367,17 +367,16 @@ class MeshProgram:
     def _tail(self) -> None:
         """The dispatch's output rows (mesh.py:762-810): the coverage tail
         summed over the mesh, the error word, the sample tail — each
-        shard's sk2 smallest slab rows by fp1 (K9b)."""
+        shard's sk2 smallest slab rows by fp1 (K9b, one launch over every
+        shard's slab)."""
         self._era(me.TAIL, me.MeshOperands(slab_counts=self.slab_counts))
         if self.slab is None:
             return
         b, k = self.s_base + 4, self.sk2
-        for lane in range(self.NL):
-            slab = sl.Slab(*(self.slab[j, lane] for j in range(4)), self.slab_counts[lane])
-            fp1, fp2, depth, _action, valid = sl.bottom_k(slab, k)
-            self.state[lane, b:b + 4 * k].view(4, k).copy_(
-                torch.stack([fp1, fp2, depth, valid.to(torch.int64)])
-            )
+        fp1, fp2, depth, _action, valid = sl.bottom_k_lanes(self.slab, self.slab_counts, k)
+        self.state[:, b:b + 4 * k].view(self.NL, 4, k).copy_(
+            torch.stack([fp1, fp2, depth, valid.to(torch.int64)], dim=1)
+        )
 
     # -- dispatch ------------------------------------------------------------
 

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from stateright_tpu_torch import TensorModelAdapter
+from stateright_tpu_torch import TensorModelAdapter, kernels
 from stateright_tpu_torch.fingerprint import hash_lanes, hash_lanes_plain
 from stateright_tpu_torch.models import TwoPhaseTensor
 from stateright_tpu_torch.ops import frontier as fr
@@ -352,6 +352,143 @@ def test_lane_ring_kernel(dev):
     fr.ring_scatter_lanes(rings, heads, cand, valid)
     fr.ring_scatter_lanes_plain(other, heads, cand, valid)
     assert torch.equal(rings[:, :, :qcap], other[:, :, :qcap])
+
+
+# K7's append at its edges (the CPU tests' APPEND_EDGES in
+# tests/test_torch_ring.py): a tile's width -1, 0 and +1, many tiles,
+# every column valid, none valid, a wrap inside the first tile.
+T = kernels.APPEND_TILE
+APPEND_EDGES = [
+    (3, 1 << 13, 100, T - 1, 0.4), (3, 1 << 13, 5000, T, 0.4), (3, 1 << 13, 8000, T + 1, 0.4),
+    (2, 1 << 15, 30000, 5 * T + 123, 0.5), (3, 1 << 13, 50, T + 17, 1.0), (3, 1 << 13, 9, 2 * T, 0.0),
+    (4, 1 << 13, (1 << 13) - 1000, 3 * T, 0.6),
+]
+
+
+@pytest.mark.parametrize("W,qcap,tail,m,density", APPEND_EDGES)
+def test_ring_append_kernel_edges(dev, W, qcap, tail, m, density):
+    """Solo (an int tail and the era's [1] tensor tail) and three lanes
+    (this tail, a wrap at the lane's last columns, none valid), each bit
+    for bit against the plain version."""
+    rng = np.random.default_rng(tail + m)
+    ring = fr.empty_ring(W, qcap, dev)
+    ring[:, :qcap] = torch.from_numpy(_u32(rng, W, qcap)).to(dev)
+    cand = torch.from_numpy(_u32(rng, W, m)).to(dev)
+    valid = torch.from_numpy(rng.random(m) < density).to(dev)
+    for at in (tail, torch.tensor([tail], device=dev)):
+        a, b = ring.clone(), ring.clone()
+        fr.ring_scatter(a, at, cand, valid)
+        fr.ring_scatter_plain(b, at, cand, valid)
+        assert torch.equal(a[:, :qcap], b[:, :qcap])
+    N = 3
+    rings = fr.empty_ring(W, qcap, dev, lanes=N)
+    rings[:, :, :qcap] = torch.from_numpy(_u32(rng, N, W, qcap)).to(dev)
+    tails = torch.tensor([tail, qcap - 7, 0], device=dev)
+    cand = torch.from_numpy(_u32(rng, W, N * m)).to(dev)
+    lvalid = rng.random((N, m)) < density
+    lvalid[2] = False
+    lvalid = torch.from_numpy(lvalid).to(dev)
+    other = rings.clone()
+    fr.ring_scatter_lanes(rings, tails, cand, lvalid)
+    fr.ring_scatter_lanes_plain(other, tails, cand, lvalid)
+    assert torch.equal(rings[:, :, :qcap], other[:, :, :qcap])
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 1000, 1001])
+def test_ring_pop_kernel_alignments(dev, n):
+    """The pop's 16-byte pairs: heads of both parities, a wrap between a
+    pair's two rows, lanes whose rows start at odd buffer columns."""
+    rng = np.random.default_rng(n)
+    N, W, qcap = 3, 5, 1 << 11
+    rings = fr.empty_ring(W, qcap, dev, lanes=N)
+    rings[:, :, :qcap] = torch.from_numpy(_u32(rng, N, W, qcap)).to(dev)
+    for heads in ([0, 1, qcap - 1], [qcap - n // 2, 7, qcap - 2]):
+        h = torch.tensor(heads, device=dev) % qcap
+        assert torch.equal(fr.ring_pop_lanes(rings, h, n), fr.ring_pop_lanes_plain(rings, h, n))
+        for lane in range(N):
+            assert torch.equal(fr.ring_pop(rings[lane], heads[lane] % qcap, n),
+                               fr.ring_pop_plain(rings[lane], heads[lane] % qcap, n))
+
+
+def _slabs(rng, n, scap, ties, dev):
+    from stateright_tpu_torch.ops import slab as sl
+
+    slabs = torch.from_numpy(_u32(rng, 4, n, scap + 1)).to(dev)
+    if ties:
+        slabs[0] = torch.from_numpy(rng.integers(0, 40, size=(n, scap + 1)) * 0x01000001).to(dev)
+    return sl, slabs
+
+
+@pytest.mark.parametrize("occ", [0, 1, 127, 128, 129, 16384])
+def test_slab_bottomk_kernel_at_16384_rows(dev, occ):
+    sl, slabs = _slabs(np.random.default_rng(occ), 1, 16384, True, dev)
+    slab = sl.Slab(*slabs[:, 0], torch.tensor([occ, 0], device=dev))
+    for x, y in zip(sl.bottom_k(slab, 128), sl.bottom_k_plain(slab, 128)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_slab_bottomk_lanes_kernel(dev, ties):
+    """K9b's lane form over 8 shards of 16,384 rows, occupancies from
+    empty to full, against its plain version and the solo kernel."""
+    n, scap, k = 8, 16384, 128
+    rng = np.random.default_rng(12 + ties)
+    sl, slabs = _slabs(rng, n, scap, ties, dev)
+    occ = [0, 1, k - 1, k, k + 1, 5000, scap - 1, scap]
+    counts = torch.tensor([[o, 0] for o in occ], device=dev)
+    got = sl.bottom_k_lanes(slabs, counts, k)
+    for x, y in zip(got, sl.bottom_k_lanes_plain(slabs, counts, k)):
+        assert torch.equal(x, y)
+    for s in range(n):
+        for x, y in zip(sl.bottom_k(sl.Slab(*slabs[:, s], counts[s]), k), got):
+            assert torch.equal(x, y[s])
+    for k_big in (1, 1024, 2048):  # one word; the register network's widest; the shared-memory one
+        for x, y in zip(sl.bottom_k_lanes(slabs, counts, k_big), sl.bottom_k_lanes_plain(slabs, counts, k_big)):
+            assert torch.equal(x, y)
+
+
+def test_append_and_sharded_tail_launch_counts(dev):
+    """One ring_scatter is K7's two append launches and no K2 launch
+    (solo and lanes); one sharded tail is one K9b launch over every
+    shard, and its rows equal the plain per-shard bottom-k."""
+    from stateright_tpu_torch.ops import slab as sl
+    from stateright_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(13)
+    W, qcap, m = 5, 1 << 14, 10_000
+    ring = fr.empty_ring(W, qcap, dev)
+    cand = torch.from_numpy(_u32(rng, W, m)).to(dev)
+    valid = torch.from_numpy(rng.random(m) < 0.4).to(dev)
+    rings = fr.empty_ring(W, qcap, dev, lanes=4)
+    lcand = torch.from_numpy(_u32(rng, W, 4 * m)).to(dev)
+    lvalid = torch.from_numpy(rng.random((4, m)) < 0.4).to(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    fr.ring_scatter(ring, torch.tensor([qcap - 9], device=dev), cand, valid)
+    fr.ring_scatter_lanes(rings, torch.tensor([0, 5, qcap - 3, 77], device=dev), lcand, lvalid)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["compact_ids"] == counts["compact_ids_lanes"] == 0
+    assert counts["ring_append"] == 2 and counts["ring_append_lanes"] == 2
+    assert sum(counts.values()) == 4
+
+    tm = TwoPhaseTensor(3)
+    n, C = 8, 64
+    prog = mesh.MeshProgram(tm, tm.tensor_properties(), C, 1 << 12, 1 << 10, n,
+                            mesh.quota_for(C, tm.max_actions, n), True, 64, 1, dev)
+    prog.slab.copy_(torch.from_numpy(_u32(rng, *prog.slab.shape)))
+    prog.slab_counts[:, 0] = torch.from_numpy(rng.integers(0, prog.scap + 1, size=n))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    prog._tail()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["slab_bottomk_lanes"] == 1 and counts["slab_bottomk"] == 0
+    b, k = prog.s_base + 4, prog.sk2
+    for s in range(n):
+        fp1, fp2, depth, _a, ok = sl.bottom_k_plain(sl.Slab(*prog.slab[:, s], prog.slab_counts[s]), k)
+        want = torch.cat([fp1, fp2, depth, ok.to(torch.int64)])
+        assert torch.equal(prog.state[s, b:b + 4 * k], want)
 
 
 def test_multiplexed_lanes_cuda_match_cpu(dev):

@@ -1,6 +1,7 @@
 """K7 ring pop/append and K6 lookup_parent of the port (plain versions)
 against the JAX ops on the same numpy inputs: exact equality."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,6 +9,7 @@ import torch
 
 from stateright_tpu.ops import frontier as jfr
 from stateright_tpu.ops import visited_set as jvs
+from stateright_tpu_torch import kernels
 from stateright_tpu_torch.ops import frontier as tfr
 from stateright_tpu_torch.ops import visited_set as tvs
 
@@ -37,7 +39,20 @@ def test_ring_pop_matches_jax(W, qcap, head, n):
     assert np.array_equal(rows.numpy(), np.stack([np.asarray(lane) for lane in j_rows]).astype(np.int64))
 
 
-@pytest.mark.parametrize("W,qcap,tail,m,density", [(5, 256, 230, 96, 0.6), (4, 128, 0, 128, 1.0), (32, 1 << 12, 4090, 900, 0.3), (3, 64, 7, 40, 0.0)])
+# The append's edges at its tile T (columns a COUNT block counts): m at
+# T - 1, T and T + 1, many tiles, every column valid, none valid, and a
+# tail whose wrap falls inside the first tile.
+T = kernels.APPEND_TILE
+APPEND_EDGES = [
+    (3, 1 << 13, 100, T - 1, 0.4), (3, 1 << 13, 5000, T, 0.4), (3, 1 << 13, 8000, T + 1, 0.4),
+    (2, 1 << 15, 30000, 5 * T + 123, 0.5), (3, 1 << 13, 50, T + 17, 1.0), (3, 1 << 13, 9, 2 * T, 0.0),
+    (4, 1 << 13, (1 << 13) - 1000, 3 * T, 0.6),
+]
+
+
+@pytest.mark.parametrize("W,qcap,tail,m,density", [
+    (5, 256, 230, 96, 0.6), (4, 128, 0, 128, 1.0), (32, 1 << 12, 4090, 900, 0.3), (3, 64, 7, 40, 0.0),
+] + APPEND_EDGES)
 def test_ring_append_matches_jax(W, qcap, tail, m, density):
     rng = np.random.default_rng(tail + m)
     ring_np, ring = _ring(rng, W, qcap)
@@ -49,6 +64,27 @@ def test_ring_append_matches_jax(W, qcap, tail, m, density):
         tuple(jnp.asarray(c) for c in cand), jnp.asarray(valid),
     )
     assert np.array_equal(ring[:, :qcap].numpy(), np.stack([np.asarray(lane) for lane in j_ring]).astype(np.int64))
+
+
+@pytest.mark.parametrize("W,qcap,tail,m,density", APPEND_EDGES)
+def test_ring_append_lanes_matches_vmap(W, qcap, tail, m, density):
+    """The lane form at the same edges, three lanes: this tail, one that
+    wraps at the lane's last columns, and one at 0 with none valid."""
+    N = 3
+    rng = np.random.default_rng(tail + m + 1)
+    ring_np = _u32(rng, N, W, qcap)
+    rings = tfr.empty_ring(W, qcap, "cpu", lanes=N)
+    rings[:, :, :qcap] = _t(ring_np)
+    tails = np.array([tail, qcap - 7, 0], dtype=np.uint32)
+    cand = _u32(rng, W, N, m)
+    valid = rng.random((N, m)) < density
+    valid[2] = False
+    tfr.ring_scatter_lanes(rings, _t(tails), _t(cand.reshape(W, N * m)), torch.from_numpy(valid))
+    j_ring = jax.vmap(lambda lanes, t, c, v: jfr.ring_scatter(lanes, t, c, v))(
+        tuple(jnp.asarray(ring_np[:, w]) for w in range(W)), jnp.asarray(tails),
+        tuple(jnp.asarray(cand[w]) for w in range(W)), jnp.asarray(valid),
+    )
+    assert np.array_equal(rings[:, :, :qcap].numpy(), np.stack([np.asarray(lane) for lane in j_ring], axis=1))
 
 
 def _jax_table(table):

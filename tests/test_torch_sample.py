@@ -49,14 +49,14 @@ def jax_capture(sc, c_new, dh1, dh2, ddepth, dact, st1, st2):
     return lax.cond(below.any(), _capture, lambda sc: sc, sc)
 
 
-def jax_epilogue(sc):
+def jax_epilogue(sc, scap=SCAP):
     """The slab epilogue of tpu_bfs.py:991-1003."""
     sfp1, sfp2, sdep, sact, socc, _sdrp = sc
     u = jnp.uint32
-    used = jnp.arange(SCAP, dtype=u) < socc
-    skey = jnp.where(used, ~sfp1[:SCAP], u(0))
+    used = jnp.arange(scap, dtype=u) < socc
+    skey = jnp.where(used, ~sfp1[:scap], u(0))
     _v, topi = lax.top_k(skey, SK2)
-    return (sfp1[:SCAP][topi], sfp2[:SCAP][topi], sdep[:SCAP][topi], sact[:SCAP][topi], used[topi])
+    return (sfp1[:scap][topi], sfp2[:scap][topi], sdep[:scap][topi], sact[:scap][topi], used[topi])
 
 
 def _batch(rng, n, hi_bits):
@@ -102,17 +102,50 @@ def test_capture_matches_jax(steps):
     assert int(slab.counts[0]) <= SCAP
 
 
-@pytest.mark.parametrize("occupied", [0, 7, 128, 600, SCAP])
-def test_bottom_k_matches_jax_top_k(occupied):
-    rng = np.random.default_rng(occupied)
-    lanes = [rng.integers(0, 1 << 32, size=SCAP + 1, dtype=np.uint64).astype(np.uint32) for _ in range(4)]
+# The mesh's largest slab (slab.SLAB_MAX_ROWS) with heavy ties on fp1,
+# at the occupancies around the kept count.
+BIG = tslab.SLAB_MAX_ROWS
+
+
+def _slab_lanes(rng, scap, ties):
+    lanes = [rng.integers(0, 1 << 32, size=scap + 1, dtype=np.uint64).astype(np.uint32) for _ in range(4)]
     lanes[0][::3] = lanes[0][5]  # many equal keys: top_k's tie order
     lanes[0][1::11] = MAX  # real rows that key to 0, like the padding
+    if ties:
+        lanes[0][:] = rng.integers(0, 40, size=scap + 1).astype(np.uint32) * 0x01000001  # 40 keys in all
+        lanes[0][2::13] = MAX
+    return lanes
+
+
+@pytest.mark.parametrize("occupied,scap", [pytest.param(o, SCAP, id=str(o)) for o in (0, 7, 128, 600, SCAP)] + [
+    pytest.param(o, BIG, id=f"{BIG}-rows-{o}") for o in (0, 1, SK2 - 1, SK2, SK2 + 1, BIG)
+])
+def test_bottom_k_matches_jax_top_k(occupied, scap):
+    rng = np.random.default_rng(occupied)
+    lanes = _slab_lanes(rng, scap, ties=scap == BIG)
     slab = tslab.Slab(*(_t(a) for a in lanes), torch.tensor([occupied, 0]))
     ours = tslab.bottom_k(slab, SK2)
-    ref = jax_epilogue(tuple(jnp.asarray(a) for a in lanes) + (jnp.uint32(occupied), jnp.uint32(0)))
+    ref = jax_epilogue(tuple(jnp.asarray(a) for a in lanes) + (jnp.uint32(occupied), jnp.uint32(0)), scap)
     for a, b in zip(ours, ref):
         assert np.array_equal(a.numpy(), np.asarray(b).astype(a.numpy().dtype))
+
+
+def test_bottom_k_lanes_matches_jax_per_shard():
+    """The sharded tail's one call over 8 shards' slabs equals the JAX
+    epilogue on each shard, and the solo call on each."""
+    n, scap = 8, 2 * SCAP
+    rng = np.random.default_rng(11)
+    occ = [0, 1, SK2 - 1, SK2, SK2 + 1, 700, scap - 3, scap]
+    lanes = [_slab_lanes(rng, scap, ties=s % 2 == 1) for s in range(n)]
+    slabs = torch.stack([torch.stack([_t(lanes[s][j]) for s in range(n)]) for j in range(4)])
+    counts = torch.tensor([[o, 0] for o in occ])
+    ours = tslab.bottom_k_lanes(slabs, counts, SK2)
+    for s in range(n):
+        ref = jax_epilogue(tuple(jnp.asarray(a) for a in lanes[s]) + (jnp.uint32(occ[s]), jnp.uint32(0)), scap)
+        solo = tslab.bottom_k(tslab.Slab(*(slabs[j, s] for j in range(4)), counts[s]), SK2)
+        for a, b, c in zip(ours, ref, solo):
+            assert np.array_equal(a[s].numpy(), np.asarray(b).astype(a.numpy().dtype))
+            assert torch.equal(a[s], c)
 
 
 def test_sampler_copy_matches_jax():
