@@ -21,7 +21,12 @@ exits non-zero:
      `call_ms` beside it is one call with the host's share), as is the
      library call that does the same work; beside them the times of K5
      rehash, K10 seed and K11 expand, which run through those kernels
-     and torch;
+     and torch; K2's kernels a call counted on the card (the kernel nodes
+     of one captured call: COUNT and WRITE, no memset). Every kernel row
+     of the later phases is timed on the device alone too (a call that
+     changes its input on fresh inputs made outside the window), with
+     `call_ms` beside it; K11's eager expand alone keeps the one-call
+     figure;
   3. small engine runs (2pc-5, sampling on, and 2pc-5 with .symmetry())
      on cuda and on the cpu: equal results, sample and paths included;
      each card run's kernel launches a step;
@@ -150,7 +155,9 @@ exits non-zero:
      `ring_spill.cu`): DRAIN and REFILL against their plain versions,
      exactly, at the 2pc-10 spilling run's widths (a 2^22 ring, its
      largest drain, from a head that wraps) and over 8 shards' rings with
-     ragged counts, beside `index_select` / `index_copy_`; 2pc-10 at phase
+     ragged counts, beside `index_select` / `index_copy_` (over the flat
+     rings for the 8), and each also with its copy to or from a pinned
+     buffer as a spill makes the trip (`host_ms`); 2pc-10 at phase
      7's options through a 2^22 ring (61,515,776, the unspilled run's
      states and sample), again under a host budget of a quarter of its
      peak (the disk tier gives back every row it took); paxos-3 killed at
@@ -396,6 +403,16 @@ def time_device_ms(torch, fn, prep=None, reps=50, syncs=False):
     return times[len(times) // 2]
 
 
+def k2_launches(torch, fn):
+    """K2's kernels a call, counted on the card: the kernel nodes of one
+    captured call (at most two, COUNT and WRITE, and no memset node)."""
+    from stateright_tpu_torch.engines import graph
+
+    nodes = graph.captured_nodes(fn)
+    check(nodes["memsets"] == 0 and nodes["kernels"] <= 2, f"K2 captured as {nodes}")
+    return nodes["kernels"]
+
+
 def max_abs_err(torch, pairs):
     err = 0
     for a, b in pairs:
@@ -488,6 +505,7 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     mask, cap = cases[0]
     results["compact_ids"] = dict(
         max_abs_err=max(errs),
+        launches_a_call=k2_launches(torch, lambda: vs.compact_ids(mask, cap)),
         ms=time_device_ms(torch, lambda _: vs.compact_ids(mask, cap)),
         call_ms=time_ms(torch, lambda _: vs.compact_ids(mask, cap)),
         plain_ms=time_ms(torch, lambda _: vs.compact_ids_plain(mask, cap)),
@@ -932,7 +950,8 @@ def sim_kernel_parity(torch, np, label, tm, B, L):
     del b, rb
     results["walk_record"] = dict(
         max_abs_err=err,
-        ms=time_ms(torch, lambda t: wk.record(h1, h2, *t), prep=rec_in),
+        ms=time_device_ms(torch, lambda t: wk.record(h1, h2, *t), prep=rec_in),
+        call_ms=time_ms(torch, lambda t: wk.record(h1, h2, *t), prep=rec_in),
         plain_ms=time_ms(torch, lambda t: wk.record_plain(h1, h2, *t), prep=rec_in, reps=5),
         bytes=B * 32 + ptr_sum * 8 + B * 2 + n_counted * 16 + 128 * 8,
         ops=ptr_sum + B * 4,
@@ -964,7 +983,8 @@ def sim_kernel_parity(torch, np, label, tm, B, L):
     loose = torch.tensor([0xFFFFFFFF, 0xFFFFFFFF], device=dev)
     results["walk_capture"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda t: wk.capture(t[0], t[1], counted, h1, h2, walk1, loose), prep=cap_in),
+        ms=time_device_ms(torch, lambda t: wk.capture(t[0], t[1], counted, h1, h2, walk1, loose), prep=cap_in),
+        call_ms=time_ms(torch, lambda t: wk.capture(t[0], t[1], counted, h1, h2, walk1, loose), prep=cap_in),
         plain_ms=time_ms(torch, lambda t: wk.capture_plain(t[0], t[1], counted, h1, h2, walk1, loose),
                          prep=cap_in),
         # counted once, h1 and h2 of each counted walk; a captured walk
@@ -1018,7 +1038,8 @@ def sim_kernel_parity(torch, np, label, tm, B, L):
     n_hits, n_newly = int(a[1].sum()), int(a[3][wk.FROZEN])
     results["walk_step"] = dict(
         max_abs_err=err,
-        ms=time_ms(torch, lambda t: run_step(wk.step, t), prep=step_in),
+        ms=time_device_ms(torch, lambda t: run_step(wk.step, t), prep=step_in),
+        call_ms=time_ms(torch, lambda t: run_step(wk.step, t), prep=step_in),
         plain_ms=time_ms(torch, lambda t: run_step(wk.step_plain, t), prep=step_in, reps=5),
         # Every walk reads seed, ptr, ebits, frozen, counted, cycle, its P
         # checks and A valid bytes, and writes ebits; an advancing walk
@@ -1055,7 +1076,8 @@ def sim_kernel_parity(torch, np, label, tm, B, L):
         sorts += 1
     results["walk_slab"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda _: wk.slab_bottom_k(sa, ta, sk2)),
+        ms=time_device_ms(torch, lambda _: wk.slab_bottom_k(sa, ta, sk2)),
+        call_ms=time_ms(torch, lambda _: wk.slab_bottom_k(sa, ta, sk2)),
         plain_ms=time_ms(torch, lambda _: wk.slab_bottom_k_plain(sa, ta, sk2)),
         bytes=n_loose * 16 + sk2 * (3 + S) * 16 + sk2,
         ops=n_loose * 12 + sorts * 4096 * 12 * 13 // 2,
@@ -1145,6 +1167,7 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
     solo_equal(zip(vs.compact_ids_lanes(view[:1], vcap), (x[None] for x in vs.compact_ids(view[0].reshape(-1), vcap))))
     results["compact_ids_lanes"] = dict(
         max_abs_err=max(errs),
+        launches_a_call=k2_launches(torch, lambda: vs.compact_ids_lanes(view, vcap)),
         ms=time_device_ms(torch, lambda _: vs.compact_ids_lanes(view, vcap)),
         call_ms=time_ms(torch, lambda _: vs.compact_ids_lanes(view, vcap)),
         plain_ms=time_ms(torch, lambda _: vs.compact_ids_lanes_plain(view, vcap)),
@@ -1488,7 +1511,8 @@ def era_kernel_parity(torch, np, label, tm, C, qcap):
     sb = slab()
     results = {"era_step": dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda s_: eo.era_step(eo.COMMIT, c, s_, step, sb, prog.epoch), prep=st.clone),
+        ms=time_device_ms(torch, lambda s_: eo.era_step(eo.COMMIT, c, s_, step, sb, prog.epoch), prep=st.clone),
+        call_ms=time_ms(torch, lambda s_: eo.era_step(eo.COMMIT, c, s_, step, sb, prog.epoch), prep=st.clone),
         plain_ms=time_ms(torch, lambda s_: eo.era_step_plain(eo.COMMIT, c, s_, step, sb, prog.epoch),
                          prep=st.clone, reps=5),
         # the two masks once, the state read and written, hs and pa
@@ -1527,7 +1551,8 @@ def era_kernel_parity(torch, np, label, tm, C, qcap):
 
     results["era_epilogue"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda a: eo.era_epilogue(c, a[0], *a[1:], depth_lane, counts), prep=prep),
+        ms=time_device_ms(torch, lambda a: eo.era_epilogue(c, a[0], *a[1:], depth_lane, counts), prep=prep),
+        call_ms=time_ms(torch, lambda a: eo.era_epilogue(c, a[0], *a[1:], depth_lane, counts), prep=prep),
         plain_ms=time_ms(torch, lambda a: eo.era_epilogue_plain(c, a[0], *a[1:], depth_lane, counts),
                          prep=prep, reps=5),
         # hseen and faccd read, the four first-hit lanes written (zeroed),
@@ -1610,10 +1635,11 @@ def walk_era_parity(torch, np, label, tm, B, L):
 
     results = {"walk_era": dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda s_: we.walk_era(we.COMMIT, c, s_), prep=commit_st.clone),
+        ms=time_device_ms(torch, lambda s_: we.walk_era(we.COMMIT, c, s_), prep=commit_st.clone),
+        call_ms=time_ms(torch, lambda s_: we.walk_era(we.COMMIT, c, s_), prep=commit_st.clone),
         plain_ms=time_ms(torch, lambda s_: we.walk_era_plain(we.COMMIT, c, s_), prep=commit_st.clone, reps=5),
-        begin_ms=time_ms(torch, begin, prep=prep),
-        epilogue_ms=time_ms(torch, lambda t: we.walk_era(we.EPILOGUE, c, t[0], None, t[1], t[2]), prep=prep),
+        begin_ms=time_device_ms(torch, begin, prep=prep),
+        epilogue_ms=time_device_ms(torch, lambda t: we.walk_era(we.EPILOGUE, c, t[0], None, t[1], t[2]), prep=prep),
         epilogue_plain_ms=time_ms(torch, lambda t: we.walk_era_plain(we.EPILOGUE, c, t[0], None, t[1], t[2]),
                                   prep=prep, reps=5),
         # COMMIT: the gate's ten words read, three written
@@ -1699,7 +1725,9 @@ def lane_era_parity(torch, np, N, tm, C, qcap):
     commit_st[:, plen + eo.X_TAKE] = torch.clamp(commit_st[:, eo.P_COUNT], max=C)
     results = {"era_step_lanes": dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda s_: eo.era_step(eo.COMMIT, cfg, s_, step, ticket=ticket), prep=commit_st.clone),
+        ms=time_device_ms(torch, lambda s_: eo.era_step(eo.COMMIT, cfg, s_, step, ticket=ticket),
+                          prep=commit_st.clone),
+        call_ms=time_ms(torch, lambda s_: eo.era_step(eo.COMMIT, cfg, s_, step, ticket=ticket), prep=commit_st.clone),
         plain_ms=time_ms(torch, lambda s_: eo.era_step_plain(eo.COMMIT, cfg, s_, step), prep=commit_st.clone,
                          reps=3),
         # each lane's two masks once, its state row read and written, hs and pa
@@ -1730,7 +1758,8 @@ def lane_era_parity(torch, np, N, tm, C, qcap):
         errs.append(max_abs_err(torch, [(t1[0], t2[0][0])]))
     results["era_epilogue_lanes"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda t: eo.era_epilogue(cfg, t[0], *t[1:], rings[:, W - 1]), prep=prep),
+        ms=time_device_ms(torch, lambda t: eo.era_epilogue(cfg, t[0], *t[1:], rings[:, W - 1]), prep=prep),
+        call_ms=time_ms(torch, lambda t: eo.era_epilogue(cfg, t[0], *t[1:], rings[:, W - 1]), prep=prep),
         plain_ms=time_ms(torch, lambda t: eo.era_epilogue_plain(cfg, t[0], *t[1:], rings[:, W - 1]), prep=prep,
                          reps=3),
         # hseen and faccd read, the four first-hit lanes written, the rows
@@ -1964,16 +1993,18 @@ def stage_kernel_parity(torch, np, label, S, A, C=None, B=None, L=None):
         nterm = 2 + rcap + S * rcap
         results["stage_lanes"] = dict(
             max_abs_err=max(errs["stage_lanes"]),
-            ms=time_ms(torch, lambda st: sg.xor_lanes(out, src, st), prep=st0.clone),
+            ms=time_device_ms(torch, lambda st: sg.xor_lanes(out, src, st), prep=st0.clone),
+            call_ms=time_ms(torch, lambda st: sg.xor_lanes(out, src, st), prep=st0.clone),
             plain_ms=time_ms(torch, lambda st: sg.xor_lanes_plain(out, src, st), prep=st0.clone),
             bytes=16 * S * C + 8, ops=3 * S * C, library_ms=None,
             shape=f"XOR [{S}, {C}] (a round's perturbed rows)",
-            ring_ms=time_ms(torch, lambda h: sg.ring_lanes(ring_out, popped, h, M), prep=head0.clone),
-            mix_ms=time_ms(torch, lambda _: sg.mix_lanes(mix_out, 41)),
+            ring_ms=time_device_ms(torch, lambda h: sg.ring_lanes(ring_out, popped, h, M), prep=head0.clone),
+            mix_ms=time_device_ms(torch, lambda _: sg.mix_lanes(mix_out, 41)),
         )
         results["stage_loop"] = dict(
             max_abs_err=max(errs["stage_loop"]),
-            ms=time_ms(torch, lambda st: sg.fold(st, terms, 3), prep=st0.clone),
+            ms=time_device_ms(torch, lambda st: sg.fold(st, terms, 3), prep=st0.clone),
+            call_ms=time_ms(torch, lambda st: sg.fold(st, terms, 3), prep=st0.clone),
             plain_ms=time_ms(torch, lambda st: sg.fold_plain(sg.FOLD, st, terms, 3), prep=st0.clone),
             bytes=8 * nterm + 16, ops=3 * nterm, library_ms=None,
             shape=f"FOLD of the compact stage's terms ({nterm} words)",
@@ -2006,15 +2037,16 @@ def stage_kernel_parity(torch, np, label, S, A, C=None, B=None, L=None):
         out = z(S, B)
         results["stage_walk"] = dict(
             max_abs_err=max(errs["stage_walk"]),
-            ms=time_ms(torch, lambda _: sg.cycle(stw, path, h0, g0, ptr, cyc)),
+            ms=time_device_ms(torch, lambda _: sg.cycle(stw, path, h0, g0, ptr, cyc)),
+            call_ms=time_ms(torch, lambda _: sg.cycle(stw, path, h0, g0, ptr, cyc)),
             plain_ms=time_ms(torch, lambda _: sg.cycle_plain(stw, path, h0, g0, ptr, cyc)),
             # CYCLE: the slots it must read, and h0, g0, ptr and the flag.
             bytes=8 * scanned + 25 * B, ops=3 * scanned + 4 * B, library_ms=None,
             shape=f"CYCLE [{B}, {L}]",
-            record_ms=time_ms(torch, lambda p: sg.record(stw, p, h0, restart), prep=path.clone),
+            record_ms=time_device_ms(torch, lambda p: sg.record(stw, p, h0, restart), prep=path.clone),
             record_plain_ms=time_ms(torch, lambda p: sg.record_plain(stw, p, h0, restart), prep=path.clone),
             record_bound_ms=(9 * B + 8 * (B - n_restart) + 8 * L * n_restart) / HBM_BYTES_PER_S * 1e3,
-            choose_ms=time_ms(torch, lambda _: sg.choose(stw, rows, succs, valid, ptr, l227, out)),
+            choose_ms=time_device_ms(torch, lambda _: sg.choose(stw, rows, succs, valid, ptr, l227, out)),
             choose_plain_ms=time_ms(torch, lambda _: sg.choose_plain(stw, rows, succs, valid, ptr, l227, out)),
             choose_bound_ms=max((B * (16 + A) + 16 * S * B) / HBM_BYTES_PER_S,
                                 B * (3 * A + 20) / INT32_OPS_PER_S) * 1e3,
@@ -2241,9 +2273,10 @@ def mesh_kernel_parity(torch, np, label, tm, C):
 
         r = dict(
             max_abs_err=max(errs),
-            ms=time_ms(torch, lambda _: xc.exchange(h1, reps, vals, n, quota)),
+            ms=time_device_ms(torch, lambda _: xc.exchange(h1, reps, vals, n, quota)),
+            call_ms=time_ms(torch, lambda _: xc.exchange(h1, reps, vals, n, quota)),
             plain_ms=time_ms(torch, lambda _: xc.exchange_plain(h1, reps, vals, n, quota), reps=5),
-            library_ms=time_ms(torch, library),
+            library_ms=time_device_ms(torch, library),
             # h1, reps and the X lanes read once; the receive buffer written once
             bytes=n * V * (8 + 1 + 8 * X) + 8 * X * n * n * quota, ops=n * V * (X + 4),
             shape=f"N={n} V={V} X={X} quota={quota}",
@@ -2372,9 +2405,10 @@ def mesh_kernel_parity(torch, np, label, tm, C):
 
             results["mesh_era"] = dict(
                 max_abs_err=max(errs),
-                ms=time_ms(torch, run_k(me.COMMIT, st_c, ops_c, False), prep=prep(st_c, ops_c)),
+                ms=time_device_ms(torch, run_k(me.COMMIT, st_c, ops_c, False), prep=prep(st_c, ops_c)),
+                call_ms=time_ms(torch, run_k(me.COMMIT, st_c, ops_c, False), prep=prep(st_c, ops_c)),
                 plain_ms=time_ms(torch, run_k(me.COMMIT, st_c, ops_c, True), prep=prep(st_c, ops_c), reps=5),
-                epilogue_ms=time_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, False), prep=prep(st_e, ops_e)),
+                epilogue_ms=time_device_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, False), prep=prep(st_e, ops_e)),
                 epilogue_plain_ms=time_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, True), prep=prep(st_e, ops_e),
                                           reps=5),
                 library_ms=None,
@@ -2700,7 +2734,8 @@ def agree_parity(torch, np, label, tm, rows):
     args = (planted, dflip, host, hmask)
     r = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda _: agree(*args)),
+        ms=time_device_ms(torch, lambda _: agree(*args)),
+        call_ms=time_ms(torch, lambda _: agree(*args)),
         plain_ms=time_ms(torch, lambda _: agree_plain(*args)),
         bytes=12 * A * S * B + 2 * A * B + 4 * table_words(A, S),
         ops=3 * A * S * B + 2 * A * B, library_ms=None,
@@ -2802,7 +2837,8 @@ def lint_phase(torch, np, kernels, card):
         n_launch, elements = torch_launches(torch, lambda: tm.step_lanes(xp, dev_lanes))
         k16[f"K16 step_lanes ({label})"] = dict(
             max_abs_err=None,
-            ms=time_ms(torch, lambda _: probe.graph.replay()),
+            ms=time_device_ms(torch, lambda _: probe.graph.replay()),
+            call_ms=time_ms(torch, lambda _: probe.graph.replay()),
             plain_ms=time_ms(torch, lambda _: tm.step_lanes(xp, dev_lanes)),
             bytes=8 * S * B + 8 * A * S * B + A * B, ops=elements, library_ms=None,
             shape=f"the captured graph (+ the stack K16a reads) at B={B}; "
@@ -2917,26 +2953,47 @@ def spill_kernel_parity(torch, np):
     idx = fr.ring_indices(start, k, qcap, dev)
     idx_t = fr.ring_indices(tail, k, qcap, dev)
     rows64 = fr.from_u32_bits(drained).T.contiguous()
+    flat8 = fr._flat_rows(rings, starts, ks).reshape(-1)
+    flat8_t = fr._flat_rows(rings, tails, ks).reshape(-1)
+    vals8 = fr.from_u32_bits(lanes).reshape(-1)
+    # A spill's trip through the run's pinned buffer, as SpillStaging
+    # makes it: the drain and its copy out, the copy in and the refill.
+    pinned = torch.empty((k, W), dtype=torch.int32, pin_memory=True)
+
+    def drain_to_host(_):
+        fr.ring_drain(ring, start, k, out)
+        pinned.copy_(out, non_blocking=True)
+
+    def refill_from_host(_):
+        out.copy_(pinned, non_blocking=True)
+        fr.ring_refill(r1, tail, out)
+
     K8 = sum(ks)
     shape = f"[{k}, {W}] of a 2^{qcap.bit_length() - 1} ring; 8 rings of 2^15, {K8} ragged rows"
     return {
         "ring_drain": dict(
             max_abs_err=max(errs_d),
-            ms=time_ms(torch, lambda _: fr.ring_drain(ring, start, k, out)),
+            ms=time_device_ms(torch, lambda _: fr.ring_drain(ring, start, k, out)),
+            call_ms=time_ms(torch, lambda _: fr.ring_drain(ring, start, k, out)),
             plain_ms=time_ms(torch, lambda _: fr.ring_drain_plain(ring, start, k)),
-            lanes_ms=time_ms(torch, lambda _: fr.ring_drain_lanes(rings, starts, ks, out)),
+            lanes_ms=time_device_ms(torch, lambda _: fr.ring_drain_lanes(rings, starts, ks, out)),
+            lanes_library_ms=time_device_ms(torch, lambda _: rings.view(-1).index_select(0, flat8)),
+            host_ms=time_device_ms(torch, drain_to_host),
             # Each row read once (8 bytes a lane) and written once (4).
             bytes=k * W * 12, ops=k * W,
-            library_ms=time_ms(torch, lambda _: ring.index_select(1, idx)),
+            library_ms=time_device_ms(torch, lambda _: ring.index_select(1, idx)),
             shape=shape,
         ),
         "ring_refill": dict(
             max_abs_err=max(errs_r),
-            ms=time_ms(torch, lambda _: fr.ring_refill(r1, tail, drained)),
+            ms=time_device_ms(torch, lambda _: fr.ring_refill(r1, tail, drained)),
+            call_ms=time_ms(torch, lambda _: fr.ring_refill(r1, tail, drained)),
             plain_ms=time_ms(torch, lambda _: fr.ring_refill_plain(r2, tail, drained)),
-            lanes_ms=time_ms(torch, lambda _: fr.ring_refill_lanes(g1, tails, ks, lanes)),
+            lanes_ms=time_device_ms(torch, lambda _: fr.ring_refill_lanes(g1, tails, ks, lanes)),
+            lanes_library_ms=time_device_ms(torch, lambda _: g2.view(-1).index_copy_(0, flat8_t, vals8)),
+            host_ms=time_device_ms(torch, refill_from_host),
             bytes=k * W * 12, ops=k * W,
-            library_ms=time_ms(torch, lambda _: r2.index_copy_(1, idx_t, rows64)),
+            library_ms=time_device_ms(torch, lambda _: r2.index_copy_(1, idx_t, rows64)),
             shape=shape,
         ),
     }
@@ -3682,7 +3739,8 @@ def main(argv) -> int:
         if k is kernels.WALK_STEP:
             # The same source's second entry point, the era prologue.
             entry["prologue_launches"] = launches_sim[kernels.WALK_PROLOGUE.name]
-        for extra in ("call_ms", "pop_append_ms", "pop_append_library_ms", "per_shard_ms", "begin_ms",
+        for extra in ("call_ms", "launches_a_call", "host_ms", "lanes_library_ms",
+                      "pop_append_ms", "pop_append_library_ms", "per_shard_ms", "begin_ms",
                       "epilogue_ms", "epilogue_plain_ms", "ring_ms", "mix_ms", "record_ms",
                       "record_plain_ms", "record_bound_ms", "choose_ms", "choose_plain_ms", "choose_bound_ms",
                       "lanes_ms"):
@@ -3698,6 +3756,7 @@ def main(argv) -> int:
             replaces=k.replaces, launches=launches_lanes[k.name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], call_ms=r.get("call_ms"),
+            **({"launches_a_call": r["launches_a_call"]} if "launches_a_call" in r else {}),
         ))
     check(all(results_px[k]["max_abs_err"] == 0 for k in results_px), "paxos-3 widths parity")
     print(json.dumps(line))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of K2, K7 and K9b on the card, to hold checkouts of the
-port against each other with one yardstick within one call.
+"""Device times of K2, K7, K7s and K9b on the card, to hold checkouts of
+the port against each other with one yardstick within one call.
 
     python3 scripts/kernel_times.py [--trees DIR ...] [--reps N]
 
@@ -19,20 +19,38 @@ the host's share is left out):
                    launches it;
   pop_append       the two, as one BFS step runs them;
   slab_bottomk     K9b over a 1,024-row slab at occupancy 700 -> 128;
+
+and, once a tree:
+
   mesh_tail        K9b over 8 shards' slabs at phase 18's 2pc-7 widths
                    (one launch, or one a shard where the tree has no
                    lane form);
+  compact_lanes    K2's lane form at phase 12's 2pc-5 sweep widths (1,024
+                   lanes of [A=27, C=151] read from the [A, N, C] mask);
+  spill            K7s DRAIN and REFILL at phase 20's widths: 2,416,640
+                   rows x 5 of a 2^22 ring from a head that wraps, and 8
+                   rings of 2^15 with ragged counts; each also with its
+                   copy to or from a pinned buffer (`host`), as a spill
+                   makes the trip, and, where the tree has both, with
+                   the runtime-W kernel in place of the W = 5 one
+                   (`*_runtime_w`);
 
 beside the library calls that do the same work (index_select; cumsum +
-where + index_copy_; torch.topk) and the hand-written kernels' counted
-launches a call. Prints one JSON line a tree with the card's name and
-power limit.
+where + index_copy_; torch.topk; torch.nonzero, which waits for the
+host; index_select / index_copy_ over the flat ring) and the kernels a
+call (`*_kernels`: the kernel and memset nodes of one captured call,
+`by: graph`, where the tree has `engines.graph.captured_nodes`; else
+torch.profiler's kernel records of one call, `by: profiler`, which can
+miss a call's kernels; K2's and K7's appends also as the hand-written
+kernels' counted calls).
+Prints one JSON line a tree with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -42,6 +60,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 WIDTHS = {"2pc-7": (6144, 37, 3, 1 << 20), "paxos-3": (16384, 21, 30, 1 << 21)}
 MESH_N, MESH_C, MESH_A = 8, 1024, 37
+LANES = (1024, 151, 27)  # phase 12: the 2pc-5 sweep's lanes, chunk and actions
+# Phase 20's ragged rings: capacity, rows a ring, start positions.
+SPILL_RAGGED = (1 << 15, [0, 17, 1 << 15, 4_096, 1, 30_000, 12_345, 999],
+                [(1 << 15) - 5, 3, 0, (1 << 15) - 2_000, 77, 10, (1 << 15) - 1, 31_000])
 
 
 def _smoke():
@@ -139,7 +161,108 @@ def one_tree(tree: str, reps: int) -> dict:
         ms=dev_ms(tail), library=dev_ms(lambda: torch.topk(skey, sk2, dim=1)), launches=counted(tail),
         shape=dict(shards=n, scap=scap, sk2=sk2),
     )
+    del slabs, skey
+
+    # K2's lane form at the 2pc-5 sweep's widths (phase 12).
+    N, C, A = LANES
+    vcap = widths(A, C)[0]
+    view = torch.from_numpy(rng.random((A, N, C)) < 0.3).to(dev).transpose(0, 1)
+    out["compact_lanes"] = dict(
+        ms=dev_ms(lambda: vs.compact_ids_lanes(view, vcap)),
+        library=smoke.time_device_ms(torch, lambda _: torch.nonzero(view), reps=reps, syncs=True),
+        kernels=call_kernels(torch, lambda: vs.compact_ids_lanes(view, vcap)),
+        shape=dict(N=N, A=A, C=C, vcap=vcap),
+    )
+    for label in WIDTHS:
+        C, A = WIDTHS[label][:2]
+        mask = torch.from_numpy(rng.random(C * A) < 0.3).to(dev)
+        out[label]["compact_ids_kernels"] = call_kernels(torch, lambda: vs.compact_ids(mask, widths(A, C)[0]))
+    del view
+    torch.cuda.empty_cache()
+
+    # K7s at phase 20's widths: 2pc-10's largest drain of a 2^22 ring,
+    # and 8 ragged rings of 2^15.
+    W, qcap, k, start = spill_widths()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    ring = torch.randint(0, 1 << 32, (W, qcap + 1), dtype=torch.int64, device=dev, generator=gen)
+    buf = torch.empty((k, W), dtype=torch.int32, device=dev)
+    pinned = torch.empty((k, W), dtype=torch.int32, pin_memory=True)
+    rows = fr.ring_drain(ring, start, k, buf).clone()
+    rows64 = fr.from_u32_bits(rows).T.contiguous()
+    tail = start + 777
+    idx, idx_t = fr.ring_indices(start, k, qcap, dev), fr.ring_indices(tail, k, qcap, dev)
+    q8, ks, starts = SPILL_RAGGED
+    rings = torch.randint(0, 1 << 32, (len(ks), W, q8 + 1), dtype=torch.int64, device=dev, generator=gen)
+    tails = [s + 100 for s in starts]
+    lrows = fr.ring_drain_lanes(rings, starts, ks).clone()
+    flat, flat_t = fr._flat_rows(rings, starts, ks).reshape(-1), fr._flat_rows(rings, tails, ks).reshape(-1)
+    vals = fr.from_u32_bits(lrows).reshape(-1)
+
+    def drain_host():
+        fr.ring_drain(ring, start, k, buf)
+        pinned.copy_(buf, non_blocking=True)
+
+    def refill_host():
+        buf.copy_(pinned, non_blocking=True)
+        fr.ring_refill(ring, tail, buf)
+
+    runtime_w = {}
+    if "specialise" in inspect.signature(fr._spill_launch).parameters:
+        runtime_w = dict(
+            drain_runtime_w=dev_ms(lambda: fr._spill_launch(kernels.RING_DRAIN, ring[None], [start], [k], buf,
+                                                            specialise=False)),
+            refill_runtime_w=dev_ms(lambda: fr._spill_launch(kernels.RING_REFILL, ring[None], [tail], [k], rows,
+                                                             specialise=False)),
+        )
+    out["spill"] = dict(
+        **runtime_w,
+        drain=dev_ms(lambda: fr.ring_drain(ring, start, k, buf)),
+        drain_library=dev_ms(lambda: ring.index_select(1, idx)),
+        drain_host=dev_ms(drain_host),
+        refill=dev_ms(lambda: fr.ring_refill(ring, tail, rows)),
+        refill_library=dev_ms(lambda: ring.index_copy_(1, idx_t, rows64)),
+        refill_host=dev_ms(refill_host),
+        lanes_drain=dev_ms(lambda: fr.ring_drain_lanes(rings, starts, ks, buf)),
+        lanes_drain_library=dev_ms(lambda: rings.view(-1).index_select(0, flat)),
+        lanes_refill=dev_ms(lambda: fr.ring_refill_lanes(rings, tails, ks, lrows)),
+        lanes_refill_library=dev_ms(lambda: rings.view(-1).index_copy_(0, flat_t, vals)),
+        drain_kernels=call_kernels(torch, lambda: fr.ring_drain(ring, start, k, buf)),
+        lanes_drain_kernels=call_kernels(torch, lambda: fr.ring_drain_lanes(rings, starts, ks, buf)),
+        shape=dict(W=W, qcap=qcap, k=k, start=start, ragged_rows=sum(ks), ragged_qcap=q8),
+    )
     return out
+
+
+def spill_widths():
+    """(W, qcap, k, start) of phase 20's solo drain: 2pc-10 at its chunk
+    through a 2^22 ring, its largest drain, from a head that wraps."""
+    from stateright_tpu_torch.models import TwoPhaseTensor
+
+    tm = TwoPhaseTensor(10)
+    qcap = 1 << 22
+    C = min(12288, qcap // (2 * tm.max_actions))
+    hw = qcap - C * tm.max_actions
+    return tm.state_width + 2, qcap, qcap - max(hw // 2, hw - 64 * C * tm.max_actions), qcap - 12_345
+
+
+def call_kernels(torch, fn) -> dict:
+    """Kernels one call of fn runs on the card: the nodes of one captured
+    call where the tree can count them (`by: graph`), else torch.profiler's
+    device records of one call, copies and fills left out (`by:
+    profiler`)."""
+    from stateright_tpu_torch.engines import graph
+
+    fn()
+    torch.cuda.synchronize()
+    if hasattr(graph, "captured_nodes"):
+        return dict(graph.captured_nodes(fn), by="graph")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return dict(kernels=sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+                            and not e.name.startswith(("Memcpy", "Memset"))), by="profiler")
 
 
 def main(argv) -> int:

@@ -14,8 +14,9 @@ structure comes from a run on `meta` lanes, where the same control flow
 raises (`Tensor.item() cannot be called on meta tensors`), and the
 values from an eager CPU call.
 
-A refused capture leaves nothing behind: the capture ends on its own
-side stream, and torch's current stream is the caller's again.
+A refused capture leaves nothing behind: the capture ends on the
+engines' capture stream, and torch's current stream is the caller's
+again.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..engines.graph import capture_guard
 from ..xp import TorchXP
 
 
@@ -51,24 +53,26 @@ def failure_message(member: str, failure: ProbeFailed, device) -> str:
 
 
 def _capture(device: torch.device, body: Callable[[], Any]):
-    """Capture `body` as a CUDA graph on a side stream; returns (graph,
-    what body returned). A failure ends the capture and raises."""
+    """Capture `body` as a CUDA graph in the engines' capture setting
+    (`graph.capture_guard`: their capture stream, the collector paused);
+    returns (graph, what body returned). A failure ends the capture and
+    raises body's error."""
     graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream(device=device)
-    side.wait_stream(torch.cuda.current_stream(device))
     torch.cuda.synchronize(device)
-    with torch.cuda.stream(side):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            out = body()
-        except BaseException:
+    with capture_guard(device) as side:
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
             try:
-                graph.capture_end()
-            except Exception:
-                pass  # an invalidated capture ends with an error of its own
-            raise
-        graph.capture_end()
-    torch.cuda.current_stream(device).wait_stream(side)
+                out = body()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:
+                    pass  # an invalidated capture ends with an error of its own
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(side)
     return graph, out
 
 

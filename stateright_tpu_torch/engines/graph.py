@@ -19,6 +19,7 @@ falls back to running the segments from the host.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
@@ -42,6 +43,7 @@ _SIGNATURES = (
     ("srt_graph_instantiate", [_V, _PV]),
     ("srt_graph_launch", [_V, _V]),
     ("srt_graph_destroy", [_V, _V]),
+    ("srt_graph_nodes", [_V, ctypes.POINTER(ctypes.c_longlong)]),
 )
 
 
@@ -64,6 +66,47 @@ def _capture_stream(device: int) -> torch.cuda.Stream:
     return torch.cuda.Stream(device=device, priority=-1)
 
 
+@contextlib.contextmanager
+def capture_guard(device=None):
+    """The setting every capture runs in (the program segments here, the
+    speclint probe's lane program, analysis/probe.py): yields the stream
+    to capture on, `_capture_stream`, with the Python collector paused
+    until the capture is over. A collection inside a capture can free a
+    pinned buffer (a readback slot), which records an event on each stream
+    the buffer was used on; on the capturing stream that record is
+    captured, not made, so the host allocator's next query of the event
+    fails ("invalid argument" at the next capture's _host_emptyCache)."""
+    dev = None if device is None else torch.device(device).index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield _capture_stream(dev)
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def captured_nodes(fn: Callable[[], None]) -> Dict[str, int]:
+    """Capture one call of `fn` on the current device and count its graph
+    nodes (kernels, memsets and all): what a call launches, counted on
+    the card (the kernels' `launches` count calls of their C entry
+    points)."""
+    counts = kernels.launch_counts()
+    tg = torch.cuda.CUDAGraph(keep_graph=True)
+    try:
+        with capture_guard() as stream:
+            with torch.cuda.graph(tg, stream=stream, capture_error_mode="thread_local"):
+                fn()
+        out = (ctypes.c_longlong * 3)()
+        _ok(_call("srt_graph_nodes")(_V(tg.raw_cuda_graph()), out), "graph nodes")
+        return dict(kernels=out[0], memsets=out[1], nodes=out[2])
+    finally:
+        kernels.restore_launches(counts)
+        tg.reset()
+
+
 class Graph:
     """One device program: the C-built graph and its instantiation, the
     torch graphs (and their memory pools) its child nodes copy, and each
@@ -82,21 +125,9 @@ class Graph:
         """Capture `fn` as the segment `name`: the raw graph to place."""
         before = kernels.launch_counts()
         tg = torch.cuda.CUDAGraph(keep_graph=True)
-        # No collection runs inside a capture: a pinned buffer that it frees
-        # records an event on each stream the buffer was used on, and on the
-        # capturing stream that record is captured, not made, so the host
-        # allocator's next query of the event fails ("invalid argument" at
-        # the next capture's _host_emptyCache). The segments are captured on
-        # a stream no readback draws (`_capture_stream`) for the same reason.
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(tg, stream=_capture_stream(torch.cuda.current_device()),
-                                  capture_error_mode="thread_local"):
+        with capture_guard() as stream:
+            with torch.cuda.graph(tg, stream=stream, capture_error_mode="thread_local"):
                 fn()
-        finally:
-            if collecting:
-                gc.enable()
         after = kernels.launch_counts()
         self.per_run[name] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         self.torch_graphs.append(tg)

@@ -97,7 +97,7 @@ HASH_LANES = Kernel(
 # lanes, engines/multiplex.py); the solo engine calls them with one lane.
 # Each source has two counted entries: the solo calls count on the first,
 # the lane calls on its `_lanes` twin (same source, same C symbol).
-_COMPACT_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P]
+_COMPACT_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P]
 _DEDUP_ARGS = [_P, _P, _P, _I64, _I64, _P, _I64, _P]
 _INSERT_ARGS = [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P]
 _RING_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I64]
@@ -246,7 +246,7 @@ LANE_AGREE = Kernel(
 
 # K7s: the host spill's ring drain and refill (ops/frontier.py), one
 # source with two entry points, each counted.
-_SPILL_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _P, _I64, _I64, _P]
+_SPILL_ARGS = [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P]
 RING_DRAIN = Kernel(
     "ring_drain", "ring_spill.cu", "srt_ring_drain", _SPILL_ARGS,
     "stateright_tpu/engines/tpu_bfs.py:1924",

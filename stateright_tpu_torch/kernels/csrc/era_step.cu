@@ -308,6 +308,28 @@ extern "C" int srt_graph_launch(void* exec, void* stream) {
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// The nodes of `graph` by type: counts[0] kernels, [1] memsets, [2] all
+// (a captured call's launches, counted on the card; child graphs are not
+// entered).
+extern "C" int srt_graph_nodes(void* graph, long long* counts) {
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &n);
+  if (e != cudaSuccess) return (int)e;
+  counts[0] = counts[1] = 0;
+  counts[2] = (long long)n;
+  if (n == 0) return 0;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  e = cudaGraphGetNodes((cudaGraph_t)graph, nodes, &n);
+  for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType t = cudaGraphNodeTypeEmpty;
+    e = cudaGraphNodeGetType(nodes[i], &t);
+    if (t == cudaGraphNodeTypeKernel) ++counts[0];
+    if (t == cudaGraphNodeTypeMemset) ++counts[1];
+  }
+  delete[] nodes;
+  return (int)e;
+}
+
 extern "C" int srt_graph_destroy(void* exec, void* graph) {
   cudaError_t e = cudaSuccess;
   if (exec) e = cudaGraphExecDestroy((cudaGraphExec_t)exec);

@@ -291,18 +291,40 @@ def ring_refill_lanes_plain(rings: torch.Tensor, tails: Sequence[int], ks: Seque
     rings.view(-1).index_copy_(0, flat.reshape(-1), from_u32_bits(rows).reshape(-1))
 
 
-def _spill_launch(kernel, rings, positions, ks, rows) -> None:
+# K7s's blocks (kernels/csrc/ring_spill.cu): at most SPILL_BLOCK_WORDS
+# block-side words a block, and fewer where that would leave the card
+# under SPILL_MIN_BLOCKS blocks (two an SM), down to SPILL_MIN_ROWS rows.
+SPILL_BLOCK_WORDS = 4096
+SPILL_MIN_BLOCKS = 264
+SPILL_MIN_ROWS = 512
+
+
+def spill_plan(positions: Sequence[int], ks: Sequence[int], width: int):
+    """K7s's work, planned on the host: (runs, rows a block). One run
+    (ring, off, k, pos) a ring with rows, as int64 [n, 4]; the kernel
+    cuts each into blocks of `rows a block` rows (a ring's last block
+    takes what is left), so no block waits on a short ring."""
+    if width > SPILL_BLOCK_WORDS:
+        raise ValueError(f"K7s takes rows of at most {SPILL_BLOCK_WORDS} words")
+    off, ks, pos = _spans(positions, ks)
+    runs = np.array([(l, o, k, p) for l, (o, k, p) in enumerate(zip(off, ks, pos)) if k],
+                    dtype=np.int64).reshape(-1, 4)
+    most = SPILL_BLOCK_WORDS // width
+    return runs, min(most, max(SPILL_MIN_ROWS, -(-sum(ks) // SPILL_MIN_BLOCKS)))
+
+
+def _spill_launch(kernel, rings, positions, ks, rows, specialise: bool = True) -> None:
+    """One K7s call. `specialise=False` runs the runtime-W kernel at a
+    width that has its own (W = 5), to time one against the other."""
     L, W, q1 = rings.shape
     if not rings.is_contiguous() or not rows.is_contiguous():
         raise ValueError("the rings and the rows must be contiguous")
-    if L > 65535:
-        raise ValueError("at most 65,535 rings a launch")
-    off, ks, pos = _spans(positions, ks)
-    spans = torch.tensor([off, ks, pos], dtype=torch.int64).to(rings.device, non_blocking=True)
-    tile = max(1, min(128, 8192 // W))  # <= 32 KiB of shared rows a block
+    runs, per_block = spill_plan(positions, ks, W)
+    # The plan goes in the kernel's parameters (host memory read by the
+    # launch itself): no copy to the card a call.
     kernel.launch(
-        kernels.ptr(rings), L, W, q1, W * q1, q1 - 2, kernels.ptr(spans), max(ks, default=0), tile,
-        kernels.ptr(rows),
+        kernels.ptr(rings), W, q1, W * q1, q1 - 2, runs.ctypes.data, runs.shape[0], per_block,
+        int(specialise), kernels.ptr(rows),
     )
 
 

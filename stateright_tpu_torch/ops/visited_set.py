@@ -119,6 +119,26 @@ def compact_ids_lanes_plain(mask: torch.Tensor, cap: int):
     return ids, valid, n_set
 
 
+# K2's blocks (kernels/csrc/compact_ids.cu): a thread ranks 16 mask bytes,
+# a block COMPACT_SUB elements at once, and a lane has at most
+# COMPACT_MAX_TILES tiles, since every WRITE block sums its lane's counts.
+COMPACT_SUB = 4096
+COMPACT_MAX_TILES = 1024
+
+
+def compact_plan(n: int, cap: int):
+    """K2's launch plan for lanes of n mask elements into cap ids: (per,
+    tiles, blocks). A tile is `per` sub-tiles of COMPACT_SUB elements, as
+    few as keep `tiles` <= COMPACT_MAX_TILES (0 tiles when n is 0, none
+    of them empty); COUNT runs a block a tile, WRITE `blocks` a lane (at
+    least one, and enough that a block's stripe of [0, cap) is at most
+    COMPACT_SUB long). The scratch holds one int32 a (lane, tile)."""
+    sub = -(-n // COMPACT_SUB)
+    per = max(1, -(-sub // COMPACT_MAX_TILES))
+    tiles = -(-sub // per)
+    return per, tiles, max(1, tiles, -(-cap // COMPACT_SUB))
+
+
 def _compact_ids(mask: torch.Tensor, cap: int, kernel):
     """K2 over a [N, nseg, seg] bool view whose runs are contiguous."""
     if mask.dim() != 3 or mask.dtype != torch.bool:
@@ -132,15 +152,17 @@ def _compact_ids(mask: torch.Tensor, cap: int, kernel):
         raise ValueError("compact_ids takes at most 65535 lanes")
     n = nseg * seg
     dev = mask.device
+    per, tiles, blocks = compact_plan(n, cap)
     ids = torch.empty((N, cap), dtype=torch.int64, device=dev)
     valid = torch.empty((N, cap), dtype=torch.bool, device=dev)
     n_set = torch.empty(N, dtype=torch.int64, device=dev)
-    scratch = torch.empty(N * max(1, -(-n // 4096)), dtype=torch.int64, device=dev)
+    # COUNT writes every entry before WRITE reads it: no reset, so under a
+    # graph capture this allocation is made once and replayed as it is.
+    scratch = torch.empty(N * max(1, tiles), dtype=torch.int32, device=dev)
     # The view's first element, then the kernel's strides.
     kernel.launch(
-        mask.data_ptr(), N, n, seg, mask.stride(1), mask.stride(0), cap,
-        kernels.ptr(ids), kernels.ptr(valid), kernels.ptr(n_set),
-        kernels.ptr(scratch),
+        mask.data_ptr(), N, n, seg, mask.stride(1), mask.stride(0), cap, per, tiles, blocks,
+        kernels.ptr(ids), kernels.ptr(valid), kernels.ptr(n_set), kernels.ptr(scratch),
     )
     return ids, valid, n_set
 

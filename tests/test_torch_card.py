@@ -1010,3 +1010,154 @@ def test_spilling_run_matches_the_unspilled_run(dev):
     assert spilled["unique"] == 296_448
     assert {k: spilled[k] for k in ("unique", "states", "sample")} == {
         k: unspilled[k] for k in ("unique", "states", "sample")}
+
+
+# K2 and K7s as redesigned: their edges against the plain versions, bit
+# for bit; K2's launches a call counted on the card, and its replay.
+
+K2_EDGES = [
+    (0, 0.5, 8), (50, 0.5, 0), (0, 0.0, 0), (100, 0.7, 1_000),        # n = 0, cap = 0, cap > n
+    (3 * 4096 - 1, 0.4, 5_000), (3 * 4096, 0.4, 5_000), (3 * 4096 + 1, 0.4, 5_000),  # tile edges
+    (3 * 4096 + 1, 0.9, 2_000), (4096, 1.0, 4095),                    # n_set > cap
+    (4096 * 1024 + 77, 0.01, 50_000),                                  # two sub-tiles a tile
+]
+
+
+@pytest.mark.parametrize("n,density,cap", K2_EDGES)
+def test_compact_ids_kernel_edges(dev, n, density, cap):
+    """Solo K2 at its edges, on aligned masks and on views 1, 3 and 8
+    bytes past 16-byte alignment (the byte loads)."""
+    rng = np.random.default_rng(n + cap)
+    big = torch.from_numpy(rng.random(n + 16) < density).to(dev)
+    for o in (0, 1, 3, 8):
+        mask = big[o:o + n]
+        for a, b in zip(vs.compact_ids(mask, cap), vs.compact_ids_plain(mask, cap)):
+            assert torch.equal(a, b), o
+
+
+@pytest.mark.parametrize("N,A,C", [(8, 37, 55), (2, 37, 6144), (1024, 27, 151), (3, 1, 4097)])
+def test_compact_ids_lanes_kernel_transposed_views(dev, N, A, C):
+    """The lanes' and the mesh's [A, N, C] mask read as [N, A, C]: C = 55
+    (2pc-7's chunk after the spill clamp), 6,144 (the bench chunk), the
+    2pc-5 sweep's 1,024 lanes; caps under and over n_set."""
+    from stateright_tpu_torch.engines.era import widths
+
+    amask = torch.from_numpy(np.random.default_rng(C).random((A, N, C)) < 0.3).to(dev)
+    view = amask.transpose(0, 1)
+    vcap = widths(A, C)[0]
+    for cap in (vcap, max(1, vcap // 8)):
+        for a, b in zip(vs.compact_ids_lanes(view, cap), vs.compact_ids_lanes_plain(view, cap)):
+            assert torch.equal(a, b)
+
+
+def test_compact_ids_launches_two_kernels_a_call(dev):
+    """Counted on the card: the kernel nodes of one captured call (solo,
+    lanes), none of them a memset; COUNT is skipped on an empty mask."""
+    from stateright_tpu_torch.engines import graph
+
+    rng = np.random.default_rng(5)
+    mask = torch.from_numpy(rng.random(227_328) < 0.3).to(dev)
+    amask = torch.from_numpy(rng.random((27, 1024, 151)) < 0.3).to(dev)
+    for fn, want in ((lambda: vs.compact_ids(mask, 75_776), 2),
+                     (lambda: vs.compact_ids_lanes(amask.transpose(0, 1), 1_359), 2),
+                     (lambda: vs.compact_ids(mask[:0], 8), 1)):
+        fn()
+        counts = graph.captured_nodes(fn)
+        assert counts["kernels"] == want and counts["memsets"] == 0, counts
+
+
+def test_compact_ids_graph_replays_with_no_reset(dev):
+    """One K2 call captured once and replayed three times on changed
+    masks gives the plain results each time, with nothing reset."""
+    from stateright_tpu_torch.engines import graph
+
+    rng = np.random.default_rng(6)
+    n, cap = 344_064, 114_688
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    amask = torch.zeros((21, 16, 55), dtype=torch.bool, device=dev)
+    vs.compact_ids(mask, cap), vs.compact_ids_lanes(amask.transpose(0, 1), 300)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with graph.capture_guard() as stream:
+        with torch.cuda.graph(g, stream=stream):
+            solo = vs.compact_ids(mask, cap)
+            lanes = vs.compact_ids_lanes(amask.transpose(0, 1), 300)
+    for density in (0.3, 0.95, 0.0):
+        mask.copy_(torch.from_numpy(rng.random(n) < density))
+        amask.copy_(torch.from_numpy(rng.random((21, 16, 55)) < density))
+        g.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(solo, vs.compact_ids_plain(mask, cap)):
+            assert torch.equal(a, b), density
+        for a, b in zip(lanes, vs.compact_ids_lanes_plain(amask.transpose(0, 1), 300)):
+            assert torch.equal(a, b), density
+
+
+SPILL_EDGES = [
+    ([(1 << 12) - 3], [1 << 12]),                       # odd start, the whole ring, wrapping
+    ([6], [3_333]),                                     # even start, no wrap
+    ([4_095, 0, 1, 2_000, 17, 3_000], [1, 0, 2, 4_096, 1_639, 2_222]),  # k = 1, 0, whole; ragged
+]
+
+
+@pytest.mark.parametrize("W", [5, 32, 7])
+@pytest.mark.parametrize("starts,ks", SPILL_EDGES)
+def test_ring_spill_kernel_edges(dev, W, starts, ks):
+    """K7s DRAIN and REFILL at the bundled models' widths (5, 32) and one
+    no bundled model has (7): odd and even starts, a wrap at qmask, k = 0, 1 and a
+    whole ring; the drain into, and the refill from, a block 3 rows
+    into its buffer (off x W not a multiple of 4 words)."""
+    qcap = 1 << 12
+    gen = torch.Generator(device=dev).manual_seed(W + len(ks))
+    rings = torch.randint(0, 1 << 32, (len(ks), W, qcap + 1), dtype=torch.int64, device=dev, generator=gen)
+    rings[..., qcap] = 0
+    K = sum(ks)
+    want = fr.ring_drain_lanes_plain(rings, starts, ks)
+    assert torch.equal(fr.ring_drain_lanes(rings, starts, ks), want)
+    buf = torch.zeros((K + 3, W), dtype=torch.int32, device=dev)
+    assert torch.equal(fr.ring_drain_lanes(rings, starts, ks, buf[3:]), want)
+    tails = [s + 1_001 for s in starts]
+    a, b = rings.clone(), rings.clone()
+    buf[3:] = want
+    fr.ring_refill_lanes(a, tails, ks, buf[3:])
+    fr.ring_refill_lanes_plain(b, tails, ks, want)
+    assert torch.equal(a, b)
+    assert int(a[..., qcap].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("starts,ks", SPILL_EDGES)
+def test_ring_spill_runtime_width_kernel_at_w5(dev, starts, ks):
+    """The runtime-W K7s kernel at W = 5, where the wrappers launch the
+    one with W a constant (kernel_times.py times one against the other):
+    DRAIN and REFILL equal the plain versions bit for bit."""
+    W, qcap = 5, 1 << 12
+    gen = torch.Generator(device=dev).manual_seed(len(ks))
+    rings = torch.randint(0, 1 << 32, (len(ks), W, qcap + 1), dtype=torch.int64, device=dev, generator=gen)
+    rings[..., qcap] = 0
+    want = fr.ring_drain_lanes_plain(rings, starts, ks)
+    got = torch.zeros((sum(ks), W), dtype=torch.int32, device=dev)
+    fr._spill_launch(kernels.RING_DRAIN, rings, starts, ks, got, specialise=False)
+    assert torch.equal(got, want)
+    tails = [s + 1_001 for s in starts]
+    a, b = rings.clone(), rings.clone()
+    fr._spill_launch(kernels.RING_REFILL, a, tails, ks, want, specialise=False)
+    fr.ring_refill_lanes_plain(b, tails, ks, want)
+    assert torch.equal(a, b)
+
+
+def test_analyze_after_a_readback_heavy_run(dev):
+    """The speclint probe's capture right after a BFS run whose eras each
+    read their state back through pinned slots, in one process: both go
+    through graph.capture_guard, and the report equals the CPU's."""
+    import gc
+
+    from stateright_tpu_torch import analyze
+
+    c = TensorModelAdapter(TwoPhaseTensor(5)).checker().spawn_gpu_bfs(device=dev, **PIPE_OPTS).join()
+    assert c.unique_state_count() == 8832 and c.telemetry()["eras"] >= 30
+    del c
+    gc.collect()
+    for model in (TwoPhaseTensor(5), TwoPhaseTensor(3)):
+        on_card, on_cpu = analyze(model, device=dev), analyze(model, device="cpu")
+        assert on_card.to_dict() == on_cpu.to_dict()
+        assert on_card.probes["captures"] >= 2 and on_card.probes["graph_launches"] >= 1
