@@ -303,11 +303,13 @@ def result_dict(c):
 
 # -- phase 2 ----------------------------------------------------------------
 
-def time_ms(torch, fn, prep=None, reps=20):
+def time_ms(torch, fn, prep=None, reps=20, warm=True):
     """Median CUDA-event time of fn(prep()) over `reps` launches after a
-    warm-up; prep runs outside the timed window."""
+    warm-up (none with warm=False, for a plain version that builds
+    nothing and takes tens of seconds a call); prep runs outside the
+    timed window."""
     times = []
-    for r in range(reps + 1):
+    for r in range(reps + 1 if warm else reps):
         arg = prep() if prep is not None else None
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -315,7 +317,7 @@ def time_ms(torch, fn, prep=None, reps=20):
         fn(arg)
         end.record()
         torch.cuda.synchronize()
-        if r:
+        if r or not warm:
             times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
@@ -403,13 +405,15 @@ def time_device_ms(torch, fn, prep=None, reps=50, syncs=False):
     return times[len(times) // 2]
 
 
-def k2_launches(torch, fn):
-    """K2's kernels a call, counted on the card: the kernel nodes of one
-    captured call (at most two, COUNT and WRITE, and no memset node)."""
+def kernels_a_call(torch, what, fn, most):
+    """A kernel's launches a call, counted on the card: the kernel nodes of
+    one captured call (at most `most`: K2's and K15a's COUNT and WRITE,
+    K4's PROBE, STAMP and COMMIT), and no memset node."""
     from stateright_tpu_torch.engines import graph
 
     nodes = graph.captured_nodes(fn)
-    check(nodes["memsets"] == 0 and nodes["kernels"] <= 2, f"K2 captured as {nodes}")
+    check(nodes["memsets"] == 0 and nodes["kernels"] <= most, f"{what} captured as {nodes}")
+    print(f"{what}: {nodes['kernels']} kernels a captured call, no memset", flush=True)
     return nodes["kernels"]
 
 
@@ -505,7 +509,7 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     mask, cap = cases[0]
     results["compact_ids"] = dict(
         max_abs_err=max(errs),
-        launches_a_call=k2_launches(torch, lambda: vs.compact_ids(mask, cap)),
+        launches_a_call=kernels_a_call(torch, "K2", lambda: vs.compact_ids(mask, cap), 2),
         ms=time_device_ms(torch, lambda _: vs.compact_ids(mask, cap)),
         call_ms=time_ms(torch, lambda _: vs.compact_ids(mask, cap)),
         plain_ms=time_ms(torch, lambda _: vs.compact_ids_plain(mask, cap)),
@@ -592,6 +596,8 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
         ms=time_device_ms(torch, lambda t: vs.insert(t, b1, b2, p1, p2, act), prep=lambda: clone(base)),
         call_ms=time_ms(torch, lambda t: vs.insert(t, b1, b2, p1, p2, act), prep=lambda: clone(base)),
         plain_ms=time_ms(torch, lambda t: vs.insert_plain(t, b1, b2, p1, p2, act), prep=lambda: clone(base), reps=5),
+        # Captured, never run: the table is not touched.
+        launches_a_call=kernels_a_call(torch, f"{label} K4", lambda: vs.insert(base, b1, b2, p1, p2, act), 3),
         bytes=rcap * (4 * 8 + 1 + 2) + n_act * 8 + n_new * 16,
         ops=n_act * 8,
         library_ms=None,
@@ -765,7 +771,7 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
             max_abs_err=None,
             ms=time_device_ms(torch, rehash_into, prep=lambda: vs.empty_table(2 * tcap, dev), syncs=True),
             call_ms=time_ms(torch, rehash_into, prep=lambda: vs.empty_table(2 * tcap, dev), reps=5),
-            plain_ms=time_ms(torch, rehash_plain_into, prep=lambda: vs.empty_table(2 * tcap, dev), reps=1),
+            plain_ms=time_ms(torch, rehash_plain_into, prep=lambda: vs.empty_table(2 * tcap, dev), reps=1, warm=False),
             library_ms=None,
             bytes=tcap * 16 + occ * 24, ops=occ * 8,
             shape=f"{occ} rows of {tcap} slots into {2 * tcap}",
@@ -1167,7 +1173,7 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
     solo_equal(zip(vs.compact_ids_lanes(view[:1], vcap), (x[None] for x in vs.compact_ids(view[0].reshape(-1), vcap))))
     results["compact_ids_lanes"] = dict(
         max_abs_err=max(errs),
-        launches_a_call=k2_launches(torch, lambda: vs.compact_ids_lanes(view, vcap)),
+        launches_a_call=kernels_a_call(torch, "K2 lanes", lambda: vs.compact_ids_lanes(view, vcap), 2),
         ms=time_device_ms(torch, lambda _: vs.compact_ids_lanes(view, vcap)),
         call_ms=time_ms(torch, lambda _: vs.compact_ids_lanes(view, vcap)),
         plain_ms=time_ms(torch, lambda _: vs.compact_ids_lanes_plain(view, vcap)),
@@ -1242,6 +1248,7 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
         call_ms=time_ms(torch, lambda t: vs.insert_lanes(t, bh[0], bh[1], p[0], p[1], act), prep=lambda: clone(base), reps=10),
         plain_ms=time_ms(torch, lambda t: vs.insert_lanes_plain(t, bh[0], bh[1], p[0], p[1], act),
                          prep=lambda: clone(base), reps=3),
+        launches_a_call=kernels_a_call(torch, "K4 lanes", lambda: vs.insert_lanes(ta, bh[0], bh[1], p[0], p[1], act), 3),
         bytes=N * rcap * (4 * 8 + 1 + 2) + n_act * 8 + n_new * 16,
         ops=n_act * 8,
         library_ms=None,
@@ -2277,14 +2284,15 @@ def mesh_kernel_parity(torch, np, label, tm, C):
             call_ms=time_ms(torch, lambda _: xc.exchange(h1, reps, vals, n, quota)),
             plain_ms=time_ms(torch, lambda _: xc.exchange_plain(h1, reps, vals, n, quota), reps=5),
             library_ms=time_device_ms(torch, library),
+            launches_a_call=kernels_a_call(torch, f"{label} K15a N={n}",
+                                           lambda: xc.exchange(h1, reps, vals, n, quota), 2),
             # h1, reps and the X lanes read once; the receive buffer written once
             bytes=n * V * (8 + 1 + 8 * X) + 8 * X * n * n * quota, ops=n * V * (X + 4),
             shape=f"N={n} V={V} X={X} quota={quota}",
         )
         print(f"{label} K15a N={n}: {r['shape']} max_abs_err={r['max_abs_err']}", flush=True)
         check(r["max_abs_err"] == 0, f"{label} N={n}: K15a disagrees with its plain version")
-        if n == MESH_N:
-            results["exchange"] = r
+        results["exchange" if n == MESH_N else "exchange_n1"] = r
 
         prog = mesh.MeshProgram(tm, props, C, 1 << 16, 1 << 12, n, quota, True, 64, 4, dev)
         c, x, L, R = prog.cfg, prog.x, prog.L, prog.R

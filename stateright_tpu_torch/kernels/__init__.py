@@ -99,7 +99,7 @@ HASH_LANES = Kernel(
 # the lane calls on its `_lanes` twin (same source, same C symbol).
 _COMPACT_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P]
 _DEDUP_ARGS = [_P, _P, _P, _I64, _I64, _P, _I64, _P]
-_INSERT_ARGS = [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P]
+_INSERT_ARGS = [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P]
 _RING_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I64]
 _APPEND_ARGS = [_I32, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _P, _I64, _I64, _P]
 _BOTTOMK_ARGS = [_P, _P, _P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _P, _P, _I64]
@@ -222,11 +222,12 @@ STAGE_WALK = Kernel(
     "stateright_tpu/engines/tpu_simulation.py:622",
 )
 
-# K15a and K15f: the sharded era's owner exchange and its shard-coupled
-# gate, commit, epilogue and tail (parallel/mesh.py).
+# K15a and K15f: the sharded era's owner exchange (COUNT and WRITE, two
+# launches a call) and its shard-coupled gate, commit, epilogue and tail
+# (parallel/mesh.py).
 EXCHANGE = Kernel(
     "exchange", "exchange.cu", "srt_exchange",
-    [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P],
+    [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P],
     "stateright_tpu/parallel/mesh.py:337",
 )
 MESH_ERA = Kernel(

@@ -1,7 +1,8 @@
 """The owner exchange of the sharded step (K15a): bucket each shard's
 candidates by owner shard and lay them out as every owner receives them,
-with a hand-written kernel (kernels/csrc/exchange.cu) and its plain torch
-version.
+with a hand-written kernel (kernels/csrc/exchange.cu: COUNT, then WRITE
+as its programmatic dependent, two launches over every source's tiles)
+and its plain torch version.
 
 The port's counterpart of `stateright_tpu/parallel/mesh.py:337-384`:
 after the in-batch dedup, candidate i of shard l goes to its owner
@@ -32,6 +33,24 @@ import torch
 from .. import kernels
 
 MAX_SHARDS = 256  # owners a kernel block counts in shared memory
+# K15a's blocks (kernels/csrc/exchange.cu): a sub-tile is EXCHANGE_SUB
+# candidates (a block's threads), and every WRITE block reads its
+# source's counts of every tile and owner, at most EXCHANGE_MAX_CELLS.
+EXCHANGE_SUB = 256
+EXCHANGE_MAX_CELLS = 16384
+
+
+def exchange_plan(V: int, n_total: int):
+    """K15a's launch plan for sources of V candidates and n_total owners:
+    (per, tiles). A tile is `per` sub-tiles of EXCHANGE_SUB candidates, as
+    few as keep tiles x n_total within EXCHANGE_MAX_CELLS (0 tiles when V
+    is 0, none of them empty); COUNT and WRITE run a block a (tile,
+    source), WRITE at least one a source. The scratch holds one int32 a
+    (source, tile, owner)."""
+    sub = -(-V // EXCHANGE_SUB)
+    most = max(1, EXCHANGE_MAX_CELLS // n_total)
+    per = max(1, -(-sub // most))
+    return per, -(-sub // per)
 
 
 def send_shape(world: int, X: int, nl: int, quota: int):
@@ -91,9 +110,14 @@ def exchange(h1: torch.Tensor, reps: torch.Tensor, vals: torch.Tensor, n_total: 
         send_shape(world, X, nl, quota), dtype=torch.int64, device=dev
     )
     n_ovf = torch.empty(nl, dtype=torch.int64, device=dev)
+    per, tiles = exchange_plan(V, n_total)
+    # COUNT writes every entry before WRITE reads it: no reset, so under a
+    # graph capture this allocation is made once and replayed as it is.
+    scratch = torch.empty(nl * max(1, tiles) * n_total, dtype=torch.int32, device=dev)
     kernels.EXCHANGE.launch(
         kernels.ptr(h1.contiguous()), kernels.ptr(reps.contiguous()), vals.data_ptr(),
-        vals.stride(0), nl, V, X, n_total, quota, world, kernels.ptr(send), kernels.ptr(n_ovf),
+        vals.stride(0), nl, V, X, n_total, quota, world, per, tiles, kernels.ptr(scratch),
+        kernels.ptr(send), kernels.ptr(n_ovf),
     )
     return send, n_ovf
 

@@ -206,6 +206,11 @@ def compact_ids(mask: torch.Tensor, cap: int):
 # K4: batched insert, per lane.
 # ---------------------------------------------------------------------------
 
+# K4's grid (kernels/csrc/visited_insert.cu) is (tile, lane): at most
+# this many lanes a call.
+INSERT_MAX_LANES = 65535
+
+
 def _lane_bases(N: int, m: int, cap: int, device) -> torch.Tensor:
     """Slot offset of each of the N*m candidates' lane table."""
     return (torch.arange(N, dtype=torch.int64, device=device) * cap).repeat_interleave(m)
@@ -265,13 +270,18 @@ def _insert(table: VisitedTable, h1, h2, p1, p2, active, kernel, epoch=None):
         return insert_lanes_plain(table, h1, h2, p1, p2, active)
     N, m = h1.shape
     n = N * m
-    if active.dtype != torch.bool or n >= M32:
-        raise ValueError("insert takes a bool active mask and n < 2^32 - 1")
+    if active.dtype != torch.bool or m >= M32:
+        raise ValueError("insert takes a bool active mask and m < 2^32 - 1 candidates a lane")
+    if N > INSERT_MAX_LANES or table.capacity > 1 << 32:
+        raise ValueError(f"insert takes at most {INSERT_MAX_LANES} lanes of at most 2^32 slots")
     if table.keys.numel() != N * table.capacity:
         raise ValueError("one table a lane: keys must be [lanes, capacity]")
     args = [t.contiguous() for t in (h1, h2, p1, p2, active)]
     dev = table.device
-    slot = torch.empty((N, m), dtype=torch.int64, device=dev)
+    # PROBE writes every candidate's state, and a finder's slot, before
+    # STAMP or COMMIT reads them: no reset.
+    slot = torch.empty((N, m), dtype=torch.int32, device=dev)
+    state = torch.empty((N, m), dtype=torch.uint8, device=dev)
     is_new = torch.empty((N, m), dtype=torch.bool, device=dev)
     unresolved = torch.empty((N, m), dtype=torch.bool, device=dev)
     if epoch is None:
@@ -280,7 +290,7 @@ def _insert(table: VisitedTable, h1, h2, p1, p2, active, kernel, epoch=None):
         kernels.ptr(table.keys), kernels.ptr(table.parents),
         kernels.ptr(table.stamps), table.capacity, table.epoch,
         None if epoch is None else kernels.ptr(epoch),
-        *(kernels.ptr(t) for t in args), n, m, kernels.ptr(slot),
+        *(kernels.ptr(t) for t in args), n, m, kernels.ptr(slot), kernels.ptr(state),
         kernels.ptr(is_new), kernels.ptr(unresolved),
     )
     return is_new, unresolved

@@ -893,21 +893,166 @@ def test_stage_profile_on_the_card(dev, engine):
     assert len(phases) >= 5 and abs(sum(phases.values()) - era) <= 0.1 * era
 
 
-@pytest.mark.parametrize("n,quota", [(1, 2048), (8, 256), (8, 40)])
-def test_exchange_kernel_matches_plain(dev, n, quota):
+# (n, world, V, quota, X, how): quota above and below the buckets, V off
+# K15a's 256-candidate sub-tile, an empty shard, every candidate to one
+# owner, 256 shards (several sub-tiles a tile), the world = 2 and 4
+# layouts (one rank's nl = n / world sources), and the mesh's widths.
+EXCHANGE_EDGES = [
+    (1, 1, 5000, 2048, 7, "random"), (8, 1, 5000, 256, 7, "random"), (8, 1, 5000, 40, 7, "random"),
+    (1, 1, 14_336, 10_752, 34, "random"), (8, 1, 14_336, 1_344, 34, "random"),
+    (8, 1, 3_001, 2_000, 5, "empty shard"), (8, 1, 700, 64, 4, "one owner"),
+    (8, 1, 600, 1_100, 2, "one owner"), (256, 1, 40, 1, 2, "random"), (256, 1, 300, 64, 3, "random"),
+    (256, 64, 17_000, 3, 2, "random"), (8, 2, 500, 30, 3, "random"), (8, 4, 500, 30, 3, "random"),
+    (8, 4, 300, 2_500, 2, "one owner"),
+]
+
+
+@pytest.mark.parametrize("n,world,V,quota,X,how", EXCHANGE_EDGES)
+def test_exchange_kernel_matches_plain(dev, n, world, V, quota, X, how):
     """K15a: the owner buckets (stable ranks, overflow counts) and the
-    receive layout, against the plain version; at quota 40 buckets
-    overflow."""
+    receive layout, against the plain version, at its edges; into a send
+    buffer full of garbage (`out=`, every slot written)."""
     from stateright_tpu_torch.ops import exchange as xc
 
-    rng = np.random.default_rng(n * quota)
-    V, X = 5000, 7
+    rng = np.random.default_rng(n * quota + V)
+    nl = n // world
+    h1 = _u32(rng, nl, V)
+    if how == "one owner":
+        h1 = h1 - h1 % n + 5 % n
+    reps = rng.random((nl, V)) < 0.75
+    if how == "empty shard":
+        reps[3] = False
+    h1, reps = torch.from_numpy(h1.reshape(-1)).to(dev), torch.from_numpy(reps).to(dev)
+    vals = torch.from_numpy(_u32(rng, X, nl * V)).to(dev)
+    out = torch.full(xc.send_shape(world, X, nl, quota), -7, dtype=torch.int64, device=dev)
+    got, ovf = xc.exchange(h1, reps, vals, n, quota, world, out=out)
+    want, ovf_p = xc.exchange_plain(h1, reps, vals, n, quota, world)
+    assert got is out
+    assert torch.equal(got, want) and torch.equal(ovf, ovf_p)
+
+
+def _insert_batch(rng, dev, N, m, dup=64, pool_n=None):
+    """[N, m] candidates drawn from a pool of keys (so some repeat), with
+    `dup` copies of one key outside the pool in every lane (at the same
+    positions, `at`), distinct parents, 90% active (every copy active)."""
+    pool = _u32(rng, 2, N, pool_n or m)
+    pick = rng.integers(0, pool.shape[2], size=(N, m))
+    h = np.take_along_axis(pool, pick[None], 2)
+    at = rng.permutation(m)[:dup]
+    h[:, :, at] = _u32(rng, 2, N, 1)
+    p = _u32(rng, 2, N, m)
+    act = rng.random((N, m)) < 0.9
+    act[:, at] = True
+    return [torch.from_numpy(a).to(dev) for a in (h[0], h[1], p[0], p[1], act)], at
+
+
+def _maps(table):
+    """Each lane's key -> parent map (the slot layout is the CAS order's)."""
+    keys, parents = table.keys.view(-1, table.capacity).cpu(), table.parents.view(-1, table.capacity).cpu()
+    return [dict(zip(k[k != 0].tolist(), p[k != 0].tolist())) for k, p in zip(keys, parents)]
+
+
+def test_insert_lanes_kernel_with_64_copies_a_lane(dev):
+    """K4's lane form: 64 copies of one key a lane with distinct parents,
+    among found and fresh keys, against insert_lanes_plain, twice (the
+    second call finds every key): the highest active copy is the new one
+    and its parent is stored."""
+    rng = np.random.default_rng(31)
+    N, m, cap = 37, 900, 1 << 12
+    args, at = _insert_batch(rng, dev, N, m, pool_n=400)
+    ta, tb = vs.empty_table(cap, dev, lanes=N), vs.empty_table(cap, dev, lanes=N)
+    for call in range(2):
+        a = vs.insert_lanes(ta, *args)
+        b = vs.insert_lanes_plain(tb, *args)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), call
+        assert _maps(ta) == _maps(tb)
+    top = int(at.max())
+    first = vs.insert_lanes(vs.empty_table(cap, dev, lanes=N), *args)[0]
+    assert bool(first[:, top].all())
+    assert int(first[:, at].sum()) == N
+    assert not bool(a[0].any())
+
+
+def test_exchange_and_insert_graph_replays_with_no_reset(dev):
+    """K15a and K4 (solo, with the epoch on the card, raised by the graph
+    after each call; and the lane form) captured once and replayed on
+    changed inputs with nothing reset between replays: each replay equals
+    the eager call on the same inputs (K4: into a twin table, by value)."""
+    from stateright_tpu_torch.engines import graph
+    from stateright_tpu_torch.ops import exchange as xc
+
+    rng = np.random.default_rng(41)
+    n, V, X, quota = 8, 14_336, 34, 1_344
+    h1 = torch.zeros(n * V, dtype=torch.int64, device=dev)
+    reps = torch.zeros((n, V), dtype=torch.bool, device=dev)
+    vals = torch.zeros((X, n * V), dtype=torch.int64, device=dev)
+    send = torch.empty(xc.send_shape(1, X, n, quota), dtype=torch.int64, device=dev)
+    N, m, cap = 5, 3_000, 1 << 14
+    batch = [torch.zeros((N, m), dtype=torch.int64, device=dev) for _ in range(4)]
+    bact = torch.zeros((N, m), dtype=torch.bool, device=dev)
+    solo, lanes = vs.empty_table(cap, dev), vs.empty_table(cap, dev, lanes=N)
+    twin_solo, twin_lanes = vs.empty_table(cap, dev), vs.empty_table(cap, dev, lanes=N)
+    epoch = torch.ones(1, dtype=torch.int64, device=dev)
+
+    def calls():
+        ex = xc.exchange(h1, reps, vals, n, quota, out=send)
+        a = vs.insert(solo, *(t[0] for t in batch), bact[0], epoch=epoch)
+        epoch.add_(1)
+        b = vs.insert_lanes(lanes, *batch, bact, epoch=epoch)
+        epoch.add_(1)
+        return ex, a, b
+
+    calls()  # allocations and builds outside the capture
+    torch.cuda.synchronize()
+    for t in (solo, lanes):
+        t.keys.zero_(), t.parents.zero_(), t.stamps.zero_()
+    epoch.fill_(1)
+    g = torch.cuda.CUDAGraph()
+    with graph.capture_guard() as stream:
+        with torch.cuda.graph(g, stream=stream):
+            ex, a, b = calls()
+    for r, density in enumerate((0.75, 0.3, 1.0, 0.0)):
+        h1.copy_(torch.from_numpy(_u32(rng, n * V)))
+        reps.copy_(torch.from_numpy(rng.random((n, V)) < density))
+        vals.copy_(torch.from_numpy(_u32(rng, X, n * V)))
+        args, _at = _insert_batch(rng, dev, N, m, pool_n=2_000)
+        for t, s in zip(batch + [bact], args):
+            t.copy_(s)
+        g.replay()
+        torch.cuda.synchronize()
+        want, want_ovf = xc.exchange(h1, reps, vals, n, quota)
+        assert torch.equal(ex[0], want) and torch.equal(ex[1], want_ovf), r
+        ea = vs.insert(twin_solo, *(t[0] for t in batch), bact[0])
+        eb = vs.insert_lanes(twin_lanes, *batch, bact)
+        for x, y in zip(a + b, ea + eb):
+            assert torch.equal(x, y), r
+        assert _maps(solo) == _maps(twin_solo) and _maps(lanes) == _maps(twin_lanes), r
+    assert int(epoch) == 9
+
+
+def test_exchange_and_insert_kernels_a_call(dev):
+    """Counted on the card: the kernel nodes of one captured call, none of
+    them a memset. K15a: COUNT and WRITE (WRITE alone when there are no
+    candidates); K4: PROBE, STAMP and COMMIT, solo and lanes."""
+    from stateright_tpu_torch.engines import graph
+    from stateright_tpu_torch.ops import exchange as xc
+
+    rng = np.random.default_rng(51)
+    n, V, X, quota = 8, 12_629, 7, 1_184
     h1 = torch.from_numpy(_u32(rng, n * V)).to(dev)
     reps = torch.from_numpy(rng.random((n, V)) < 0.75).to(dev)
     vals = torch.from_numpy(_u32(rng, X, n * V)).to(dev)
-    got, ovf = xc.exchange(h1, reps, vals, n, quota)
-    want, ovf_p = xc.exchange_plain(h1, reps, vals, n, quota)
-    assert torch.equal(got, want) and torch.equal(ovf, ovf_p)
+    args, _at = _insert_batch(rng, dev, 4, 5_000)
+    solo, lanes = vs.empty_table(1 << 15, dev), vs.empty_table(1 << 15, dev, lanes=4)
+    epoch = torch.ones(1, dtype=torch.int64, device=dev)
+    for fn, want in ((lambda: xc.exchange(h1, reps, vals, n, quota), 2),
+                     (lambda: xc.exchange(h1[:0], reps[:, :0], vals[:, :0], n, quota), 1),
+                     (lambda: vs.insert(solo, *(t[0] for t in args), epoch=epoch), 3),
+                     (lambda: vs.insert_lanes(lanes, *args), 3)):
+        fn()
+        counts = graph.captured_nodes(fn)
+        assert counts["kernels"] == want and counts["memsets"] == 0, counts
 
 
 def test_sharded_bfs_cuda_matches_cpu(dev):

@@ -1,22 +1,34 @@
-"""The host-side plans of K2 (stable compaction) and K7s (the spill's
-drain and refill), held against brute-force enumeration, and K2's plain
-version against the JAX `_compact_ids` at the kernel's edges.
+"""The host-side plans of K2 (stable compaction), K7s (the spill's
+drain and refill) and K15a (the owner exchange), held against
+brute-force enumeration, K2's plain version against the JAX
+`_compact_ids` at the kernel's edges, and K4's three phases (the
+visited insert) run thread by thread in random interleavings against
+the JAX insert.
 
 Each plan is what the wrapper hands its CUDA kernel; the kernel's own
-index arithmetic (kernels/csrc/compact_ids.cu, ring_spill.cu) is
-transcribed here block by block, so that every mask element, id slot,
-ring row and block word is shown to be covered exactly once, and the
-transcription's result equals the plain version's. Tolerance: exact
-equality throughout.
+index arithmetic (kernels/csrc/compact_ids.cu, ring_spill.cu,
+exchange.cu) is transcribed here block by block, so that every mask
+element, id slot, ring row, block word and send slot is shown to be
+covered exactly once, and the transcription's result equals the plain
+version's (and, for K15a, the JAX buckets'). K4's transcription
+(visited_insert.cu) steps each candidate's thread one memory access at a
+time in an order drawn from a seed, with the phases' barriers between.
+Tolerance: exact equality throughout.
 """
+
+import random
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from test_torch_mesh import _jax_exchange
 
 from stateright_tpu.ops import visited_set as jvs
+from stateright_tpu_torch.ops import exchange as xc
 from stateright_tpu_torch.ops import frontier as fr
 from stateright_tpu_torch.ops import visited_set as vs
 
@@ -267,3 +279,392 @@ def test_spill_plan_rows_a_block(W, K, want):
 def test_spill_plan_refuses_rows_wider_than_a_block():
     with pytest.raises(ValueError):
         fr.spill_plan([0], [1], fr.SPILL_BLOCK_WORDS + 1)
+
+
+# ---------------------------------------------------------------------------
+# K15a
+# ---------------------------------------------------------------------------
+
+XSUB = xc.EXCHANGE_SUB
+WARP = 32
+ZERO = 1024  # empty slots a WRITE block zeroes at once (exchange.cu kZero)
+
+
+@pytest.mark.parametrize("V,n_total", [
+    (0, 8), (1, 1), (255, 8), (256, 8), (257, 8), (12_629, 8), (14_336, 8), (14_336, 1),
+    (XSUB * 64, 256), (XSUB * 64 + 1, 256), (1_000_000, 256), (1 << 22, 1),
+])
+def test_exchange_plan_covers_every_candidate_once(V, n_total):
+    per, tiles = xc.exchange_plan(V, n_total)
+    assert per >= 1 and tiles * n_total <= xc.EXCHANGE_MAX_CELLS and tiles <= 65535
+    seen = np.zeros(V, dtype=np.int64)
+    span = per * XSUB
+    for t in range(tiles):
+        lo, hi = t * span, min(V, (t + 1) * span)
+        assert lo < hi, "an empty tile"
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+def _k15a_transcribed(h1, reps, vals, n_total, quota, world):
+    """K15a's two launches, block by block, on one rank's nl sources: COUNT's
+    counts a (source, tile, owner); each WRITE block's base and bucket
+    totals from them, its ranks (warps of 32 in candidate order: a lane's
+    rank in its owner's group, the warps' exclusive prefix, the tile's
+    earlier sub-tiles), the X lanes of every candidate ranked below quota,
+    its round-robin share of the empty slots, and block 0's n_ovf. Every
+    send slot is written exactly once."""
+    nl, V = reps.shape
+    X = vals.shape[0]
+    per, tiles = xc.exchange_plan(V, n_total)
+    owner = h1.reshape(nl, V) % n_total
+    counts = np.zeros((nl, max(1, tiles), n_total), dtype=np.int64)
+    for l in range(nl):
+        for t in range(tiles):
+            lo, hi = t * per * XSUB, min(V, (t + 1) * per * XSUB)
+            counts[l, t] = np.bincount(owner[l, lo:hi][reps[l, lo:hi]], minlength=n_total)
+    size = world * X * nl * nl * quota
+    send = np.full(size, -1, dtype=np.int64)
+    writes = np.zeros(size, dtype=np.int64)
+    n_ovf = np.zeros(nl, dtype=np.int64)
+    step = nl * nl * quota
+    chunks = -(-quota // ZERO)
+    units = X * n_total * chunks
+    blocks = max(1, tiles)
+    for l in range(nl):
+        total = counts[l, :tiles].sum(0)
+        for t in range(blocks):
+            base = counts[l, :min(t, tiles)].sum(0)
+            if t < tiles:
+                run = np.zeros(n_total, dtype=np.int64)
+                for s in range(per):
+                    i = (t * per + s) * XSUB + np.arange(XSUB)
+                    ok = i < V
+                    ok[ok] = reps[l, i[ok]]
+                    o = np.where(ok, owner[l, np.minimum(i, V - 1)], -1)
+                    cnt = np.zeros((XSUB // WARP, n_total), dtype=np.int64)
+                    in_group = np.zeros(XSUB, dtype=np.int64)
+                    for w in range(XSUB // WARP):
+                        ow = o[w * WARP:(w + 1) * WARP]
+                        for j in range(WARP):
+                            in_group[w * WARP + j] = int((ow[:j] == ow[j]).sum())
+                        cnt[w] = np.bincount(ow[ow >= 0], minlength=n_total)
+                    pre = run + np.cumsum(cnt, 0) - cnt
+                    run += cnt.sum(0)
+                    rank = base[np.maximum(o, 0)] + pre[np.arange(XSUB) // WARP, np.maximum(o, 0)] + in_group
+                    put = ok & (rank < quota)
+                    d, ol = o[put] // nl, o[put] % nl
+                    for x in range(X):
+                        idx = (((d * X + x) * nl + ol) * nl + l) * quota + rank[put]
+                        send[idx] = vals[x, l * V + i[put]]
+                        np.add.at(writes, idx, 1)
+            for u in range(t, units, blocks):
+                p, ch = divmod(u, chunks)
+                x, o = divmod(p, n_total)
+                lo, hi = max(min(total[o], quota), ch * ZERO), min(quota, (ch + 1) * ZERO)
+                d, ol = divmod(o, nl)
+                dst = (((d * X + x) * nl + ol) * nl + l) * quota
+                if hi > lo:
+                    send[dst + lo:dst + hi] = 0
+                    writes[dst + lo:dst + hi] += 1
+            if t == 0:
+                n_ovf[l] = np.maximum(total - quota, 0).sum()
+    assert (writes == 1).all(), "a send slot written twice or never"
+    return send.reshape(xc.send_shape(world, X, nl, quota)), n_ovf
+
+
+# (n_total, world, V, quota, X, how): quota below and above the buckets,
+# V off the sub-tile, an empty shard, every candidate to one owner, 256
+# shards (a tile of several sub-tiles where 64 tiles would not do), and
+# the world = 2 and 4 layouts.
+EXCHANGE_CASES = [
+    (1, 1, 1_000, 2_048, 3, "random"), (1, 1, 1_000, 100, 3, "random"),
+    (8, 1, 3_001, 40, 5, "random"), (8, 1, 3_001, 2_000, 5, "random"),
+    (8, 1, 700, 64, 4, "empty shard"), (8, 1, 600, 100, 3, "one owner"),
+    (8, 1, 600, 1_100, 2, "one owner"),
+    (256, 1, 40, 1, 2, "random"), (256, 1, 40, 64, 2, "random"),
+    (256, 64, 17_000, 3, 2, "random"), (8, 2, 500, 30, 3, "random"), (8, 4, 500, 30, 3, "random"),
+    (8, 4, 300, 2_500, 2, "one owner"),
+]
+
+
+def _exchange_inputs(n_total, V, X, how, seed):
+    rng = np.random.default_rng(seed)
+    h1 = rng.integers(0, 1 << 32, size=(n_total, V), dtype=np.uint64).astype(np.int64)
+    reps = rng.random((n_total, V)) < 0.75
+    if how == "empty shard":
+        reps[3] = False
+    if how == "one owner":
+        h1 = h1 - h1 % n_total + (5 % n_total)
+    vals = rng.integers(1, 1 << 32, size=(n_total, X, V), dtype=np.uint64).astype(np.int64)
+    return h1, reps, vals
+
+
+@pytest.mark.parametrize("n_total,world,V,quota,X,how", EXCHANGE_CASES)
+def test_k15a_transcription_equals_plain_and_the_jax_buckets(n_total, world, V, quota, X, how):
+    h1, reps, vals = _exchange_inputs(n_total, V, X, how, n_total * 7 + V + quota)
+    nl = n_total // world
+    recv = []
+    for r in range(world):
+        sl = slice(r * nl, (r + 1) * nl)
+        rh1, rreps = h1[sl].reshape(-1), reps[sl]
+        rvals = vals[sl].transpose(1, 0, 2).reshape(X, nl * V)
+        send, n_ovf = _k15a_transcribed(rh1, rreps, rvals, n_total, quota, world)
+        want, want_ovf = xc.exchange_plain(torch.from_numpy(rh1), torch.from_numpy(rreps),
+                                           torch.from_numpy(rvals), n_total, quota, world)
+        assert np.array_equal(send, want.numpy()) and np.array_equal(n_ovf, want_ovf.numpy())
+        if how == "empty shard":
+            assert n_ovf[3] == 0
+        recv.append(send)
+    if n_total > len(jax.devices()):
+        return
+    # all_to_all_single: rank d gets every rank's send[d]; owner o's slots
+    # in global source order, against the JAX shard_map's receive.
+    got = np.concatenate(
+        [xc.receive(torch.from_numpy(np.stack([recv[s][d] for s in range(world)]))).numpy()
+         for d in range(world)], axis=1)
+    j_recv, j_ovf = _jax_exchange(n_total, quota, h1.astype(np.uint32), reps, vals.astype(np.uint32))
+    assert np.array_equal(got.transpose(1, 0, 2), j_recv.astype(np.int64))
+    mine = np.concatenate([_k15a_transcribed(
+        h1[r * nl:(r + 1) * nl].reshape(-1), reps[r * nl:(r + 1) * nl],
+        vals[r * nl:(r + 1) * nl].transpose(1, 0, 2).reshape(X, nl * V), n_total, quota, world)[1]
+        for r in range(world)])
+    assert np.array_equal(mine, j_ovf.astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# K4
+# ---------------------------------------------------------------------------
+
+NONE, PLACED, FOUND, CONTESTED = range(4)
+HI = 0xFFFFFFFF00000000
+
+
+def _k4_transcribed(keys, parents, stamps, epoch, h1, h2, p1, p2, active, seed):
+    """K4's PROBE, STAMP and COMMIT (visited_insert.cu) on [N, cap] tables
+    of Python ints, one generator a candidate's thread that yields before
+    every access to the tables; a seeded scheduler steps the live threads
+    of a phase in a random order, and each phase starts when the one
+    before has ended (griddepcontrol.wait). Updates the tables in place;
+    returns (is_new, unresolved)."""
+    N, m = h1.shape
+    cap = len(keys[0])
+    mask = cap - 1
+    eh = epoch << 32
+    is_new = np.zeros((N, m), dtype=bool)
+    unres = np.zeros((N, m), dtype=bool)
+    state = np.zeros((N, m), dtype=np.int64)
+    slot = np.zeros((N, m), dtype=np.int64)
+
+    def probe(L, i):
+        if not active[L, i]:
+            return
+        a, b = int(h1[L, i]), int(h2[L, i])
+        key, pos, stride = (a << 32) | b, a & mask, b | 1
+        for _k in range(vs.MAX_PROBES):
+            yield
+            cur = keys[L][pos]
+            if cur == 0:
+                yield  # atomicCAS
+                cur = keys[L][pos]
+                if cur == 0:
+                    keys[L][pos] = key
+                    yield
+                    stamps[L][pos] = eh | (i + 1)
+                    yield
+                    parents[L][pos] = (int(p1[L, i]) << 32) | int(p2[L, i])
+                    is_new[L, i], state[L, i], slot[L, i] = True, PLACED, pos
+                    return
+            if cur == key:
+                state[L, i], slot[L, i] = FOUND, pos
+                return
+            pos = (pos + stride) & mask
+        unres[L, i] = True
+
+    def stamp(L, i):
+        if state[L, i] != FOUND:
+            return
+        s, mine = slot[L, i], eh | (i + 1)
+        yield
+        cur = stamps[L][s]
+        if cur & HI != eh or cur > mine:
+            return
+        yield  # atomicMax
+        old = stamps[L][s]
+        stamps[L][s] = max(old, mine)
+        if old < mine:
+            state[L, i] = CONTESTED
+            yield  # the old stamp's holder is not the winner now
+            is_new[L, (old & 0xFFFFFFFF) - 1] = False
+
+    def commit(L, i):
+        if state[L, i] != CONTESTED:
+            return
+        s = slot[L, i]
+        yield
+        if stamps[L][s] == eh | (i + 1):
+            yield
+            parents[L][s] = (int(p1[L, i]) << 32) | int(p2[L, i])
+            is_new[L, i] = True
+
+    order = random.Random(seed)
+    for phase in (probe, stamp, commit):
+        live = [phase(L, i) for L in range(N) for i in range(m)]
+        while live:
+            k = order.randrange(len(live))
+            try:
+                next(live[k])
+            except StopIteration:
+                live[k] = live[-1]
+                live.pop()
+    return is_new, unres
+
+
+def _positions(a, b, cap):
+    return [(a + k * (b | 1)) & (cap - 1) for k in range(vs.MAX_PROBES)]
+
+
+def _place(keys, a, b, cap):
+    """Place key (a, b) as a sequential insert would; False if its 24
+    positions are all taken."""
+    for p in _positions(a, b, cap):
+        if keys[p] == 0:
+            keys[p] = (a << 32) | b
+            return True
+    return False
+
+
+# Each new key's first positions taken before the call: where the JAX
+# insert resolves every copy (its 19 claim rounds: a copy that loses the
+# claim at position 17 finds the key at round 19), and at the port's
+# MAX_PROBES = 24 positions, which the JAX insert never reaches (ROADMAP
+# Queue 3, "`unresolved` differs near a full table"): there the plain
+# version is the reference.
+DEPTHS = {"jax_limit": [1, 5, 16, 17], "probe_limit": [0, 22, 23, 24]}
+
+
+def _k4_case(rng, cap, m, mode):
+    """One lane's table and batch. The table holds old keys (each placed
+    along its own probe sequence, so a finder meets only taken slots on
+    the way) at a load of about 0.3. The batch: a few new keys, each
+    repeated with distinct parents, old keys (some repeated), 10%
+    inactive. Near a limit (`mode` a key of DEPTHS), each new key's first
+    positions are taken by filler keys, the new keys' 24-position probe
+    sets are disjoint (no old key lands in them), and no other fresh key
+    is in the batch: a CAS race between two distinct keys for one empty
+    slot (decided here by the schedule, in JAX by the rounds) can change
+    which of them runs out of probes. `moderate`: fresh keys contend
+    freely for slots at a load where no probe sequence runs out."""
+    near = mode in DEPTHS
+    keys = [0] * cap
+    new, taken = [], set()
+    depths = rng.permutation(DEPTHS[mode]) if near else []
+    while len(new) < (4 if near else 6):
+        a, b = (int(x) for x in rng.integers(1, 1 << 32, size=2))
+        ps = set(_positions(a, b, cap))
+        if near and ps & taken:
+            continue
+        taken |= ps
+        new.append((a, b))
+        if near:
+            for p in _positions(a, b, cap)[:int(depths[len(new) - 1])]:
+                keys[p] = int(rng.integers(1, 1 << 62))
+    old = []
+    while len(old) < int(0.3 * cap):
+        a, b = (int(x) for x in rng.integers(1, 1 << 32, size=2))
+        trial = list(keys)
+        if _place(trial, a, b, cap) and not (near and {i for i, k in enumerate(trial) if k != keys[i]} & taken):
+            keys = trial
+            old.append((a, b))
+    pool = new * 6 + old[:m // 4] + old[:8] * 2
+    if not near:
+        pool += [tuple(int(x) for x in rng.integers(1, 1 << 32, size=2)) for _ in range(m // 4)]
+    pick = rng.integers(0, len(pool), size=m)
+    h = np.array([pool[j] for j in pick], dtype=np.int64).T
+    p = rng.integers(0, 1 << 32, size=(2, m), dtype=np.uint64).astype(np.int64)
+    parents = [int(x) if k else 0 for k, x in zip(keys, rng.integers(1, 1 << 62, size=cap))]
+    act = rng.random(m) < 0.9
+    act[pick < len(new)] = True  # one copy of each new key at least
+    return keys, parents, h[0], h[1], p[0], p[1], act
+
+
+def _jax_insert_lanes(keys, parents, h1, h2, p1, p2, act):
+    """The JAX insert of each lane's batch into its table (jax.vmap, as the
+    multiplexed engine runs it; one lane: the solo insert_jit)."""
+    def lanes(rows):
+        a = np.array(rows, dtype=np.uint64)
+        return (a >> np.uint64(32)).astype(np.uint32), (a & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+    (k1, k2), (v1, v2) = lanes(keys), lanes(parents)
+    u = [a.astype(np.uint32) for a in (h1, h2, p1, p2)]
+    if len(keys) == 1:
+        t, is_new, unres, _ovf = jvs.insert_jit(jvs.pack_lanes(k1[0], k2[0], v1[0], v2[0]),
+                                                *(jnp.asarray(a[0]) for a in u), jnp.asarray(act[0]))
+        t = jax.tree_util.tree_map(lambda x: x[None], t)
+        is_new, unres = np.asarray(is_new)[None], np.asarray(unres)[None]
+    else:
+        def one(t, a, b, c, d, e):
+            t, is_new, unres, _ovf = jvs.insert(t, a, b, c, d, e)
+            return t, is_new, unres
+
+        tables = (jnp.concatenate([jnp.asarray(k1), jnp.asarray(k2)], axis=1), jnp.asarray(v1), jnp.asarray(v2))
+        t, is_new, unres = jax.jit(jax.vmap(one))(tables, *(jnp.asarray(a) for a in u), jnp.asarray(act))
+    tk, tv1, tv2 = (np.asarray(x) for x in t)
+    cap = tv1.shape[1]
+    maps = [_kv_map(tk[L, :cap], tk[L, cap:], tv1[L], tv2[L]) for L in range(len(keys))]
+    return np.asarray(is_new), np.asarray(unres), maps
+
+
+def _kv_map(k1, k2, v1, v2):
+    occ = (k1 != 0) | (k2 != 0)
+    return {(int(a) << 32) | int(b): (int(c) << 32) | int(d) for a, b, c, d in zip(k1[occ], k2[occ], v1[occ], v2[occ])}
+
+
+def _row_map(keys, parents):
+    return {k: p for k, p in zip(keys, parents) if k}
+
+
+def _rows(x):
+    """[N, cap] int64 tensor rows as Python ints of their uint64 bits."""
+    return [[int(v) for v in row] for row in x.numpy().view(np.uint64)]
+
+
+@pytest.mark.parametrize("mode", ["moderate", "jax_limit", "probe_limit"])
+@pytest.mark.parametrize("N", [1, 3])
+@settings(max_examples=10, derandomize=True, deadline=None, database=None)
+@given(seed=st.integers(0, 2**32 - 1))
+def test_k4_phases_in_random_interleavings_equal_the_jax_insert(N, mode, seed):
+    """PROBE, STAMP and COMMIT in a random order of their threads' accesses
+    (solo, and three lanes stepped together) give the JAX insert's is_new,
+    unresolved and key -> parent map (at the port's own probe limit, the
+    plain version's): exactly the highest index of each new key's copies
+    is new and stores its parent, whichever copy's CAS placed it."""
+    cap, m = 512, 96
+    rng = np.random.default_rng(seed)
+    cases = [_k4_case(rng, cap, m, mode) for _ in range(N)]
+    keys, parents = [c[0] for c in cases], [c[1] for c in cases]
+    h1, h2, p1, p2, act = (np.stack([c[j] for c in cases]) for j in range(2, 7))
+    epoch = 9
+    # Stamps from earlier calls, on taken and on empty slots (a fork whose
+    # keys were reset keeps its stamps), each below this call's epoch.
+    stamps = [[(int(e) << 32) | int(lo) for e, lo in zip(rng.integers(0, epoch, size=cap),
+                                                         rng.integers(0, 1 << 32, size=cap))]
+              for _ in range(N)]
+
+    def t(rows):
+        return torch.from_numpy(np.array(rows, dtype=np.uint64).view(np.int64))
+
+    table = vs.VisitedTable(t(keys), t(parents), torch.zeros((N, cap), dtype=torch.int64))
+    p_new, p_unres = (x.numpy() for x in vs.insert_lanes_plain(
+        table, *(torch.from_numpy(a) for a in (h1, h2, p1, p2, act))))
+    p_maps = [_row_map(k, p) for k, p in zip(_rows(table.keys), _rows(table.parents))]
+    if mode == "probe_limit":
+        want = p_new, p_unres, p_maps
+    else:
+        want = _jax_insert_lanes(keys, parents, h1, h2, p1, p2, act)
+        assert np.array_equal(p_new, want[0]) and np.array_equal(p_unres, want[1]) and p_maps == want[2]
+    assert want[1].any() == (mode == "probe_limit")  # a depth-24 key's copies
+    tk, tp = [list(r) for r in keys], [list(r) for r in parents]
+    is_new, unres = _k4_transcribed(tk, tp, stamps, epoch, h1, h2, p1, p2, act, seed)
+    assert np.array_equal(is_new, want[0]) and np.array_equal(unres, want[1])
+    assert [_row_map(k, p) for k, p in zip(tk, tp)] == want[2]
