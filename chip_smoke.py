@@ -20,13 +20,20 @@ exits non-zero:
      queued behind a spin kernel, so the host's share is left out;
      `call_ms` beside it is one call with the host's share), as is the
      library call that does the same work; beside them the times of K5
-     rehash, K10 seed and K11 expand, which run through those kernels
-     and torch; K2's kernels a call counted on the card (the kernel nodes
-     of one captured call: COUNT and WRITE, no memset). Every kernel row
-     of the later phases is timed on the device alone too (a call that
-     changes its input on fresh inputs made outside the window), with
-     `call_ms` beside it; K11's eager expand alone keeps the one-call
-     figure;
+     rehash and K10 seed, which run through those kernels and torch; K2's
+     kernels a call counted on the card (the kernel nodes of one captured
+     call: COUNT and WRITE, no memset). Every kernel row of the later
+     phases is timed on the device alone too (a call that changes its
+     input on fresh inputs made outside the window), with `call_ms`
+     beside it;
+ 2b. K11 (`scripts/expand_times.py`): the hand-written EXPAND of 2PC and
+     Paxos against its plain version, bit for bit, over every reachable
+     2pc-7 row (296,448, in chunks of 6,144) and over 16,384 paxos-3 ring
+     rows at C = 16,384, with depth limits read on the card, and at the
+     lane widths with a limit a row; WALK at the paxos-3 (B = 16,384) and
+     2pc-10 (B = 65,536) simulation widths; each timed on the device
+     beside its plain version in one CUDA graph (`graph_plain_ms`), eager
+     (`plain_ms`) and the bound, one kernel and no memset a captured call;
   3. small engine runs (2pc-5, sampling on, and 2pc-5 with .symmetry())
      on cuda and on the cpu: equal results, sample and paths included;
      each card run's kernel launches a step;
@@ -179,7 +186,10 @@ programs as the era does, and replays them); the launch counts add
 each captured segment's launches once per run of it on the card.
 
 Every engine phase resets the kernels' launch counts just before its run
-and checks, just after, that each kernel of its path (the BFS kernels,
+and checks, just after, the route of K11 the engine reports
+(`telemetry()["expand_route"]`: "kernel" for 2PC and Paxos, with their
+K11 kernel launched once a step, "plain" for ABD and increment, with no
+K11 launch), and that each kernel of its path (the BFS kernels,
 K1, K13a-d, K13b's prologue and K13f, or K1 and the lane entry points of
 K2, K3, K4, K6, K7 and K8f, or the sharded path's `MESH_KERNELS`; with
 the stage profiler, K12a and the stage programs' kernels too; for the
@@ -804,35 +814,6 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     return results, extra
 
 
-def time_expand(torch, np, label, tm, C):
-    """K11: one evaluate-and-expand of a full chunk of the model's own
-    reachable-looking rows (its init row repeated), timed with CUDA events;
-    counts the torch launches and the elements they write (the operation
-    count of the bound) under a dispatch mode."""
-    from stateright_tpu_torch.ops.expand import build_expand_lean
-    from stateright_tpu_torch.xp import TorchXP
-
-    dev = torch.device("cuda")
-    S, A = tm.state_width, tm.max_actions
-    expand = build_expand_lean(tm, tm.tensor_properties(), C, TorchXP(dev))
-    init = np.asarray(tm.init_states_array(), dtype=np.int64)[0]
-    rows = torch.from_numpy(np.repeat(init[:, None], C, axis=1)).to(dev).contiguous()
-    ebits = torch.zeros(C, dtype=torch.int64, device=dev)
-    depth = torch.ones(C, dtype=torch.int64, device=dev)
-    active = torch.ones(C, dtype=torch.bool, device=dev)
-
-    launches, elements = torch_launches(torch, lambda: expand(rows, ebits, depth, active, 0xFFFFFFFF))
-    r = dict(
-        max_abs_err=None,
-        ms=time_ms(torch, lambda _: expand(rows, ebits, depth, active, 0xFFFFFFFF)),
-        plain_ms=None, library_ms=None,
-        bytes=S * C * 8 + 2 * C * 8 + S * C * A * 8 + C * A,
-        ops=elements,
-        shape=f"{label}: C={C}, A={A}, S={S}; {launches} torch launches",
-    )
-    return r
-
-
 # -- phases 3 to 7 ----------------------------------------------------------
 
 def bfs(model, device, opts, configure=lambda b: b):
@@ -908,6 +889,24 @@ def per_step(launches, steps):
     return {k: n / max(1, steps) for k, n in launches.items() if n}
 
 
+def check_k11(kernels, label, c, launches, kern, steps_key="claim_dedup", exact=True):
+    """K11 on a counted run: the route the engine reports and, on the
+    kernel route, its K11 kernel `kern` launched once a step (`steps_key`
+    names a kernel the path launches once a step; exact=False for a
+    profiled run, whose stage programs add launches of their own: at
+    least once); with kern None, the plain route and no K11 launch."""
+    route = c.telemetry()["expand_route"]
+    k11 = {k.name: launches[k.name] for k in kernels.EXPAND_KERNELS + kernels.WALK_KERNELS}
+    steps = launches[steps_key]
+    if kern is None:
+        check(route == "plain" and not any(k11.values()), f"{label}: route {route}, K11 launches {k11}")
+    else:
+        n = launches[kern.name]
+        check(route == "kernel" and steps > 0 and (n == steps if exact else n >= 1),
+              f"{label}: route {route}, {kern.name} launched {n} times for {steps} steps ({steps_key})")
+    print(f"{label}: expand_route={route} K11 launches {k11}, {steps} steps ({steps_key})", flush=True)
+
+
 # -- phases 8 to 11: simulation ---------------------------------------------
 
 def sim_kernel_parity(torch, np, label, tm, B, L):
@@ -921,6 +920,7 @@ def sim_kernel_parity(torch, np, label, tm, B, L):
     from stateright_tpu_torch.fingerprint import hash_lanes
     from stateright_tpu_torch.obs.sample import slab_entries
     from stateright_tpu_torch.ops import walk as wk
+    from stateright_tpu_torch.ops.expand import build_walk_step, build_walk_step_plain
     from stateright_tpu_torch.xp import TorchXP
 
     dev = torch.device("cuda")
@@ -1001,22 +1001,15 @@ def sim_kernel_parity(torch, np, label, tm, B, L):
         shape=f"B={B} into a {scap}-row slab, {n_loose} captured (threshold MAX)",
     )
 
-    # K13b on the same step: the model's checks and successors.
+    # K13b on the same step: the model's checks and successors from K11's
+    # WALK, held against its plain version on the era's walks.
     xp = TorchXP(dev)
-    lanes = tuple(walk1[s] for s in range(S))
-    checks = torch.stack([p.check(xp, lanes) for p in props])
-    succs, amask = tm.step_lanes(xp, lanes)
-    valid = torch.stack([amask[a] & tm.within_boundary_lanes(xp, succs[a]) for a in range(A)])
-    succ = torch.stack([x for a in range(A) for x in succs[a]]).view(A, S, B)
-    del succs, amask
-
-    def model_step(_):
-        ch = torch.stack([p.check(xp, lanes) for p in props])
-        sc, am = tm.step_lanes(xp, lanes)
-        va = torch.stack([am[a] & tm.within_boundary_lanes(xp, sc[a]) for a in range(A)])
-        return ch, va, torch.stack([x for a in range(A) for x in sc[a]])
-
-    model_ms = time_ms(torch, model_step)
+    model_step = build_walk_step(tm, props, xp)
+    check(model_step.route == "kernel", f"{label}: walk route {model_step.route}")
+    checks, valid, succ = model_step(walk1[:S])
+    err = max_abs_err(torch, zip((checks, valid, succ), build_walk_step_plain(tm, props, xp)(walk1[:S])))
+    check(err == 0, f"{label}: K11 WALK disagrees with its plain version on the era's walks")
+    print(f"K11 WALK ({label}) on the era's walks: max_abs_err={err}", flush=True)
 
     def step_in():
         return (walk1.clone(), torch.zeros((P, B), dtype=torch.bool, device=dev),
@@ -1060,11 +1053,6 @@ def sim_kernel_parity(torch, np, label, tm, B, L):
         shape=f"B={B}, S={S}, A={A}, P={P}, {n_adv} advancing, {n_restart} restarting, {n_hits} hits",
     )
     del succ, checks, valid
-    results["model step"] = dict(
-        max_abs_err=None, ms=model_ms, plain_ms=None, library_ms=None,
-        bytes=B * S * 8 + A * S * B * 8 + (A + P) * B, ops=0,
-        shape=f"the model's checks, step_lanes and boundary, and the [A, S, B] stack (torch)",
-    )
 
     # K13d over the era's slab (distinct states, the gate's high-water
     # occupancy) and over the fresh walks' slab (one state B times).
@@ -1401,7 +1389,7 @@ def serial_solo_rate(torch, make_model, runs, opts):
     return sum(w for _c, _g, w in runs) / secs
 
 
-def sweep(torch, kernels, label, make_model, configs, shape, card):
+def sweep(torch, kernels, label, make_model, configs, shape, card, k11):
     """Phase 14's measurement of one lane sweep: a cold run (the warm lane
     program's build and graph capture), then a counted and timed warm run
     (launches from 0, peak memory); phase 16 profiles it in a fresh
@@ -1414,6 +1402,7 @@ def sweep(torch, kernels, label, make_model, configs, shape, card):
     (out, wall), launches = counted(torch, kernels, label, lambda: lanes(make_model(), configs, "cuda", shape),
                                     kernels.LANE_KERNELS)
     peak = torch.cuda.max_memory_allocated()
+    check_k11(kernels, label, out[0], launches, k11, "claim_dedup_lanes")
     tm = make_model()
     workspace = shape["lanes"] * (shape["table_capacity"] * 24
                                   + (tm.state_width + 2) * (shape["queue_capacity"] + 1) * 8)
@@ -1866,7 +1855,7 @@ def profile_in_child(label, pipe):
     return json.loads(lines[-1])
 
 
-def era_runs(torch, kernels, card, label, golden, checks=lambda c: None):
+def era_runs(torch, kernels, card, label, golden, k11, checks=lambda c: None):
     """Phase 15's runs of one model at its phase 4-6 options: the default
     pipeline, the serial dispatch loop and (depth 4, fuse 4), each counted from
     0 (every BFS kernel launched, the path walks included), timed (the
@@ -1890,6 +1879,7 @@ def era_runs(torch, kernels, card, label, golden, checks=lambda c: None):
                                                          lambda: run_and_check(configure))
         check(c.unique_state_count() == golden, f"{label}, {name}: {c.unique_state_count()} != {golden}")
         checks(c)
+        check_k11(kernels, f"{label}, {name}", c, launches, k11)
         tel = c.telemetry()
         del c
         # The default pipeline's run only: a profiled child is a fresh
@@ -2108,7 +2098,7 @@ def stage_programs_match_plain(torch, label, progs, state, iters=4):
     print(f"{label} stage programs, graph == plain ({iters} rounds from seed 1): {accs[0]}", flush=True)
 
 
-def profiled_pair(torch, kernels, card, label, run, result, path, want=None):
+def profiled_pair(torch, kernels, card, label, run, result, path, k11, want=None):
     """`run(profile)` -> (checker, wall) without and with .stage_profile():
     equal results (or, with `want`, the profiled run's result checked by
     it alone), no stage_profile_error, the stage phases summing to
@@ -2119,7 +2109,11 @@ def profiled_pair(torch, kernels, card, label, run, result, path, want=None):
     if want is None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
         c0, t0 = run(False)
+        torch.cuda.synchronize()
+        check_k11(kernels, label, c0, kernels.launch_counts(), *k11)
         want, peak0 = result(c0), torch.cuda.max_memory_allocated()
         del c0
     torch.cuda.empty_cache()
@@ -2131,6 +2125,7 @@ def profiled_pair(torch, kernels, card, label, run, result, path, want=None):
 
     (c, t1, peak1, got), launches = counted(torch, kernels, f"{label} profiled", profiled, path)
     check(got == want, f"{label}: the profiled run differs from the plain one")
+    check_k11(kernels, f"{label} profiled", c, launches, k11[0], k11[1], exact=False)
     tel = c.telemetry()
     check("stage_profile_error" not in tel, f"{label}: stage_profile_error {tel.get('stage_profile_error')}")
     ph = tel["phase_ms"]
@@ -2166,15 +2161,16 @@ def stage_phase(torch, np, kernels, card, skip_full):
         return lambda prof: bfs(make(), "cuda", opts, (lambda b: configure(b).stage_profile()) if prof else configure)
 
     _out, launches_stage = profiled_pair(
-        torch, kernels, card, "2pc-7", profiled_bfs(lambda: two_pc(7), BENCH7), result_dict, bfs_stage_path)
+        torch, kernels, card, "2pc-7", profiled_bfs(lambda: two_pc(7), BENCH7), result_dict, bfs_stage_path,
+        (kernels.EXPAND_2PC, "claim_dedup"))
     stage_programs_match_plain(torch, "2pc-7", *grabbed.pop("bfs"))
     profiled_pair(
         torch, kernels, card, "paxos-3", profiled_bfs(lambda: PaxosTensorExhaustive(3), PAXOS3), result_dict,
-        bfs_stage_path)
+        bfs_stage_path, (kernels.EXPAND_PAXOS, "claim_dedup"))
     stage_programs_match_plain(torch, "paxos-3", *grabbed.pop("bfs"))
     profiled_pair(
         torch, kernels, card, "2pc-5 symmetry", profiled_bfs(lambda: two_pc(5), TEST_OPTS, lambda b: b.symmetry()),
-        result_dict, bfs_stage_path)
+        result_dict, bfs_stage_path, (kernels.EXPAND_2PC, "claim_dedup"))
     progs, state = grabbed.pop("bfs")
     check("canon" in progs.stages, "2pc-5 symmetry: no canon stage")
     stage_programs_match_plain(torch, "2pc-5 symmetry", progs, state)
@@ -2183,14 +2179,14 @@ def stage_phase(torch, np, kernels, card, skip_full):
         lambda prof: simulate(PaxosTensor(3), "cuda", 0,
                               (lambda b: b.target_state_count(2_000_000).stage_profile()) if prof
                               else (lambda b: b.target_state_count(2_000_000)), SIM_PAXOS3),
-        sim_dict, sim_stage_path)
+        sim_dict, sim_stage_path, (kernels.WALK_PAXOS, "walk_step"))
     stage_programs_match_plain(torch, "paxos-3 simulation", *grabbed.pop("sim"))
     if not skip_full:
         # The probe stage forks the full 2^28-slot table.
         profiled_pair(
             torch, kernels, card, "2pc-10", profiled_bfs(lambda: two_pc(10), FULL10),
             lambda c: (c.unique_state_count(), sorted(check_paths(c))), bfs_stage_path,
-            want=(GOLDEN[10], ["abort agreement", "commit agreement"]))
+            (kernels.EXPAND_2PC, "claim_dedup"), want=(GOLDEN[10], ["abort agreement", "commit agreement"]))
         grabbed.pop("bfs")
     del grabbed
     torch.cuda.empty_cache()
@@ -2522,7 +2518,9 @@ def mesh_phase(torch, np, kernels, card, skip_full, single):
             c, t = mesh_bfs(make(), "cuda", MESH_N, opts)
             return c, t, mesh_dict(c)  # its paths walk through K6
 
-        (c_gpu, t_gpu, d_gpu), _ = counted(torch, kernels, f"{label} at 8 shards", on_card, path)
+        (c_gpu, t_gpu, d_gpu), launches18 = counted(torch, kernels, f"{label} at 8 shards", on_card, path)
+        check_k11(kernels, f"{label} at 8 shards", c_gpu, launches18,
+                  kernels.EXPAND_2PC if label == "2pc-5" else kernels.EXPAND_PAXOS, "claim_dedup_lanes")
         torch.set_num_threads(1)
         c_cpu, t_cpu = mesh_bfs(make(), "cpu", MESH_N, opts)
         torch.set_num_threads(threads)
@@ -2554,6 +2552,8 @@ def mesh_phase(torch, np, kernels, card, skip_full, single):
 
             (c, wall, peak, lens), launches = counted(torch, kernels, f"{label} at {n} shards", go, path)
             check(c.unique_state_count() == golden, f"{label} at {n} shards: {c.unique_state_count()} != {golden}")
+            check_k11(kernels, f"{label} at {n} shards", c, launches,
+                      kernels.EXPAND_2PC if label == "2pc-7" else kernels.EXPAND_PAXOS, "claim_dedup_lanes")
             check(lens == lens_1, f"{label} at {n} shards: discoveries {lens} != single-device {lens_1}")
             tel = c.telemetry()
             iters = launches["exchange"]
@@ -2576,7 +2576,7 @@ def mesh_phase(torch, np, kernels, card, skip_full, single):
     profiled_pair(torch, kernels, card, "2pc-7 at 8 shards",
                   lambda prof: mesh_bfs(two_pc(7), "cuda", MESH_N, by_n7[MESH_N],
                                         (lambda b: b.stage_profile()) if prof else (lambda b: b)),
-                  result_dict, path + kernels.MESH_STAGE_KERNELS)
+                  result_dict, path + kernels.MESH_STAGE_KERNELS, (kernels.EXPAND_2PC, "claim_dedup_lanes"))
     progs, state = grabbed.pop("mesh")
     mesh_stages_match_plain(torch, "2pc-7 at 8 shards", progs, state)
     # Where a paxos-3 lockstep step goes at 8 shards (its split only).
@@ -2584,7 +2584,7 @@ def mesh_phase(torch, np, kernels, card, skip_full, single):
     profiled_pair(torch, kernels, card, "paxos-3 at 8 shards",
                   lambda prof: mesh_bfs(PaxosTensorExhaustive(3), "cuda", MESH_N, by_npx[MESH_N],
                                         (lambda b: b.stage_profile()) if prof else (lambda b: b)),
-                  result_dict, path + kernels.MESH_STAGE_KERNELS)
+                  result_dict, path + kernels.MESH_STAGE_KERNELS, (kernels.EXPAND_PAXOS, "claim_dedup_lanes"))
     grabbed.pop("mesh")
     if not skip_full:
         torch.cuda.empty_cache()
@@ -2596,8 +2596,9 @@ def mesh_phase(torch, np, kernels, card, skip_full, single):
             c, t = mesh_bfs(two_pc(10), "cuda", MESH_N, MESH10)
             return c, t, check_paths(c)
 
-        (c10, t10, lens), _ = counted(torch, kernels, "2pc-10 at 8 shards", run10, path)
+        (c10, t10, lens), launches10 = counted(torch, kernels, "2pc-10 at 8 shards", run10, path)
         check(c10.unique_state_count() == GOLDEN[10], f"2pc-10 at 8 shards: {c10.unique_state_count()}")
+        check_k11(kernels, "2pc-10 at 8 shards", c10, launches10, kernels.EXPAND_2PC, "claim_dedup_lanes")
         tel = c10.telemetry()
         print(f"mesh 2pc-10: shards={MESH_N} unique={c10.unique_state_count()} states={c10.state_count()} "
               f"wall_secs={t10:.3f} steps={tel['steps']} partial_steps={tel['partial_steps']} "
@@ -2634,13 +2635,13 @@ def lint_model(name):
             "increment-2": lambda: IncrementTensor(2)}[name]()
 
 
-def reachable_rows(torch, np, label, device="cuda"):
-    """LINT_ROWS[label]'s rows from the port's own BFS: a run stopped at
-    its target, whose ring (width S + 2, not wrapped) holds every state it
-    took in order; its first n columns are n distinct reachable states."""
+def bfs_ring(model, device, opts, target):
+    """The port's BFS of `model` stopped at `target` (0: run to its end),
+    and its ring [S + 2, queue_capacity + 1] (lanes, ebits, depth), which
+    holds every state the run took, in order, where it does not wrap:
+    (checker, ring, wall)."""
     from stateright_tpu_torch.engines import era
 
-    n, opts, target = LINT_ROWS[label]
     kept = []
     free = era.EraProgram.free_graph
 
@@ -2650,14 +2651,22 @@ def reachable_rows(torch, np, label, device="cuda"):
 
     era.EraProgram.free_graph = keep
     try:
-        c, t = bfs(lint_model(label), device, opts, lambda b: b.target_state_count(target))
+        c, t = bfs(model, device, opts, lambda b: b.target_state_count(target))
     finally:
         era.EraProgram.free_graph = free
-    tm = c.tm
+    check(c.unique_state_count() <= opts["queue_capacity"],
+          f"{c.unique_state_count()} states wrap a ring of {opts['queue_capacity']}")
+    return c, kept[-1].ring, t
+
+
+def reachable_rows(torch, np, label, device="cuda"):
+    """LINT_ROWS[label]'s rows from the port's own BFS (`bfs_ring`): its
+    first n columns are n distinct reachable states."""
+    n, opts, target = LINT_ROWS[label]
+    c, ring, t = bfs_ring(lint_model(label), device, opts, target)
     unique = c.unique_state_count()
-    check(n <= unique <= opts["queue_capacity"], f"{label}: {unique} states for {n} rows")
-    rows = kept[-1].ring[:tm.state_width, :n].T.cpu().numpy().astype(np.uint32)
-    kept.clear()
+    check(n <= unique, f"{label}: {unique} states for {n} rows")
+    rows = ring[:c.tm.state_width, :n].T.cpu().numpy().astype(np.uint32)
     check(len(np.unique(rows, axis=0)) == n, f"{label}: the ring's rows are not distinct")
     print(f"{label}: {n} reachable rows from a BFS stopped at {unique} states ({t:.2f}s)", flush=True)
     return rows
@@ -3282,11 +3291,19 @@ def main(argv) -> int:
     phase("2 kernel parity (2pc-7 and paxos-3 widths)")
     results, extra7 = kernel_parity(torch, np, "2pc-7", 6144, 37, 3, 1 << 22, 1 << 20)
     results_px, extra_px = kernel_parity(torch, np, "paxos-3", 16384, 21, 30, 1 << 26, 1 << 21)
-    extra7["K11 expand"] = time_expand(torch, np, "2pc-7", two_pc(7), 6144)
-    extra_px["K11 expand"] = time_expand(torch, np, "paxos-3", PaxosTensorExhaustive(3), 16384)
     for label, extra in (("2pc-7", extra7), ("paxos-3", extra_px)):
         for name, r in finish(extra).items():
             print(f"beside the kernels ({label}): {name}", flush=True)
+    torch.cuda.empty_cache()
+
+    phase("2b K11: EXPAND and WALK against their plain versions (2pc-7, paxos-3, the lane widths, 2pc-10 walks)")
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import expand_times
+
+    k11_res = finish(expand_times.measure(torch, sys.modules[__name__]))
+    for name, r in k11_res.items():
+        print(f"K11 {name}: graph_plain_ms={r['graph_plain_ms']:.4f} plain_launches={r['plain_launches']} "
+              f"kernels_a_call={r['launches_a_call']} card={card}", flush=True)
     torch.cuda.empty_cache()
 
     phase("3 2pc-5 on cuda and on cpu, sampling on, plain and with symmetry")
@@ -3300,6 +3317,7 @@ def main(argv) -> int:
             return c, t, result_dict(c)  # its paths walk through K6
 
         (c_gpu, t_gpu, d_gpu), launches3 = counted(torch, kernels, label, on_card)
+        check_k11(kernels, label, c_gpu, launches3, kernels.EXPAND_2PC)
         tel3 = c_gpu.telemetry()
         print(f"{label} kernel launches a step: "
               f"{json.dumps(per_step(launches3, tel3['steps'] + tel3.get('partial_steps', 0)))}", flush=True)
@@ -3321,6 +3339,7 @@ def main(argv) -> int:
         return c, t
 
     (c7, t7), launches = counted(torch, kernels, "2pc-7", two_pc7)
+    check_k11(kernels, "2pc-7", c7, launches, kernels.EXPAND_2PC)
     d7 = result_dict(c7)
     tel7 = c7.telemetry()
     print(f"2pc-7: unique={c7.unique_state_count()} states={c7.state_count()} wall_secs={t7:.3f} "
@@ -3356,6 +3375,7 @@ def main(argv) -> int:
 
     (cpx, tpx, peak, lens, t_paths, prof, t_prof), launches_px = counted(torch, kernels, "paxos-3", paxos3)
     check(cpx.unique_state_count() == PAXOS3_GOLDEN, f"paxos-3: {cpx.unique_state_count()}")
+    check_k11(kernels, "paxos-3", cpx, launches_px, kernels.EXPAND_PAXOS)
     for name in ("linearizable", "network within capacity", "ballot rounds within range"):
         cpx.assert_no_discovery(name)
     check("value chosen" in lens, "paxos-3: value chosen not found")
@@ -3375,8 +3395,10 @@ def main(argv) -> int:
         c, t = bfs(model, "cuda", opts, configure)
         return c, t, check_paths(c)
 
-    (cab, tab, lens), _ = counted(torch, kernels, "abd-ordered-3", lambda: with_paths(AbdOrderedTensor(3), ABDO3))
+    (cab, tab, lens), launches_ab = counted(torch, kernels, "abd-ordered-3",
+                                            lambda: with_paths(AbdOrderedTensor(3), ABDO3))
     check(cab.unique_state_count() == ABDO3_GOLDEN, f"abd-ordered-3: {cab.unique_state_count()}")
+    check_k11(kernels, "abd-ordered-3", cab, launches_ab, None)
     cab.assert_no_discovery("linearizable")
     print(f"abd-ordered-3: unique={cab.unique_state_count()} states={cab.state_count()} wall_secs={tab:.3f} "
           f"generated_states_per_sec={cab.state_count() / tab:.1f} paths={lens} "
@@ -3397,9 +3419,10 @@ def main(argv) -> int:
         ref10 = dict(states=c10.state_count(), sample=tuple(c10._sampler.fingerprints()))
         del c10
         torch.cuda.empty_cache()
-        (c10s, t10s, lens), _ = counted(torch, kernels, "2pc-10 symmetry",
-                                        lambda: with_paths(two_pc(10), SYM10, lambda b: b.symmetry()))
+        (c10s, t10s, lens), launches10s = counted(torch, kernels, "2pc-10 symmetry",
+                                                  lambda: with_paths(two_pc(10), SYM10, lambda b: b.symmetry()))
         check(c10s.unique_state_count() == SYM_CLOSURE[10], f"2pc-10 symmetry: {c10s.unique_state_count()}")
+        check_k11(kernels, "2pc-10 symmetry", c10s, launches10s, kernels.EXPAND_2PC)
         c10s.assert_no_discovery("consistent")
         print(f"2pc-10 symmetry: unique={c10s.unique_state_count()} states={c10s.state_count()} "
               f"wall_secs={t10s:.3f} paths={lens} telemetry={c10s.telemetry()} card={card}",
@@ -3418,13 +3441,15 @@ def main(argv) -> int:
         return lambda b: b.target_state_count(n)
 
     dicts = {}
-    for label, model, seed, configure, opts in (
-        ("increment-2", IncrementTensor(2), 7, fin_any, SIM_INC2),
-        ("2pc-5", two_pc(5), 11, target(200_000), SIM_2PC5),
-        ("2pc-10", two_pc(10), 0, target(300_000), SIM_2PC10_SMALL),
+    for label, model, seed, configure, opts, k11 in (
+        ("increment-2", IncrementTensor(2), 7, fin_any, SIM_INC2, None),
+        ("2pc-5", two_pc(5), 11, target(200_000), SIM_2PC5, kernels.WALK_2PC),
+        ("2pc-10", two_pc(10), 0, target(300_000), SIM_2PC10_SMALL, kernels.WALK_2PC),
     ):
-        (c_gpu, t_gpu), _ = counted(torch, kernels, f"{label} simulation",
-                                    lambda: simulate(model, "cuda", seed, configure, opts), kernels.SIM_KERNELS)
+        (c_gpu, t_gpu), launches9 = counted(torch, kernels, f"{label} simulation",
+                                            lambda: simulate(model, "cuda", seed, configure, opts), kernels.SIM_KERNELS)
+        check_k11(kernels, f"{label} simulation", c_gpu, launches9, k11, "walk_step")
+        launches_walk10 = launches9  # the 2pc-10 run's, the loop's last
         torch.set_num_threads(1)
         c_cpu, t_cpu = simulate(model, "cpu", seed, configure, opts)
         torch.set_num_threads(threads)
@@ -3464,6 +3489,7 @@ def main(argv) -> int:
     (cps, tps, peak, lens), launches_sim = counted(torch, kernels, "paxos-3 simulation", paxos3_sim,
                                                    kernels.SIM_KERNELS)
     check("value chosen" in lens, "paxos-3 simulation: value chosen not found")
+    check_k11(kernels, "paxos-3 simulation", cps, launches_sim, kernels.WALK_PAXOS, "walk_step")
     cps.assert_discovery("value chosen", cps.discovery("value chosen").into_actions())
     for name in ("linearizable", "network within capacity", "ballot rounds within range"):
         cps.assert_no_discovery(name)
@@ -3480,8 +3506,10 @@ def main(argv) -> int:
             c, t = simulate(two_pc(10), "cuda", 0, target(SIM_TARGET10), SIM_2PC10)
             return c, t, torch.cuda.max_memory_allocated(), check_paths(c)
 
-        (c10s, t10s, peak, lens), _ = counted(torch, kernels, "2pc-10 simulation", two_pc10_sim,
-                                              kernels.SIM_KERNELS)
+        (c10s, t10s, peak, lens), launches11 = counted(torch, kernels, "2pc-10 simulation", two_pc10_sim,
+                                                       kernels.SIM_KERNELS)
+        check_k11(kernels, "2pc-10 simulation", c10s, launches11, kernels.WALK_2PC, "walk_step")
+        launches_walk10 = launches11
         # Uniform random walks reach "commit agreement" only when every
         # RM prepares before any abort: 8,192 2pc-5 walks need 4.5 M
         # states for it, 65,536 find none in 5 M (the reference's walks
@@ -3502,8 +3530,10 @@ def main(argv) -> int:
     phase("13 the service shape: 32 increment-2 lanes; 27 mixed 2pc-5 builders in 32 lanes")
     inc = [lambda b: b] * 32
     lanes(IncrementTensor(2), inc, "cuda", dict(lanes=32))  # warm-up: the lane program
-    (inc_gpu, t_inc), _ = counted(torch, kernels, "increment-2 lanes",
-                                  lambda: lanes(IncrementTensor(2), inc, "cuda", dict(lanes=32)), kernels.LANE_KERNELS)
+    (inc_gpu, t_inc), launches13 = counted(torch, kernels, "increment-2 lanes",
+                                           lambda: lanes(IncrementTensor(2), inc, "cuda", dict(lanes=32)),
+                                           kernels.LANE_KERNELS)
+    check_k11(kernels, "increment-2 lanes", inc_gpu[0], launches13, None, "claim_dedup_lanes")
     inc_cpu, t_inc_cpu = cpu_lanes(torch, IncrementTensor(2), inc, dict(lanes=32))
     inc_solo = solo_like(IncrementTensor(2), lambda b: b, LANE_SHAPE)
     for i, (g, c) in enumerate(zip(inc_gpu, inc_cpu)):
@@ -3521,8 +3551,10 @@ def main(argv) -> int:
           f"batch_steps={inc_gpu[0].telemetry()['batch_steps']} card={card}", flush=True)
 
     mixed = [mixed_config(i, HasDiscoveries) for i in range(27)]
-    (mix_gpu, t_mix), _ = counted(torch, kernels, "2pc-5 mixed lanes",
-                                  lambda: lanes(two_pc(5), mixed, "cuda", dict(lanes=32)), kernels.LANE_KERNELS)
+    (mix_gpu, t_mix), launches13 = counted(torch, kernels, "2pc-5 mixed lanes",
+                                           lambda: lanes(two_pc(5), mixed, "cuda", dict(lanes=32)),
+                                           kernels.LANE_KERNELS)
+    check_k11(kernels, "2pc-5 mixed lanes", mix_gpu[0], launches13, kernels.EXPAND_2PC, "claim_dedup_lanes")
     mix_cpu, t_mix_cpu = cpu_lanes(torch, two_pc(5), mixed, dict(lanes=32))
     solos = {}
     for i, (g, c) in enumerate(zip(mix_gpu, mix_cpu)):
@@ -3544,7 +3576,7 @@ def main(argv) -> int:
     phase("14 sweeps: 1,024 lanes of 2pc-5 (target_max_depth 1 + i % 18), 256 lanes of paxos-2")
     depth_cfgs = [(lambda b, d=1 + i % 18: b.target_max_depth(d)) for i in range(SWEEP_LANES)]
     sw, launches_lanes, sw_stats = sweep(torch, kernels, "2pc-5 sweep", lambda: two_pc(5), depth_cfgs,
-                                         dict(LANE_SHAPE, lanes=SWEEP_LANES), card)
+                                         dict(LANE_SHAPE, lanes=SWEEP_LANES), card, kernels.EXPAND_2PC)
     mix = []  # the sweep's checks: (configure, unique count, lanes at that depth)
     for d in range(1, 19):
         s = solo_like(two_pc(5), lambda b, d=d: b.target_max_depth(d), LANE_SHAPE)
@@ -3578,7 +3610,7 @@ def main(argv) -> int:
     del sw, held
     torch.cuda.empty_cache()
     px, _launches_px, px_stats = sweep(torch, kernels, "paxos-2 sweep", lambda: PaxosTensor(2), [lambda b: b] * 256,
-                                       dict(PAXOS2_LANES, lanes=256), card)
+                                       dict(PAXOS2_LANES, lanes=256), card, kernels.EXPAND_PAXOS)
     check(all(c.unique_state_count() == PAXOS2_GOLDEN for c in px), "paxos-2 sweep: a lane missed 16,668")
     held, _t = cpu_lanes(torch, PaxosTensor(2), [lambda b: b] * 8, dict(PAXOS2_LANES, lanes=8))
     for i, c in enumerate(held):
@@ -3609,9 +3641,9 @@ def main(argv) -> int:
         check(d_gpu == d_cpu and d_gpu["unique"] == GOLDEN[5], f"2pc-5 pipeline {pipe}: cuda != cpu")
         print(f"2pc-5 pipeline {pipe or 'serial'}: equal on cuda ({t_gpu:.3f}s) and cpu ({t_cpu:.3f}s), "
               f"eras={d_gpu['eras']} steps={d_gpu['steps']} telemetry={c_gpu.telemetry()}", flush=True)
-    era_runs(torch, kernels, card, "2pc-7", GOLDEN[7], lambda c: check_2pc(c, 7))
-    era_runs(torch, kernels, card, "paxos-3", PAXOS3_GOLDEN)
-    era_runs(torch, kernels, card, "abd-ordered-3", ABDO3_GOLDEN)
+    era_runs(torch, kernels, card, "2pc-7", GOLDEN[7], kernels.EXPAND_2PC, lambda c: check_2pc(c, 7))
+    era_runs(torch, kernels, card, "paxos-3", PAXOS3_GOLDEN, kernels.EXPAND_PAXOS)
+    era_runs(torch, kernels, card, "abd-ordered-3", ABDO3_GOLDEN, None)
 
     phase("16 simulation eras and lane batches as graphs: K13f, K14f; graph == cpu; the speed cells")
     torch.cuda.empty_cache()
@@ -3687,11 +3719,11 @@ def main(argv) -> int:
     # K3 launch (BFS), one K13b launch (simulation), one lane K3 launch.
     bfs_steps = launches["claim_dedup"]
     loops = {
-        "K8 (2pc-7 run, with K11)": sum(results[k.name]["bound_ms"] * launches[k.name] for k in kernels.BFS_KERNELS)
-        + extra7["K11 expand"]["bound_ms"] * bfs_steps,
-        "K13 (paxos-3 simulation run, with the model step)": sum(
+        "K8 (2pc-7 run, with K11's EXPAND)": sum(results[k.name]["bound_ms"] * launches[k.name] for k in kernels.BFS_KERNELS)
+        + k11_res["expand_2pc"]["bound_ms"] * bfs_steps,
+        "K13 (paxos-3 simulation run, with K11's WALK)": sum(
             sim_px[k.name]["bound_ms"] * launches_sim[k.name] for k in kernels.SIM_KERNELS if k.name in sim_px)
-        + sim_px["model step"]["bound_ms"] * launches_sim["walk_step"],
+        + k11_res["walk_paxos"]["bound_ms"] * launches_sim["walk_step"],
         "K14 (2pc-5 sweep, lane kernels)": sum(
             lane_res[k.name]["bound_ms"] * launches_lanes[k.name] for k in kernels.LANE_KERNELS[1:]),
         # The stage programs' launches: the profiled 2pc-7 run's less the
@@ -3734,6 +3766,11 @@ def main(argv) -> int:
             # K7s at the 2pc-10 spilling run's widths, with the launches of
             # phase 20's spilling runs (2pc-10 and 2pc-7 at 8 shards).
             r, n = spill_res[k.name], launches_spill[k.name]
+        elif k in kernels.EXPAND_KERNELS:
+            # K11's EXPAND at the 2pc-7 / paxos-3 BFS widths (phase 2b),
+            # with the launches of phase 4's / phase 5's run.
+            r = k11_res[k.name]
+            n = (launches if k is kernels.EXPAND_2PC else launches_px)[k.name]
         elif k.name in results:
             r, n = results[k.name], launches[k.name]
         else:
@@ -3751,10 +3788,21 @@ def main(argv) -> int:
                       "pop_append_ms", "pop_append_library_ms", "per_shard_ms", "begin_ms",
                       "epilogue_ms", "epilogue_plain_ms", "ring_ms", "mix_ms", "record_ms",
                       "record_plain_ms", "record_bound_ms", "choose_ms", "choose_plain_ms", "choose_bound_ms",
-                      "lanes_ms"):
+                      "lanes_ms", "graph_plain_ms", "plain_launches", "rows_compared"):
             if extra in r:
                 entry[extra] = r[extra]
         line["kernels"].append(entry)
+    # K11's WALK: the paxos-3 / 2pc-10 simulation widths (phase 2b), with the
+    # launches of phase 10's run and of phase 11's (phase 9's 2pc-10 run
+    # with --skip-full).
+    for k, n in ((kernels.WALK_PAXOS, launches_sim[kernels.WALK_PAXOS.name]),
+                 (kernels.WALK_2PC, launches_walk10[kernels.WALK_2PC.name])):
+        r = k11_res[k.name]
+        line["kernels"].append(dict(
+            name=k.name, route="cuda", source=os.path.relpath(k.source_path, HERE), replaces=k.replaces,
+            launches=n, **{key: r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms",
+                "graph_plain_ms", "plain_launches", "launches_a_call")}))
     for k in kernels.LANE_KERNELS[1:]:
         # The lane entry points of the same sources: phase 12's widths,
         # the 2pc-5 sweep's launches.

@@ -430,6 +430,7 @@ class GpuBfsChecker(HostEngineBase):
             tm, self._tprops, C, self._qcap, self._tcap, self._canon, self._cov,
             sample_k, self._fuse, dev, in_flight=depth + 1, table=table,
         )
+        self._gauge("expand_route", prog.expand.route)
         if table is not None:
             resumed = self._install_checkpoint(prog, data, meta, table=table)
         try:

@@ -57,6 +57,7 @@ from ..checker import CheckerBuilder
 from ..fingerprint import combine64, hash_lanes
 from ..obs.sample import slab_high_water
 from ..ops import walk as wk
+from ..ops.expand import build_walk_step
 from ..ops import walk_era as we
 from ..path import Path
 from ..tensor import TensorModel, TensorModelAdapter
@@ -98,6 +99,7 @@ class SimProgram:
         self.B, self.L, self.cov = B, L, cov
         self.device = dev = torch.device(device)
         self.xp = TorchXP(dev)
+        self.model_step = build_walk_step(tm, props, self.xp)
         S, A, P = tm.state_width, tm.max_actions, len(props)
         inits = np.asarray(tm.init_states_array(), dtype=np.uint32)
         # Boundary-filtered init states (tpu_simulation.py:111-119).
@@ -161,26 +163,15 @@ class SimProgram:
         we.walk_era(we.BEGIN, self.cfg, self.state, self.era_in, self.hseen, self.plen, handle)
 
     def _step(self, handle: int = 0) -> None:
-        tm, xp = self.tm, self.xp
-        S, A, B = tm.state_width, tm.max_actions, self.B
         walk, path = self.walk, self.path
-        rows = walk[:S]
+        rows = walk[:self.tm.state_width]
         h1, h2 = hash_lanes(rows)
         counted, cycle = wk.record(h1, h2, walk, path, self.stats, self.dhist)
         if self.sample_k:
             wk.capture(self.slab, self.stats, counted, h1, h2, walk, self.thresh)
-        lanes = tuple(rows[s] for s in range(S))
-        if self.props:
-            checks = torch.stack([p.check(xp, lanes) for p in self.props])
-        else:
-            checks = torch.zeros((0, B), dtype=torch.bool, device=self.device)
-        succs, amask = tm.step_lanes(xp, lanes)
-        valid = torch.stack(
-            [amask[a] & tm.within_boundary_lanes(xp, succs[a]) for a in range(A)]
-        )
-        # One copy of the A*S successor lanes, taken before K13b rewrites
-        # the walk lanes some of them are views of.
-        succ = torch.stack([lane for a in range(A) for lane in succs[a]]).view(A, S, B)
+        # K11's WALK (or its plain version): a fresh copy of the successor
+        # lanes, taken before K13b rewrites the walk lanes.
+        checks, valid, succ = self.model_step(rows)
         wk.step(walk, counted, cycle, checks, self.ev_mask, self.al_mask, valid, succ,
                 self.inits, self.init_ebits, self.L, self.hseen, self.plen, self.stats,
                 self.cov_words)
@@ -320,6 +311,7 @@ class GpuSimulationChecker(HostEngineBase):
             self.tm, self._tprops, self._B, self._L, self._coverage.enabled,
             self._sampler.k if self._sampler is not None else 0, self.device,
         )
+        self._gauge("expand_route", self._prog.model_step.route)
         self._start()
 
     def _run(self) -> None:

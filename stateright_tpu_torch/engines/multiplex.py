@@ -395,7 +395,7 @@ class LaneProgram:
             err=vals[:, eo.P_ERR], secs=secs, iterations=int(vals[:, x + eo.X_ITER].max()),
             max_depth=vals[:, eo.P_MAXD], discovery_fps=discovery_fps,
             graph_captures=self.graph_captures, capture_secs=self.capture_secs,
-            readbacks=self.readbacks, rows=vals,
+            readbacks=self.readbacks, rows=vals, expand_route=self.expand.route,
         )
         if self.cov:
             b = self.cov_base
@@ -465,6 +465,7 @@ class MultiplexLaneChecker(Checker):
             "graph_captures": res.graph_captures,
             "capture_secs": res.capture_secs,
             "batch_readbacks": res.readbacks,
+            "expand_route": res.expand_route,
         }
         self._coverage = Coverage(enabled=cov_enabled)
         self._coverage.register_properties(p.name for p in tprops)

@@ -43,7 +43,7 @@ from ..fingerprint import hash_lanes, mul32
 from ..ops import frontier as fr
 from ..ops import stage as sg
 from ..ops import visited_set as vs
-from ..ops.expand import build_expand_lean
+from ..ops.expand import build_expand_lean, build_walk_step
 from ..xp import TorchXP
 from . import graph as gr
 from .era import widths
@@ -387,16 +387,17 @@ class SimStages(_Programs):
         self._add("record", record_round, reset_fn=self._fork_path)
 
         erows0, erows = self._lane(S, B, salt=31, mask=7), z(S, B)
+        # The walk's model step on the era's route (K11's WALK or its plain
+        # version).
+        model_step = build_walk_step(tm, props, xp)
 
         def expand_round(h):
             st = self.stages["expand"].st
             sg.xor_lanes(erows, erows0, st, mask=7)
-            lanes = tuple(erows[s] for s in range(S))
-            succs, amask = tm.step_lanes(xp, lanes)
-            valid = torch.stack([amask[a] & tm.within_boundary_lanes(xp, succs[a]) for a in range(A)])
+            checks, valid, _succ = model_step(erows)
             ne = valid.sum(0)
             if props:
-                ne = ne + torch.stack([p.check(xp, lanes) for p in props]).sum()
+                ne = ne + checks.sum()
             sg.fold(st, [sg.term(ne[:1]), sg.term(ne)], iters, handle=h)
 
         self._add("expand", expand_round)

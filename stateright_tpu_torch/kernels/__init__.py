@@ -245,6 +245,29 @@ LANE_AGREE = Kernel(
     "stateright_tpu/analysis/device.py:336",
 )
 
+# K11: the expand (EXPAND, one launch a BFS step) and the simulation's
+# model step (WALK, one launch a walk step), one source a model with a
+# kernel (ops/expand.py picks the route); the model headers are in
+# csrc/models/.
+_EXPAND_ARGS = [_I32, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P]
+_WALK_ARGS = [_I32, _P, _I64, _P, _P, _P]
+EXPAND_2PC = Kernel(
+    "expand_2pc", "expand_2pc.cu", "srt_expand_2pc", _EXPAND_ARGS,
+    "stateright_tpu/ops/expand.py:54",
+)
+WALK_2PC = Kernel(
+    "walk_2pc", "expand_2pc.cu", "srt_walk_2pc", _WALK_ARGS,
+    "stateright_tpu/engines/tpu_simulation.py:281",
+)
+EXPAND_PAXOS = Kernel(
+    "expand_paxos", "expand_paxos.cu", "srt_expand_paxos", _EXPAND_ARGS,
+    "stateright_tpu/ops/expand.py:54",
+)
+WALK_PAXOS = Kernel(
+    "walk_paxos", "expand_paxos.cu", "srt_walk_paxos", _WALK_ARGS,
+    "stateright_tpu/engines/tpu_simulation.py:281",
+)
+
 # K7s: the host spill's ring drain and refill (ops/frontier.py), one
 # source with two entry points, each counted.
 _SPILL_ARGS = [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P]
@@ -291,11 +314,16 @@ LINT_KERNELS = (LANE_AGREE,)
 # The spill tier's path (a BFS run past its ring's high water, solo or
 # sharded): K7s's two entry points.
 SPILL_KERNELS = (RING_DRAIN, RING_REFILL)
+# K11's entries: a model's expand on every BFS path (solo, lanes, mesh,
+# stages), its walk on the simulation's, when the route is the kernel.
+EXPAND_KERNELS = (EXPAND_2PC, EXPAND_PAXOS)
+WALK_KERNELS = (WALK_2PC, WALK_PAXOS)
 KERNELS = tuple(k for k in BFS_KERNELS if k is not RING_APPEND) + (
     WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA, STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA,
     LANE_AGREE, RING_DRAIN,
-)
-ENTRIES = KERNELS + (RING_APPEND, WALK_PROLOGUE, STAGE_LANES, RING_REFILL, SLAB_BOTTOMK_LANES) + LANE_KERNELS[1:]
+) + EXPAND_KERNELS
+ENTRIES = (KERNELS + (RING_APPEND, WALK_PROLOGUE, STAGE_LANES, RING_REFILL, SLAB_BOTTOMK_LANES)
+           + LANE_KERNELS[1:] + WALK_KERNELS)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -322,8 +350,9 @@ def _nvcc() -> str:
 
 def _lib_path(k: Kernel) -> str:
     h = hashlib.sha256(ARCH.encode())
-    # The shared headers (csrc/*.cuh) are part of every source.
-    for path in [k.source_path] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+    # The shared headers (csrc/*.cuh, csrc/models/*.cuh) are part of every source.
+    headers = glob.glob(os.path.join(_CSRC, "*.cuh")) + glob.glob(os.path.join(_CSRC, "models", "*.cuh"))
+    for path in [k.source_path] + sorted(headers):
         with open(path, "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:16]

@@ -664,11 +664,13 @@ class ShardedGpuBfsChecker(HostEngineBase):
         depth = self._chain_depth if pipeline else 0
 
         def program(table=None):
-            return MeshProgram(
+            prog = MeshProgram(
                 tm, self._tprops, self._chunk, self._qcap, self._tcap, N, self._quota, self._cov,
                 self._sample_k, self._fuse, self.device, self._group, in_flight=depth + 1,
                 table=table,
             )
+            self._gauge("expand_route", prog.expand.route)
+            return prog
 
         if self._resume_from is not None:
             data, meta = self._read_checkpoint(self._resume_from)

@@ -1306,3 +1306,130 @@ def test_analyze_after_a_readback_heavy_run(dev):
         on_card, on_cpu = analyze(model, device=dev), analyze(model, device="cpu")
         assert on_card.to_dict() == on_cpu.to_dict()
         assert on_card.probes["captures"] >= 2 and on_card.probes["graph_launches"] >= 1
+
+
+# -- K11: EXPAND and WALK ------------------------------------------------------
+
+def _bfs_rows(dev, tm, opts, target=0):
+    """[S + 2, n] (lanes, ebits, depth): every state a BFS on the card took,
+    from its ring (a run that does not wrap it)."""
+    from stateright_tpu_torch.engines import era
+
+    kept = []
+    free = era.EraProgram.free_graph
+
+    def keep(self):
+        kept.append(self)
+        free(self)
+
+    era.EraProgram.free_graph = keep
+    try:
+        b = TensorModelAdapter(tm).checker().target_state_count(target)
+        c = b.spawn_gpu_bfs(device=dev, **opts).join()
+    finally:
+        era.EraProgram.free_graph = free
+    return kept[-1].ring[:tm.state_width + 2, :c.unique_state_count()].contiguous()
+
+
+def _k11_models():
+    from stateright_tpu_torch.models import PaxosTensor
+
+    return [
+        (TwoPhaseTensor(5), dict(chunk_size=256, queue_capacity=1 << 14, table_capacity=1 << 16)),
+        (PaxosTensor(2), dict(chunk_size=256, queue_capacity=1 << 15, table_capacity=1 << 17)),
+    ]
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_expand_kernel_matches_plain(dev, which):
+    """K11's EXPAND against its plain version, bit for bit, on every
+    reachable 2pc-5 / paxos-2 row: an int, a 0-d and a per-row depth limit,
+    some rows inactive; `generated` comes from the last block's sum."""
+    from stateright_tpu_torch.ops.expand import build_expand_lean, build_expand_lean_plain
+    from stateright_tpu_torch.xp import TorchXP
+
+    tm, opts = _k11_models()[which]
+    rows = _bfs_rows(dev, tm, opts)
+    S, W = tm.state_width, rows.shape[1]
+    xp, props = TorchXP(dev), tm.tensor_properties()
+    k, plain = build_expand_lean(tm, props, W, xp), build_expand_lean_plain(tm, props, W, xp)
+    assert k.route == "kernel"
+    lanes, ebits, depth = rows[:S], rows[S].contiguous(), rows[S + 1].contiguous()
+    active = torch.arange(W, device=dev) % 13 != 4
+    limits = (0xFFFFFFFF, torch.tensor(6, device=dev), (torch.arange(W, device=dev) % 9).to(torch.int64))
+    for dl in limits:
+        a, b = k(lanes, ebits, depth, active, dl), plain(lanes, ebits, depth, active, dl)
+        assert torch.equal(a.ebits, b.ebits) and torch.equal(a.flat, b.flat)
+        assert torch.equal(a.valid, b.valid) and int(a.generated) == int(b.generated)
+        assert torch.equal(torch.stack(a.prop_hits), torch.stack(b.prop_hits))
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_walk_kernel_matches_plain(dev, which):
+    from stateright_tpu_torch.ops.expand import build_walk_step, build_walk_step_plain
+    from stateright_tpu_torch.xp import TorchXP
+
+    tm, opts = _k11_models()[which]
+    rows = _bfs_rows(dev, tm, opts)[:tm.state_width].contiguous()
+    xp, props = TorchXP(dev), tm.tensor_properties()
+    k = build_walk_step(tm, props, xp)
+    assert k.route == "kernel"
+    for x, y in zip(k(rows), build_walk_step_plain(tm, props, xp)(rows)):
+        assert torch.equal(x, y)
+
+
+def test_expand_kernel_one_node_a_call_and_replays(dev):
+    """One kernel node and no memset a captured EXPAND; replayed, the graph
+    sums `generated` again from a reset ticket."""
+    from stateright_tpu_torch.engines import graph
+    from stateright_tpu_torch.ops.expand import build_expand_lean, build_walk_step
+    from stateright_tpu_torch.xp import TorchXP
+
+    tm, opts = _k11_models()[0]
+    rows = _bfs_rows(dev, tm, opts)
+    W = rows.shape[1]
+    xp, props = TorchXP(dev), tm.tensor_properties()
+    k = build_expand_lean(tm, props, W, xp)
+    args = (rows[:3], rows[3].contiguous(), rows[4].contiguous(), torch.ones(W, dtype=torch.bool, device=dev),
+            torch.tensor(0xFFFFFFFF, device=dev))
+    want = int(k(*args).generated)
+    counts = graph.captured_nodes(lambda: k(*args))
+    assert counts["kernels"] == 1 and counts["memsets"] == 0, counts
+    walk = build_walk_step(tm, props, xp)
+    counts = graph.captured_nodes(lambda: walk(rows[:3].contiguous()))
+    assert counts["kernels"] == 1 and counts["memsets"] == 0, counts
+    g = torch.cuda.CUDAGraph()
+    with graph.capture_guard() as stream:
+        with torch.cuda.graph(g, stream=stream):
+            out = k(*args)
+    for _ in range(3):
+        out.generated.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert int(out.generated) == want
+
+
+def test_expand_route_in_the_engines(dev):
+    """`telemetry()["expand_route"]`: the kernel for 2PC, once a BFS step and
+    once a walk step; the plain version for increment, with no K11 launch."""
+    from stateright_tpu_torch.models import IncrementTensor
+
+    opts = dict(chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 11, sync_steps=4)
+    for tm, route, kern in ((TwoPhaseTensor(5), "kernel", kernels.EXPAND_2PC), (IncrementTensor(2), "plain", None)):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        c = TensorModelAdapter(tm).checker().spawn_gpu_bfs(device=dev, **opts).join()
+        torch.cuda.synchronize()
+        n = kernels.launch_counts()
+        assert c.telemetry()["expand_route"] == route
+        if kern is None:
+            assert not any(n[k.name] for k in kernels.EXPAND_KERNELS + kernels.WALK_KERNELS)
+        else:
+            assert n[kern.name] == n["claim_dedup"] > 0
+    kernels.reset_launches()
+    c = (TensorModelAdapter(TwoPhaseTensor(5)).checker().target_state_count(20_000)
+         .spawn_gpu_simulation(11, walks=256, walk_cap=64, sync_steps=4, device=dev).join())
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()
+    assert c.telemetry()["expand_route"] == "kernel"
+    assert n["walk_2pc"] == n["walk_step"] > 0
