@@ -26,24 +26,32 @@ exits non-zero:
      phases is timed on the device alone too (a call that changes its
      input on fresh inputs made outside the window), with `call_ms`
      beside it;
- 2b. K11 (`scripts/expand_times.py`): the hand-written EXPAND of 2PC and
-     Paxos against its plain version, bit for bit, over every reachable
-     2pc-7 row (296,448, in chunks of 6,144) and over 16,384 paxos-3 ring
-     rows at C = 16,384, with depth limits read on the card, and at the
-     lane widths with a limit a row; WALK at the paxos-3 (B = 16,384) and
-     2pc-10 (B = 65,536) simulation widths; each timed on the device
-     beside its plain version in one CUDA graph (`graph_plain_ms`), eager
+ 2b. K11 and K11c (`scripts/expand_times.py`): the hand-written EXPAND
+     of 2PC, Paxos, ABD and increment against its plain version, bit for
+     bit, over every reachable 2pc-7 row (296,448, in chunks of 6,144),
+     16,384 paxos-3 ring rows at C = 16,384, every abd-ordered-3 row
+     (46,516, in chunks of 2,048), every abd-2 row (544, chunk 512) and
+     increment-2's 13 rows, with depth limits read on the card and a
+     limit a row, and at the lane widths with a limit a row; WALK at the
+     paxos-3 (B = 16,384) and 2pc-10 (B = 65,536) simulation widths and
+     for ABD and increment at B = 16,384; the 2PC canon over the canon
+     inputs of the whole 2pc-5 symmetry run and at the 2pc-10 symmetry
+     width (141,994 candidates); each timed on the device beside its
+     plain version in one CUDA graph (`graph_plain_ms`), eager
      (`plain_ms`) and the bound, one kernel and no memset a captured call;
   3. small engine runs (2pc-5, sampling on, and 2pc-5 with .symmetry())
      on cuda and on the cpu: equal results, sample and paths included;
-     each card run's kernel launches a step;
+     each card run's kernel launches a step (the symmetry run's canon
+     on the kernel, once a step);
   4. the headline: 2pc-7 exhaustive at the bench options with sampling
      on (the default), with and without table growth, and its time with
      sampling off; the launch counts of that run show the main path went
      through every kernel;
   5. paxos-3 exhaustive (1,194,428 states) at bench.py's options, every
      discovery path and the sample rows walked through K6;
-  6. abd-ordered-3 exhaustive (46,516 states);
+  6. abd-ordered-3 exhaustive (46,516 states) and abd-2 on the
+     unordered network (544 states, bench.py:1137-1145), "linearizable"
+     held by both;
   7. full size: 2pc-10 exhaustive (61,515,776 states) and 2pc-10 with
      .symmetry() (265,719 representatives);
   8. simulation kernel parity: each of the four walk kernels (K13a-d)
@@ -51,8 +59,8 @@ exits non-zero:
      (B=16384, L=256, S=30, A=21, P=4) and the 2pc-10 ones (B=65536,
      L=256, S=3, A=52, P=3), on walk state from a real era of each model;
   9. simulation on cuda and on cpu: increment-2 (the JAX bench's run),
-     2pc-5 and 2pc-10 (2,048 walks) with a target, coverage and sampling:
-     equal results; 2pc-5 run to "commit agreement" with 8,192 and 65,536
+     2pc-5, abd-ordered-3 (seed 0, 1,024 walks, walk_cap 64) and 2pc-10
+     (2,048 walks) with a target, coverage and sampling: equal results; 2pc-5 run to "commit agreement" with 8,192 and 65,536
      walks: found, or not, after the JAX reference's state, step and era
      counts (REACH_2PC5); and the increment run's time to its
      counterexample after a warm-up;
@@ -113,7 +121,7 @@ exits non-zero:
      (`stage_loop.cu`) at the 2pc-7 and paxos-3 BFS widths and K12b
      (`stage_walk.cu`: CYCLE, RECORD, CHOOSE) at the paxos-3 simulation
      widths against their plain versions, exactly; 2pc-7, paxos-3 and
-     2pc-5 with .symmetry() (for the canon stage) BFS and the paxos-3
+     2pc-5 with .symmetry() (for the canon stage, on K11c) BFS and the paxos-3
      simulation to 2,000,000 states, each with and without
      .stage_profile(): equal results, no stage_profile_error, the stage_*
      phases summing to device_era within 10%, the split, the profiler's
@@ -187,9 +195,10 @@ each captured segment's launches once per run of it on the card.
 
 Every engine phase resets the kernels' launch counts just before its run
 and checks, just after, the route of K11 the engine reports
-(`telemetry()["expand_route"]`: "kernel" for 2PC and Paxos, with their
-K11 kernel launched once a step, "plain" for ABD and increment, with no
-K11 launch), and that each kernel of its path (the BFS kernels,
+(`telemetry()["expand_route"]`: "kernel" for every bundled model, with
+its K11 kernel launched once a step; under .symmetry() also
+`telemetry()["canon_route"]`: "kernel", K11c launched once a step), and
+that each kernel of its path (the BFS kernels,
 K1, K13a-d, K13b's prologue and K13f, or K1 and the lane entry points of
 K2, K3, K4, K6, K7 and K8f, or the sharded path's `MESH_KERNELS`; with
 the stage profiler, K12a and the stage programs' kernels too; for the
@@ -219,6 +228,9 @@ FULL10 = dict(chunk_size=12288, queue_capacity=1 << 26, table_capacity=1 << 28)
 SYM10 = dict(chunk_size=8192, queue_capacity=1 << 21, table_capacity=1 << 24, sync_steps=128)
 PAXOS3 = dict(chunk_size=16384, queue_capacity=1 << 21, table_capacity=1 << 26)
 ABDO3 = dict(chunk_size=2048, queue_capacity=1 << 15, table_capacity=1 << 18)
+# abd-2 on the unordered network (bench.py:1137-1145).
+ABD2 = dict(chunk_size=512, queue_capacity=1 << 14, table_capacity=1 << 13)
+ABD2_GOLDEN = 544
 GOLDEN = {5: 8_832, 7: 296_448, 10: 61_515_776}
 SYM_CLOSURE = {5: 1_092, 10: 265_719}
 PAXOS3_GOLDEN = 1_194_428
@@ -234,6 +246,7 @@ SIM_TARGET10 = 100_000_000
 SIM_INC2 = dict(walks=256, walk_cap=32)
 SIM_2PC5 = dict(walks=1024, walk_cap=64, sync_steps=4)
 SIM_2PC10_SMALL = dict(walks=2048, walk_cap=SIM_L, sync_steps=64)
+SIM_ABDO3 = dict(walks=1024, walk_cap=64)  # seed 0, a 200,000-state target: WALK for ABD
 # 2pc-5 walks (seed 0, walk_cap 256, sync_steps 64) run until "commit
 # agreement" or 5,000,000 states, as the JAX reference takes them on the
 # CPU (`scripts/sim_reach.py --jax --n 5 --walks 8192 65536`):
@@ -905,6 +918,21 @@ def check_k11(kernels, label, c, launches, kern, steps_key="claim_dedup", exact=
         check(route == "kernel" and steps > 0 and (n == steps if exact else n >= 1),
               f"{label}: route {route}, {kern.name} launched {n} times for {steps} steps ({steps_key})")
     print(f"{label}: expand_route={route} K11 launches {k11}, {steps} steps ({steps_key})", flush=True)
+
+
+def check_canon(kernels, label, c, launches, symmetric, steps_key="claim_dedup", exact=True):
+    """K11c on a counted BFS run: under .symmetry() the route the engine
+    reports (`telemetry()["canon_route"]`) is the kernel, launched once a
+    step (at least once with exact=False: a profiled run's canon stage
+    adds launches of its own); without it, None and no launch."""
+    route = c.telemetry()["canon_route"]
+    n, steps = launches[kernels.CANON_2PC.name], launches[steps_key]
+    if symmetric:
+        check(route == "kernel" and steps > 0 and (n == steps if exact else n >= steps),
+              f"{label}: canon_route {route}, canon_2pc launched {n} times for {steps} steps ({steps_key})")
+    else:
+        check(route is None and n == 0, f"{label}: canon_route {route}, canon_2pc launched {n} times")
+    print(f"{label}: canon_route={route} canon_2pc launches {n}, {steps} steps ({steps_key})", flush=True)
 
 
 # -- phases 8 to 11: simulation ---------------------------------------------
@@ -2168,11 +2196,17 @@ def stage_phase(torch, np, kernels, card, skip_full):
         torch, kernels, card, "paxos-3", profiled_bfs(lambda: PaxosTensorExhaustive(3), PAXOS3), result_dict,
         bfs_stage_path, (kernels.EXPAND_PAXOS, "claim_dedup"))
     stage_programs_match_plain(torch, "paxos-3", *grabbed.pop("bfs"))
-    profiled_pair(
+    _out, launches_sym = profiled_pair(
         torch, kernels, card, "2pc-5 symmetry", profiled_bfs(lambda: two_pc(5), TEST_OPTS, lambda b: b.symmetry()),
-        result_dict, bfs_stage_path, (kernels.EXPAND_2PC, "claim_dedup"))
+        result_dict, bfs_stage_path + kernels.CANON_KERNELS, (kernels.EXPAND_2PC, "claim_dedup"))
     progs, state = grabbed.pop("bfs")
     check("canon" in progs.stages, "2pc-5 symmetry: no canon stage")
+    # The canon stage runs K11c (its graph's rounds add to the run's own
+    # once-a-step launches); stage_programs_match_plain holds it to the plain
+    # version's accumulator.
+    check(progs.canon_route == "kernel", f"2pc-5 symmetry: canon stage on the {progs.canon_route} route")
+    print(f"2pc-5 symmetry profiled: canon stage route {progs.canon_route}, "
+          f"canon_2pc launches {launches_sym['canon_2pc']}", flush=True)
     stage_programs_match_plain(torch, "2pc-5 symmetry", progs, state)
     _out, launches_stage_sim = profiled_pair(
         torch, kernels, card, "paxos-3 simulation",
@@ -2635,11 +2669,11 @@ def lint_model(name):
             "increment-2": lambda: IncrementTensor(2)}[name]()
 
 
-def bfs_ring(model, device, opts, target):
-    """The port's BFS of `model` stopped at `target` (0: run to its end),
-    and its ring [S + 2, queue_capacity + 1] (lanes, ebits, depth), which
-    holds every state the run took, in order, where it does not wrap:
-    (checker, ring, wall)."""
+def bfs_ring(model, device, opts, target, configure=lambda b: b):
+    """The port's BFS of `model` (the builder through `configure`) stopped
+    at `target` (0: run to its end), and its ring [S + 2, queue_capacity +
+    1] (lanes, ebits, depth), which holds every state the run took, in
+    order, where it does not wrap: (checker, ring, wall)."""
     from stateright_tpu_torch.engines import era
 
     kept = []
@@ -2651,7 +2685,7 @@ def bfs_ring(model, device, opts, target):
 
     era.EraProgram.free_graph = keep
     try:
-        c, t = bfs(model, device, opts, lambda b: b.target_state_count(target))
+        c, t = bfs(model, device, opts, lambda b: configure(b).target_state_count(target))
     finally:
         era.EraProgram.free_graph = free
     check(c.unique_state_count() <= opts["queue_capacity"],
@@ -3258,7 +3292,13 @@ def main(argv) -> int:
     spill_only = "--spill-only" in argv
     from stateright_tpu_torch import kernels
     from stateright_tpu_torch.has_discoveries import HasDiscoveries
-    from stateright_tpu_torch.models import AbdOrderedTensor, IncrementTensor, PaxosTensor, PaxosTensorExhaustive
+    from stateright_tpu_torch.models import (
+        AbdOrderedTensor,
+        AbdTensor,
+        IncrementTensor,
+        PaxosTensor,
+        PaxosTensorExhaustive,
+    )
 
     phase("0 environment")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3318,6 +3358,9 @@ def main(argv) -> int:
 
         (c_gpu, t_gpu, d_gpu), launches3 = counted(torch, kernels, label, on_card)
         check_k11(kernels, label, c_gpu, launches3, kernels.EXPAND_2PC)
+        check_canon(kernels, label, c_gpu, launches3, label.endswith("symmetry"))
+        if label.endswith("symmetry"):
+            launches_canon = launches3  # the kernels line's, with --skip-full
         tel3 = c_gpu.telemetry()
         print(f"{label} kernel launches a step: "
               f"{json.dumps(per_step(launches3, tel3['steps'] + tel3.get('partial_steps', 0)))}", flush=True)
@@ -3390,7 +3433,7 @@ def main(argv) -> int:
           f"max_memory_allocated={peak} paths={lens} paths_secs={t_paths:.3f} "
           f"space_profile_secs={t_prof:.3f} telemetry={tel} card={card}", flush=True)
 
-    phase("6 abd-ordered-3")
+    phase("6 abd-ordered-3 and abd-2")
     def with_paths(model, opts, configure=lambda b: b):
         c, t = bfs(model, "cuda", opts, configure)
         return c, t, check_paths(c)
@@ -3398,11 +3441,19 @@ def main(argv) -> int:
     (cab, tab, lens), launches_ab = counted(torch, kernels, "abd-ordered-3",
                                             lambda: with_paths(AbdOrderedTensor(3), ABDO3))
     check(cab.unique_state_count() == ABDO3_GOLDEN, f"abd-ordered-3: {cab.unique_state_count()}")
-    check_k11(kernels, "abd-ordered-3", cab, launches_ab, None)
+    check_k11(kernels, "abd-ordered-3", cab, launches_ab, kernels.EXPAND_ABD)
     cab.assert_no_discovery("linearizable")
     print(f"abd-ordered-3: unique={cab.unique_state_count()} states={cab.state_count()} wall_secs={tab:.3f} "
           f"generated_states_per_sec={cab.state_count() / tab:.1f} paths={lens} "
           f"telemetry={cab.telemetry()} card={card}", flush=True)
+    # The unordered network: linearizable-register check 2 (bench.py:1137-1145).
+    (ca2, ta2, lens), launches_a2 = counted(torch, kernels, "abd-2", lambda: with_paths(AbdTensor(2), ABD2))
+    check(ca2.unique_state_count() == ABD2_GOLDEN, f"abd-2: {ca2.unique_state_count()}")
+    check_k11(kernels, "abd-2", ca2, launches_a2, kernels.EXPAND_ABD)
+    ca2.assert_no_discovery("linearizable")
+    print(f"abd-2: unique={ca2.unique_state_count()} states={ca2.state_count()} wall_secs={ta2:.3f} "
+          f"paths={lens} telemetry={ca2.telemetry()} card={card}", flush=True)
+    del ca2
 
     if not skip_full:
         phase("7 2pc-10 full size, plain and with symmetry")
@@ -3423,6 +3474,8 @@ def main(argv) -> int:
                                                   lambda: with_paths(two_pc(10), SYM10, lambda b: b.symmetry()))
         check(c10s.unique_state_count() == SYM_CLOSURE[10], f"2pc-10 symmetry: {c10s.unique_state_count()}")
         check_k11(kernels, "2pc-10 symmetry", c10s, launches10s, kernels.EXPAND_2PC)
+        check_canon(kernels, "2pc-10 symmetry", c10s, launches10s, True)
+        launches_canon = launches10s
         c10s.assert_no_discovery("consistent")
         print(f"2pc-10 symmetry: unique={c10s.unique_state_count()} states={c10s.state_count()} "
               f"wall_secs={t10s:.3f} paths={lens} telemetry={c10s.telemetry()} card={card}",
@@ -3440,23 +3493,27 @@ def main(argv) -> int:
     def target(n):
         return lambda b: b.target_state_count(n)
 
-    dicts = {}
+    dicts, launches_walk = {}, {}
     for label, model, seed, configure, opts, k11 in (
-        ("increment-2", IncrementTensor(2), 7, fin_any, SIM_INC2, None),
+        ("increment-2", IncrementTensor(2), 7, fin_any, SIM_INC2, kernels.WALK_INCREMENT),
         ("2pc-5", two_pc(5), 11, target(200_000), SIM_2PC5, kernels.WALK_2PC),
+        ("abd-ordered-3", AbdOrderedTensor(3), 0, target(200_000), SIM_ABDO3, kernels.WALK_ABD),
         ("2pc-10", two_pc(10), 0, target(300_000), SIM_2PC10_SMALL, kernels.WALK_2PC),
     ):
         (c_gpu, t_gpu), launches9 = counted(torch, kernels, f"{label} simulation",
                                             lambda: simulate(model, "cuda", seed, configure, opts), kernels.SIM_KERNELS)
         check_k11(kernels, f"{label} simulation", c_gpu, launches9, k11, "walk_step")
-        launches_walk10 = launches9  # the 2pc-10 run's, the loop's last
+        launches_walk[k11.name] = launches9  # walk_2pc: the 2pc-10 run's, the loop's last
         torch.set_num_threads(1)
         c_cpu, t_cpu = simulate(model, "cpu", seed, configure, opts)
         torch.set_num_threads(threads)
         d_gpu, d_cpu = sim_dict(c_gpu), sim_dict(c_cpu)
         check(d_gpu == d_cpu, f"{label} simulation: cuda {d_gpu} != cpu {d_cpu}")
         lens = check_paths(c_gpu)
-        check(lens and len(d_gpu["sample"]) > 0, f"{label} simulation: no discovery or no sample")
+        check(len(d_gpu["sample"]) > 0 and (lens or label == "abd-ordered-3"),
+              f"{label} simulation: no discovery or no sample")
+        if label == "abd-ordered-3":
+            c_gpu.assert_no_discovery("linearizable")
         dicts[label] = d_gpu
         print(f"{label} simulation equal on cuda ({t_gpu:.3f}s) and cpu ({t_cpu:.3f}s): "
               f"generated={d_gpu['states']} steps={d_gpu['steps']} eras={d_gpu['eras']} paths={lens} "
@@ -3509,7 +3566,7 @@ def main(argv) -> int:
         (c10s, t10s, peak, lens), launches11 = counted(torch, kernels, "2pc-10 simulation", two_pc10_sim,
                                                        kernels.SIM_KERNELS)
         check_k11(kernels, "2pc-10 simulation", c10s, launches11, kernels.WALK_2PC, "walk_step")
-        launches_walk10 = launches11
+        launches_walk["walk_2pc"] = launches11
         # Uniform random walks reach "commit agreement" only when every
         # RM prepares before any abort: 8,192 2pc-5 walks need 4.5 M
         # states for it, 65,536 find none in 5 M (the reference's walks
@@ -3533,7 +3590,8 @@ def main(argv) -> int:
     (inc_gpu, t_inc), launches13 = counted(torch, kernels, "increment-2 lanes",
                                            lambda: lanes(IncrementTensor(2), inc, "cuda", dict(lanes=32)),
                                            kernels.LANE_KERNELS)
-    check_k11(kernels, "increment-2 lanes", inc_gpu[0], launches13, None, "claim_dedup_lanes")
+    check_k11(kernels, "increment-2 lanes", inc_gpu[0], launches13, kernels.EXPAND_INCREMENT, "claim_dedup_lanes")
+    launches_inc = launches13  # the kernels line's expand_increment
     inc_cpu, t_inc_cpu = cpu_lanes(torch, IncrementTensor(2), inc, dict(lanes=32))
     inc_solo = solo_like(IncrementTensor(2), lambda b: b, LANE_SHAPE)
     for i, (g, c) in enumerate(zip(inc_gpu, inc_cpu)):
@@ -3643,7 +3701,7 @@ def main(argv) -> int:
               f"eras={d_gpu['eras']} steps={d_gpu['steps']} telemetry={c_gpu.telemetry()}", flush=True)
     era_runs(torch, kernels, card, "2pc-7", GOLDEN[7], kernels.EXPAND_2PC, lambda c: check_2pc(c, 7))
     era_runs(torch, kernels, card, "paxos-3", PAXOS3_GOLDEN, kernels.EXPAND_PAXOS)
-    era_runs(torch, kernels, card, "abd-ordered-3", ABDO3_GOLDEN, None)
+    era_runs(torch, kernels, card, "abd-ordered-3", ABDO3_GOLDEN, kernels.EXPAND_ABD)
 
     phase("16 simulation eras and lane batches as graphs: K13f, K14f; graph == cpu; the speed cells")
     torch.cuda.empty_cache()
@@ -3656,8 +3714,10 @@ def main(argv) -> int:
         ("increment-2", IncrementTensor(2), 7, fin_any, SIM_INC2),
         ("2pc-5", two_pc(5), 11, target(200_000), SIM_2PC5),
     ):
-        (c, t), _ = counted(torch, kernels, f"{label} graph simulation",
-                            lambda: simulate(mdl, "cuda", seed, configure, opts), kernels.SIM_KERNELS)
+        (c, t), launches16 = counted(torch, kernels, f"{label} graph simulation",
+                                     lambda: simulate(mdl, "cuda", seed, configure, opts), kernels.SIM_KERNELS)
+        check_k11(kernels, f"{label} graph simulation", c, launches16,
+                  kernels.WALK_INCREMENT if label == "increment-2" else kernels.WALK_2PC, "walk_step")
         tel = c.telemetry()
         check(sim_dict(c) == dicts[label], f"{label} graph simulation differs from the cpu run")
         check(tel["graph_captures"] == 1 and tel["readbacks"] == tel["eras"],
@@ -3766,11 +3826,15 @@ def main(argv) -> int:
             # K7s at the 2pc-10 spilling run's widths, with the launches of
             # phase 20's spilling runs (2pc-10 and 2pc-7 at 8 shards).
             r, n = spill_res[k.name], launches_spill[k.name]
-        elif k in kernels.EXPAND_KERNELS:
-            # K11's EXPAND at the 2pc-7 / paxos-3 BFS widths (phase 2b),
-            # with the launches of phase 4's / phase 5's run.
+        elif k in kernels.EXPAND_KERNELS + kernels.CANON_KERNELS:
+            # K11's EXPAND at the 2pc-7 / paxos-3 / abd-ordered-3 BFS widths
+            # and the 32 increment-2 lanes' (phase 2b), with the launches of
+            # phase 4's / 5's / 6's / 13's run; K11c at the 2pc-10 symmetry
+            # width with phase 7's 2pc-10 symmetry run's (phase 3's 2pc-5
+            # symmetry run's with --skip-full).
             r = k11_res[k.name]
-            n = (launches if k is kernels.EXPAND_2PC else launches_px)[k.name]
+            n = {kernels.EXPAND_2PC: launches, kernels.EXPAND_PAXOS: launches_px, kernels.EXPAND_ABD: launches_ab,
+                 kernels.EXPAND_INCREMENT: launches_inc, kernels.CANON_2PC: launches_canon}[k][k.name]
         elif k.name in results:
             r, n = results[k.name], launches[k.name]
         else:
@@ -3792,11 +3856,14 @@ def main(argv) -> int:
             if extra in r:
                 entry[extra] = r[extra]
         line["kernels"].append(entry)
-    # K11's WALK: the paxos-3 / 2pc-10 simulation widths (phase 2b), with the
-    # launches of phase 10's run and of phase 11's (phase 9's 2pc-10 run
-    # with --skip-full).
+    # K11's WALK: the paxos-3 / 2pc-10 simulation widths and B = 16,384 for
+    # ABD and increment (phase 2b), with the launches of phase 10's run, of
+    # phase 11's (phase 9's 2pc-10 run with --skip-full) and of phase 9's
+    # abd-ordered-3 and increment-2 runs.
     for k, n in ((kernels.WALK_PAXOS, launches_sim[kernels.WALK_PAXOS.name]),
-                 (kernels.WALK_2PC, launches_walk10[kernels.WALK_2PC.name])):
+                 (kernels.WALK_2PC, launches_walk["walk_2pc"]["walk_2pc"]),
+                 (kernels.WALK_ABD, launches_walk["walk_abd"]["walk_abd"]),
+                 (kernels.WALK_INCREMENT, launches_walk["walk_increment"]["walk_increment"])):
         r = k11_res[k.name]
         line["kernels"].append(dict(
             name=k.name, route="cuda", source=os.path.relpath(k.source_path, HERE), replaces=k.replaces,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """K11 on the card: the hand-written EXPAND and WALK kernels
-(`kernels/csrc/expand_2pc.cu`, `expand_paxos.cu`) against their plain
-versions, bit for bit, and their device times beside the plain versions'
-and the bound.
+(`kernels/csrc/expand_2pc.cu`, `expand_paxos.cu`, `expand_abd.cu`,
+`expand_increment.cu`) and K11c, the 2PC symmetry canon
+(`kernels/csrc/canon_2pc.cu`), against their plain versions, bit for
+bit, and their device times beside the plain versions' and the bound.
 
     python3 scripts/expand_times.py [--reps N] [--verbose-build]
 
@@ -23,7 +24,27 @@ holds every state it took, in order, with its ebits and depth lanes):
   walk paxos-3     B = 16,384 (the paxos-3 simulation's walks), the
                    paxos-3 rows above;
   walk 2pc-10      B = 65,536 (the 2pc-10 simulation's walks), rows spread
-                   over a 2pc-10 BFS stopped at 200,000 states.
+                   over a 2pc-10 BFS stopped at 200,000 states;
+  expand abd       every abd-ordered-3 row (46,516) in chunks of 2,048
+                   (bench.py:1159-1161) and every abd-2 row (544) at chunk
+                   512 (bench.py:1137-1139), a 0-d limit read on the card
+                   (unbounded, then the rows' median depth) and a limit a
+                   row by turns, a chunk's last columns inactive;
+                   abd-ordered-3's first full chunk timed (`expand_abd`),
+                   abd-2's too;
+  walk abd         B = 16,384 abd-ordered-3 rows;
+  increment        EXPAND over increment-2's 13 rows under each limit,
+                   then at the 32-lane width (32 x 256 rows, the 13
+                   tiled, a limit a row; timed: `expand_increment`);
+                   WALK at B = 16,384 (the 13 tiled);
+  canon            K11c over the canon's inputs of the whole 2pc-5
+                   symmetry run (every valid successor of its 1,092
+                   representatives, a popped chunk of 64 at a time,
+                   compacted to the step's 1,728 columns, timed there:
+                   `canon 2pc-5`) and at the 2pc-10 symmetry width
+                   (141,994 columns: the candidates of 8,192 rows of a
+                   2pc-10 symmetry BFS, compacted as its step does; timed:
+                   `canon_2pc`).
 
 Each kernel is timed on the device alone (`chip_smoke.time_device_ms`:
 CUDA events around back-to-back calls behind a spin kernel), beside its
@@ -34,7 +55,9 @@ counted on the card (one kernel node, no memset). The bound is the
 larger of the bytes moved (rows, ebits, depth, active and the limit in;
 ebits, the successor lanes as int64, valid, the hits and `generated`
 out) over the HBM rate and the plain version's written elements over the
-32-bit rate. Prints one JSON line with the card's name and power limit;
+32-bit rate; the canon's, 2 x 3 x 8 bytes a row against its 32-bit
+operations (19n + 3n(n-1)/2 + 6 a row: the descriptors, the network's
+compare-and-selects, the rebuilt lanes). Prints one JSON line with the card's name and power limit;
 `chip_smoke.py` runs the same measurement as a phase (`measure`).
 """
 
@@ -52,6 +75,9 @@ CHUNK7, CHUNK_PX = 6144, 16384
 WALK_10 = 65536
 LANES_5 = (1024, 151)  # the 2pc-5 sweep: lanes, chunk (chip_smoke phase 12)
 LANES_PX2 = (256, 256)  # the paxos-2 sweep: lanes, chunk
+LANES_INC2 = (32, 256)  # the 32 increment-2 lanes (chip_smoke phase 13)
+ABD2 = dict(chunk_size=512, queue_capacity=1 << 14, table_capacity=1 << 13)  # bench.py:1137-1139
+WALK_B = 16384  # the ABD and increment walks
 
 
 def _smoke():
@@ -61,12 +87,12 @@ def _smoke():
     return mod
 
 
-def ring_rows(torch, smoke, model, opts, target, n):
+def ring_rows(torch, smoke, model, opts, target, n, configure=lambda b: b):
     """[S + 2, n] int64 rows (lanes, ebits, depth) on the card from the
     port's BFS of `model` stopped at `target` (0: run to the end;
     `chip_smoke.bfs_ring`): n columns spread evenly over the states it
     took. Returns (rows, the run's unique count)."""
-    c, ring, _t = smoke.bfs_ring(model, "cuda", opts, target)
+    c, ring, _t = smoke.bfs_ring(model, "cuda", opts, target, configure)
     unique = c.unique_state_count()
     cols = torch.linspace(0, unique - 1, min(n, unique), device="cuda").round().to(torch.int64)
     return ring[:model.state_width + 2].index_select(1, cols).contiguous(), unique
@@ -166,12 +192,101 @@ def walk_case(torch, smoke, label, tm, rows, reps=50):
     )
 
 
+def chunked_expand(torch, smoke, label, tm, rows, C, limit_of):
+    """EXPAND against its plain version over every column of rows [S + 2,
+    N] in chunks of C (the last one's tail inactive), chunk i under
+    limit_of(i, depth); returns the largest difference."""
+    dev = rows.device
+    S, N = tm.state_width, rows.shape[1]
+    k, plain = _expand_pair(smoke, tm, C)
+    err = 0
+    for i, at in enumerate(range(0, N, C)):
+        chunk = torch.zeros((S + 2, C), dtype=torch.int64, device=dev)
+        n = min(C, N - at)
+        chunk[:, :n] = rows[:, at:at + n]
+        active = torch.arange(C, device=dev) < n
+        depth = chunk[S + 1].contiguous()
+        args = (chunk[:S], chunk[S].contiguous(), depth, active, limit_of(i, depth))
+        err = max(err, smoke.max_abs_err(torch, zip(_expand_outputs(torch, k(*args)),
+                                                     _expand_outputs(torch, plain(*args)))))
+    print(f"K11 EXPAND {label}: {N} rows in {-(-N // C)} chunks of {C}: max_abs_err={err}", flush=True)
+    smoke.check(err == 0, f"K11 EXPAND ({label}) disagrees with its plain version")
+    return err
+
+
+def canon_inputs(torch, tm, rows, C):
+    """The canon's inputs of BFS steps over rows [S + 2, N], C popped rows
+    at a time: each chunk's successors (K11's EXPAND) compacted to the
+    step's width (vcap, K2) as engines/era.py `_step` gathers them. Yields
+    [S, vcap] int64 tensors."""
+    from stateright_tpu_torch.engines.era import widths
+    from stateright_tpu_torch.ops import visited_set as vs
+    from stateright_tpu_torch.ops.expand import build_expand_lean
+    from stateright_tpu_torch.xp import TorchXP
+
+    S, N, dev = tm.state_width, rows.shape[1], rows.device
+    vcap = widths(tm.max_actions, C)[0]
+    expand = build_expand_lean(tm, tm.tensor_properties(), C, TorchXP(dev))
+    for at in range(0, N, C):
+        chunk = torch.zeros((S + 2, C), dtype=torch.int64, device=dev)
+        n = min(C, N - at)
+        chunk[:, :n] = rows[:, at:at + n]
+        ex = expand(chunk[:S], chunk[S].contiguous(), chunk[S + 1].contiguous(),
+                    torch.arange(C, device=dev) < n, M32)
+        vids, _vvalid, _n = vs.compact_ids(ex.valid, vcap)
+        yield ex.flat.index_select(1, vids)
+
+
+def canon_case(torch, smoke, label, tm, batches, reps=50):
+    """K11c against its plain version on every [S, W] batch of `batches`,
+    then timed on the last; returns the timing dict."""
+    from stateright_tpu_torch.ops.canon import build_canon, build_canon_plain
+    from stateright_tpu_torch.xp import TorchXP
+
+    xp = TorchXP("cuda")
+    k, plain = build_canon(tm, xp), build_canon_plain(tm, xp)
+    smoke.check(k.route == "kernel", f"{label}: canon route {k.route}")
+    err, cols = 0, 0
+    for rows in batches:
+        err = max(err, smoke.max_abs_err(torch, [(k(rows), plain(rows))]))
+        cols += rows.shape[1]
+    print(f"K11c canon {label}: {cols} candidate columns: max_abs_err={err}", flush=True)
+    smoke.check(err == 0, f"K11c canon ({label}) disagrees with its plain version")
+    S, W, n = tm.state_width, rows.shape[1], tm.n
+    g = _plain_in_graph(torch, lambda: plain(rows))
+    n_launch, _elements = smoke.torch_launches(torch, lambda: plain(rows))
+    return dict(
+        max_abs_err=err,
+        ms=smoke.time_device_ms(torch, lambda _: k(rows), reps=reps),
+        call_ms=smoke.time_ms(torch, lambda _: k(rows)),
+        graph_plain_ms=smoke.time_device_ms(torch, lambda _: g.replay(), reps=reps),
+        plain_ms=smoke.time_ms(torch, lambda _: plain(rows), reps=5),
+        launches_a_call=smoke.kernels_a_call(torch, f"K11c canon ({label})", lambda: k(rows), 1),
+        plain_launches=n_launch,
+        library_ms=None,
+        rows_compared=cols,
+        bytes=2 * S * 8 * W,
+        ops=W * (19 * n + 3 * n * (n - 1) // 2 + 6),
+        shape=f"{label}: W={W}, S={S}, n={n}; the plain version {n_launch} torch launches",
+    )
+
+
 def measure(torch, smoke, reps=50) -> dict:
     """Every case above; returns {name: timing dict} (the kernel rows under
     their kernels' names: expand_2pc at 2pc-7, expand_paxos at paxos-3,
-    walk_2pc at 2pc-10, walk_paxos at paxos-3; the lane widths beside
-    them). Raises if a kernel disagrees with its plain version."""
-    from stateright_tpu_torch.models import PaxosTensor, PaxosTensorExhaustive, TwoPhaseTensor
+    walk_2pc at 2pc-10, walk_paxos at paxos-3, expand_abd and walk_abd
+    at abd-ordered-3, expand_increment at the 32 increment-2 lanes,
+    walk_increment at B = 16,384, canon_2pc at the 2pc-10 symmetry width;
+    the other widths beside them). Raises if a kernel disagrees with its
+    plain version."""
+    from stateright_tpu_torch.models import (
+        AbdOrderedTensor,
+        AbdTensor,
+        IncrementTensor,
+        PaxosTensor,
+        PaxosTensorExhaustive,
+        TwoPhaseTensor,
+    )
 
     dev = torch.device("cuda")
     out = {}
@@ -180,21 +295,8 @@ def measure(torch, smoke, reps=50) -> dict:
     tm7 = TwoPhaseTensor(7)
     rows7, unique7 = ring_rows(torch, smoke, tm7, smoke.BENCH7, 0, 1 << 20)
     smoke.check(unique7 == smoke.GOLDEN[7], f"2pc-7 ring: {unique7} states")
-    k, plain = _expand_pair(smoke, tm7, CHUNK7)
-    err = 0
     limits = (torch.full((), M32, dtype=torch.int64, device=dev), torch.full((), 12, dtype=torch.int64, device=dev))
-    for i, at in enumerate(range(0, unique7, CHUNK7)):
-        chunk = torch.zeros((5, CHUNK7), dtype=torch.int64, device=dev)
-        n = min(CHUNK7, unique7 - at)
-        chunk[:, :n] = rows7[:, at:at + n]
-        active = torch.arange(CHUNK7, device=dev) < n
-        dl = limits[i % 2]
-        args = (chunk[:3], chunk[3].contiguous(), chunk[4].contiguous(), active, dl)
-        err = max(err, smoke.max_abs_err(torch, zip(_expand_outputs(torch, k(*args)),
-                                                     _expand_outputs(torch, plain(*args)))))
-    print(f"K11 EXPAND 2pc-7: {unique7} reachable rows in {-(-unique7 // CHUNK7)} chunks of {CHUNK7}: "
-          f"max_abs_err={err}", flush=True)
-    smoke.check(err == 0, "K11 EXPAND (2pc-7) disagrees with its plain version")
+    chunked_expand(torch, smoke, "2pc-7", tm7, rows7, CHUNK7, lambda i, depth: limits[i % 2])
     out["expand_2pc"] = expand_case(torch, smoke, "2pc-7", tm7, rows7[:, :CHUNK7].contiguous(),
                                     limits, reps=reps)
     out["expand_2pc"]["rows_compared"] = unique7
@@ -235,6 +337,71 @@ def measure(torch, smoke, reps=50) -> dict:
                            200_000, WALK_10)
     smoke.check(rows10.shape[1] == WALK_10, f"2pc-10 walk rows: {rows10.shape[1]}")
     out["walk_2pc"] = walk_case(torch, smoke, "2pc-10", tm10, rows10[:3].contiguous(), reps=reps)
+    del rows10
+
+    # ABD: every abd-ordered-3 and every abd-2 row, the limit by turns a
+    # 0-d one read on the card (unbounded, the median depth) and one a row.
+    for name, tm, opts, C, golden in (
+        ("abd-ordered-3", AbdOrderedTensor(3), smoke.ABDO3, 2048, smoke.ABDO3_GOLDEN),
+        ("abd-2", AbdTensor(2), ABD2, 512, 544),
+    ):
+        rows, unique = ring_rows(torch, smoke, tm, dict(opts, queue_capacity=1 << 16), 0, 1 << 20)
+        smoke.check(unique == golden, f"{name} ring: {unique} states")
+        med = int(rows[tm.state_width + 1].median())
+        limits = (torch.full((), M32, dtype=torch.int64, device=dev),
+                  torch.full((), med, dtype=torch.int64, device=dev))
+
+        def limit_of(i, depth, limits=limits):
+            return limits[i % 2] if i % 3 != 2 else depth + (torch.arange(depth.numel(), device=dev) % 3) - 1
+
+        chunked_expand(torch, smoke, name, tm, rows, C, limit_of)
+        key = "expand_abd" if name == "abd-ordered-3" else f"expand {name}"
+        first = rows[:, :C].contiguous()
+        out[key] = expand_case(torch, smoke, name, tm, first, limits,
+                               active=torch.arange(C, device=dev) % 11 != 5, reps=reps)
+        out[key]["rows_compared"] = unique
+        if name == "abd-ordered-3":
+            out["walk_abd"] = walk_case(torch, smoke, name, tm,
+                                        rows[:tm.state_width, :WALK_B].contiguous(), reps=reps)
+        del rows, first
+
+    # increment-2: its 13 rows under each limit, then the 32-lane width
+    # (timed) with a limit a row; WALK at B = 16,384.
+    tm = IncrementTensor(2)
+    rows, unique = ring_rows(torch, smoke, tm, dict(chunk_size=64, queue_capacity=1 << 10,
+                                                     table_capacity=1 << 12), 0, 1 << 10)
+    smoke.check(unique == 13, f"increment-2 ring: {unique} states")
+    chunked_expand(torch, smoke, "increment-2", tm, rows, 13,
+                   lambda i, depth: depth + (torch.arange(depth.numel(), device=dev) % 3) - 1)
+    N, C = LANES_INC2
+    W = N * C
+    tiled = rows[:, torch.arange(W, device=dev) % unique].contiguous()
+    dl_rows = (1 + (torch.arange(W, device=dev) // C) % 6).to(torch.int64)
+    out["expand_increment"] = expand_case(
+        torch, smoke, "increment-2 lanes", tm, tiled,
+        (dl_rows, torch.full((), M32, dtype=torch.int64, device=dev), 3), reps=reps)
+    out["expand_increment"]["rows_compared"] = unique
+    walk_rows = rows[:tm.state_width, torch.arange(WALK_B, device=dev) % unique].contiguous()
+    out["walk_increment"] = walk_case(torch, smoke, "increment-2", tm, walk_rows, reps=reps)
+    del rows, tiled, walk_rows
+
+    # K11c: the 2pc-5 symmetry run's canon inputs, chunk 64 at a time
+    # (timed at its 1,728 columns); then 8,192 rows of a 2pc-10 symmetry
+    # BFS, compacted to its step's 141,994 columns (timed: the kernel row).
+    def sym(b):
+        return b.symmetry()
+
+    tm5 = TwoPhaseTensor(5)
+    rows5, unique5 = ring_rows(torch, smoke, tm5, smoke.TEST_OPTS, 0, 1 << 12, sym)
+    smoke.check(unique5 == smoke.SYM_CLOSURE[5], f"2pc-5 symmetry ring: {unique5} states")
+    out["canon 2pc-5"] = canon_case(torch, smoke, "2pc-5 symmetry",
+                                    tm5, list(canon_inputs(torch, tm5, rows5, smoke.TEST_OPTS["chunk_size"])),
+                                    reps=reps)
+    C10 = smoke.SYM10["chunk_size"]
+    rows10s, _u = ring_rows(torch, smoke, tm10, smoke.SYM10, 3 * C10, C10, sym)
+    out["canon_2pc"] = canon_case(torch, smoke, "2pc-10 symmetry", tm10,
+                                  list(canon_inputs(torch, tm10, rows10s, C10)), reps=reps)
+    del rows5, rows10s
     torch.cuda.empty_cache()
     for name, r in out.items():
         smoke.check(r["max_abs_err"] == 0, f"K11 {name} disagrees with its plain version")
@@ -255,8 +422,8 @@ def main(argv) -> int:
     from stateright_tpu_torch import kernels
 
     smoke = _smoke()
-    secs = kernels.build_all(kernels.EXPAND_KERNELS + kernels.BFS_KERNELS + kernels.SIM_KERNELS,
-                             verbose=args.verbose_build)
+    secs = kernels.build_all(kernels.EXPAND_KERNELS + kernels.CANON_KERNELS + kernels.BFS_KERNELS
+                             + kernels.SIM_KERNELS, verbose=args.verbose_build)
     print(f"build_secs={secs:.2f}", flush=True)
     res = smoke.finish(measure(torch, smoke, args.reps))
     print(json.dumps(dict(card=smoke.card_line(), k11={

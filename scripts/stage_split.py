@@ -2,16 +2,26 @@
 """The per-stage split of the port's device eras (`.stage_profile()`) for
 the speed cells, on one card:
 
-    python3 scripts/stage_split.py [--cells 2pc-7 paxos-3 "paxos-3 sim"] [--iters 32]
+    python3 scripts/stage_split.py [--cells 2pc-7 paxos-3 "paxos-3 sim" "2pc-5 symmetry"]
+                                   [--iters 32] [--runs N] [--timing spin events]
 
-Each cell runs once without and once with the stage profiler, at the
-options chip_smoke.py runs it with (2pc-7 at bench.py:798's, paxos-3 at
-bench.py:1305-1307's, the paxos-3 simulation with 16,384 walks to
-2,000,000 states), and prints for each run its unique or generated
-states, wall seconds, steps, peak device memory and the telemetry's
-stage keys (`phase_ms`: `device_era`, `profiler_overhead`, `stage_*`;
-`stage_us_per_step`, `stage_profile_model_pct`), then the card's name
-and power limit. The first run of a process pays its warm-up.
+Each cell runs once without and `--runs` times with the stage profiler,
+at the options chip_smoke.py runs it with (2pc-7 at bench.py:798's,
+paxos-3 at bench.py:1305-1307's, the paxos-3 simulation with 16,384
+walks to 2,000,000 states, 2pc-5 under `.symmetry()` at chunk 64, phase
+17's), and prints for each run its unique or generated states, wall
+seconds, steps, peak device memory and the telemetry's stage keys
+(`phase_ms`: `device_era`, `profiler_overhead`, `stage_*`;
+`stage_us_per_step`, `stage_profile_model_pct`). `--timing` names how
+the stage programs' dispatches are timed, the profiled runs taking the
+timings in turn: `spin` as `obs/stageprof.py time_dispatch` times them
+(CUDA events queued with the launch behind a spin kernel, device time
+only), `events` with two CUDA events around the launch and no spin (so
+the window also holds the host's launch latency wherever the card ran
+dry first). Then one summary line a cell and timing (the profiled runs
+whose split was empty, every stage at or below the null loop, and each
+stage's us a round, min / median / max), and the card's name and power
+limit. The first run of a process pays its warm-up.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -37,13 +48,34 @@ def cells():
         "paxos-3 sim": (lambda: PaxosTensor(3),
                         lambda b: b.target_state_count(2_000_000).spawn_gpu_simulation(
                             0, walks=16384, walk_cap=256)),
+        "2pc-5 symmetry": (lambda: TwoPhaseTensor(5),
+                           lambda b: b.symmetry().spawn_gpu_bfs(chunk_size=64, queue_capacity=1 << 12,
+                                                                table_capacity=1 << 11, sync_steps=4)),
     }
+
+
+def events_dispatch(program) -> float:
+    """A stage program's dispatch between two CUDA events with no spin."""
+    import torch
+
+    from stateright_tpu_torch.obs import stageprof
+
+    program.prepare(stageprof.SEED)
+    stream = torch.cuda.current_stream(program.device)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record(stream)
+    program.launch()
+    t1.record(stream)
+    program.read()
+    return t0.elapsed_time(t1) / 1e3
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", nargs="+", default=["2pc-7", "paxos-3", "paxos-3 sim"])
     ap.add_argument("--iters", type=int, default=32)
+    ap.add_argument("--runs", type=int, default=1)
+    ap.add_argument("--timing", nargs="+", choices=["spin", "events"], default=["spin"])
     args = ap.parse_args(argv)
     import torch
 
@@ -52,24 +84,33 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, HERE)
     from stateright_tpu_torch import TensorModelAdapter
+    from stateright_tpu_torch.obs import stageprof
 
+    timers = dict(spin=stageprof.time_dispatch, events=events_dispatch)
     table = cells()
     for label in args.cells:
         make, spawn = table[label]
-        for prof in (False, True):
+        seen = {t: [] for t in args.timing}
+        runs = [(None, False)] + [(args.timing[i % len(args.timing)], True)
+                                  for i in range(args.runs * len(args.timing))]
+        for timing, prof in runs:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             b = TensorModelAdapter(make()).checker()
             if prof:
                 b = b.stage_profile(iters=args.iters)
+                stageprof.time_dispatch = timers[timing]
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            c = spawn(b).join()
+            try:
+                c = spawn(b).join()
+            finally:
+                stageprof.time_dispatch = timers["spin"]
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             tel = c.telemetry()
             out = dict(
-                cell=label, stage_profile=prof, states=c.unique_state_count(), wall_secs=wall,
+                cell=label, stage_profile=prof, timing=timing, states=c.unique_state_count(), wall_secs=wall,
                 steps=tel["steps"], steps_run=tel.get("steps_run"),
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
                 phase_ms=tel.get("phase_ms"), stage_us_per_step=tel.get("stage_us_per_step"),
@@ -77,6 +118,19 @@ def main(argv) -> int:
                 stage_profile_error=tel.get("stage_profile_error"),
             )
             print(json.dumps(out), flush=True)
+            if prof:
+                seen[timing].append(out)
+        for timing, outs in seen.items():
+            if not outs:
+                continue
+            empty = sum(1 for o in outs if not any(k.startswith("stage_") for k in o["phase_ms"]))
+            us = {}
+            for o in outs:
+                for name, v in (o["stage_us_per_step"] or {}).items():
+                    us.setdefault(name, []).append(v)
+            spread = {name: [min(v), statistics.median(v), max(v)] for name, v in us.items()}
+            print(json.dumps(dict(cell=label, timing=timing, profiled_runs=len(outs), empty_splits=empty,
+                                  stage_us_min_median_max=spread)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     return 0

@@ -58,11 +58,10 @@ from ..ops import era as eo
 from ..ops import frontier as fr
 from ..ops import slab as sl
 from ..ops import visited_set as vs
+from ..ops.canon import build_canon
 from ..ops.expand import build_expand_lean
 from ..xp import TorchXP
 from . import graph as gr
-
-M32 = 0xFFFFFFFF
 
 
 def widths(A: int, chunk: int):
@@ -133,6 +132,8 @@ class EraProgram:
         )
         self.xp = TorchXP(dev)
         self.expand = build_expand_lean(tm, self.props, C, self.xp)
+        # K11c under symmetry (`canon_fn.route`), else None.
+        self.canon_fn = build_canon(tm, self.xp) if canon else None
         self.arange_c = torch.arange(C, device=dev)
         x = self.plen
         self._head = self.state[eo.P_HEAD:eo.P_HEAD + 1]
@@ -201,7 +202,7 @@ class EraProgram:
     def _step(self, handle: int = 0) -> None:
         """One BFS step (tpu_bfs.py:428 body) at the take the gate set, then
         its commit; every scalar it reads or writes stays on the device."""
-        tm, S, A, P, C = self.tm, self.S, self.A, self.P, self.C
+        S, A, P, C = self.S, self.A, self.P, self.C
         active = self.arange_c < self._take
         popped = fr.ring_pop(self.ring, self._head, C)
         rows, ebits, depth = popped[:S], popped[S], popped[S + 1]
@@ -212,7 +213,7 @@ class EraProgram:
         if self.canon:
             # Canonicalize at the compacted width, before hashing
             # (tpu_bfs.py:478-482).
-            cl = torch.stack(tm.representative_lanes(self.xp, tuple(cl[i] for i in range(S)))) & M32
+            cl = self.canon_fn(cl)
         ch1, ch2 = hash_lanes(cl)
         reps = fr.claim_dedup(ch1, ch2, vvalid, self.dedup_cap)
         dids, dvalid, n_d = vs.compact_ids(reps, self.rcap)

@@ -431,6 +431,7 @@ class GpuBfsChecker(HostEngineBase):
             sample_k, self._fuse, dev, in_flight=depth + 1, table=table,
         )
         self._gauge("expand_route", prog.expand.route)
+        self._gauge("canon_route", prog.canon_fn.route if self._canon else None)
         if table is not None:
             resumed = self._install_checkpoint(prog, data, meta, table=table)
         try:

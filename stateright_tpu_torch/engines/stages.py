@@ -24,8 +24,8 @@ the plain versions of its kernels in a Python loop of `iters` rounds.
 BFS stages: expand (K11 on the run's first C ring rows), hash (K1 at C
 and at vcap), probe (K4 into a fork of the run's table), claim (K3),
 compact (K2 twice and the gathers of the era's step), ring (K7's pop and
-append on a fork of the run's ring), canon (the model's
-`representative_lanes`, under symmetry). Simulation stages: hash (K1),
+append on a fork of the run's ring), canon (K11c on its route,
+`ops/canon.py`, under symmetry). Simulation stages: hash (K1),
 cycle, record and choose (K12b), expand (the model's `step_lanes`,
 boundary and properties). The forks are taken afresh before every
 dispatch, outside its timed window, as each JAX dispatch starts from the
@@ -43,6 +43,7 @@ from ..fingerprint import hash_lanes, mul32
 from ..ops import frontier as fr
 from ..ops import stage as sg
 from ..ops import visited_set as vs
+from ..ops.canon import build_canon
 from ..ops.expand import build_expand_lean, build_walk_step
 from ..xp import TorchXP
 from . import graph as gr
@@ -196,6 +197,7 @@ class BfsStages(_Programs):
     def __init__(self, tm, props, chunk: int, qcap: int, canon: bool, iters: int, device):
         super().__init__(device, iters)
         self.tm, self.props, self.canon = tm, list(props), canon
+        self.canon_route = None  # K11c's route under symmetry
         S, A, C = tm.state_width, tm.max_actions, chunk
         W = S + 2
         self.S, self.A, self.C, self.W, self.qcap = S, A, C, W, qcap
@@ -312,12 +314,14 @@ class BfsStages(_Programs):
 
         if canon:
             ccl0, ccl = self._lane(S, vcap, salt=71, mask=7), z(S, vcap)
+            canon_fn = build_canon(tm, self.xp)  # as the era runs it
+            self.canon_route = canon_fn.route
 
             def canon_round(h):
                 st = self.stages["canon"].st
                 sg.xor_lanes(ccl, ccl0, st, mask=7)
-                reps = tm.representative_lanes(self.xp, tuple(ccl[s] for s in range(S)))
-                sg.fold(st, [sg.term(torch.stack(reps).view(-1))], iters, handle=h)
+                reps = canon_fn(ccl)
+                sg.fold(st, [sg.term(reps.view(-1))], iters, handle=h)
 
             self._add("canon", canon_round)
         self._forking = ("probe", "ring")

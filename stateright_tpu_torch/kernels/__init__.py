@@ -267,6 +267,29 @@ WALK_PAXOS = Kernel(
     "walk_paxos", "expand_paxos.cu", "srt_walk_paxos", _WALK_ARGS,
     "stateright_tpu/engines/tpu_simulation.py:281",
 )
+# ABD's two entries take the network too: (c, ordered, ...).
+EXPAND_ABD = Kernel(
+    "expand_abd", "expand_abd.cu", "srt_expand_abd", [_I32] + _EXPAND_ARGS,
+    "stateright_tpu/ops/expand.py:54",
+)
+WALK_ABD = Kernel(
+    "walk_abd", "expand_abd.cu", "srt_walk_abd", [_I32] + _WALK_ARGS,
+    "stateright_tpu/engines/tpu_simulation.py:281",
+)
+EXPAND_INCREMENT = Kernel(
+    "expand_increment", "expand_increment.cu", "srt_expand_increment", _EXPAND_ARGS,
+    "stateright_tpu/ops/expand.py:54",
+)
+WALK_INCREMENT = Kernel(
+    "walk_increment", "expand_increment.cu", "srt_walk_increment", _WALK_ARGS,
+    "stateright_tpu/engines/tpu_simulation.py:281",
+)
+# K11c: the 2PC symmetry canon of the BFS step's compacted candidates
+# (ops/canon.py picks the route), one launch a step under .symmetry().
+CANON_2PC = Kernel(
+    "canon_2pc", "canon_2pc.cu", "srt_canon_2pc", [_I32, _P, _P, _I64],
+    "stateright_tpu/models/two_phase_commit.py:270",
+)
 
 # K7s: the host spill's ring drain and refill (ops/frontier.py), one
 # source with two entry points, each counted.
@@ -316,12 +339,15 @@ LINT_KERNELS = (LANE_AGREE,)
 SPILL_KERNELS = (RING_DRAIN, RING_REFILL)
 # K11's entries: a model's expand on every BFS path (solo, lanes, mesh,
 # stages), its walk on the simulation's, when the route is the kernel.
-EXPAND_KERNELS = (EXPAND_2PC, EXPAND_PAXOS)
-WALK_KERNELS = (WALK_2PC, WALK_PAXOS)
+EXPAND_KERNELS = (EXPAND_2PC, EXPAND_PAXOS, EXPAND_ABD, EXPAND_INCREMENT)
+WALK_KERNELS = (WALK_2PC, WALK_PAXOS, WALK_ABD, WALK_INCREMENT)
+# K11c's entry: the BFS step's canon under .symmetry() (solo engine and
+# its canon stage), when the route is the kernel.
+CANON_KERNELS = (CANON_2PC,)
 KERNELS = tuple(k for k in BFS_KERNELS if k is not RING_APPEND) + (
     WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA, STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA,
     LANE_AGREE, RING_DRAIN,
-) + EXPAND_KERNELS
+) + EXPAND_KERNELS + CANON_KERNELS
 ENTRIES = (KERNELS + (RING_APPEND, WALK_PROLOGUE, STAGE_LANES, RING_REFILL, SLAB_BOTTOMK_LANES)
            + LANE_KERNELS[1:] + WALK_KERNELS)
 

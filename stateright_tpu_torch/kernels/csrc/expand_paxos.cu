@@ -37,25 +37,6 @@ int by_clients(int c, Args... args) {
   }
 }
 
-template <class M>
-struct Expand {
-  static int run(const void* rows, const void* ebits, const void* depth, const void* active,
-                 const void* dl, long long dl_value, long long dl_stride, long long W,
-                 void* ebits_out, void* flat, void* valid, void* hits, void* partials,
-                 void* ticket, void* generated, cudaStream_t stream) {
-    return srt::launch_expand(M{}, rows, ebits, depth, active, dl, dl_value, dl_stride, W,
-                              ebits_out, flat, valid, hits, partials, ticket, generated, stream);
-  }
-};
-
-template <class M>
-struct Walk {
-  static int run(const void* rows, long long B, void* checks, void* valid, void* succ,
-                 cudaStream_t stream) {
-    return srt::launch_walk(M{}, rows, B, checks, valid, succ, stream);
-  }
-};
-
 }  // namespace
 
 extern "C" int srt_expand_paxos(int c, const void* rows, const void* ebits, const void* depth,
@@ -63,11 +44,12 @@ extern "C" int srt_expand_paxos(int c, const void* rows, const void* ebits, cons
                                 long long dl_stride, long long W, void* ebits_out, void* flat,
                                 void* valid, void* hits, void* partials, void* ticket,
                                 void* generated, void* stream) {
-  return by_clients<Expand>(c, rows, ebits, depth, active, dl, dl_value, dl_stride, W, ebits_out,
-                            flat, valid, hits, partials, ticket, generated, (cudaStream_t)stream);
+  return by_clients<srt::ExpandEntry>(c, rows, ebits, depth, active, dl, dl_value, dl_stride, W,
+                                      ebits_out, flat, valid, hits, partials, ticket, generated,
+                                      (cudaStream_t)stream);
 }
 
 extern "C" int srt_walk_paxos(int c, const void* rows, long long B, void* checks, void* valid,
                               void* succ, void* stream) {
-  return by_clients<Walk>(c, rows, B, checks, valid, succ, (cudaStream_t)stream);
+  return by_clients<srt::WalkEntry>(c, rows, B, checks, valid, succ, (cudaStream_t)stream);
 }

@@ -1,6 +1,7 @@
 // The actor-system toolkit's lane programs for K11, a row at a time: the
 // port's copy of stateright_tpu/lanes.py's unordered network
-// (:162 net_step, as :321 ActorNetModel.step_lanes runs it), the
+// (:162 net_step, as :321 ActorNetModel.step_lanes runs it) and its
+// ordered network (:81 net_step_ordered), the
 // register client's delivery handler (:385 register_client_deliver) and
 // the register linearizability verdict (:419
 // register_linearizable_lanes).
@@ -51,6 +52,51 @@ SRT_HD void net_insert(uint32_t* cur, uint32_t v) {
     const uint32_t shifted = m + 1 < K ? cur[m + 1] : v;
     cur[m] = (uint32_t)m < rank ? shifted : ((uint32_t)m == rank ? v : cur[m]);
   }
+}
+
+// The ordered network (lanes.py:81 net_step_ordered): each word carries
+// its rank in its (src, dst) flow in bits 16-19; a flow is bits 20-27.
+constexpr uint32_t kRankShift = 16;
+constexpr uint32_t kRankField = 0xFu << kRankShift;
+
+SRT_HD uint32_t net_flow(uint32_t env) { return (env >> 20) & 0xFFu; }
+
+// cur = net with slot k (the delivered word `delivered`) removed, the rank
+// of every other occupied word of its flow decremented (uint32 wrap, as
+// JAX's, on a row whose ranks are not consistent), the order restored by
+// K passes of odd-even transposition (lanes.py:106-131). An empty
+// `delivered` decrements nothing.
+template <int K>
+SRT_HD void net_remove_ordered(const uint32_t* net, int k, uint32_t delivered, uint32_t* cur) {
+  net_remove<K>(net, k, cur);
+  const uint32_t dflow = net_flow(delivered);
+  SRT_UNROLL
+  for (int m = 0; m < K; ++m)
+    if (delivered != 0u && cur[m] != 0u && net_flow(cur[m]) == dflow) cur[m] -= 1u << kRankShift;
+  SRT_UNROLL
+  for (int p = 0; p < K; ++p) {
+    SRT_UNROLL
+    for (int m = p & 1; m < K - 1; m += 2) {
+      const uint32_t lo = cur[m] < cur[m + 1] ? cur[m] : cur[m + 1];
+      const uint32_t hi = cur[m] < cur[m + 1] ? cur[m + 1] : cur[m];
+      cur[m] = lo;
+      cur[m + 1] = hi;
+    }
+  }
+}
+
+// Insert one send at its flow's tail (lanes.py:132-162): its rank field
+// masked off, then its flow's current depth ORed in; placed in sorted
+// position as net_insert places a word.
+template <int K>
+SRT_HD void net_insert_ordered(uint32_t* cur, uint32_t v) {
+  v &= ~kRankField;
+  if (v == 0u) return;
+  const uint32_t flow = net_flow(v);
+  uint32_t depth = 0;
+  SRT_UNROLL
+  for (int m = 0; m < K; ++m) depth += (cur[m] != 0u && net_flow(cur[m]) == flow) ? 1u : 0u;
+  net_insert<K>(cur, v | (depth << kRankShift));
 }
 
 // The put_count=1 RegisterClient's delivery for client I of C, whose

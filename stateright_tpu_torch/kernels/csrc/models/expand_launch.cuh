@@ -1,6 +1,7 @@
 // K11's two kernels for one model M, over expand_row.cuh's per-row
 // semantics: EXPAND (one launch a BFS step) and WALK (one launch a
-// simulation step). Included by expand_2pc.cu and expand_paxos.cu.
+// simulation step). Included by expand_2pc.cu, expand_paxos.cu,
+// expand_abd.cu and expand_increment.cu.
 //
 // Design: one thread a popped row (a walk), so the terminal rule and the
 // eventually bits stay in the thread; the model's arrays are indexed by
@@ -102,5 +103,26 @@ int launch_walk(const M& m, const void* rows, long long B, void* checks, void* v
       m, (const long long*)rows, B, (bool*)checks, (bool*)valid, (long long*)succ);
   return (int)cudaGetLastError();
 }
+
+// The two entries of model M, for a source's dispatch on its size
+// arguments (expand_paxos.cu, expand_abd.cu, expand_increment.cu).
+template <class M>
+struct ExpandEntry {
+  static int run(const void* rows, const void* ebits, const void* depth, const void* active,
+                 const void* dl, long long dl_value, long long dl_stride, long long W,
+                 void* ebits_out, void* flat, void* valid, void* hits, void* partials,
+                 void* ticket, void* generated, cudaStream_t stream) {
+    return launch_expand(M{}, rows, ebits, depth, active, dl, dl_value, dl_stride, W, ebits_out,
+                         flat, valid, hits, partials, ticket, generated, stream);
+  }
+};
+
+template <class M>
+struct WalkEntry {
+  static int run(const void* rows, long long B, void* checks, void* valid, void* succ,
+                 cudaStream_t stream) {
+    return launch_walk(M{}, rows, B, checks, valid, succ, stream);
+  }
+};
 
 }  // namespace srt

@@ -1,15 +1,19 @@
 // Host harness of K11's model headers: the same SRT_HD functions the
-// kernels run (expand_row.cuh, two_phase.cuh, actor_net.cuh, paxos.cuh),
-// looped over the rows on the CPU. The CPU tests build it with
+// kernels run (expand_row.cuh, two_phase.cuh, actor_net.cuh, paxos.cuh,
+// abd.cuh, increment.cuh), looped over the rows on the CPU. The CPU tests build it with
 //
 //     g++ -std=c++17 -O2 -shared -fPIC -o libexpand_host.so harness.cpp
 //
-// and hold its outputs against the JAX package's build_expand_lean and
-// walk step bit for bit (tests/test_torch_expand_kernel.py). The entry
+// and hold its outputs against the JAX package's build_expand_lean, walk
+// step and 2PC representative_lanes bit for bit (tests/
+// test_torch_expand_kernel.py, test_torch_expand_kernel_abd.py,
+// test_torch_canon_kernel.py). The entry
 // points take the kernels' arguments (host pointers, no stream) and fill
 // the same layouts; `generated` is the sum the kernel's last block writes.
 
+#include "abd.cuh"
 #include "expand_row.cuh"
+#include "increment.cuh"
 #include "paxos.cuh"
 #include "two_phase.cuh"
 
@@ -87,4 +91,97 @@ extern "C" int srt_host_walk_paxos(int c, const long long* rows, long long B, bo
 #undef SRT_CASE
     default: return 1;
   }
+}
+
+// K11c: the 2PC canon over rows [3, W] (canon_2pc.cu's layout).
+namespace {
+template <int N>
+struct CanonRows {
+  static int run(const long long* in, long long* out, long long W) {
+    for (long long c = 0; c < W; ++c) {
+      uint32_t row[3], rep[3];
+      for (int s = 0; s < 3; ++s) row[s] = (uint32_t)in[s * W + c];
+      srt::two_phase_canon<N>(row, rep);
+      for (int s = 0; s < 3; ++s) out[s * W + c] = (long long)rep[s];
+    }
+    return 0;
+  }
+};
+
+template <class M>
+struct ExpandRows {
+  static int run(const long long* rows, const long long* ebits, const long long* depth,
+                 const bool* active, const long long* dl, long long dl_value, long long dl_stride,
+                 long long W, long long* ebits_out, long long* flat, bool* valid, bool* hits,
+                 long long* generated) {
+    return expand_rows(M{}, rows, ebits, depth, active, dl, dl_value, dl_stride, W, ebits_out,
+                       flat, valid, hits, generated);
+  }
+};
+
+template <class M>
+struct WalkRows {
+  static int run(const long long* rows, long long B, bool* checks, bool* valid, long long* succ) {
+    return walk_rows(M{}, rows, B, checks, valid, succ);
+  }
+};
+
+template <template <class> class F, class... Args>
+int abd_model(int c, int ordered, Args... args) {
+  if (ordered != 0 && ordered != 1) return 1;
+  switch (c * 2 + ordered) {
+#define SRT_ABD(C)                                        \
+  case 2 * C: return F<srt::Abd<C, false>>::run(args...); \
+  case 2 * C + 1: return F<srt::Abd<C, true>>::run(args...);
+    SRT_ABD(1) SRT_ABD(2) SRT_ABD(3) SRT_ABD(4) SRT_ABD(5)
+#undef SRT_ABD
+    default: return 1;
+  }
+}
+
+template <template <class> class F, class... Args>
+int increment_model(int n, Args... args) {
+  switch (n) {
+#define SRT_INC(N) \
+  case N: return F<srt::Increment<N>>::run(args...);
+    SRT_INC(1) SRT_INC(2) SRT_INC(3) SRT_INC(4) SRT_INC(5) SRT_INC(6) SRT_INC(7) SRT_INC(8)
+#undef SRT_INC
+    default: return 1;
+  }
+}
+}  // namespace
+
+extern "C" int srt_host_canon_2pc(int n, const long long* rows_in, long long* rows_out,
+                                  long long W) {
+  return srt::by_rms<CanonRows>(n, 1, rows_in, rows_out, W);
+}
+
+extern "C" int srt_host_expand_abd(int c, int ordered, const long long* rows,
+                                   const long long* ebits, const long long* depth,
+                                   const bool* active, const long long* dl, long long dl_value,
+                                   long long dl_stride, long long W, long long* ebits_out,
+                                   long long* flat, bool* valid, bool* hits,
+                                   long long* generated) {
+  return abd_model<ExpandRows>(c, ordered, rows, ebits, depth, active, dl, dl_value, dl_stride, W,
+                               ebits_out, flat, valid, hits, generated);
+}
+
+extern "C" int srt_host_walk_abd(int c, int ordered, const long long* rows, long long B,
+                                 bool* checks, bool* valid, long long* succ) {
+  return abd_model<WalkRows>(c, ordered, rows, B, checks, valid, succ);
+}
+
+extern "C" int srt_host_expand_increment(int n, const long long* rows, const long long* ebits,
+                                         const long long* depth, const bool* active,
+                                         const long long* dl, long long dl_value,
+                                         long long dl_stride, long long W, long long* ebits_out,
+                                         long long* flat, bool* valid, bool* hits,
+                                         long long* generated) {
+  return increment_model<ExpandRows>(n, rows, ebits, depth, active, dl, dl_value, dl_stride, W,
+                                     ebits_out, flat, valid, hits, generated);
+}
+
+extern "C" int srt_host_walk_increment(int n, const long long* rows, long long B, bool* checks,
+                                       bool* valid, long long* succ) {
+  return increment_model<WalkRows>(n, rows, B, checks, valid, succ);
 }

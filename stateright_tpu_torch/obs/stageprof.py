@@ -53,22 +53,37 @@ STAGE_ORDER = (
 
 SEED = 1  # the accumulator's start, as the JAX engines seed their kernels
 
+SPIN_S = 1e-3  # the spin a dispatch is queued behind on the card, doubled while too short
+SPIN_CYCLES_PER_S = 2e9  # torch.cuda._sleep's unit: SM clock cycles (the card's is under 2 GHz)
+
 
 def time_dispatch(program) -> float:
     """Seconds of one dispatch of a stage program: its launch and the
     readback of its accumulator. Its state is forked afresh first, outside
     the window. On the card the window is two CUDA events on the launch
-    stream; on the CPU the host's clock."""
-    program.prepare(SEED)
+    stream, queued with the launch behind a spin kernel that outlasts the
+    host's queueing, so the window holds device time only (without it a
+    program whose fork leaves the card idle, the null program first,
+    would also pay the host's launch latency); on the CPU the host's
+    clock."""
     if program.device.type == "cuda":
         stream = torch.cuda.current_stream(program.device)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record(stream)
-        program.launch()
-        t1.record(stream)
-        program.read()
-        return t0.elapsed_time(t1) / 1e3
+        spin_s = SPIN_S
+        while True:
+            program.prepare(SEED)
+            spin, t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            spin.record(stream)
+            torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+            h = time.perf_counter()
+            t0.record(stream)
+            program.launch()
+            t1.record(stream)
+            queued_ms = (time.perf_counter() - h) * 1e3
+            program.read()
+            if queued_ms < spin.elapsed_time(t0):
+                return t0.elapsed_time(t1) / 1e3
+            spin_s *= 2
+    program.prepare(SEED)
     t = time.perf_counter()
     program.launch()
     program.read()

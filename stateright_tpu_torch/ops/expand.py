@@ -12,10 +12,12 @@ candidate a*W + c is action a applied to popped row c.
 Two routes, picked once, when the function is built:
 
 - **kernel**: on a CUDA device, for a model whose K11 kernel is
-  hand-written (`kernels/csrc/expand_2pc.cu`, `expand_paxos.cu`; the
-  model arithmetic in `kernels/csrc/models/`), one launch a call. Taken
-  only when `type(tm)` is exactly `TwoPhaseTensor` (n <= 16),
-  `PaxosTensor` or `PaxosTensorExhaustive` (c <= 7), with exactly that
+  hand-written (`kernels/csrc/expand_2pc.cu`, `expand_paxos.cu`,
+  `expand_abd.cu`, `expand_increment.cu`; the model arithmetic in
+  `kernels/csrc/models/`), one launch a call. Taken only when `type(tm)`
+  is exactly `TwoPhaseTensor` (n <= 16), `PaxosTensor` or
+  `PaxosTensorExhaustive` (c <= 7), `AbdTensor` or `AbdOrderedTensor`
+  (2 servers, c <= 5) or `IncrementTensor` (n <= 8), with exactly that
   model's `tensor_properties()`: a subclass, an instance that overrides
   the model code, or other properties get the plain route. A kernel that
   fails to build or launch raises; nothing falls back.
@@ -50,7 +52,8 @@ class ExpandedLean(NamedTuple):
 
 # Attributes whose override on an instance changes the model code.
 _MODEL_CODE = ("step_lanes", "within_boundary_lanes", "tensor_properties", "deliver", "_deliver",
-               "linearizable_lanes", "ordered")
+               "linearizable_lanes", "ordered", "representative_lanes")
+INCREMENT_MAX_THREADS = 8  # the thread counts csrc/expand_increment.cu instantiates
 
 
 def _code_id(f, tm):
@@ -78,19 +81,27 @@ def _same_props(tm, props) -> bool:
     )
 
 
-def kernel_of(tm, props) -> Optional[Tuple[kernels.Kernel, kernels.Kernel, int]]:
-    """(EXPAND kernel, WALK kernel, its size argument) when `tm` with
-    `props` has a hand-written K11, else None."""
+def kernel_of(tm, props) -> Optional[Tuple[kernels.Kernel, kernels.Kernel, tuple]]:
+    """(EXPAND kernel, WALK kernel, its leading size arguments) when `tm`
+    with `props` has a hand-written K11, else None."""
+    from ..models.abd import AbdOrderedTensor, AbdTensor
+    from ..models.increment import IncrementTensor
     from ..models.paxos import PaxosTensor, PaxosTensorExhaustive
     from ..models.two_phase_commit import TwoPhaseTensor
 
     if any(name in vars(tm) for name in _MODEL_CODE):
         return None
     if type(tm) is TwoPhaseTensor and 1 <= tm.n <= 16:
-        found = kernels.EXPAND_2PC, kernels.WALK_2PC, tm.n
+        found = kernels.EXPAND_2PC, kernels.WALK_2PC, (tm.n,)
     elif (type(tm) in (PaxosTensor, PaxosTensorExhaustive) and 1 <= tm.c <= 7
           and tm.K == 7 * tm.c and tm.n_actor_lanes == 6 + tm.c):
-        found = kernels.EXPAND_PAXOS, kernels.WALK_PAXOS, tm.c
+        found = kernels.EXPAND_PAXOS, kernels.WALK_PAXOS, (tm.c,)
+    elif (type(tm) in (AbdTensor, AbdOrderedTensor) and tm.n_servers == 2 and 1 <= tm.c <= 5
+          and tm.K == tm.c + 2 and tm.n_actor_lanes == 4 + tm.c):
+        found = kernels.EXPAND_ABD, kernels.WALK_ABD, (tm.c, int(bool(tm.ordered)))
+    elif (type(tm) is IncrementTensor and 1 <= tm.n <= INCREMENT_MAX_THREADS
+          and tm.state_width == 1 + 2 * tm.n and tm.max_actions == 2 * tm.n):
+        found = kernels.EXPAND_INCREMENT, kernels.WALK_INCREMENT, (tm.n,)
     else:
         return None
     return found if _same_props(tm, list(props)) else None
@@ -151,7 +162,7 @@ def build_expand_lean(tm, props, chunk: int, xp):
         generated = torch.empty((), dtype=torch.int64, device=dev)
         partials = torch.empty(max(1, -(-W // EXPAND_THREADS)), dtype=torch.int64, device=dev)
         p = kernels.ptr
-        expand.launch(size, p(rows), p(ebits), p(depth), p(active), dl, dl_value, dl_stride, W,
+        expand.launch(*size, p(rows), p(ebits), p(depth), p(active), dl, dl_value, dl_stride, W,
                       p(ebits_out), p(flat), p(valid), p(hits), p(partials), p(ticket),
                       p(generated))
         return ExpandedLean(ebits=ebits_out, flat=flat, valid=valid, generated=generated,
@@ -238,7 +249,7 @@ def build_walk_step(tm, props, xp):
         valid = torch.empty((A, B), dtype=torch.bool, device=dev)
         succ = torch.empty((A, S, B), dtype=torch.int64, device=dev)
         p = kernels.ptr
-        walk.launch(size, p(rows), B, p(checks), p(valid), p(succ))
+        walk.launch(*size, p(rows), B, p(checks), p(valid), p(succ))
         return checks, valid, succ
 
     walk_step.route = "kernel"

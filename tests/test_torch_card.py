@@ -1332,19 +1332,26 @@ def _bfs_rows(dev, tm, opts, target=0):
 
 
 def _k11_models():
-    from stateright_tpu_torch.models import PaxosTensor
+    from stateright_tpu_torch.models import AbdOrderedTensor, AbdTensor, IncrementTensor, PaxosTensor
 
     return [
         (TwoPhaseTensor(5), dict(chunk_size=256, queue_capacity=1 << 14, table_capacity=1 << 16)),
         (PaxosTensor(2), dict(chunk_size=256, queue_capacity=1 << 15, table_capacity=1 << 17)),
+        (AbdTensor(2), dict(chunk_size=512, queue_capacity=1 << 14, table_capacity=1 << 13)),
+        (AbdOrderedTensor(2), dict(chunk_size=512, queue_capacity=1 << 14, table_capacity=1 << 13)),
+        (IncrementTensor(2), dict(chunk_size=64, queue_capacity=1 << 10, table_capacity=1 << 12)),
     ]
 
 
-@pytest.mark.parametrize("which", [0, 1])
+K11_MODELS = range(5)  # 2pc-5, paxos-2, abd-2, abd-ordered-2, increment-2
+
+
+@pytest.mark.parametrize("which", K11_MODELS)
 def test_expand_kernel_matches_plain(dev, which):
     """K11's EXPAND against its plain version, bit for bit, on every
-    reachable 2pc-5 / paxos-2 row: an int, a 0-d and a per-row depth limit,
-    some rows inactive; `generated` comes from the last block's sum."""
+    reachable row of each model of `_k11_models`: an int, a 0-d and a
+    per-row depth limit, some rows inactive; `generated` comes from the
+    last block's sum."""
     from stateright_tpu_torch.ops.expand import build_expand_lean, build_expand_lean_plain
     from stateright_tpu_torch.xp import TorchXP
 
@@ -1364,7 +1371,7 @@ def test_expand_kernel_matches_plain(dev, which):
         assert torch.equal(torch.stack(a.prop_hits), torch.stack(b.prop_hits))
 
 
-@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("which", K11_MODELS)
 def test_walk_kernel_matches_plain(dev, which):
     from stateright_tpu_torch.ops.expand import build_walk_step, build_walk_step_plain
     from stateright_tpu_torch.xp import TorchXP
@@ -1410,12 +1417,18 @@ def test_expand_kernel_one_node_a_call_and_replays(dev):
 
 
 def test_expand_route_in_the_engines(dev):
-    """`telemetry()["expand_route"]`: the kernel for 2PC, once a BFS step and
-    once a walk step; the plain version for increment, with no K11 launch."""
+    """`telemetry()["expand_route"]`: the kernel for 2PC and increment, once
+    a BFS step, and once a walk step; the plain version for a subclass of
+    increment (no kernel of its own), with no K11 launch."""
     from stateright_tpu_torch.models import IncrementTensor
 
+    class IncrementSub(IncrementTensor):
+        pass
+
     opts = dict(chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 11, sync_steps=4)
-    for tm, route, kern in ((TwoPhaseTensor(5), "kernel", kernels.EXPAND_2PC), (IncrementTensor(2), "plain", None)):
+    for tm, route, kern in ((TwoPhaseTensor(5), "kernel", kernels.EXPAND_2PC),
+                            (IncrementTensor(2), "kernel", kernels.EXPAND_INCREMENT),
+                            (IncrementSub(2), "plain", None)):
         torch.cuda.synchronize()
         kernels.reset_launches()
         c = TensorModelAdapter(tm).checker().spawn_gpu_bfs(device=dev, **opts).join()
@@ -1433,3 +1446,107 @@ def test_expand_route_in_the_engines(dev):
     n = kernels.launch_counts()
     assert c.telemetry()["expand_route"] == "kernel"
     assert n["walk_2pc"] == n["walk_step"] > 0
+
+
+# -- K11 for ABD and increment, K11c: the engines on the card ----------------
+
+def _k11_run(model, device, how, opts, seed=0, configure=lambda b: b):
+    """A BFS or simulation of `model` on `device`: its results (counts,
+    discoveries, coverage, the sample) and the routes it reports."""
+    b = configure(TensorModelAdapter(model).checker())
+    if how == "bfs":
+        c = b.spawn_gpu_bfs(device=device, **opts).join()
+    else:
+        c = b.spawn_gpu_simulation(seed, device=device, **opts).join()
+    tel = c.telemetry()
+    if how == "bfs":
+        found = dict(c._discovery_fps)
+    else:
+        found = {k: v.encode(c.model()) for k, v in c.discoveries().items()}
+    got = (c.unique_state_count() if how == "bfs" else tel["steps"], c.state_count(), c.max_depth(),
+           found, c.coverage(), tuple(c._sampler.fingerprints()))
+    return got, tel["expand_route"], tel.get("canon_route")
+
+
+@pytest.mark.parametrize("case", ["abd-ordered-3", "abd-2", "2pc-5 symmetry", "increment-2 simulation"])
+def test_k11_engines_cuda_match_cpu(dev, case):
+    """abd-ordered-3 and abd-2 BFS at the reference bench's options
+    (bench.py:1137-1161), 2pc-5 under .symmetry() and the increment-2
+    simulation to its "fin" counterexample (seed 7): cuda == cpu, the card
+    on the kernel routes, each kernel launched once a step."""
+    from stateright_tpu_torch.has_discoveries import HasDiscoveries
+    from stateright_tpu_torch.models import AbdOrderedTensor, AbdTensor, IncrementTensor
+
+    make, how, opts, configure, kern, golden = {
+        "abd-ordered-3": (lambda: AbdOrderedTensor(3), "bfs",
+                          dict(chunk_size=2048, queue_capacity=1 << 15, table_capacity=1 << 18),
+                          lambda b: b, kernels.EXPAND_ABD, 46_516),
+        "abd-2": (lambda: AbdTensor(2), "bfs", dict(chunk_size=512, queue_capacity=1 << 14, table_capacity=1 << 13),
+                  lambda b: b, kernels.EXPAND_ABD, 544),
+        "2pc-5 symmetry": (lambda: TwoPhaseTensor(5), "bfs",
+                           dict(chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 11, sync_steps=4),
+                           lambda b: b.symmetry(), kernels.EXPAND_2PC, 1092),
+        "increment-2 simulation": (lambda: IncrementTensor(2), "sim", dict(walks=256, walk_cap=32),
+                                   lambda b: b.finish_when(HasDiscoveries.any_of(["fin"])),
+                                   kernels.WALK_INCREMENT, None),
+    }[case]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got, route, canon = _k11_run(make(), "cuda", how, opts, 7, configure)
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()
+    assert route == "kernel"
+    steps = n["claim_dedup"] if how == "bfs" else n["walk_step"]
+    assert n[kern.name] == steps > 0
+    if case == "2pc-5 symmetry":
+        assert canon == "kernel" and n["canon_2pc"] == steps
+    else:
+        assert n["canon_2pc"] == 0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small CPU ops: the thread pool only slows them
+    try:
+        want, cpu_route, _canon = _k11_run(make(), "cpu", how, opts, 7, configure)
+    finally:
+        torch.set_num_threads(threads)
+    assert cpu_route == "plain"
+    assert got == want
+    if golden is not None:
+        assert got[0] == golden
+    else:
+        assert "fin" in got[3]
+
+
+def test_canon_kernel_matches_plain_one_node_a_call(dev):
+    """K11c against its plain version, bit for bit, on the canon's inputs of
+    a 2pc-5 symmetry BFS (every valid successor of its representatives at
+    chunk 64, compacted as the step does) and on seeded uint32 rows at
+    n = 10 and 16; one kernel node and no memset a captured call."""
+    from stateright_tpu_torch.engines import graph
+    from stateright_tpu_torch.engines.era import widths
+    from stateright_tpu_torch.ops.canon import build_canon, build_canon_plain
+    from stateright_tpu_torch.ops.expand import build_expand_lean
+    from stateright_tpu_torch.xp import TorchXP
+
+    xp = TorchXP(dev)
+    tm = TwoPhaseTensor(5)
+    rows = _bfs_rows(dev, tm, dict(chunk_size=64, queue_capacity=1 << 12, table_capacity=1 << 11))
+    C = 64
+    vcap = widths(tm.max_actions, C)[0]
+    expand = build_expand_lean(tm, tm.tensor_properties(), C, xp)
+    k, plain = build_canon(tm, xp), build_canon_plain(tm, xp)
+    assert k.route == "kernel"
+    for at in range(0, rows.shape[1] - C + 1, C):
+        chunk = rows[:, at:at + C]
+        ex = expand(chunk[:3].contiguous(), chunk[3].contiguous(), chunk[4].contiguous(),
+                    torch.ones(C, dtype=torch.bool, device=dev), 0xFFFFFFFF)
+        vids, _v, _n = vs.compact_ids(ex.valid, vcap)
+        cl = ex.flat.index_select(1, vids)
+        assert torch.equal(k(cl), plain(cl))
+    rng = np.random.default_rng(16)
+    for n in (10, 16):
+        big = TwoPhaseTensor(n)
+        lanes = torch.from_numpy(_u32(rng, 3, 50_000)).to(dev)
+        kb = build_canon(big, xp)
+        assert torch.equal(kb(lanes), build_canon_plain(big, xp)(lanes))
+        counts = graph.captured_nodes(lambda: kb(lanes))
+        assert counts["kernels"] == 1 and counts["memsets"] == 0, counts

@@ -14,21 +14,25 @@ take the plain version; "cuda" with the exact class takes the kernel
 (decided from the model and the device's type alone, no card probed).
 """
 
-import ctypes
-import os
-import shutil
-import subprocess
-
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
+from torch_expand_host import (
+    M32,
+    assert_same,
+    bfs_levels,
+    build_harness,
+    host_expand,
+    host_walk,
+    inputs,
+    jax_reference,
+    jax_walk,
+)
 
 from stateright_tpu.models import PaxosTensor as JaxPaxos
 from stateright_tpu.models import TwoPhaseTensor as JaxTwoPhase
-from stateright_tpu.ops.expand import build_expand_lean as jax_expand
 from stateright_tpu_torch.kernels import EXPAND_2PC, EXPAND_PAXOS, WALK_2PC, WALK_PAXOS
 from stateright_tpu_torch.models import PaxosTensor, PaxosTensorExhaustive, TwoPhaseTensor
 from stateright_tpu_torch.ops.expand import (
@@ -39,136 +43,10 @@ from stateright_tpu_torch.ops.expand import (
 )
 from stateright_tpu_torch.xp import TorchXP
 
-HARNESS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "stateright_tpu_torch", "kernels", "csrc", "models", "harness.cpp")
-M32 = 0xFFFFFFFF
-_P = ctypes.c_void_p
-_I64 = ctypes.c_longlong
-
 
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the host harness of the model headers")
-    out = str(tmp_path_factory.mktemp("expand_host") / "libexpand_host.so")
-    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-o", out, HARNESS], check=True)
-    lib = ctypes.CDLL(out)
-    for name in ("srt_host_expand_2pc", "srt_host_expand_paxos"):
-        getattr(lib, name).argtypes = [ctypes.c_int] + [_P] * 5 + [_I64] * 3 + [_P] * 5
-    for name in ("srt_host_walk_2pc", "srt_host_walk_paxos"):
-        getattr(lib, name).argtypes = [ctypes.c_int, _P, _I64, _P, _P, _P]
-    return lib
-
-
-def _ptr(a):
-    assert a.flags.c_contiguous
-    return a.ctypes.data
-
-
-def _which(jm):
-    return ("2pc", jm.n) if isinstance(jm, JaxTwoPhase) else ("paxos", jm.c)
-
-
-def host_expand(lib, jm, rows, ebits, depth, active, depth_limit):
-    """The harness's EXPAND over rows [S, W] (uint32); depth_limit an int
-    or one limit a row."""
-    kind, size = _which(jm)
-    S, A, P = jm.state_width, jm.max_actions, len(jm.tensor_properties())
-    W = rows.shape[1]
-    rows64 = np.ascontiguousarray(rows.astype(np.int64))
-    eb, dp = ebits.astype(np.int64), depth.astype(np.int64)
-    act = np.ascontiguousarray(active.astype(np.bool_))
-    dl, dl_value, dl_stride = None, 0, 0
-    if isinstance(depth_limit, np.ndarray):
-        dl_arr = np.ascontiguousarray(depth_limit.astype(np.int64))
-        dl, dl_stride = _ptr(dl_arr), 1
-    else:
-        dl_value = int(depth_limit)
-    out = dict(ebits=np.zeros(W, np.int64), flat=np.zeros((S, A * W), np.int64),
-               valid=np.zeros(A * W, np.bool_), hits=np.zeros((P, W), np.bool_),
-               generated=np.zeros(1, np.int64))
-    rc = getattr(lib, f"srt_host_expand_{kind}")(
-        size, _ptr(rows64), _ptr(eb), _ptr(dp), _ptr(act), dl, dl_value, dl_stride, W,
-        _ptr(out["ebits"]), _ptr(out["flat"]), _ptr(out["valid"]), _ptr(out["hits"]),
-        _ptr(out["generated"]))
-    assert rc == 0
-    return out
-
-
-def jax_reference(jm, rows, ebits, depth, active, depth_limit):
-    """JAX's build_expand_lean on the same inputs (uint32 arrays)."""
-    W = rows.shape[1]
-    ref = jax_expand(jm, jm.tensor_properties(), W)(
-        tuple(jnp.asarray(r, dtype=jnp.uint32) for r in rows), jnp.asarray(ebits, dtype=jnp.uint32),
-        jnp.asarray(depth, dtype=jnp.uint32), jnp.asarray(active),
-        jnp.asarray(depth_limit, dtype=jnp.uint32),
-    )
-    return dict(
-        ebits=np.asarray(ref.ebits).astype(np.int64),
-        flat=np.stack([np.asarray(f) for f in ref.flat]).astype(np.int64),
-        valid=np.asarray(ref.valid),
-        hits=np.stack([np.asarray(h) for h in ref.prop_hits]),
-        generated=np.asarray([int(ref.generated)], np.int64),
-    )
-
-
-def host_walk(lib, jm, rows):
-    kind, size = _which(jm)
-    S, A, P = jm.state_width, jm.max_actions, len(jm.tensor_properties())
-    B = rows.shape[1]
-    rows64 = np.ascontiguousarray(rows.astype(np.int64))
-    checks, valid = np.zeros((P, B), np.bool_), np.zeros((A, B), np.bool_)
-    succ = np.zeros((A, S, B), np.int64)
-    assert getattr(lib, f"srt_host_walk_{kind}")(size, _ptr(rows64), B, _ptr(checks), _ptr(valid),
-                                                  _ptr(succ)) == 0
-    return checks, valid, succ
-
-
-def jax_walk(jm, rows):
-    """The model step of the JAX walk (tpu_simulation.py:268-300): the
-    raw predicates, the enabled-and-in-boundary mask, the successors."""
-    S, A = jm.state_width, jm.max_actions
-    lanes = tuple(jnp.asarray(r, dtype=jnp.uint32) for r in rows)
-    checks = np.stack([np.asarray(p.check(jnp, lanes)) for p in jm.tensor_properties()])
-    succs, amask = jm.step_lanes(jnp, lanes)
-    valid = np.stack([np.asarray(amask[a] & jm.within_boundary_lanes(jnp, succs[a])) for a in range(A)])
-    succ = np.stack([np.stack([np.broadcast_to(np.asarray(succs[a][s]), (rows.shape[1],))
-                               for s in range(S)]) for a in range(A)]).astype(np.int64)
-    return checks, valid, succ
-
-
-def bfs_levels(jm, levels, cap):
-    """Distinct rows within `levels` BFS steps of the init states ([N, S]
-    uint32, at most `cap`), through the JAX model's step_lanes on numpy."""
-    S, A = jm.state_width, jm.max_actions
-    seen = {tuple(r) for r in jm.init_states_array().tolist()}
-    frontier = np.asarray(sorted(seen), dtype=np.uint32)
-    for _ in range(levels):
-        succs, valid = jm.step_lanes(np, tuple(frontier[:, s] for s in range(S)))
-        nxt = np.concatenate([
-            np.stack([np.broadcast_to(succs[a][s], (len(frontier),)) for s in range(S)], axis=1)[
-                np.asarray(valid[a], dtype=bool)]
-            for a in range(A)
-        ])
-        new = {tuple(r) for r in nxt.tolist()} - seen
-        if not new or len(seen) >= cap:
-            break
-        seen |= new
-        frontier = np.asarray(sorted(new), dtype=np.uint32).reshape(-1, S)
-    return np.asarray(sorted(seen), dtype=np.uint32)[:cap]
-
-
-def _inputs(rng, W):
-    ebits = rng.integers(0, 4, size=W).astype(np.uint32)
-    depth = rng.integers(1, 14, size=W).astype(np.uint32)
-    active = rng.random(W) < 0.9
-    return ebits, depth, active
-
-
-def _assert_same(ours, ref):
-    for key in ("ebits", "flat", "valid", "hits", "generated"):
-        assert np.array_equal(ours[key], ref[key]), key
+    return build_harness(tmp_path_factory.mktemp("expand_host"))
 
 
 MODELS = [("2pc", 3), ("2pc", 5), ("2pc", 7), ("paxos", 1), ("paxos", 2)]
@@ -186,11 +64,11 @@ def test_expand_on_reachable_rows_matches_jax(harness, kind, size, limit):
     rng = np.random.default_rng(size * 7 + len(limit))
     rows = rows[rng.permutation(len(rows))].T.copy()  # [S, W]
     W = rows.shape[1]
-    ebits, depth, active = _inputs(rng, W)
+    ebits, depth, active = inputs(rng, W)
     depth_limit = {"scalar": 9, "unbounded": M32,
                    "per_row": rng.integers(1, 16, size=W).astype(np.uint32)}[limit]
     ours = host_expand(harness, jm, rows, ebits, depth, active, depth_limit)
-    _assert_same(ours, jax_reference(jm, rows, ebits, depth, active, depth_limit))
+    assert_same(ours, jax_reference(jm, rows, ebits, depth, active, depth_limit))
     assert ours["generated"][0] > 0
 
 
@@ -215,9 +93,9 @@ def test_expand_on_seeded_uint32_rows_matches_jax(harness, kind, size):
             for p in range(size):
                 lane |= rng.integers(0, 3, size=W) << (6 + 2 * p)
             rows[6 + i] = lane.astype(np.uint32)
-    ebits, depth, active = _inputs(rng, W)
+    ebits, depth, active = inputs(rng, W)
     ours = host_expand(harness, jm, rows, ebits, depth, active, 11)
-    _assert_same(ours, jax_reference(jm, rows, ebits, depth, active, 11))
+    assert_same(ours, jax_reference(jm, rows, ebits, depth, active, 11))
 
 
 @settings(max_examples=15, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
@@ -228,10 +106,10 @@ def test_expand_hypothesis_rows_match_jax(harness, seed, kind, W):
     rows = rng.integers(0, 1 << 32, size=(jm.state_width, W), dtype=np.uint64).astype(np.uint32)
     # Small values make the handlers' branches fire (typ, dst, ballots).
     rows[:, rng.random(W) < 0.5] &= np.uint32(0xF03FFFFF)
-    ebits, depth, active = _inputs(rng, W)
+    ebits, depth, active = inputs(rng, W)
     dl = rng.integers(0, 16, size=W).astype(np.uint32)
     ours = host_expand(harness, jm, rows, ebits, depth, active, dl)
-    _assert_same(ours, jax_reference(jm, rows, ebits, depth, active, dl))
+    assert_same(ours, jax_reference(jm, rows, ebits, depth, active, dl))
 
 
 @pytest.mark.parametrize("kind,size", MODELS)
@@ -258,7 +136,7 @@ def test_paxos_prepared_matches_jax(harness, src, entries):
     row[-1] = (6 << 28) | (src << 24) | (0 << 20) | 4  # Prepared(ballot 4) to server 0
     args = (row, np.zeros(1, np.uint32), np.ones(1, np.uint32), np.ones(1, bool), M32)
     ours = host_expand(harness, jm, *args)
-    _assert_same(ours, jax_reference(jm, *args))
+    assert_same(ours, jax_reference(jm, *args))
     assert ours["valid"].any()
 
 
