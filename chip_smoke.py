@@ -27,14 +27,17 @@ exits non-zero:
      input on fresh inputs made outside the window), with `call_ms`
      beside it;
  2b. K11 and K11c (`scripts/expand_times.py`): the hand-written EXPAND
-     of 2PC, Paxos, ABD and increment against its plain version, bit for
-     bit, over every reachable 2pc-7 row (296,448, in chunks of 6,144),
-     16,384 paxos-3 ring rows at C = 16,384, every abd-ordered-3 row
-     (46,516, in chunks of 2,048), every abd-2 row (544, chunk 512) and
-     increment-2's 13 rows, with depth limits read on the card and a
-     limit a row, and at the lane widths with a limit a row; WALK at the
-     paxos-3 (B = 16,384) and 2pc-10 (B = 65,536) simulation widths and
-     for ABD and increment at B = 16,384; the 2PC canon over the canon
+     of 2PC, Paxos, ABD, increment, increment-lock and single-copy
+     against its plain version, bit for bit, over every reachable 2pc-7
+     row (296,448, in chunks of 6,144), 16,384 paxos-3 ring rows at C =
+     16,384, every abd-ordered-3 row (46,516, in chunks of 2,048), every
+     abd-2 row (544, chunk 512), increment-2's 13 rows, increment-lock-3's
+     61, every single-copy-4 row (400,233, chunk 2,048) and every row of
+     the 3x2 model (2,519, chunk 256), with depth limits read on the card
+     and a limit a row, and at the lane widths with a limit a row; WALK at
+     the paxos-3 (B = 16,384) and 2pc-10 (B = 65,536) simulation widths,
+     for ABD, increment, increment-lock and single-copy-4 at B = 16,384
+     and over the 3x2 model's 2,519 rows; the 2PC canon over the canon
      inputs of the whole 2pc-5 symmetry run and at the 2pc-10 symmetry
      width (141,994 candidates); each timed on the device beside its
      plain version in one CUDA graph (`graph_plain_ms`), eager
@@ -46,12 +49,22 @@ exits non-zero:
   4. the headline: 2pc-7 exhaustive at the bench options with sampling
      on (the default), with and without table growth, and its time with
      sampling off; the launch counts of that run show the main path went
-     through every kernel;
+     through every kernel; K10f (`EraProgram.seed`) timed on a finished
+     run's workspace (here and in phase 5);
   5. paxos-3 exhaustive (1,194,428 states) at bench.py's options, every
      discovery path and the sample rows walked through K6;
   6. abd-ordered-3 exhaustive (46,516 states) and abd-2 on the
      unordered network (544 states, bench.py:1137-1145), "linearizable"
      held by both;
+ 6b. the reference bench's single-copy-register check 4 (400,233 states,
+     bench.py:1472-1500) on K11's kernel route with no linearizability
+     violation (its time to exhaust and wall per step), the 3x2 model's
+     violation at bench.py:1205-1225's options found and replayed (its
+     time), increment-lock-2 and -3 exhausted with "fin" and "mutex"
+     holding; single-copy (2, 1), (3, 1), the (2, 2) violation and
+     increment-lock-2 and -3 on cuda == on the cpu (the whole result
+     dict, sample included); the 3x2 violation found by the simulation
+     through WALK and an increment-lock-3 simulation, cuda == cpu;
   7. full size: 2pc-10 exhaustive (61,515,776 states) and 2pc-10 with
      .symmetry() (265,719 representatives);
   8. simulation kernel parity: each of the four walk kernels (K13a-d)
@@ -157,8 +170,11 @@ exits non-zero:
      B=6,144) widths on reachable rows from the port's own BFS, as they
      are and with a lane, a mask and high bits planted; analyze() at the
      reference defaults (256 samples, 128 device rows) of 2pc-5 (with
-     symmetry), 2pc-7, paxos-3, abd-ordered-3 and increment-2 on the card
-     == on the cpu (K16a must launch: `kernels.LINT_KERNELS`); the device
+     symmetry), 2pc-7, paxos-3, abd-ordered-3, abd-2, increment-2,
+     increment-lock-3 and single-copy-4 on the card == on the cpu (K16a
+     must launch: `kernels.LINT_KERNELS`), each launching its K11 WALK
+     once and 2PC's its canon once (K16 against the kernels the engines
+     run, counted per model); the device
      and symmetry rules on 16,384 reachable paxos-3 and 8,192 2pc-10 rows
      (K16: the captured step_lanes replayed and timed); every fixture whose
      error comes from the card (tests/torch_lint_fixtures.py: a refused
@@ -235,6 +251,18 @@ GOLDEN = {5: 8_832, 7: 296_448, 10: 61_515_776}
 SYM_CLOSURE = {5: 1_092, 10: 265_719}
 PAXOS3_GOLDEN = 1_194_428
 ABDO3_GOLDEN = 46_516
+# The single-copy register: the reference bench's `single-copy-register
+# check 4` (SingleCopyTensor(4), bench.py:1472-1500) and its time to a
+# linearizability counterexample, SingleCopyTensor(3, 2) finishing on
+# "linearizable" (bench.py:1205-1225); the 3x2 model's whole space is
+# 2,519 states. The lock-protected increment at the engine-parity
+# options' small table (17 and 61 states).
+SC4 = dict(chunk_size=2048, queue_capacity=1 << 17, table_capacity=1 << 21)
+SC4_GOLDEN = 400_233
+SC32 = dict(chunk_size=256, queue_capacity=1 << 12, table_capacity=1 << 12)
+SC32_SPACE = 2_519
+LOCK_OPTS = dict(chunk_size=64, queue_capacity=1 << 10, table_capacity=1 << 12)
+LOCK_GOLDEN = {2: 17, 3: 61}
 
 # Simulation: paxos-3 as the reference CLI walks it (examples/_cli.py:95;
 # B = the paxos-3 BFS chunk), 2pc-10 at 65,536 walks, and the cuda == cpu
@@ -247,6 +275,8 @@ SIM_INC2 = dict(walks=256, walk_cap=32)
 SIM_2PC5 = dict(walks=1024, walk_cap=64, sync_steps=4)
 SIM_2PC10_SMALL = dict(walks=2048, walk_cap=SIM_L, sync_steps=64)
 SIM_ABDO3 = dict(walks=1024, walk_cap=64)  # seed 0, a 200,000-state target: WALK for ABD
+SIM_SC32 = dict(walks=256, walk_cap=64, sync_steps=8)  # seed 5, to "linearizable"
+SIM_LOCK3 = dict(walks=256, walk_cap=32)  # seed 0, a 20,000-state target
 # 2pc-5 walks (seed 0, walk_cap 256, sync_steps 64) run until "commit
 # agreement" or 5,000,000 states, as the JAX reference takes them on the
 # CPU (`scripts/sim_reach.py --jax --n 5 --walks 8192 65536`):
@@ -825,6 +855,58 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     )
     del base
     return results, extra
+
+
+def k10f_case(torch, np, label, model, opts):
+    """K10f (`EraProgram.seed`: the first era's params uploaded, K10 into
+    the era's own table and ring, head, count, new and unresolved counts
+    written on the card) on the workspace a finished run of `model` left:
+    the whole call (its upload from host memory waits for the host: timed
+    with `syncs`) and its device part alone (K10 and the four state
+    words, `seed_ms`). Returns the timing dict `finish` bounds."""
+    from stateright_tpu_torch.engines import era
+
+    kept = []
+    free = era.EraProgram.free_graph
+
+    def keep(self):
+        kept.append(self)
+        free(self)
+
+    era.EraProgram.free_graph = keep
+    try:
+        c, _t = bfs(model, "cuda", opts)
+    finally:
+        era.EraProgram.free_graph = free
+    prog = kept[-1]
+    init = torch.from_numpy(np.ascontiguousarray(model.init_states_array().T.astype(np.int64))).cuda()
+    template = prog.state.cpu().numpy()
+    S, n, plen = model.state_width, init.shape[1], template.size
+
+    def device_part(_):
+        # `EraProgram.seed` writes head and count from Python ints (a
+        # pageable copy each, which waits for the host); fill_ passes them
+        # as kernel arguments, so the calls queue behind the spin.
+        new, unres = era.seed(prog.table, prog.ring, init, 0)
+        prog.state[era.eo.P_HEAD:era.eo.P_HEAD + 1].fill_(0)
+        prog.state[era.eo.P_COUNT:era.eo.P_COUNT + 1].fill_(n)
+        prog.state[era.eo.P_UNIQUE].copy_(new)
+        prog.state[era.eo.P_ERR].copy_(unres)
+
+    out = dict(
+        max_abs_err=None,
+        ms=time_device_ms(torch, lambda _: prog.seed(init, 0, template), reps=20, syncs=True),
+        seed_ms=time_device_ms(torch, device_part, reps=20),
+        call_ms=time_ms(torch, lambda _: prog.seed(init, 0, template)),
+        plain_ms=None,
+        library_ms=None,
+        bytes=plen * 8 + n * S * 8 + n * 24 + n * (S + 2) * 8 + 4 * 8, ops=n * S * 8,
+        shape=f"{label}: {n} init row(s), S={S}, a params vector of {plen} words; "
+              f"the run's {c.unique_state_count()}-state table",
+    )
+    del prog, kept, c
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phases 3 to 7 ----------------------------------------------------------
@@ -2657,16 +2739,28 @@ LINT_ROWS = {
     "2pc-10": (8192, dict(SYM10, table_capacity=1 << 22), 200_000),
 }
 # The reference defaults of analyze() (samples 256, 128 device rows) on
-# the bundled models.
-LINT_MODELS = ("2pc-5", "2pc-7", "paxos-3", "abd-ordered-3", "increment-2")
+# the bundled models: every model on the kernel route, each of whose
+# analyze() launches its K11 WALK once (2PC's symmetry family its K11c
+# too) to hold it against numpy.
+LINT_MODELS = ("2pc-5", "2pc-7", "paxos-3", "abd-ordered-3", "abd-2", "increment-2", "increment-lock-3",
+               "single-copy-4")
 
 
 def lint_model(name):
-    from stateright_tpu_torch.models import AbdOrderedTensor, IncrementTensor, PaxosTensorExhaustive
+    from stateright_tpu_torch.models import (
+        AbdOrderedTensor,
+        AbdTensor,
+        IncrementLockTensor,
+        IncrementTensor,
+        PaxosTensorExhaustive,
+        SingleCopyTensor,
+    )
 
     return {"2pc-5": lambda: two_pc(5), "2pc-7": lambda: two_pc(7), "2pc-10": lambda: two_pc(10),
             "paxos-3": lambda: PaxosTensorExhaustive(3), "abd-ordered-3": lambda: AbdOrderedTensor(3),
-            "increment-2": lambda: IncrementTensor(2)}[name]()
+            "abd-2": lambda: AbdTensor(2), "increment-2": lambda: IncrementTensor(2),
+            "increment-lock-3": lambda: IncrementLockTensor(3),
+            "single-copy-4": lambda: SingleCopyTensor(4)}[name]()
 
 
 def bfs_ring(model, device, opts, target, configure=lambda b: b):
@@ -2832,20 +2926,36 @@ def lint_phase(torch, np, kernels, card):
     finish({"lane_agree at 2pc-7": agree_parity(torch, np, "2pc-7", two_pc(7), rows["2pc-7"])})
     torch.cuda.empty_cache()
 
-    # The main path: analyze() at the reference defaults on the card.
+    # The main path: analyze() at the reference defaults on the card. Each
+    # model is on the kernel route, so its analyze() launches its K11 WALK
+    # once (K16 against the kernel) and, for 2PC, K11c once.
+    from stateright_tpu_torch.ops.expand import kernel_of
+
     def lint_all():
         out = {}
         for name in LINT_MODELS:
+            tm = lint_model(name)
+            walk = kernel_of(tm, tm.tensor_properties())[1]
             torch.cuda.synchronize()
+            before = kernels.launch_counts()
             t0 = time.monotonic()
-            r = analyze(lint_model(name))
-            out[name] = (r, time.monotonic() - t0)
+            r = analyze(tm)
+            wall = time.monotonic() - t0
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            probed = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            canon = 1 if name.startswith("2pc") else 0
+            check(probed.get(walk.name) == 1 and probed.get(kernels.CANON_2PC.name, 0) == canon,
+                  f"{name}: analyze() launched {probed}, not {walk.name} once"
+                  f"{' and canon_2pc once' if canon else ''}")
+            out[name] = (r, wall, probed)
         return out
 
-    on_card, launches = counted(torch, kernels, "speclint", lint_all, kernels.LINT_KERNELS)
+    on_card, launches = counted(torch, kernels, "speclint", lint_all,
+                                kernels.LINT_KERNELS + kernels.WALK_KERNELS + kernels.CANON_KERNELS)
     threads = torch.get_num_threads()
     for name in LINT_MODELS:
-        r, wall = on_card[name]
+        r, wall, probed = on_card[name]
         torch.set_num_threads(1)
         t0 = time.monotonic()
         r_cpu = analyze(lint_model(name), device="cpu")
@@ -2857,7 +2967,8 @@ def lint_phase(torch, np, kernels, card):
         print(f"lint {name}: card == cpu, wall_secs={wall:.3f} (cpu {t_cpu:.3f}) "
               f"families={r.families_run} counts={r.counts_by_code()} sample={r.sample.to_dict()} "
               f"captures={r.probes['captures']} capture_secs={r.probes['capture_secs']:.3f} "
-              f"graph_launches={r.probes['graph_launches']} card={card}", flush=True)
+              f"graph_launches={r.probes['graph_launches']} kernel probes {r.probes.get('kernels')} "
+              f"launched {probed} card={card}", flush=True)
 
     # The device and symmetry rules at full width on reachable rows.
     bad = {"STR201", "STR202", "STR205", "STR401", "STR404"}
@@ -3270,6 +3381,125 @@ def spill_phase(torch, np, kernels, card, skip_full, ref10, ref_px, single):
     return res, launches_spill
 
 
+def single_copy_lock_phase(torch, kernels, card, threads, HasDiscoveries, SingleCopyTensor,
+                           IncrementLockTensor):
+    """Phase 6b: the reference bench's single-copy-register check 4 to its
+    400,233 states with no linearizability violation, the 3x2 model's
+    violation found and replayed, increment-lock-2 and -3 exhausted with
+    both properties holding, each on K11's kernel route; then cuda == cpu
+    (the whole result dict, sample included) for single-copy (2, 1), (3,
+    1) and the (2, 2) violation and increment-lock-2 and -3, and the 3x2
+    violation found by the simulation through WALK. Returns the launches
+    of the check-4 run and of increment-lock-3's, for the kernels line,
+    and the walks' runs as {kernel name: launches}."""
+    def exhaust():
+        c, t = bfs(SingleCopyTensor(4), "cuda", SC4)
+        return c, t, check_paths(c)
+
+    exhaust()  # warm-up: the first run pays its torch kernels' module loads
+    (c4, t4, lens), launches_sc = counted(torch, kernels, "single-copy-4", exhaust)
+    check(c4.unique_state_count() == SC4_GOLDEN, f"single-copy-4: {c4.unique_state_count()}")
+    check_k11(kernels, "single-copy-4", c4, launches_sc, kernels.EXPAND_SINGLE_COPY)
+    c4.assert_no_discovery("linearizable")
+    c4.assert_no_discovery("network within capacity")
+    tel = c4.telemetry()
+    steps = tel["steps"] + tel.get("partial_steps", 0)
+    print(f"single-copy-4: unique={c4.unique_state_count()} states={c4.state_count()} time_to_exhaust_secs={t4:.3f} "
+          f"wall_per_step_ms={t4 / max(1, steps) * 1e3:.4f} steps={steps} "
+          f"generated_states_per_sec={c4.state_count() / t4:.1f} paths={lens} telemetry={tel} card={card}",
+          flush=True)
+    del c4
+
+    def violation():
+        c, t = bfs(SingleCopyTensor(3, 2), "cuda", SC32,
+                   lambda b: b.finish_when(HasDiscoveries.any_of(["linearizable"])))
+        return c, t, check_paths(c)
+
+    violation()  # warm-up
+    (c32, t32, lens), launches32 = counted(torch, kernels, "single-copy-3x2", violation)
+    check_k11(kernels, "single-copy-3x2", c32, launches32, kernels.EXPAND_SINGLE_COPY)
+    path = c32.discovery("linearizable")
+    check(path is not None and "linearizable" in lens, "single-copy-3x2: no linearizability violation")
+    c32.assert_discovery("linearizable", path.into_actions())
+    check(not c32.model().property("linearizable").condition(c32.model(), path.last_state()),
+          "single-copy-3x2: the violation's path ends where linearizable holds")
+    print(f"single-copy-3x2: linearizable violated after {c32.unique_state_count()} states, "
+          f"time_to_counterexample_secs={t32:.4f} path of {lens['linearizable']} "
+          f"telemetry={c32.telemetry()} card={card}", flush=True)
+
+    launches_lock = None
+    for n in (2, 3):
+        def lock(n=n):
+            c, t = bfs(IncrementLockTensor(n), "cuda", LOCK_OPTS)
+            return c, t, check_paths(c)
+
+        # Both properties hold: no discovery, no path, so K6 does not run.
+        (cl, tl, lens), launches_l = counted(
+            torch, kernels, f"increment-lock-{n}", lock,
+            tuple(k for k in kernels.BFS_KERNELS if k is not kernels.LOOKUP_PARENT))
+        check(cl.unique_state_count() == LOCK_GOLDEN[n], f"increment-lock-{n}: {cl.unique_state_count()}")
+        check_k11(kernels, f"increment-lock-{n}", cl, launches_l, kernels.EXPAND_INCREMENT_LOCK)
+        cl.assert_properties()
+        print(f"increment-lock-{n}: unique={cl.unique_state_count()} wall_secs={tl:.4f} fin and mutex hold "
+              f"card={card}", flush=True)
+        launches_lock = launches_l
+
+    # cuda == cpu: the whole result dict, sample included.
+    for label, make, want in (
+        ("single-copy-2", lambda: SingleCopyTensor(2), 93),
+        ("single-copy-3", lambda: SingleCopyTensor(3), 4_243),
+        ("single-copy-2x2", lambda: SingleCopyTensor(2, 2), 62),
+        ("increment-lock-2", lambda: IncrementLockTensor(2), LOCK_GOLDEN[2]),
+        ("increment-lock-3", lambda: IncrementLockTensor(3), LOCK_GOLDEN[3]),
+    ):
+        c_gpu, t_gpu = bfs(make(), "cuda", TEST_OPTS)
+        check(c_gpu.telemetry()["expand_route"] == "kernel", f"{label}: the plain route on the card")
+        d_gpu = result_dict(c_gpu)
+        torch.set_num_threads(1)
+        c_cpu, t_cpu = bfs(make(), "cpu", TEST_OPTS)
+        torch.set_num_threads(threads)
+        d_cpu = result_dict(c_cpu)
+        check(d_gpu == d_cpu, f"{label}: cuda {d_gpu} != cpu {d_cpu}")
+        check(d_gpu["unique"] == want, f"{label}: {d_gpu['unique']} states")
+        if label == "single-copy-2x2":
+            check("linearizable" in d_gpu["paths"], "single-copy-2x2: no linearizability violation")
+        check_paths(c_gpu)
+        print(f"{label} equal on cuda ({t_gpu:.3f}s) and cpu ({t_cpu:.3f}s): unique={want} "
+              f"discoveries={sorted(d_gpu['paths'])} sample of {len(d_gpu['sample'])}", flush=True)
+
+    # The walks: the 3x2 violation through WALK, and increment-lock-3 to a
+    # target; cuda == cpu.
+    launches_walk = {}
+    for label, make, seed, configure, opts, k11 in (
+        ("single-copy-3x2", lambda: SingleCopyTensor(3, 2), 5,
+         lambda b: b.coverage().finish_when(HasDiscoveries.any_of(["linearizable"])), SIM_SC32,
+         kernels.WALK_SINGLE_COPY),
+        ("increment-lock-3", lambda: IncrementLockTensor(3), 0, lambda b: b.target_state_count(20_000),
+         SIM_LOCK3, kernels.WALK_INCREMENT_LOCK),
+    ):
+        (c_gpu, t_gpu), launches_w = counted(torch, kernels, f"{label} simulation",
+                                             lambda: simulate(make(), "cuda", seed, configure, opts),
+                                             kernels.SIM_KERNELS)
+        check_k11(kernels, f"{label} simulation", c_gpu, launches_w, k11, "walk_step")
+        launches_walk[k11.name] = launches_w[k11.name]
+        torch.set_num_threads(1)
+        c_cpu, t_cpu = simulate(make(), "cpu", seed, configure, opts)
+        torch.set_num_threads(threads)
+        d_gpu, d_cpu = sim_dict(c_gpu), sim_dict(c_cpu)
+        check(d_gpu == d_cpu, f"{label} simulation: cuda {d_gpu} != cpu {d_cpu}")
+        lens = check_paths(c_gpu)
+        if label == "single-copy-3x2":
+            check("linearizable" in lens, "single-copy-3x2 simulation: no linearizability violation")
+            c_gpu.assert_discovery("linearizable", c_gpu.discovery("linearizable").into_actions())
+        else:
+            c_gpu.assert_no_discovery("fin")
+            c_gpu.assert_no_discovery("mutex")
+        print(f"{label} simulation equal on cuda ({t_gpu:.3f}s) and cpu ({t_cpu:.3f}s): "
+              f"generated={d_gpu['states']} steps={d_gpu['steps']} eras={d_gpu['eras']} paths={lens} card={card}",
+              flush=True)
+    return launches_sc, launches_lock, launches_walk
+
+
 def main(argv) -> int:
     try:
         import numpy as np
@@ -3295,9 +3525,11 @@ def main(argv) -> int:
     from stateright_tpu_torch.models import (
         AbdOrderedTensor,
         AbdTensor,
+        IncrementLockTensor,
         IncrementTensor,
         PaxosTensor,
         PaxosTensorExhaustive,
+        SingleCopyTensor,
     )
 
     phase("0 environment")
@@ -3401,6 +3633,8 @@ def main(argv) -> int:
         walls[mode].append(t)
     print(f"2pc-7 sampling cost: wall_secs on={walls['on']} off={walls['off']} "
           f"(order on, off, off, on) card={card}", flush=True)
+    for name, r in finish({"K10f (2pc-7)": k10f_case(torch, np, "2pc-7", two_pc(7), BENCH7)}).items():
+        print(f"{name}: seed_ms={r['seed_ms']:.4f} (the device part alone) card={card}", flush=True)
 
     phase("5 paxos-3")
     torch.cuda.reset_peak_memory_stats()
@@ -3432,6 +3666,9 @@ def main(argv) -> int:
           f"generated_states_per_sec={cpx.state_count() / tpx:.1f} steps={tel.get('steps')} "
           f"max_memory_allocated={peak} paths={lens} paths_secs={t_paths:.3f} "
           f"space_profile_secs={t_prof:.3f} telemetry={tel} card={card}", flush=True)
+    for name, r in finish({"K10f (paxos-3)": k10f_case(torch, np, "paxos-3", PaxosTensorExhaustive(3),
+                                                       PAXOS3)}).items():
+        print(f"{name}: seed_ms={r['seed_ms']:.4f} (the device part alone) card={card}", flush=True)
 
     phase("6 abd-ordered-3 and abd-2")
     def with_paths(model, opts, configure=lambda b: b):
@@ -3454,6 +3691,10 @@ def main(argv) -> int:
     print(f"abd-2: unique={ca2.unique_state_count()} states={ca2.state_count()} wall_secs={ta2:.3f} "
           f"paths={lens} telemetry={ca2.telemetry()} card={card}", flush=True)
     del ca2
+
+    phase("6b single-copy-register check 4; the 3x2 violation; increment-lock-2 and -3; cuda == cpu")
+    launches_sc, launches_lock, launches_walk_new = single_copy_lock_phase(torch, kernels, card, threads, HasDiscoveries,
+                                                        SingleCopyTensor, IncrementLockTensor)
 
     if not skip_full:
         phase("7 2pc-10 full size, plain and with symmetry")
@@ -3827,14 +4068,17 @@ def main(argv) -> int:
             # phase 20's spilling runs (2pc-10 and 2pc-7 at 8 shards).
             r, n = spill_res[k.name], launches_spill[k.name]
         elif k in kernels.EXPAND_KERNELS + kernels.CANON_KERNELS:
-            # K11's EXPAND at the 2pc-7 / paxos-3 / abd-ordered-3 BFS widths
-            # and the 32 increment-2 lanes' (phase 2b), with the launches of
-            # phase 4's / 5's / 6's / 13's run; K11c at the 2pc-10 symmetry
+            # K11's EXPAND at the 2pc-7 / paxos-3 / abd-ordered-3 /
+            # single-copy-4 BFS widths, the 32 increment-2 lanes' and 8,192
+            # increment-lock-3 rows (phase 2b), with the launches of phase
+            # 4's / 5's / 6's / 6b's / 13's / 6b's increment-lock-3 run;
+            # K11c at the 2pc-10 symmetry
             # width with phase 7's 2pc-10 symmetry run's (phase 3's 2pc-5
             # symmetry run's with --skip-full).
             r = k11_res[k.name]
             n = {kernels.EXPAND_2PC: launches, kernels.EXPAND_PAXOS: launches_px, kernels.EXPAND_ABD: launches_ab,
-                 kernels.EXPAND_INCREMENT: launches_inc, kernels.CANON_2PC: launches_canon}[k][k.name]
+                 kernels.EXPAND_INCREMENT: launches_inc, kernels.EXPAND_INCREMENT_LOCK: launches_lock,
+                 kernels.EXPAND_SINGLE_COPY: launches_sc, kernels.CANON_2PC: launches_canon}[k][k.name]
         elif k.name in results:
             r, n = results[k.name], launches[k.name]
         else:
@@ -3857,13 +4101,16 @@ def main(argv) -> int:
                 entry[extra] = r[extra]
         line["kernels"].append(entry)
     # K11's WALK: the paxos-3 / 2pc-10 simulation widths and B = 16,384 for
-    # ABD and increment (phase 2b), with the launches of phase 10's run, of
-    # phase 11's (phase 9's 2pc-10 run with --skip-full) and of phase 9's
-    # abd-ordered-3 and increment-2 runs.
+    # ABD, increment, increment-lock and single-copy (phase 2b), with the
+    # launches of phase 10's run, of phase 11's (phase 9's 2pc-10 run with
+    # --skip-full), of phase 9's abd-ordered-3 and increment-2 runs and of
+    # phase 6b's increment-lock-3 and single-copy-3x2 simulations.
     for k, n in ((kernels.WALK_PAXOS, launches_sim[kernels.WALK_PAXOS.name]),
                  (kernels.WALK_2PC, launches_walk["walk_2pc"]["walk_2pc"]),
                  (kernels.WALK_ABD, launches_walk["walk_abd"]["walk_abd"]),
-                 (kernels.WALK_INCREMENT, launches_walk["walk_increment"]["walk_increment"])):
+                 (kernels.WALK_INCREMENT, launches_walk["walk_increment"]["walk_increment"]),
+                 (kernels.WALK_INCREMENT_LOCK, launches_walk_new["walk_increment_lock"]),
+                 (kernels.WALK_SINGLE_COPY, launches_walk_new["walk_single_copy"])):
         r = k11_res[k.name]
         line["kernels"].append(dict(
             name=k.name, route="cuda", source=os.path.relpath(k.source_path, HERE), replaces=k.replaces,

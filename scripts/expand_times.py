@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """K11 on the card: the hand-written EXPAND and WALK kernels
 (`kernels/csrc/expand_2pc.cu`, `expand_paxos.cu`, `expand_abd.cu`,
-`expand_increment.cu`) and K11c, the 2PC symmetry canon
+`expand_increment.cu`, `expand_increment_lock.cu`,
+`expand_single_copy.cu`) and K11c, the 2PC symmetry canon
 (`kernels/csrc/canon_2pc.cu`), against their plain versions, bit for
 bit, and their device times beside the plain versions' and the bound.
 
@@ -37,6 +38,20 @@ holds every state it took, in order, with its ebits and depth lanes):
                    then at the 32-lane width (32 x 256 rows, the 13
                    tiled, a limit a row; timed: `expand_increment`);
                    WALK at B = 16,384 (the 13 tiled);
+  increment-lock   EXPAND over increment-lock-3's 61 rows under each
+                   limit, then at 8,192 rows (the 61 tiled, a limit a
+                   row; timed: `expand_increment_lock`); WALK at B =
+                   16,384 (the 61 tiled; `walk_increment_lock`);
+  single-copy      every single-copy-register check 4 row (SingleCopy-
+                   Tensor(4): 400,233) in chunks of 2,048 (bench.py:
+                   1492-1494) and every row of the 3x2 violation's model
+                   (SingleCopyTensor(3, 2), 2,519 rows of its full
+                   space) in chunks of 256 (bench.py:1211), the limits by
+                   turns as for ABD, a chunk's last columns inactive; the
+                   first full chunk timed (`expand_single_copy`, and
+                   `expand single-copy-3x2`); WALK at B = 16,384 of the
+                   check-4 rows (`walk_single_copy`) and over the 2,519
+                   3x2 rows (`walk single-copy-3x2`);
   canon            K11c over the canon's inputs of the whole 2pc-5
                    symmetry run (every valid successor of its 1,092
                    representatives, a popped chunk of 64 at a time,
@@ -77,7 +92,8 @@ LANES_5 = (1024, 151)  # the 2pc-5 sweep: lanes, chunk (chip_smoke phase 12)
 LANES_PX2 = (256, 256)  # the paxos-2 sweep: lanes, chunk
 LANES_INC2 = (32, 256)  # the 32 increment-2 lanes (chip_smoke phase 13)
 ABD2 = dict(chunk_size=512, queue_capacity=1 << 14, table_capacity=1 << 13)  # bench.py:1137-1139
-WALK_B = 16384  # the ABD and increment walks
+WALK_B = 16384  # the ABD, increment and single-copy walks
+LANES_LOCK = 8192  # the increment-lock EXPAND width (the increment-2 lanes')
 
 
 def _smoke():
@@ -276,15 +292,20 @@ def measure(torch, smoke, reps=50) -> dict:
     their kernels' names: expand_2pc at 2pc-7, expand_paxos at paxos-3,
     walk_2pc at 2pc-10, walk_paxos at paxos-3, expand_abd and walk_abd
     at abd-ordered-3, expand_increment at the 32 increment-2 lanes,
-    walk_increment at B = 16,384, canon_2pc at the 2pc-10 symmetry width;
+    walk_increment at B = 16,384, expand_increment_lock at 8,192
+    increment-lock-3 rows, walk_increment_lock at B = 16,384,
+    expand_single_copy at single-copy-4's chunk, walk_single_copy at B =
+    16,384 of its rows, canon_2pc at the 2pc-10 symmetry width;
     the other widths beside them). Raises if a kernel disagrees with its
     plain version."""
     from stateright_tpu_torch.models import (
         AbdOrderedTensor,
         AbdTensor,
+        IncrementLockTensor,
         IncrementTensor,
         PaxosTensor,
         PaxosTensorExhaustive,
+        SingleCopyTensor,
         TwoPhaseTensor,
     )
 
@@ -384,6 +405,56 @@ def measure(torch, smoke, reps=50) -> dict:
     walk_rows = rows[:tm.state_width, torch.arange(WALK_B, device=dev) % unique].contiguous()
     out["walk_increment"] = walk_case(torch, smoke, "increment-2", tm, walk_rows, reps=reps)
     del rows, tiled, walk_rows
+
+    # increment-lock-3: its 61 rows under each limit, then 8,192 rows (the
+    # 61 tiled, timed) with a limit a row; WALK at B = 16,384.
+    tm = IncrementLockTensor(3)
+    rows, unique = ring_rows(torch, smoke, tm, smoke.LOCK_OPTS, 0, 1 << 10)
+    smoke.check(unique == smoke.LOCK_GOLDEN[3], f"increment-lock-3 ring: {unique} states")
+    chunked_expand(torch, smoke, "increment-lock-3", tm, rows, unique,
+                   lambda i, depth: depth + (torch.arange(depth.numel(), device=dev) % 3) - 1)
+    chunked_expand(torch, smoke, "increment-lock-3 (chunk 16)", tm, rows, 16,
+                   lambda i, depth: torch.full((), M32 if i % 2 else 5, dtype=torch.int64, device=dev))
+    tiled = rows[:, torch.arange(LANES_LOCK, device=dev) % unique].contiguous()
+    dl_rows = (1 + torch.arange(LANES_LOCK, device=dev) % 12).to(torch.int64)
+    out["expand_increment_lock"] = expand_case(
+        torch, smoke, "increment-lock-3", tm, tiled,
+        (dl_rows, torch.full((), M32, dtype=torch.int64, device=dev), 4), reps=reps)
+    out["expand_increment_lock"]["rows_compared"] = unique
+    walk_rows = rows[:tm.state_width, torch.arange(WALK_B, device=dev) % unique].contiguous()
+    out["walk_increment_lock"] = walk_case(torch, smoke, "increment-lock-3", tm, walk_rows, reps=reps)
+    del rows, tiled, walk_rows
+
+    # single-copy: every check-4 row at its bench chunk and every 3x2 row
+    # at its chunk, the limits by turns as for ABD; WALK over both.
+    for name, tm, opts, golden in (
+        ("single-copy-4", SingleCopyTensor(4), dict(smoke.SC4, queue_capacity=1 << 19), smoke.SC4_GOLDEN),
+        ("single-copy-3x2", SingleCopyTensor(3, 2), dict(smoke.SC32, queue_capacity=1 << 13), smoke.SC32_SPACE),
+    ):
+        C = opts["chunk_size"]
+        rows, unique = ring_rows(torch, smoke, tm, dict(opts, table_capacity=max(opts["table_capacity"], 1 << 14)),
+                                 0, 1 << 20)
+        smoke.check(unique == golden, f"{name} ring: {unique} states")
+        med = int(rows[tm.state_width + 1].median())
+        limits = (torch.full((), M32, dtype=torch.int64, device=dev),
+                  torch.full((), med, dtype=torch.int64, device=dev))
+
+        def limit_of(i, depth, limits=limits):
+            return limits[i % 2] if i % 3 != 2 else depth + (torch.arange(depth.numel(), device=dev) % 3) - 1
+
+        chunked_expand(torch, smoke, name, tm, rows, C, limit_of)
+        key = "expand_single_copy" if name == "single-copy-4" else f"expand {name}"
+        first = rows[:, :C].contiguous()
+        out[key] = expand_case(torch, smoke, name, tm, first, limits,
+                               active=torch.arange(C, device=dev) % 11 != 5, reps=reps)
+        out[key]["rows_compared"] = unique
+        if name == "single-copy-4":
+            walk_rows = rows[:tm.state_width, torch.linspace(0, unique - 1, WALK_B, device=dev).round().long()]
+            out["walk_single_copy"] = walk_case(torch, smoke, name, tm, walk_rows.contiguous(), reps=reps)
+        else:
+            out[f"walk {name}"] = walk_case(torch, smoke, name, tm, rows[:tm.state_width].contiguous(), reps=reps)
+            out[f"walk {name}"]["rows_compared"] = unique
+        del rows, first
 
     # K11c: the 2pc-5 symmetry run's canon inputs, chunk 64 at a time
     # (timed at its 1,728 columns); then 8,192 rows of a 2pc-10 symmetry

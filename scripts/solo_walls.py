@@ -33,7 +33,7 @@ discoveries) and a lane cell's per-lane counts are printed with it:
 `--trees` runs of one cell must agree (the script checks it). With
 --profile each cell then runs in a fresh process, once to warm up and
 once measured under torch.profiler (2pc-10: its first 4,000,000 states;
-paxos-3 simulation: its first 500,000), for the measured run's device
+the others whole), for the measured run's device
 busy share, device kernels and host launch calls a step: one profiler
 session a process, which also traces a lane cell's warm-up, since a
 graph captured before the session started loses its kernel records. Prints one JSON line a
@@ -64,10 +64,11 @@ RUNS = {
                61_515_776),
 }
 # The profiled run's generated-states target where it is shorter than
-# the timed one: 2pc-10's first 4,000,000 states; paxos-3 simulation's
-# first 500,000 (its whole 2,000,000-state run, ~490,000 kernel records,
-# ends in an illegal address inside the profiler's stop, ROADMAP Queue 3).
-PROFILE_TARGETS = {"2pc-10": 4_000_000, "paxos-3 sim": 500_000}
+# the timed one: 2pc-10's first 4,000,000 states. The paxos-3 simulation
+# is profiled whole: the illegal address inside the profiler's stop that
+# its ~490,000 kernel records a run once raised was not seen again once
+# K11's WALK made its model step one launch (ROADMAP Queue 3).
+PROFILE_TARGETS = {"2pc-10": 4_000_000}
 
 # label: (model class, its argument, seed, options, generated-states
 # target or None, finish-on-any property or None, safety properties that

@@ -33,9 +33,11 @@ def bundled() -> Dict[str, Callable[..., Any]]:
     from ..models import (
         AbdOrderedTensor,
         AbdTensor,
+        IncrementLockTensor,
         IncrementTensor,
         PaxosTensor,
         PaxosTensorExhaustive,
+        SingleCopyTensor,
         TwoPhaseTensor,
     )
 
@@ -44,8 +46,10 @@ def bundled() -> Dict[str, Callable[..., Any]]:
         "abd": AbdTensor,
         "abd-ordered": AbdOrderedTensor,
         "increment": IncrementTensor,
+        "increment-lock": IncrementLockTensor,
         "paxos": PaxosTensor,
         "paxos-exhaustive": PaxosTensorExhaustive,
+        "single-copy": SingleCopyTensor,
     }
 
 

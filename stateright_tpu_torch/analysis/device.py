@@ -23,7 +23,10 @@ Codes (the JAX package's codes, severities and locations):
           uint32 (the agreement table, K16a, ops/agree.py). On the port
           this also catches int64 lanes that leave numpy's uint32
           arithmetic: `(lane - 1) >> 1` on a zero lane is 0xFFFFFFFF here
-          and 0x7FFFFFFF under numpy
+          and 0x7FFFFFFF under numpy. Where the engines run the model's
+          K11 kernel (a kernel-route model on the card), its WALK entry is
+          held against numpy on the same rows as well, and a finding names
+          the kernel's source
   STR206  within_boundary_lanes output is not a bool[B]
   STR207  step_lanes output dtype drifts off uint32 under numpy
           (promotion), or lane values overflow the uint32 packing
@@ -46,7 +49,7 @@ import torch
 
 from ..ops.agree import M32, agree, read_table
 from .diagnostics import AnalysisReport, Severity
-from .probe import LaneProbe, ProbeFailed, failure_message
+from .probe import LaneProbe, ProbeFailed, failure_message, kernel_probe, run_kernel
 
 _U32_MAX = 0xFFFFFFFF
 
@@ -88,6 +91,9 @@ def run(tm, rows: np.ndarray, report: AnalysisReport, device="cpu") -> None:
     finally:
         report.note_probe(probe)
         probe.release()
+    kern = kernel_probe(tm, device)
+    if kern is not None and np_out is not None:
+        _check_kernel(tm, kern, rows, np_out, report, S, A, device)
     _check_boundary(tm, lanes, report, device)
     _check_decode(tm, rows, report)
     _check_saturation(tm, rows, report)
@@ -340,6 +346,36 @@ def _check_host_device_agreement(tm, probe: LaneProbe, np_out, report: AnalysisR
             "check gather indices and dynamic slices stay in bounds",
         )
         return
+    _report_agreement(tm, dev, dmask, np_out, report, S, A, "the device")
+
+
+def _check_kernel(tm, kern, rows: np.ndarray, np_out, report: AnalysisReport, S: int, A: int,
+                  device) -> None:
+    """STR205 against the program the engines run: the model's K11 WALK
+    kernel `kern` launched once on the sampled rows (`probe.run_kernel`),
+    its masks and successors against numpy's through the agreement table.
+    Its masks are `step_lanes`' own: the kernel route is taken only for the
+    exact bundled classes, whose boundary is the default."""
+    from ..ops.expand import build_walk_step
+    from ..xp import TorchXP
+
+    walk = build_walk_step(tm, tm.tensor_properties(), TorchXP(device))
+    _checks, valid, succ = run_kernel(device, walk, rows)
+    report.probes.setdefault("kernels", []).append(kern.name)
+    kernel_agreement(tm, kern, valid, succ, np_out, report, S, A)
+
+
+def kernel_agreement(tm, kern, valid, succ, np_out, report: AnalysisReport, S: int,
+                     A: int) -> None:
+    """STR205 from a K11 WALK output (`valid` bool [A, B], `succ` int64
+    [A, S, B]) against numpy's `step_lanes` output `np_out` on the same
+    rows; a finding names the kernel's source file."""
+    _report_agreement(tm, succ, valid, np_out, report, S, A,
+                      f"the K11 kernel (kernels/csrc/{kern.source}, {kern.name})")
+
+
+def _report_agreement(tm, dev, dmask, np_out, report: AnalysisReport, S: int, A: int,
+                      against: str) -> None:
     np_succs, np_masks = np_out
     B = dmask.shape[1]
     host = np.stack([np.stack([np.asarray(np_succs[a][s]).astype(np.uint32) for s in range(S)])
@@ -354,8 +390,8 @@ def _check_host_device_agreement(tm, probe: LaneProbe, np_out, report: AnalysisR
         report.add(
             "STR205",
             Severity.ERROR,
-            f"action {found.action} validity mask differs between numpy and the "
-            f"device ({found.host_valid} vs {found.card_valid} valid, first at batch "
+            f"action {found.action} validity mask differs between numpy and "
+            f"{against} ({found.host_valid} vs {found.card_valid} valid, first at batch "
             f"row {found.row}); the host oracle and the device engine would explore "
             "different transition systems",
             _loc(tm, "step_lanes"),
@@ -369,7 +405,7 @@ def _check_host_device_agreement(tm, probe: LaneProbe, np_out, report: AnalysisR
     report.add(
         "STR205",
         Severity.ERROR,
-        f"action {a} lane {s} differs between numpy and the device on a VALID "
+        f"action {a} lane {s} differs between numpy and {against} on a VALID "
         f"successor (first mismatch at batch row {i}: {int(host[a, s, i])} vs {got}); "
         "host/device fingerprints would diverge",
         _loc(tm, "step_lanes"),

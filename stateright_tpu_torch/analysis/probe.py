@@ -17,6 +17,15 @@ values from an eager CPU call.
 A refused capture leaves nothing behind: the capture ends on the
 engines' capture stream, and torch's current stream is the caller's
 again.
+
+A model on the kernel route (`ops/expand.py expand_route`,
+`ops/canon.py canon_route`) never runs its `xp` code in a check on the
+card: the engines launch K11 (its WALK entry gives the successors and
+masks in the layout the agreement table reads) and, under symmetry,
+K11c. `kernel_probe` and `canon_probe` name that kernel without
+launching anything, and `run_kernel` launches it once on the sampled
+rows in the same capture setting, so STR205 and STR404 also hold numpy
+against the program the engines run.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import kernels
 from ..engines.graph import capture_guard
 from ..xp import TorchXP
 
@@ -147,3 +157,41 @@ class LaneProbe:
             self.graph.reset()
             self.graph = None
         self._packed = None
+
+
+def kernel_probe(tm, device) -> Optional[kernels.Kernel]:
+    """The K11 WALK kernel the engines run for `tm` (with its own
+    properties) on `device`, or None where they run its `xp` code (the
+    CPU, a model with no kernel). Builds and launches nothing."""
+    from ..ops.expand import expand_route, kernel_of
+
+    try:
+        props = list(tm.tensor_properties())
+    except Exception:  # the properties family reports it
+        return None
+    if expand_route(tm, props, device) != "kernel":
+        return None
+    return kernel_of(tm, props)[1]
+
+
+def canon_probe(tm, device) -> Optional[kernels.Kernel]:
+    """The K11c canon kernel the BFS engine runs for `tm` under
+    `.symmetry()` on `device`, or None. Builds and launches nothing."""
+    from ..ops.canon import canon_route, kernel_of
+
+    return kernel_of(tm)[0] if canon_route(tm, device) == "kernel" else None
+
+
+def run_kernel(device, fn: Callable[[torch.Tensor], Any], rows: np.ndarray):
+    """`fn` (a kernel route's function of rows [S, B] int64) once on the
+    sampled `rows` ([B, S] uint32) on the card, on the engines' capture
+    stream with the collector paused (`graph.capture_guard`, the setting
+    of every probe); returns what it returned, finished."""
+    device = torch.device(device)
+    lanes = torch.from_numpy(np.ascontiguousarray(rows.T.astype(np.int64))).to(device)
+    with capture_guard(device) as side:
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            out = fn(lanes)
+        side.synchronize()
+    return out

@@ -25,7 +25,10 @@ Codes:
   STR402  representative is not idempotent
   STR403  a property value changes under canonicalization
   STR404  representative_lanes disagrees between numpy and the device
-          (the low 32 bits of the port's int64 lanes against numpy's uint32)
+          (the low 32 bits of the port's int64 lanes against numpy's uint32);
+          where the BFS engine runs the model's canon kernel (K11c, 2PC on
+          the card), that kernel is held against numpy on the same rows as
+          well, and a finding names its source
   STR405  orbit states map to different representatives (warning —
           an IMPERFECT canonicalizer is allowed, the reference's own 2pc
           rule is imperfect; it weakens reduction but stays sound)
@@ -41,7 +44,7 @@ import torch
 from ..core import Model
 from ..ops.agree import M32, agree, read_table
 from .diagnostics import AnalysisReport, Severity
-from .probe import LaneProbe, ProbeFailed, failure_message
+from .probe import LaneProbe, ProbeFailed, canon_probe, failure_message, run_kernel
 from .sampling import Sample
 
 
@@ -218,6 +221,14 @@ def _check_lanes(tm, rows: np.ndarray, report: AnalysisReport, device="cpu") -> 
     finally:
         report.note_probe(probe)
         probe.release()
+    kern = canon_probe(tm, device)
+    if kern is not None:
+        from ..ops.canon import build_canon
+        from ..xp import TorchXP
+
+        out = run_kernel(device, build_canon(tm, TorchXP(device)), rows)
+        report.probes.setdefault("kernels", []).append(kern.name)
+        canon_agreement(tm, kern, out, rep_np, report)
 
 
 def _lane_error(out, S: int, B: int):
@@ -267,9 +278,29 @@ def _compare_lanes(tm, probe: LaneProbe, rep_np, report: AnalysisReport, S: int,
             "keep every operation in the shared uint32 xp subset",
         )
         return
+    _report_agreement(tm, dev[0], rep_np, report, "the device",
+                      "keep every operation in the shared uint32 xp subset (the port's "
+                      "lanes are int64: a product or a lane below zero keeps bits numpy "
+                      "wraps)")
+
+
+def canon_agreement(tm, kern, out, rep_np, report: AnalysisReport) -> None:
+    """STR404 from the canon kernel's output `out` (int64 [S, B]) against
+    numpy's `representative_lanes` `rep_np` on the same rows; a finding
+    names the kernel's source file."""
+    _report_agreement(tm, out, rep_np, report,
+                      f"the canon kernel (kernels/csrc/{kern.source}, {kern.name})",
+                      "the kernel must compute the model's own representative_lanes")
+
+
+def _report_agreement(tm, out, rep_np, report: AnalysisReport, against: str, fix: str) -> None:
+    """STR404 at the first lane and row where `out` (int64 [S, B]) and
+    numpy's `rep_np` differ, through the agreement table (one action, every
+    row valid)."""
+    S, B = out.shape
     host = np.stack(rep_np)[None]
-    ones = torch.ones((1, B), dtype=torch.bool, device=dev.device)
-    table = agree(dev, ones, torch.from_numpy(host).to(dev.device), ones)
+    ones = torch.ones((1, B), dtype=torch.bool, device=out.device)
+    table = agree(out[None], ones, torch.from_numpy(host).to(out.device), ones)
     found = read_table(table.cpu().numpy(), 1, S, B)
     if found is None:
         return
@@ -277,12 +308,10 @@ def _compare_lanes(tm, probe: LaneProbe, rep_np, report: AnalysisReport, S: int,
     report.add(
         "STR404",
         Severity.ERROR,
-        f"representative_lanes disagrees between numpy and the device on "
+        f"representative_lanes disagrees between numpy and {against} on "
         f"lane {s} (batch row {i}: {int(host[0, s, i])} vs "
-        f"{int(dev[0, s, i]) & M32}); host and device would canonicalize "
+        f"{int(out[s, i]) & M32}); host and device would canonicalize "
         "into different quotients",
-        loc,
-        "keep every operation in the shared uint32 xp subset (the port's "
-        "lanes are int64: a product or a lane below zero keeps bits numpy "
-        "wraps)",
+        f"{type(tm).__name__}.representative_lanes",
+        fix,
     )

@@ -284,6 +284,23 @@ WALK_INCREMENT = Kernel(
     "walk_increment", "expand_increment.cu", "srt_walk_increment", _WALK_ARGS,
     "stateright_tpu/engines/tpu_simulation.py:281",
 )
+EXPAND_INCREMENT_LOCK = Kernel(
+    "expand_increment_lock", "expand_increment_lock.cu", "srt_expand_increment_lock",
+    _EXPAND_ARGS, "stateright_tpu/ops/expand.py:54",
+)
+WALK_INCREMENT_LOCK = Kernel(
+    "walk_increment_lock", "expand_increment_lock.cu", "srt_walk_increment_lock", _WALK_ARGS,
+    "stateright_tpu/engines/tpu_simulation.py:281",
+)
+# The single-copy register's two entries take the servers too: (s, c, ...).
+EXPAND_SINGLE_COPY = Kernel(
+    "expand_single_copy", "expand_single_copy.cu", "srt_expand_single_copy",
+    [_I32] + _EXPAND_ARGS, "stateright_tpu/ops/expand.py:54",
+)
+WALK_SINGLE_COPY = Kernel(
+    "walk_single_copy", "expand_single_copy.cu", "srt_walk_single_copy", [_I32] + _WALK_ARGS,
+    "stateright_tpu/engines/tpu_simulation.py:281",
+)
 # K11c: the 2PC symmetry canon of the BFS step's compacted candidates
 # (ops/canon.py picks the route), one launch a step under .symmetry().
 CANON_2PC = Kernel(
@@ -339,8 +356,10 @@ LINT_KERNELS = (LANE_AGREE,)
 SPILL_KERNELS = (RING_DRAIN, RING_REFILL)
 # K11's entries: a model's expand on every BFS path (solo, lanes, mesh,
 # stages), its walk on the simulation's, when the route is the kernel.
-EXPAND_KERNELS = (EXPAND_2PC, EXPAND_PAXOS, EXPAND_ABD, EXPAND_INCREMENT)
-WALK_KERNELS = (WALK_2PC, WALK_PAXOS, WALK_ABD, WALK_INCREMENT)
+EXPAND_KERNELS = (EXPAND_2PC, EXPAND_PAXOS, EXPAND_ABD, EXPAND_INCREMENT, EXPAND_INCREMENT_LOCK,
+                  EXPAND_SINGLE_COPY)
+WALK_KERNELS = (WALK_2PC, WALK_PAXOS, WALK_ABD, WALK_INCREMENT, WALK_INCREMENT_LOCK,
+                WALK_SINGLE_COPY)
 # K11c's entry: the BFS step's canon under .symmetry() (solo engine and
 # its canon stage), when the route is the kernel.
 CANON_KERNELS = (CANON_2PC,)

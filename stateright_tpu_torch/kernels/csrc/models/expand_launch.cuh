@@ -1,7 +1,8 @@
 // K11's two kernels for one model M, over expand_row.cuh's per-row
 // semantics: EXPAND (one launch a BFS step) and WALK (one launch a
 // simulation step). Included by expand_2pc.cu, expand_paxos.cu,
-// expand_abd.cu and expand_increment.cu.
+// expand_abd.cu, expand_increment.cu, expand_increment_lock.cu and
+// expand_single_copy.cu.
 //
 // Design: one thread a popped row (a walk), so the terminal rule and the
 // eventually bits stay in the thread; the model's arrays are indexed by

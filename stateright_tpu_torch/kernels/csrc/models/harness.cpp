@@ -1,20 +1,23 @@
 // Host harness of K11's model headers: the same SRT_HD functions the
 // kernels run (expand_row.cuh, two_phase.cuh, actor_net.cuh, paxos.cuh,
-// abd.cuh, increment.cuh), looped over the rows on the CPU. The CPU tests build it with
+// abd.cuh, increment.cuh, increment_lock.cuh, single_copy.cuh), looped
+// over the rows on the CPU. The CPU tests build it with
 //
 //     g++ -std=c++17 -O2 -shared -fPIC -o libexpand_host.so harness.cpp
 //
 // and hold its outputs against the JAX package's build_expand_lean, walk
 // step and 2PC representative_lanes bit for bit (tests/
 // test_torch_expand_kernel.py, test_torch_expand_kernel_abd.py,
-// test_torch_canon_kernel.py). The entry
+// test_torch_expand_kernel_lock_copy.py, test_torch_canon_kernel.py). The entry
 // points take the kernels' arguments (host pointers, no stream) and fill
 // the same layouts; `generated` is the sum the kernel's last block writes.
 
 #include "abd.cuh"
 #include "expand_row.cuh"
 #include "increment.cuh"
+#include "increment_lock.cuh"
 #include "paxos.cuh"
+#include "single_copy.cuh"
 #include "two_phase.cuh"
 
 namespace {
@@ -149,6 +152,31 @@ int increment_model(int n, Args... args) {
     default: return 1;
   }
 }
+
+template <template <class> class F, class... Args>
+int increment_lock_model(int n, Args... args) {
+  switch (n) {
+#define SRT_LOCK(N) \
+  case N: return F<srt::IncrementLock<N>>::run(args...);
+    SRT_LOCK(1) SRT_LOCK(2) SRT_LOCK(3) SRT_LOCK(4) SRT_LOCK(5) SRT_LOCK(6) SRT_LOCK(7) SRT_LOCK(8)
+#undef SRT_LOCK
+    default: return 1;
+  }
+}
+
+template <template <class> class F, class... Args>
+int single_copy_model(int s, int c, Args... args) {
+  if (c < 1 || c > 5) return 1;
+  switch (s * 8 + c) {
+#define SRT_SC(SV, C) \
+  case SV * 8 + C: return F<srt::SingleCopy<SV, C>>::run(args...);
+#define SRT_SC_S(SV) SRT_SC(SV, 1) SRT_SC(SV, 2) SRT_SC(SV, 3) SRT_SC(SV, 4) SRT_SC(SV, 5)
+    SRT_SC_S(1) SRT_SC_S(2) SRT_SC_S(3) SRT_SC_S(4)
+#undef SRT_SC_S
+#undef SRT_SC
+    default: return 1;
+  }
+}
 }  // namespace
 
 extern "C" int srt_host_canon_2pc(int n, const long long* rows_in, long long* rows_out,
@@ -184,4 +212,34 @@ extern "C" int srt_host_expand_increment(int n, const long long* rows, const lon
 extern "C" int srt_host_walk_increment(int n, const long long* rows, long long B, bool* checks,
                                        bool* valid, long long* succ) {
   return increment_model<WalkRows>(n, rows, B, checks, valid, succ);
+}
+
+extern "C" int srt_host_expand_increment_lock(int n, const long long* rows,
+                                              const long long* ebits, const long long* depth,
+                                              const bool* active, const long long* dl,
+                                              long long dl_value, long long dl_stride, long long W,
+                                              long long* ebits_out, long long* flat, bool* valid,
+                                              bool* hits, long long* generated) {
+  return increment_lock_model<ExpandRows>(n, rows, ebits, depth, active, dl, dl_value, dl_stride,
+                                          W, ebits_out, flat, valid, hits, generated);
+}
+
+extern "C" int srt_host_walk_increment_lock(int n, const long long* rows, long long B,
+                                            bool* checks, bool* valid, long long* succ) {
+  return increment_lock_model<WalkRows>(n, rows, B, checks, valid, succ);
+}
+
+extern "C" int srt_host_expand_single_copy(int s, int c, const long long* rows,
+                                           const long long* ebits, const long long* depth,
+                                           const bool* active, const long long* dl,
+                                           long long dl_value, long long dl_stride, long long W,
+                                           long long* ebits_out, long long* flat, bool* valid,
+                                           bool* hits, long long* generated) {
+  return single_copy_model<ExpandRows>(s, c, rows, ebits, depth, active, dl, dl_value, dl_stride,
+                                       W, ebits_out, flat, valid, hits, generated);
+}
+
+extern "C" int srt_host_walk_single_copy(int s, int c, const long long* rows, long long B,
+                                         bool* checks, bool* valid, long long* succ) {
+  return single_copy_model<WalkRows>(s, c, rows, B, checks, valid, succ);
 }

@@ -53,7 +53,7 @@ class ExpandedLean(NamedTuple):
 # Attributes whose override on an instance changes the model code.
 _MODEL_CODE = ("step_lanes", "within_boundary_lanes", "tensor_properties", "deliver", "_deliver",
                "linearizable_lanes", "ordered", "representative_lanes")
-INCREMENT_MAX_THREADS = 8  # the thread counts csrc/expand_increment.cu instantiates
+INCREMENT_MAX_THREADS = 8  # the thread counts csrc/expand_increment{,_lock}.cu instantiate
 
 
 def _code_id(f, tm):
@@ -86,7 +86,9 @@ def kernel_of(tm, props) -> Optional[Tuple[kernels.Kernel, kernels.Kernel, tuple
     with `props` has a hand-written K11, else None."""
     from ..models.abd import AbdOrderedTensor, AbdTensor
     from ..models.increment import IncrementTensor
+    from ..models.increment_lock import IncrementLockTensor
     from ..models.paxos import PaxosTensor, PaxosTensorExhaustive
+    from ..models.single_copy import SingleCopyTensor
     from ..models.two_phase_commit import TwoPhaseTensor
 
     if any(name in vars(tm) for name in _MODEL_CODE):
@@ -102,6 +104,12 @@ def kernel_of(tm, props) -> Optional[Tuple[kernels.Kernel, kernels.Kernel, tuple
     elif (type(tm) is IncrementTensor and 1 <= tm.n <= INCREMENT_MAX_THREADS
           and tm.state_width == 1 + 2 * tm.n and tm.max_actions == 2 * tm.n):
         found = kernels.EXPAND_INCREMENT, kernels.WALK_INCREMENT, (tm.n,)
+    elif (type(tm) is IncrementLockTensor and 1 <= tm.n <= INCREMENT_MAX_THREADS
+          and tm.state_width == 2 + 2 * tm.n and tm.max_actions == 4 * tm.n):
+        found = kernels.EXPAND_INCREMENT_LOCK, kernels.WALK_INCREMENT_LOCK, (tm.n,)
+    elif (type(tm) is SingleCopyTensor and 1 <= tm.s <= 4 and 1 <= tm.c <= 5
+          and tm.K == tm.c + 1 and tm.n_actor_lanes == tm.s + tm.c):
+        found = kernels.EXPAND_SINGLE_COPY, kernels.WALK_SINGLE_COPY, (tm.s, tm.c)
     else:
         return None
     return found if _same_props(tm, list(props)) else None

@@ -1,8 +1,10 @@
-"""Paxos and ABD in the port (`lanes.py`, `models/paxos.py`,
-`models/abd.py`): `step_lanes` and the properties under the torch `xp`
-against numpy over each model's full reachable space, engine runs whose
-parity dict (sample included) equals `spawn_tpu_bfs`'s, and a Paxos
-discovery path walked through `lookup_parent`."""
+"""Paxos, ABD, the single-copy register and the lock-protected increment
+in the port (`lanes.py`, `models/paxos.py`, `models/abd.py`,
+`models/single_copy.py`, `models/increment_lock.py`): `step_lanes` and
+the properties under the torch `xp` against numpy over each model's full
+reachable space, engine runs whose parity dict (sample included) equals
+`spawn_tpu_bfs`'s with paths that replay, and a Paxos discovery path
+walked through `lookup_parent`."""
 
 import numpy as np
 import pytest
@@ -12,13 +14,15 @@ from stateright_tpu_torch.fingerprint import combine64, split64
 from stateright_tpu_torch.models import (
     AbdOrderedTensor,
     AbdTensor,
+    IncrementLockTensor,
     PaxosTensor,
     PaxosTensorExhaustive,
+    SingleCopyTensor,
 )
 from stateright_tpu_torch.ops import visited_set as vs
 from stateright_tpu_torch.path import Path
 from stateright_tpu_torch.xp import TorchXP
-from torch_parity import PAXOS_OPTS, one_torch_thread, parity_dict, paths, reference_uncached, run_pair  # noqa: F401
+from torch_parity import OPTS, PAXOS_OPTS, one_torch_thread, parity_dict, paths, reference_uncached, run_pair  # noqa: F401
 
 M32 = 0xFFFFFFFF
 
@@ -62,8 +66,10 @@ class InRange(torch.Tensor):
 
 @pytest.mark.parametrize(
     "make,n_states",
-    [(lambda: PaxosTensor(2), 16668), (lambda: AbdTensor(2), 544), (lambda: AbdOrderedTensor(2), 620)],
-    ids=["paxos-2", "abd-2", "abd-ordered-2"],
+    [(lambda: PaxosTensor(2), 16668), (lambda: AbdTensor(2), 544), (lambda: AbdOrderedTensor(2), 620),
+     (lambda: SingleCopyTensor(3), 4243), (lambda: SingleCopyTensor(2, 2), 62),
+     (lambda: IncrementLockTensor(3), 61)],
+    ids=["paxos-2", "abd-2", "abd-ordered-2", "single-copy-3", "single-copy-2-2", "increment-lock-3"],
 )
 def test_step_lanes_and_properties_match_numpy(make, n_states):
     tm = make()
@@ -95,16 +101,35 @@ def runs():
         "paxos-2": run_pair("PaxosTensor", (2,), PAXOS_OPTS),
         "abd-2": run_pair("AbdTensor", (2,), PAXOS_OPTS),
         "abd-ordered-2": run_pair("AbdOrderedTensor", (2,), PAXOS_OPTS),
+        "single-copy-2": run_pair("SingleCopyTensor", (2,), OPTS),
+        "single-copy-3": run_pair("SingleCopyTensor", (3,), OPTS),
+        "single-copy-2-2": run_pair("SingleCopyTensor", (2, 2), OPTS),
+        "increment-lock-2": run_pair("IncrementLockTensor", (2,), OPTS),
+        "increment-lock-3": run_pair("IncrementLockTensor", (3,), OPTS),
     }
 
 
-@pytest.mark.parametrize("case,golden", [("paxos-2", 16668), ("abd-2", 544), ("abd-ordered-2", 620)])
+# Two servers: a read of the empty second copy is not linearizable.
+VIOLATED = {"single-copy-2-2": "linearizable"}
+
+
+@pytest.mark.parametrize("case,golden", [
+    ("paxos-2", 16668), ("abd-2", 544), ("abd-ordered-2", 620), ("single-copy-2", 93),
+    ("single-copy-3", 4243), ("single-copy-2-2", 62), ("increment-lock-2", 17), ("increment-lock-3", 61),
+])
 def test_engine_matches_jax(runs, case, golden):
+    violated = VIOLATED.get(case)
     ref, ours = runs[case]
     assert ours.unique_state_count() == golden
     assert parity_dict(ours) == parity_dict(ref)
     assert paths(ours) == paths(ref)
-    ours.assert_properties()
+    for name, path in ours.discoveries().items():
+        ours.assert_discovery(name, path.into_actions())
+    if violated is None:
+        ours.assert_properties()
+    else:
+        path = ours.discovery(violated)
+        assert not ours.model().property(violated).condition(ours.model(), path.last_state())
 
 
 def test_paxos_path_through_lookup_parent(runs):
@@ -134,6 +159,9 @@ def test_models_importable_with_reference_widths():
     assert (PaxosTensorExhaustive(3).state_width, PaxosTensorExhaustive(3).max_actions) == (30, 21)
     assert (PaxosTensor(2).state_width, PaxosTensor(2).max_actions) == (22, 14)
     assert (AbdOrderedTensor(3).state_width, AbdOrderedTensor(3).max_actions) == (12, 5)
+    assert (SingleCopyTensor(4).state_width, SingleCopyTensor(4).max_actions) == (10, 5)
+    assert (SingleCopyTensor(3, 2).state_width, SingleCopyTensor(3, 2).max_actions) == (9, 4)
+    assert (IncrementLockTensor(3).state_width, IncrementLockTensor(3).max_actions) == (8, 12)
 
 
 def test_xp_namespace():

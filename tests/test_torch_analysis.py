@@ -57,6 +57,8 @@ MODELS = [
     ("AbdTensor", (2,)),
     ("AbdOrderedTensor", (2,)),
     ("IncrementTensor", (2,)),
+    ("IncrementLockTensor", (2,)),
+    ("SingleCopyTensor", (2, 1)),
 ]
 
 

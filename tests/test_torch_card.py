@@ -1332,7 +1332,14 @@ def _bfs_rows(dev, tm, opts, target=0):
 
 
 def _k11_models():
-    from stateright_tpu_torch.models import AbdOrderedTensor, AbdTensor, IncrementTensor, PaxosTensor
+    from stateright_tpu_torch.models import (
+        AbdOrderedTensor,
+        AbdTensor,
+        IncrementLockTensor,
+        IncrementTensor,
+        PaxosTensor,
+        SingleCopyTensor,
+    )
 
     return [
         (TwoPhaseTensor(5), dict(chunk_size=256, queue_capacity=1 << 14, table_capacity=1 << 16)),
@@ -1340,10 +1347,15 @@ def _k11_models():
         (AbdTensor(2), dict(chunk_size=512, queue_capacity=1 << 14, table_capacity=1 << 13)),
         (AbdOrderedTensor(2), dict(chunk_size=512, queue_capacity=1 << 14, table_capacity=1 << 13)),
         (IncrementTensor(2), dict(chunk_size=64, queue_capacity=1 << 10, table_capacity=1 << 12)),
+        (IncrementLockTensor(3), dict(chunk_size=64, queue_capacity=1 << 10, table_capacity=1 << 12)),
+        (SingleCopyTensor(3), dict(chunk_size=256, queue_capacity=1 << 13, table_capacity=1 << 14)),
+        (SingleCopyTensor(3, 2), dict(chunk_size=256, queue_capacity=1 << 13, table_capacity=1 << 14)),
     ]
 
 
-K11_MODELS = range(5)  # 2pc-5, paxos-2, abd-2, abd-ordered-2, increment-2
+# 2pc-5, paxos-2, abd-2, abd-ordered-2, increment-2, increment-lock-3,
+# single-copy-3 and the 3x2 model
+K11_MODELS = range(8)
 
 
 @pytest.mark.parametrize("which", K11_MODELS)
@@ -1468,14 +1480,21 @@ def _k11_run(model, device, how, opts, seed=0, configure=lambda b: b):
     return got, tel["expand_route"], tel.get("canon_route")
 
 
-@pytest.mark.parametrize("case", ["abd-ordered-3", "abd-2", "2pc-5 symmetry", "increment-2 simulation"])
+@pytest.mark.parametrize("case", ["abd-ordered-3", "abd-2", "2pc-5 symmetry", "increment-2 simulation",
+                                  "single-copy-3x2", "single-copy-3x2 simulation", "increment-lock-3"])
 def test_k11_engines_cuda_match_cpu(dev, case):
     """abd-ordered-3 and abd-2 BFS at the reference bench's options
-    (bench.py:1137-1161), 2pc-5 under .symmetry() and the increment-2
-    simulation to its "fin" counterexample (seed 7): cuda == cpu, the card
-    on the kernel routes, each kernel launched once a step."""
+    (bench.py:1137-1161), 2pc-5 under .symmetry(), the increment-2
+    simulation to its "fin" counterexample (seed 7), the single-copy 3x2
+    linearizability violation by BFS at bench.py:1205-1225's options and
+    by the simulation, and increment-lock-3: cuda == cpu, the card on the
+    kernel routes, each kernel launched once a step."""
     from stateright_tpu_torch.has_discoveries import HasDiscoveries
-    from stateright_tpu_torch.models import AbdOrderedTensor, AbdTensor, IncrementTensor
+    from stateright_tpu_torch.models import AbdOrderedTensor, AbdTensor, IncrementLockTensor, IncrementTensor
+    from stateright_tpu_torch.models import SingleCopyTensor
+
+    def lin(b):
+        return b.finish_when(HasDiscoveries.any_of(["linearizable"]))
 
     make, how, opts, configure, kern, golden = {
         "abd-ordered-3": (lambda: AbdOrderedTensor(3), "bfs",
@@ -1488,7 +1507,16 @@ def test_k11_engines_cuda_match_cpu(dev, case):
                            lambda b: b.symmetry(), kernels.EXPAND_2PC, 1092),
         "increment-2 simulation": (lambda: IncrementTensor(2), "sim", dict(walks=256, walk_cap=32),
                                    lambda b: b.finish_when(HasDiscoveries.any_of(["fin"])),
-                                   kernels.WALK_INCREMENT, None),
+                                   kernels.WALK_INCREMENT, "fin"),
+        "single-copy-3x2": (lambda: SingleCopyTensor(3, 2), "bfs",
+                            dict(chunk_size=256, queue_capacity=1 << 12, table_capacity=1 << 12), lin,
+                            kernels.EXPAND_SINGLE_COPY, "linearizable"),
+        "single-copy-3x2 simulation": (lambda: SingleCopyTensor(3, 2), "sim",
+                                       dict(walks=256, walk_cap=64, sync_steps=8), lin,
+                                       kernels.WALK_SINGLE_COPY, "linearizable"),
+        "increment-lock-3": (lambda: IncrementLockTensor(3), "bfs",
+                             dict(chunk_size=64, queue_capacity=1 << 10, table_capacity=1 << 12),
+                             lambda b: b, kernels.EXPAND_INCREMENT_LOCK, 61),
     }[case]
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1510,10 +1538,34 @@ def test_k11_engines_cuda_match_cpu(dev, case):
         torch.set_num_threads(threads)
     assert cpu_route == "plain"
     assert got == want
-    if golden is not None:
+    if isinstance(golden, int):
         assert got[0] == golden
     else:
-        assert "fin" in got[3]
+        assert golden in got[3]
+
+
+def test_analyze_runs_the_kernel_probe(dev):
+    """analyze() of a kernel-route model on the card holds numpy against
+    the kernel the engines run: its K11 WALK launches once (2PC's canon
+    once more, for the symmetry family), it finds nothing, and the report
+    equals the cpu's."""
+    from stateright_tpu_torch import analyze
+    from stateright_tpu_torch.models import IncrementLockTensor, SingleCopyTensor
+    from stateright_tpu_torch.ops.expand import kernel_of
+
+    models = [tm for tm, _opts in _k11_models()] + [IncrementLockTensor(2), SingleCopyTensor(4)]
+    for tm in models:
+        walk = kernel_of(tm, tm.tensor_properties())[1]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        on_card = analyze(tm, device=dev)
+        torch.cuda.synchronize()
+        n = kernels.launch_counts()
+        assert n[walk.name] == 1, (type(tm).__name__, n)
+        assert n["canon_2pc"] == (1 if isinstance(tm, TwoPhaseTensor) else 0)
+        assert walk.name in on_card.probes["kernels"]
+        assert not {d.code for d in on_card.diagnostics} & {"STR205", "STR404"}
+        assert on_card.to_dict() == analyze(tm, device="cpu").to_dict()
 
 
 def test_canon_kernel_matches_plain_one_node_a_call(dev):

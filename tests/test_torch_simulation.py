@@ -1,7 +1,8 @@
 """The port's simulation engine, `spawn_gpu_simulation(device="cpu")`,
 against `spawn_tpu_simulation` on the cases of
 `tests/test_tpu_simulation.py`, plus Paxos-2 and ABD-2 with a target,
-coverage and sampling: state count, max depth, every discovery's path,
+coverage and sampling, and the single-copy register's linearizability
+violation: state count, max depth, every discovery's path,
 coverage, the sample and telemetry steps/eras are equal."""
 
 import pytest
@@ -125,6 +126,19 @@ def test_actor_models_sampled_like_jax(name, seed):
     assert len(ours["sample"]) == 64 and ours["eras"] > 5
     assert "value chosen" in ours["paths"]
     c.assert_discovery("value chosen", c.discovery("value chosen").into_actions())
+
+
+def test_single_copy_violation_found_like_jax():
+    """SingleCopyTensor(3, 2): the walks find the read of an empty second
+    copy, as the JAX walks do, and the path replays."""
+    def conf(b, hd):
+        return b.coverage().finish_when(hd.any_of(["linearizable"]))
+
+    ref, ours, c = run_pair(("SingleCopyTensor", 3, 2), 5, conf, walks=256, walk_cap=64, sync_steps=8)
+    assert ours == ref
+    path = c.discovery("linearizable")
+    assert not c.model().property("linearizable").condition(c.model(), path.last_state())
+    c.assert_discovery("linearizable", path.into_actions())
 
 
 def test_telemetry_and_refusals():

@@ -20,8 +20,10 @@ import numpy as np
 import pytest
 
 from stateright_tpu.models import AbdTensor as JaxAbd
+from stateright_tpu.models import IncrementLockTensor as JaxIncrementLock
 from stateright_tpu.models import IncrementTensor as JaxIncrement
 from stateright_tpu.models import PaxosTensor as JaxPaxos
+from stateright_tpu.models import SingleCopyTensor as JaxSingleCopy
 from stateright_tpu.models import TwoPhaseTensor as JaxTwoPhase
 from stateright_tpu.ops.expand import build_expand_lean as jax_expand
 
@@ -32,7 +34,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 # Each model's entry suffix and its leading int arguments' count.
-_LEADING = {"2pc": 1, "paxos": 1, "abd": 2, "increment": 1}
+_LEADING = {"2pc": 1, "paxos": 1, "abd": 2, "increment": 1, "increment_lock": 1, "single_copy": 2}
 
 
 def build_harness(tmp_dir):
@@ -66,6 +68,10 @@ def which(jm):
         return "abd", (jm.c, int(jm.ordered))
     if isinstance(jm, JaxIncrement):
         return "increment", (jm.n,)
+    if isinstance(jm, JaxIncrementLock):
+        return "increment_lock", (jm.n,)
+    if isinstance(jm, JaxSingleCopy):
+        return "single_copy", (jm.s, jm.c)
     raise TypeError(type(jm).__name__)
 
 
