@@ -741,11 +741,22 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
     def fresh_slab():
         return sl.empty_slab(scap, dev)
 
+    cap_scratch = sl.capture_scratch(1, rcap, dev)
+    none = torch.tensor([0, 0], device=dev)  # the common step: nothing below it
+
+    def cap(thresh):
+        return lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], thresh, DEVICE_STEP_CAP,
+                                      cap_scratch)
+
     results["sample_capture"] = dict(
         max_abs_err=max(errs),
-        ms=time_device_ms(torch, lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], DEVICE_STEP_CAP), prep=fresh_slab),
-        call_ms=time_ms(torch, lambda sb_: sl.capture(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], DEVICE_STEP_CAP), prep=fresh_slab),
+        ms=time_device_ms(torch, cap(tight[1]), prep=fresh_slab),
+        call_ms=time_ms(torch, cap(tight[1]), prep=fresh_slab),
         plain_ms=time_ms(torch, lambda sb_: sl.capture_plain(sb_, tight[0], hh[0], hh[1], hh[2], hh[3], tight[1], DEVICE_STEP_CAP), prep=fresh_slab),
+        # nothing below the threshold: one pass over is_new and the new
+        # candidates' h1, h2 (most steps after the first eras)
+        empty_ms=time_device_ms(torch, cap(none), prep=fresh_slab),
+        launches_a_call=kernels_a_call(torch, f"{label} K9a", lambda: cap(tight[1])(sa), 1),
         # is_new once, h1 and h2 of each new candidate; a captured row
         # reads depth and action and writes its 4 slab lanes.
         bytes=rcap + n_new * 16 + min(n_below, DEVICE_STEP_CAP) * 48 + 32,
@@ -753,6 +764,7 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
         library_ms=None,
         shape=f"[{rcap}], {n_new} new, {n_below} below a tight threshold",
     )
+    check(not bool(cap_scratch[:2 + -(-rcap // sl.CAPTURE_TILE)].any()), "K9a left its ticket or a tile count set")
 
     # K9b: the era epilogue over a full-width slab at several occupancies,
     # with many equal keys (top_k's tie order).
@@ -1550,14 +1562,68 @@ PIPES = {
 PIPE_SWEEP = [None, (1, 1), (2, 1), (4, 1), (4, 4)]
 
 
+def era_ops(torch, op, device=None):
+    """K8f COMMIT's operands `op` with first-hit lanes of their own (COMMIT
+    writes them), on `device` (None: where they are)."""
+    from stateright_tpu_torch.ops import era as eo
+
+    moved = op if device is None else type(op)(
+        *(None if t is None else t.to(device) for t in op[:5]), [h.to(device) for h in op.hits],
+        op.valid.to(device), op.ddepth.to(device), tuple(r.to(device) for r in op.rows), op.first)
+    return moved._replace(first=eo.FirstHits(*(t.to(device or t.device, copy=True) for t in op.first)))
+
+
+def commit_bytes(torch, op, P, C, A, m, N, L):
+    """The bytes COMMIT must move on these operands: each lane's masks,
+    hits and valid mask read once, the depth of each new insert, and each
+    hit's hseen byte, read once, the hashes and depth of each first hit
+    read and its four first-hit lanes written once, each state row read
+    and written."""
+    hits = firsts = 0
+    if P:
+        h = torch.stack(list(op.hits)).view(P, -1)
+        hits, firsts = int(h.sum()), int((h & ~op.first.hseen).sum())
+    return N * (2 * m + P * C + A * C + 2 * 8 * L) + 8 * int(op.c_new.sum()) + hits + 49 * firsts
+
+
+# The kernel nodes of one captured step on the tree before K8f's COMMIT
+# took in the step's first-hit, coverage and histogram launches and K9a
+# became one launch (solo and over every shard), and how far each must
+# have fallen since: `scripts/kernel_times.py --rows step_nodes` on that
+# tree and this one, one H100 80GB HBM3 at 700 W. The solo step lost 14
+# torch launches and K9a's second kernel; the lane step the 18 launches
+# of its glue; the 8-shard step 15 of K9a's 16.
+PARENT_STEP_NODES = {"solo": 50, "lanes": 60, "mesh": 75}
+STEP_NODES_FALL = {"solo": 15, "lanes": 18, "mesh": 15}
+
+
+def step_nodes(torch, label, program, kind):
+    """The kernel nodes of one captured step of `program` (its `_step`,
+    gate closed: a capture runs nothing), printed beside the parent
+    tree's and checked to have fallen by STEP_NODES_FALL."""
+    from stateright_tpu_torch.engines import graph
+
+    nodes = graph.captured_nodes(program._step)
+    print(f"{label}: {nodes['kernels']} kernel nodes and {nodes['memsets']} memset nodes a captured step "
+          f"({nodes['nodes']} nodes; the parent tree's step: {PARENT_STEP_NODES[kind]} kernel nodes)", flush=True)
+    check(nodes["kernels"] <= PARENT_STEP_NODES[kind] - STEP_NODES_FALL[kind],
+          f"{label}: {nodes['kernels']} kernel nodes a step, not {STEP_NODES_FALL[kind]} fewer than "
+          f"{PARENT_STEP_NODES[kind]}")
+    return nodes["kernels"]
+
+
 def era_kernel_parity(torch, np, label, tm, C, qcap):
     """K8f's two kernels against their plain versions on the same card
     tensors, at the widths one era of `tm` at chunk C gives them (the
-    insert masks rcap wide, the first-hit lanes [P, C], a qcap-row ring,
-    sampling on, fuse 4): the step kernel's START, BEGIN and COMMIT
-    (clean, overflow, an unresolved single row) and the epilogue over
-    sparse first hits with depth ties, under each budget rule; returns
-    {kernel: timing dict} (the COMMIT and the epilogue timed)."""
+    insert masks rcap wide, the hits [P, C], the valid mask [A, C], the
+    first-hit lanes [P, C], a qcap-row ring, sampling on, fuse 4): the
+    step kernel's START, BEGIN and COMMIT (clean, overflow, an unresolved
+    single row; COMMIT folds the first hits, the coverage counts and the
+    depth histogram) and the epilogue over sparse first hits with depth
+    ties, under each budget rule; the kernel nodes of one captured step;
+    returns {kernel: timing dict} (the COMMIT and the epilogue timed)."""
+    from torch_era_ops import random_operands
+
     from stateright_tpu_torch.engines import era
     from stateright_tpu_torch.ops import era as eo
 
@@ -1567,11 +1633,12 @@ def era_kernel_parity(torch, np, label, tm, C, qcap):
     P, A = len(props), tm.max_actions
     prog = era.EraProgram(tm, props, C, qcap, 1 << 12, False, True, 64, 4, dev)
     c, x, n = prog.cfg, prog.plen, prog.rcap
-    print(f"era widths ({label}): C={C} A={A} P={P} vcap={prog.vcap} rcap={n} state words={x + eo.X_LEN} "
+    L = x + eo.X_LEN
+    print(f"era widths ({label}): C={C} A={A} P={P} vcap={prog.vcap} rcap={n} state words={L} "
           f"ring=2^{qcap.bit_length() - 1}", flush=True)
 
     def state(count, steps=3, max_steps=64, cap=64, rec=0, k=0, loose=True):
-        s = rng.integers(0, 1 << 20, size=x + eo.X_LEN).astype(np.int64)
+        s = rng.integers(0, 1 << 20, size=L).astype(np.int64)
         s[:eo.P_LEN] = [int(rng.integers(0, qcap)), count, 10 ** 6, rec, 0xFFFFFFFF, 2 * 10 ** 6,
                         qcap - C * A, max_steps, 5, 7, 2, 0, C, 1 << (P - 1), 0, 0, cap]
         s[prog.s_base:prog.s_base + 2] = 0xFFFFFFFF if loose else 1 << 20
@@ -1586,45 +1653,59 @@ def era_kernel_parity(torch, np, label, tm, C, qcap):
 
         return Slab(*sb, torch.tensor([int(rng.integers(0, 600)), 3], device=dev))
 
-    def operands(n_val, n_d, unres, take):
-        return eo.StepOperands(
-            torch.tensor(n_val, device=dev), torch.tensor(n_d, device=dev),
-            torch.from_numpy(rng.random(n) < unres).to(dev), torch.from_numpy(rng.random(n) < 0.4).to(dev),
-            torch.tensor(int(rng.integers(0, C * A)), device=dev),
-            torch.from_numpy(rng.integers(0, C, size=P)).to(dev), torch.from_numpy(rng.integers(0, C, size=A)).to(dev),
-        )
+    def operands(n_val, n_d, unres):
+        op = random_operands(rng, 1, C, A, P, n, 0, 0, unres=unres, hit=0.002, seen=0.3, solo=True,
+                             device=dev)
+        return op._replace(n_val=torch.tensor(n_val, device=dev), n_d=torch.tensor(n_d, device=dev))
 
     def clone_slab(sb):
         return type(sb)(*(t.clone() for t in sb))
 
+    scratch, epi_scratch = eo.step_scratch(1, P, A, dev), eo.epilogue_scratch(1, P, C, dev)
+    epi0 = epi_scratch.clone()
     errs = []
     commit_cases = [
-        (state(3 * C), operands(prog.vcap // 2, n // 2, 0.0, C)),
-        (state(3 * C), operands(prog.vcap + 1, n // 2, 0.0, C)),
-        (state(3 * C), operands(prog.vcap // 2, n + 1, 0.0, C)),
-        (state(1), operands(5, 5, 0.001, 1)),
+        (state(3 * C), operands(prog.vcap // 2, n // 2, 0.0)),
+        (state(3 * C), operands(prog.vcap + 1, n // 2, 0.0)),
+        (state(3 * C), operands(prog.vcap // 2, n + 1, 0.0)),
+        (state(1), operands(5, 5, 0.001)),
     ]
     for mode in (eo.START, eo.BEGIN, eo.COMMIT):
         for st, step in commit_cases:
             sb = slab()
-            sa, sb_, ea, eb = st.clone(), st.clone(), torch.ones(1, dtype=torch.int64, device=dev), None
+            sa, sb_, ea = st.clone(), st.clone(), torch.ones(1, dtype=torch.int64, device=dev)
             eb = ea.clone()
             la, lb = clone_slab(sb), clone_slab(sb)
-            eo.era_step(mode, c, sa, step, la, ea)
-            eo.era_step_plain(mode, c, sb_, step, lb, eb)
-            errs.append(max_abs_err(torch, [(sa, sb_), (ea, eb)] + list(zip(la, lb))))
+            oa, ob = era_ops(torch, step), era_ops(torch, step)
+            eo.era_step(mode, c, sa, oa, la, ea, scratch=scratch)
+            eo.era_step_plain(mode, c, sb_, ob, lb, eb)
+            errs.append(max_abs_err(torch, [(sa, sb_), (ea, eb)] + list(zip(la, lb)) + list(zip(oa.first, ob.first))))
+    check(not bool(scratch.any()), f"{label}: COMMIT left its scratch set")
     st, step = commit_cases[0]
     sb = slab()
+
+    def fresh():
+        return st.clone(), era_ops(torch, step)
+
     results = {"era_step": dict(
         max_abs_err=max(errs),
-        ms=time_device_ms(torch, lambda s_: eo.era_step(eo.COMMIT, c, s_, step, sb, prog.epoch), prep=st.clone),
-        call_ms=time_ms(torch, lambda s_: eo.era_step(eo.COMMIT, c, s_, step, sb, prog.epoch), prep=st.clone),
-        plain_ms=time_ms(torch, lambda s_: eo.era_step_plain(eo.COMMIT, c, s_, step, sb, prog.epoch),
-                         prep=st.clone, reps=5),
-        # the two masks once, the state read and written, hs and pa
-        bytes=2 * n + 2 * 8 * (x + eo.X_LEN) + 8 * (P + A + 4), ops=2 * n,
-        library_ms=None, shape=f"COMMIT over [{n}] insert masks, {x + eo.X_LEN} state words",
+        ms=time_device_ms(torch, lambda a: eo.era_step(eo.COMMIT, c, a[0], a[1], sb, prog.epoch, scratch=scratch),
+                          prep=fresh),
+        call_ms=time_ms(torch, lambda a: eo.era_step(eo.COMMIT, c, a[0], a[1], sb, prog.epoch, scratch=scratch),
+                        prep=fresh),
+        plain_ms=time_ms(torch, lambda a: eo.era_step_plain(eo.COMMIT, c, a[0], a[1], sb, prog.epoch),
+                         prep=fresh, reps=5),
+        launches_a_call=kernels_a_call(torch, f"{label} K8f COMMIT",
+                                       lambda: eo.era_step(eo.COMMIT, c, st, step, sb, prog.epoch,
+                                                           scratch=scratch), 1),
+        bytes=commit_bytes(torch, step, P, C, A, n, 1, L), ops=2 * n + (P + A) * C,
+        library_ms=None, shape=f"COMMIT over [{n}] insert masks, [{P}, {C}] hits, [{A}, {C}] valid, "
+                               f"{L} state words",
     )}
+    prog.state[x + eo.X_OPEN] = 0
+    prog.state[x + eo.X_TAKE] = 0
+    prog._step()  # every lazy initialisation before the capture
+    results["era_step"]["step_nodes"] = step_nodes(torch, f"{label} BFS step (sampled, coverage)", prog, "solo")
 
     def lanes(density):
         hseen = torch.from_numpy(rng.random((P, C)) < density).to(dev)
@@ -1644,9 +1725,10 @@ def era_kernel_parity(torch, np, label, tm, C, qcap):
         counts = torch.tensor([int(rng.integers(0, 600)), 0], device=dev)
         a = [st.clone()] + [t.clone() for t in ins]
         b = [st.clone()] + [t.clone() for t in ins]
-        eo.era_epilogue(c, a[0], *a[1:], prog.ring[tm.state_width + 1], counts)
+        eo.era_epilogue(c, a[0], *a[1:], prog.ring[tm.state_width + 1], counts, scratch=epi_scratch)
         eo.era_epilogue_plain(c, b[0], *b[1:], prog.ring[tm.state_width + 1], counts)
         errs.append(max_abs_err(torch, list(zip(a, b))))
+    check(torch.equal(epi_scratch[:P + 1], epi0[:P + 1]), f"{label}: the epilogue left its minima or ticket set")
     st, density = epi_cases[0]
     ins = lanes(density)
     counts = torch.tensor([100, 0], device=dev)
@@ -1655,16 +1737,22 @@ def era_kernel_parity(torch, np, label, tm, C, qcap):
     def prep():
         return [st.clone()] + [t.clone() for t in ins]
 
+    idle = prep()  # the capture that counts a call's nodes runs nothing
     results["era_epilogue"] = dict(
         max_abs_err=max(errs),
-        ms=time_device_ms(torch, lambda a: eo.era_epilogue(c, a[0], *a[1:], depth_lane, counts), prep=prep),
-        call_ms=time_ms(torch, lambda a: eo.era_epilogue(c, a[0], *a[1:], depth_lane, counts), prep=prep),
+        ms=time_device_ms(torch, lambda a: eo.era_epilogue(c, a[0], *a[1:], depth_lane, counts, scratch=epi_scratch),
+                          prep=prep),
+        call_ms=time_ms(torch, lambda a: eo.era_epilogue(c, a[0], *a[1:], depth_lane, counts, scratch=epi_scratch),
+                          prep=prep),
         plain_ms=time_ms(torch, lambda a: eo.era_epilogue_plain(c, a[0], *a[1:], depth_lane, counts),
                          prep=prep, reps=5),
+        launches_a_call=kernels_a_call(torch, f"{label} K8f epilogue",
+                                       lambda: eo.era_epilogue(c, *idle, depth_lane, counts,
+                                                               scratch=epi_scratch), 1),
         # hseen and faccd read, the four first-hit lanes written (zeroed),
         # the state read and written
-        bytes=P * C * (1 + 8) + P * C * (1 + 3 * 8) + 2 * 8 * (x + eo.X_LEN), ops=2 * P * C,
-        library_ms=None, shape=f"[{P}, {C}] first-hit lanes, {x + eo.X_LEN} state words",
+        bytes=P * C * (1 + 8) + P * C * (1 + 3 * 8) + 2 * 8 * L, ops=2 * P * C,
+        library_ms=None, shape=f"[{P}, {C}] first-hit lanes, {L} state words",
     )
     del prog
     return finish(results)
@@ -1765,6 +1853,9 @@ def lane_era_parity(torch, np, N, tm, C, qcap):
     lane states with open, closed, overflowing, erroring and finishing
     lanes, and the epilogue over sparse first hits; each also at one lane
     against the solo kernel; returns {entry name: timing dict}."""
+    from torch_era_ops import lane as lane_of
+    from torch_era_ops import random_operands
+
     from stateright_tpu_torch.engines.gpu_bfs import widths
     from stateright_tpu_torch.ops import era as eo
 
@@ -1793,52 +1884,48 @@ def lane_era_parity(torch, np, N, tm, C, qcap):
         s[:, eo.P_BUDGET_CAP] = 0
         return torch.from_numpy(s).to(dev)
 
-    def operands():
-        return eo.StepOperands(
-            torch.from_numpy(rng.integers(0, vcap + 2, size=N)).to(dev),
-            torch.from_numpy(rng.integers(0, rcap + 2, size=N)).to(dev),
-            torch.from_numpy(rng.random((N, rcap)) < 0.0005).to(dev),
-            torch.from_numpy(rng.random((N, rcap)) < 0.3).to(dev),
-            torch.from_numpy(rng.integers(0, C * A, size=N)).to(dev),
-            torch.from_numpy(rng.integers(0, 3, size=(P, N))).to(dev),
-            torch.from_numpy(rng.integers(0, C, size=(N, A))).to(dev),
-        )
+    def operands(gen):
+        return random_operands(rng, N, C, A, P, rcap, vcap + 1, rcap + 1, unres=0.0005, hit=0.002,
+                               seen=0.3, gen=gen, device=dev)
 
-    ticket = torch.zeros(1, dtype=torch.int64, device=dev)
+    scratch = eo.step_scratch(N, P, A, dev)
     errs = []
-    st, step = state(), operands()
+    st, step = state(), operands(False)
     a, b = st.clone(), st.clone()
+    oa, ob = era_ops(torch, step), era_ops(torch, step)
     for mode in (eo.START, eo.BEGIN, eo.COMMIT, eo.COMMIT):
-        eo.era_step(mode, cfg, a, step if mode == eo.COMMIT else None, ticket=ticket)
-        eo.era_step_plain(mode, cfg, b, step if mode == eo.COMMIT else None)
-        errs.append(max_abs_err(torch, [(a, b)]))
-    check(int(ticket) == 0, "lane era step: the ticket was not reset")
+        eo.era_step(mode, cfg, a, oa if mode == eo.COMMIT else None, scratch=scratch)
+        eo.era_step_plain(mode, cfg, b, ob if mode == eo.COMMIT else None)
+        errs.append(max_abs_err(torch, [(a, b)] + list(zip(oa.first, ob.first))))
+    check(not bool(scratch.any()), "lane era step: the scratch was not left zero")
     # One lane against the solo kernel on the same row.
+    with_gen = operands(True)
     for l in range(3):
         solo, lane = st[l].clone(), st[l:l + 1].clone()
-        one = eo.StepOperands(step.n_val[l], step.n_d[l], step.unresolved[l].contiguous(), step.c_new[l].contiguous(),
-                              step.generated[l], step.hs[:, l].contiguous(), step.pa[l].contiguous())
-        one_l = eo.StepOperands(step.n_val[l:l + 1], step.n_d[l:l + 1], step.unresolved[l:l + 1],
-                                step.c_new[l:l + 1], step.generated[l:l + 1], step.hs[:, l:l + 1].contiguous(),
-                                step.pa[l:l + 1])
+        one, one_l = lane_of(with_gen, l, C, solo=True), lane_of(with_gen, l, C)
         for mode in (eo.START, eo.BEGIN, eo.COMMIT):
             e1, e2 = torch.ones(1, dtype=torch.int64, device=dev), torch.ones(1, dtype=torch.int64, device=dev)
             eo.era_step(mode, cfg, solo, one if mode == eo.COMMIT else None, epoch=e1)
-            eo.era_step(mode, cfg, lane, one_l if mode == eo.COMMIT else None, epoch=e2, ticket=ticket)
-            errs.append(max_abs_err(torch, [(solo, lane[0]), (e1, e2)]))
+            eo.era_step(mode, cfg, lane, one_l if mode == eo.COMMIT else None, epoch=e2,
+                        scratch=eo.step_scratch(1, P, A, dev))
+            errs.append(max_abs_err(torch, [(solo, lane[0]), (e1, e2)] + list(zip(one.first, one_l.first))))
     commit_st = a.clone()
     commit_st[:, plen + eo.X_OPEN] = 1
     commit_st[:, plen + eo.X_TAKE] = torch.clamp(commit_st[:, eo.P_COUNT], max=C)
+
+    def fresh():
+        return commit_st.clone(), era_ops(torch, step)
+
     results = {"era_step_lanes": dict(
         max_abs_err=max(errs),
-        ms=time_device_ms(torch, lambda s_: eo.era_step(eo.COMMIT, cfg, s_, step, ticket=ticket),
-                          prep=commit_st.clone),
-        call_ms=time_ms(torch, lambda s_: eo.era_step(eo.COMMIT, cfg, s_, step, ticket=ticket), prep=commit_st.clone),
-        plain_ms=time_ms(torch, lambda s_: eo.era_step_plain(eo.COMMIT, cfg, s_, step), prep=commit_st.clone,
-                         reps=3),
-        # each lane's two masks once, its state row read and written, hs and pa
-        bytes=N * (2 * rcap + 2 * 8 * L + 8 * (P + A + 3)), ops=2 * N * rcap,
-        library_ms=None, shape=f"COMMIT of {N} lanes over [{N}, {rcap}] insert masks",
+        ms=time_device_ms(torch, lambda t: eo.era_step(eo.COMMIT, cfg, t[0], t[1], scratch=scratch), prep=fresh),
+        call_ms=time_ms(torch, lambda t: eo.era_step(eo.COMMIT, cfg, t[0], t[1], scratch=scratch), prep=fresh),
+        plain_ms=time_ms(torch, lambda t: eo.era_step_plain(eo.COMMIT, cfg, t[0], t[1]), prep=fresh, reps=3),
+        launches_a_call=kernels_a_call(torch, "K14f COMMIT",
+                                       lambda: eo.era_step(eo.COMMIT, cfg, commit_st, step, scratch=scratch), 1),
+        bytes=commit_bytes(torch, step, P, C, A, rcap, N, L), ops=N * (2 * rcap + (P + A) * C),
+        library_ms=None, shape=f"COMMIT of {N} lanes over [{N}, {rcap}] insert masks, [{P}, {N}*{C}] hits, "
+                               f"[{A}, {N}, {C}] valid",
     )}
 
     errs = []
@@ -1862,10 +1949,17 @@ def lane_era_parity(torch, np, N, tm, C, qcap):
         eo.era_epilogue(cfg, t1[0], *t1[1:], rings[l, W - 1])
         eo.era_epilogue(cfg, t2[0], *t2[1:], rings[l:l + 1, W - 1])
         errs.append(max_abs_err(torch, [(t1[0], t2[0][0])]))
+    epi_scratch = eo.epilogue_scratch(N, P, C, dev)
+    idle = prep()  # the capture that counts a call's nodes runs nothing
     results["era_epilogue_lanes"] = dict(
         max_abs_err=max(errs),
-        ms=time_device_ms(torch, lambda t: eo.era_epilogue(cfg, t[0], *t[1:], rings[:, W - 1]), prep=prep),
-        call_ms=time_ms(torch, lambda t: eo.era_epilogue(cfg, t[0], *t[1:], rings[:, W - 1]), prep=prep),
+        ms=time_device_ms(torch, lambda t: eo.era_epilogue(cfg, t[0], *t[1:], rings[:, W - 1], scratch=epi_scratch),
+                          prep=prep),
+        call_ms=time_ms(torch, lambda t: eo.era_epilogue(cfg, t[0], *t[1:], rings[:, W - 1], scratch=epi_scratch),
+                        prep=prep),
+        launches_a_call=kernels_a_call(torch, "K14f epilogue",
+                                       lambda: eo.era_epilogue(cfg, idle[0], *idle[1:], rings[:, W - 1],
+                                                               scratch=epi_scratch), 1),
         plain_ms=time_ms(torch, lambda t: eo.era_epilogue_plain(cfg, t[0], *t[1:], rings[:, W - 1]), prep=prep,
                          reps=3),
         # hseen and faccd read, the four first-hit lanes written, the rows
@@ -2446,6 +2540,69 @@ def mesh_kernel_parity(torch, np, label, tm, C):
             )
             del timed, slabs, counts, skey
 
+        # K9a over every shard's slab in one launch, at the receive width R
+        # and this program's slab: a flood under the loose threshold, a
+        # tight threshold with ties on its high word, nothing below it;
+        # against the loop of the plain capture over the shards.
+        errs = []
+        scap = prog.scap
+        new_r = torch.from_numpy(rng.random((n, R)) < 0.7).to(dev)
+        hr = torch.from_numpy(rng.integers(0, 1 << 32, size=(3, n, R))).to(dev)
+        hr[0, :, :40] = 0x00800000
+        cap_scratch = sl.capture_scratch(n, R, dev)
+        for t in ((M32, M32), (0x00800000, 0x40000000), (0, 0)):
+            slabs = torch.from_numpy(rng.integers(0, 1 << 32, size=(4, n, scap + 1))).to(dev)
+            counts = torch.from_numpy(np.stack([rng.integers(0, 200, n), np.zeros(n, dtype=np.int64)], 1)).to(dev)
+            thresh = torch.tensor(t, device=dev)
+            other, other_counts = slabs.clone(), counts.clone()
+            sl.capture_lanes(slabs, counts, new_r, hr[0], hr[1], hr[2], prog._no_action, thresh, R, cap_scratch)
+            sl.capture_lanes_plain(other, other_counts, new_r, hr[0], hr[1], hr[2], prog._no_action, thresh, R)
+            errs.append(max_abs_err(torch, [(slabs[:, :, :scap], other[:, :, :scap]), (counts, other_counts)]))
+        check(max(errs) == 0 and not bool(cap_scratch[:n * (2 + -(-R // sl.CAPTURE_TILE))].any()),
+              f"{label} N={n}: K9a's lane form disagrees with its plain version or left its scratch set")
+        if n == MESH_N:
+            tight = torch.tensor([0x00800000, 0x40000000], device=dev)
+            nothing = torch.tensor([0, 0], device=dev)  # the common step: nothing below it
+            n_new, n_below = int(new_r.sum()), int(sl.below_threshold(new_r, hr[0], hr[1], tight).sum())
+
+            def fresh_slabs():
+                return torch.zeros((4, n, scap + 1), dtype=torch.int64, device=dev), \
+                    torch.zeros((n, 2), dtype=torch.int64, device=dev)
+
+            def lanes_call(t, thr=tight):
+                sl.capture_lanes(t[0], t[1], new_r, hr[0], hr[1], hr[2], prog._no_action, thr, R, cap_scratch)
+
+            shard_scratch = sl.capture_scratch(1, R, dev)
+
+            def per_shard(t):
+                # one launch a shard, as the mesh step's loop made them
+                for s_ in range(n):
+                    sl.capture(sl.Slab(*t[0][:, s_], t[1][s_]), new_r[s_], hr[0, s_], hr[1, s_], hr[2, s_],
+                               prog._no_action, tight, R, shard_scratch)
+
+            idle = fresh_slabs()
+            results["sample_capture_lanes"] = dict(
+                max_abs_err=max(errs),
+                ms=time_device_ms(torch, lanes_call, prep=fresh_slabs),
+                call_ms=time_ms(torch, lanes_call, prep=fresh_slabs),
+                plain_ms=time_ms(torch, lambda t: sl.capture_lanes_plain(
+                    t[0], t[1], new_r, hr[0], hr[1], hr[2], prog._no_action, tight, R), prep=fresh_slabs),
+                empty_ms=time_device_ms(torch, lambda t: lanes_call(t, nothing), prep=fresh_slabs),
+                per_shard_ms=time_device_ms(torch, per_shard, prep=fresh_slabs),
+                launches_a_call=kernels_a_call(torch, f"{label} K9a over {n} shards", lambda: lanes_call(idle), 1),
+                # is_new once, h1 and h2 of each new receive, each captured
+                # row's depth and action read and its 4 lanes written
+                bytes=n * R + 16 * n_new + 48 * n_below + 32 * n, ops=n * R + 3 * n_new,
+                library_ms=None, shape=f"{n} shards x R={R}, {n_new} new, {n_below} below a tight threshold",
+            )
+            # The step's kernel nodes, after one step with the gates closed
+            # (every lazy initialisation).
+            prog.state[:, x + me.X_OPEN] = 0
+            prog.state[:, x + me.X_TAKE] = 0
+            prog._step()
+            results["sample_capture_lanes"]["step_nodes"] = step_nodes(torch, f"{label} step at {n} shards", prog,
+                                                                       "mesh")
+
         def state(count=None, its=3, max_steps=64, cap=64, rec=0, k=0, take=None, pressure=False):
             s = rng.integers(0, 1 << 20, size=(n, L)).astype(np.int64)
             cnt = rng.integers(0, 3 * C, size=n) if count is None else np.full(n, count)
@@ -2918,7 +3075,6 @@ def lint_phase(torch, np, kernels, card):
     from stateright_tpu_torch.analysis.probe import LaneProbe
     from stateright_tpu_torch.xp import TorchXP
 
-    sys.path.insert(0, os.path.join(HERE, "tests"))
     import torch_lint_fixtures as fx
 
     rows = {label: reachable_rows(torch, np, label) for label in LINT_ROWS}
@@ -3514,6 +3670,9 @@ def main(argv) -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    # The JAX-free test helpers (torch_era_ops, torch_lint_fixtures), last,
+    # so that nothing there shadows a module the smoke imports.
+    sys.path.append(os.path.join(HERE, "tests"))
     if argv[:1] == ["--profile-one"]:
         print(json.dumps(profiled_run(torch, argv[1], argv[2])), flush=True)
         return 0
@@ -3975,6 +4134,7 @@ def main(argv) -> int:
     (mix8, _t), _ = counted(torch, kernels, "2pc-5 mixed lanes, batches of 8",
                             lambda: lanes(two_pc(5), mixed, "cuda", dict(lanes=8, cache=cache)), kernels.LANE_KERNELS)
     warm = cache.get(two_pc(5), "multiplex", lanes=8, device="cuda")[0].program
+    lane_res["era_step_lanes"]["step_nodes"] = step_nodes(torch, "2pc-5 lane step (8 lanes)", warm, "lanes")
     for i, c in enumerate(mix8):
         check(lane_dict(c) == mix_dicts[i], f"2pc-5 mixed lane {i} in batches of 8 differs from its cpu lane")
     check(warm.graph_captures == 1 and warm.readbacks == 4,
@@ -4033,9 +4193,10 @@ def main(argv) -> int:
         "K12 (2pc-7 profiled run, the stage programs' kernels)": sum(
             {**results, **stage_res}[k.name]["bound_ms"] * (launches_stage[k.name] - launches.get(k.name, 0))
             for k in kernels.BFS_STAGE_KERNELS),
-        # K15a and K15f at the mesh's 2pc-7 widths, the lane forms at one
-        # step of 8 shards (above), K1 and K9a/b at the solo 2pc-7 widths
-        # (6,144 rows a step against the mesh's 8 x 1,024: a lower bound).
+        # K15a, K15f and K9a's and K9b's lane forms at the mesh's 2pc-7
+        # widths, the other lane forms at one step of 8 shards (above), K1
+        # at the solo 2pc-7 widths (6,144 rows a step against the mesh's
+        # 8 x 1,024: a lower bound).
         "K15 (2pc-7 at 8 shards, its kernels)": sum(
             {**results, **lane_mesh, **mesh_res}[k.name]["bound_ms"] * launches_mesh[k.name]
             for k in kernels.MESH_KERNELS),
@@ -4047,7 +4208,7 @@ def main(argv) -> int:
 
     line = {"kernels": []}
     for k in kernels.KERNELS + (kernels.RING_APPEND, kernels.SLAB_BOTTOMK_LANES, kernels.STAGE_LANES,
-                                kernels.RING_REFILL):
+                                kernels.RING_REFILL, kernels.SAMPLE_CAPTURE_LANES):
         # BFS kernels at the 2pc-7 widths and launches; the walk kernels
         # at the paxos-3 simulation widths and launches; the stage
         # profiler's at the 2pc-7 widths (K12a) and the paxos-3 simulation
@@ -4096,7 +4257,8 @@ def main(argv) -> int:
                       "pop_append_ms", "pop_append_library_ms", "per_shard_ms", "begin_ms",
                       "epilogue_ms", "epilogue_plain_ms", "ring_ms", "mix_ms", "record_ms",
                       "record_plain_ms", "record_bound_ms", "choose_ms", "choose_plain_ms", "choose_bound_ms",
-                      "lanes_ms", "graph_plain_ms", "plain_launches", "rows_compared"):
+                      "lanes_ms", "graph_plain_ms", "plain_launches", "rows_compared", "empty_ms",
+                      "step_nodes"):
             if extra in r:
                 entry[extra] = r[extra]
         line["kernels"].append(entry)

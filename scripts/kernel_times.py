@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of K2, K4, K7, K7s, K9b and K15a on the card, to hold
+"""Device times of K2, K4, K7, K7s, K8f, K9, K14f and K15a on the card, to hold
 checkouts of the port against each other with one yardstick within one
 call.
 
@@ -38,6 +38,25 @@ and, once a tree:
   exchange         K15a at phase 18's mesh widths, 2pc-7 (chunk 1,024: V =
                    12,629, X = 7) and paxos-3 (chunk 2,048: V = 14,336, X
                    = 34), at N = 8 and N = 1 shards with the engine's quota;
+  era              K8f's COMMIT at the 2pc-7 / paxos-3 BFS widths (bench
+                   chunk, sampled, coverage, fuse 4): the kernel alone
+                   (`commit`) and with the torch launches the step made
+                   before it where the tree has them (`commit_with_glue`:
+                   the first hits, the hs and pa sums, the depth
+                   histogram; a tree whose COMMIT folds them times the
+                   same call twice); K8f's epilogue; K9a at rcap with a
+                   tight threshold and with nothing below it (`empty`),
+                   each with its nodes a call;
+  lane_era         K14f's COMMIT (with its glue, as above) and epilogue at
+                   the 2pc-5 sweep's 1,024 lanes (C = 151, A = 27);
+  capture_lanes    K9a for every shard at phase 18's 8-shard 2pc-7 (chunk
+                   1,024) and paxos-3 (chunk 2,048) receive widths: one
+                   launch where the tree has the lane form, else the
+                   per-shard loop;
+  step_nodes       the kernel nodes of one captured step of the solo
+                   2pc-7 and paxos-3 programs (bench chunks), of a 2pc-5
+                   lane program (32 lanes) and of the 2pc-7 mesh at 8
+                   shards;
   spill            K7s DRAIN and REFILL at phase 20's widths: 2,416,640
                    rows x 5 of a 2^22 ring from a head that wraps, and 8
                    rings of 2^15 with ragged counts; each also with its
@@ -57,7 +76,8 @@ miss a call's kernels; K2's and K7's appends also as the hand-written
 kernels' counted calls; K4 and K15a by graph only).
 `--rows` names the groups to time (default all: bfs, the rows of K2,
 K7 and K9b at the two BFS widths; insert; mesh_tail; compact_lanes;
-insert_lanes; exchange; spill). Prints one JSON line a tree with the
+insert_lanes; exchange; spill; era; lane_era; capture_lanes;
+step_nodes). Prints one JSON line a tree with the
 card's name and power limit.
 """
 
@@ -78,7 +98,8 @@ MESH_N, MESH_C, MESH_A = 8, 1024, 37
 LANES = (1024, 151, 27)  # phase 12: the 2pc-5 sweep's lanes, chunk and actions
 # Phase 20's ragged rings: capacity, rows a ring, start positions.
 # The groups of rows, all timed unless --rows names some.
-ROWS = ("bfs", "insert", "mesh_tail", "compact_lanes", "insert_lanes", "exchange", "spill")
+ROWS = ("bfs", "insert", "mesh_tail", "compact_lanes", "insert_lanes", "exchange", "spill", "era",
+        "lane_era", "capture_lanes", "step_nodes")
 SPILL_RAGGED = (1 << 15, [0, 17, 1 << 15, 4_096, 1, 30_000, 12_345, 999],
                 [(1 << 15) - 5, 3, 0, (1 << 15) - 2_000, 77, 10, (1 << 15) - 1, 31_000])
 
@@ -282,6 +303,330 @@ def one_tree(tree: str, reps: int, groups=None) -> dict:
             lanes_drain_kernels=call_kernels(torch, lambda: fr.ring_drain_lanes(rings, starts, ks, buf)),
             shape=dict(W=W, qcap=qcap, k=k, start=start, ragged_rows=sum(ks), ragged_qcap=q8),
         )
+    if "era" in groups:
+        out["era"] = era_times(torch, np, smoke, reps)
+    if "lane_era" in groups:
+        out["lane_era"] = lane_era_times(torch, np, smoke, reps)
+    if "capture_lanes" in groups:
+        out["capture_lanes"] = capture_lanes_times(torch, np, smoke, reps)
+    if "step_nodes" in groups:
+        out["step_nodes"] = step_nodes()
+    return out
+
+
+def _fold_api():
+    """Whether this tree's COMMIT folds the step's first hits and sums."""
+    from stateright_tpu_torch.ops import era as eo
+
+    return hasattr(eo, "FirstHits")
+
+
+class _Step:
+    """One step's COMMIT operands at N lanes of chunk C (numpy seed 18),
+    and the call each tree makes: the fused COMMIT, or the parent's
+    torch launches (stack, first hits, hs, pa, the histogram) then its
+    COMMIT."""
+
+    def __init__(self, torch, np, cfg, N, C, A, P, m, gen):
+        self.torch, self.cfg, self.N, self.C, self.A, self.P, self.m = torch, cfg, N, C, A, P, m
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(18)
+
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+
+        self.n_val = t(rng.integers(0, cfg.vcap, N))
+        self.n_d = t(rng.integers(0, m, N))
+        self.unres = t(np.zeros((N, m), dtype=bool))
+        self.c_new = t(rng.random((N, m)) < 0.3)
+        self.ddepth = t((rng.integers(2, 40, N)[:, None] + rng.integers(0, 2, (N, m))).reshape(-1))  # a BFS step's
+        self.hits = [t(rng.random(N * C) < 0.002) for _ in range(P)]
+        self.valid = t(rng.random(A * N * C) < 0.3)
+        self.rows = tuple(t(rng.integers(0, 1 << 32, N * C)) for _ in range(3))
+        self.gen = t(rng.integers(0, C * A, N)) if gen else None
+        self.first0 = [t(rng.random((P, N * C)) < 0.3)] + [t(rng.integers(0, 1 << 32, (P, N * C)))
+                                                          for _ in range(3)]
+        if N == 1:
+            self.n_val, self.n_d, self.unres, self.c_new = self.n_val[0], self.n_d[0], self.unres[0], self.c_new[0]
+            self.gen = None if self.gen is None else self.gen[0]
+
+    def first(self):
+        return [x.clone() for x in self.first0]
+
+    def commit(self, st, first, slab=None, epoch=None, scratch=None, glue=True):
+        """The tree's COMMIT; on a tree whose COMMIT takes the sums, with
+        the torch launches its step made before it (`glue`), else with the
+        sums made once, outside."""
+        torch, eo = self.torch, __import__("stateright_tpu_torch.ops.era", fromlist=["era"])
+        N, C, A, P, c, m = self.N, self.C, self.A, self.P, self.cfg, self.m
+        if _fold_api():
+            op = eo.StepOperands(self.n_val, self.n_d, self.unres, self.c_new, self.gen, self.hits, self.valid,
+                                 self.ddepth, self.rows, eo.FirstHits(*first))
+            return eo.era_step(eo.COMMIT, c, st, op, slab, epoch, scratch=scratch)
+        dbase = c.cov_base + A + P + 1
+        if glue:
+            # engines/era.py's and engines/multiplex.py's step, before COMMIT
+            hseen, f1, f2, fd = first
+            hits = torch.stack(self.hits)
+            fresh = hits & ~hseen
+            f1.copy_(torch.where(fresh, self.rows[0], f1))
+            f2.copy_(torch.where(fresh, self.rows[1], f2))
+            fd.copy_(torch.where(fresh, self.rows[2], fd))
+            hseen |= hits
+            if N == 1:
+                hs = hits.sum(1)
+                pa = self.valid.view(A, C).sum(1)
+                st[dbase:dbase + 128].index_add_(0, self.ddepth.clamp(max=127), self.c_new.to(torch.int64))
+                gen = self.gen
+            else:
+                hs = hits.view(P, N, C).sum(2)
+                pa = self.valid.view(A, N, C).sum(2).T.contiguous()
+                at = (torch.arange(N, device=st.device) * st.shape[1] + dbase)[:, None]
+                st.view(-1).index_add_(0, (at + self.ddepth.view(N, m).clamp(max=127)).view(-1),
+                                       self.c_new.view(-1).to(torch.int64))
+                gen = self.valid.view(A, N, C).sum((0, 2))
+        else:
+            if not hasattr(self, "_sums"):
+                hits = torch.stack(self.hits).view(P, N, C)
+                v = self.valid.view(A, N, C)
+                self._sums = (hits.sum(2), v.sum(2).T.contiguous(),
+                              self.gen if self.gen is not None else v.sum((0, 2)))
+                if N == 1:
+                    self._sums = (self._sums[0][:, 0], self._sums[1][0], self._sums[2])
+            hs, pa, gen = self._sums
+        op = eo.StepOperands(self.n_val, self.n_d, self.unres, self.c_new, gen, hs, pa)
+        if N == 1:
+            return eo.era_step(eo.COMMIT, c, st, op, slab, epoch)
+        return eo.era_step(eo.COMMIT, c, st, op, epoch=epoch, ticket=scratch)
+
+
+def era_times(torch, np, smoke, reps) -> dict:
+    """K8f's COMMIT and epilogue and K9a at the 2pc-7 and paxos-3 BFS widths."""
+    from stateright_tpu_torch import kernels
+    from stateright_tpu_torch.engines import era
+    from stateright_tpu_torch.models import PaxosTensorExhaustive, TwoPhaseTensor
+    from stateright_tpu_torch.obs.sample import DEVICE_STEP_CAP
+    from stateright_tpu_torch.ops import era as eo
+    from stateright_tpu_torch.ops import slab as sl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    fold = _fold_api()
+    out = {}
+    for label, tm in (("2pc-7", TwoPhaseTensor(7)), ("paxos-3", PaxosTensorExhaustive(3))):
+        C, _A, _S, qcap = WIDTHS[label]
+        props = tm.tensor_properties()
+        A, P = tm.max_actions, len(props)
+        prog = era.EraProgram(tm, props, C, qcap, 1 << 12, False, True, 64, 4, dev)
+        c, x, m = prog.cfg, prog.plen, prog.rcap
+        step = _Step(torch, np, c, 1, C, A, P, m, True)
+        st = prog.state.clone()
+        st[eo.P_COUNT], st[eo.P_HIGH_WATER], st[eo.P_GROW_LIMIT], st[eo.P_MAX_STEPS] = 3 * C, qcap, 1 << 30, 64
+        st[eo.P_TAKE_CAP], st[x + eo.X_OPEN], st[x + eo.X_TAKE] = C, 1, C
+        scratch = eo.step_scratch(1, P, A, dev) if fold else None
+        slab, epoch = prog.slab, prog.epoch
+
+        def prep():
+            return st.clone(), step.first()
+
+        def commit(glue):
+            return lambda a: step.commit(a[0], a[1], slab, epoch, scratch, glue)
+
+        idle = prep()
+        r = dict(
+            commit=smoke.time_device_ms(torch, commit(False), prep=prep),
+            commit_with_glue=smoke.time_device_ms(torch, commit(True), prep=prep),
+            commit_kernels=call_kernels(torch, lambda: commit(False)(idle)),
+            commit_with_glue_kernels=call_kernels(torch, lambda: commit(True)(idle)),
+        )
+        ring_depth = prog.ring[tm.state_width + 1]
+        est = st.clone()
+        est[x + eo.X_ESTEPS] = est[eo.P_MAX_STEPS] = 64
+        est[eo.P_BUDGET_CAP] = 64
+        est[prog.f_base] = 4
+        first_epi = [torch.from_numpy(rng.random((P, C)) < 0.01).to(dev)] + [
+            torch.from_numpy(rng.integers(5, 9, (P, C))).to(dev) for _ in range(3)]
+
+        def eprep():
+            return [est.clone()] + [t.clone() for t in first_epi]
+
+        epi = eo.epilogue_scratch(1, P, C, dev) if fold else None
+
+        def epilogue(a):
+            kw = dict(scratch=epi) if fold else {}
+            eo.era_epilogue(c, a[0], *a[1:], ring_depth, prog.slab.counts, **kw)
+
+        eidle = eprep()
+        r.update(epilogue=smoke.time_device_ms(torch, epilogue, prep=eprep),
+                 epilogue_kernels=call_kernels(torch, lambda: epilogue(eidle)))
+        # K9a at rcap: phase 2's inputs.
+        new = torch.from_numpy(rng.random(m) < 0.5).to(dev)
+        hh = torch.from_numpy(rng.integers(0, 1 << 32, (4, m))).to(dev)
+        hh[0, :40] = 0x00800000
+        tight = torch.tensor([0x00800000, 0x40000000], device=dev)
+        none = torch.tensor([0, 0], device=dev)
+
+        def fresh_slab():
+            return sl.empty_slab(c.scap, dev)
+
+        cap_scratch = sl.capture_scratch(1, m, dev) if fold else None
+
+        def capture(thresh):
+            kw = dict(scratch=cap_scratch) if fold else {}
+            return lambda sb: sl.capture(sb, new, hh[0], hh[1], hh[2], hh[3], thresh, DEVICE_STEP_CAP, **kw)
+
+        spare = fresh_slab()
+        r.update(
+            capture=smoke.time_device_ms(torch, capture(tight), prep=fresh_slab),
+            capture_empty=smoke.time_device_ms(torch, capture(none), prep=fresh_slab),
+            capture_kernels=call_kernels(torch, lambda: capture(tight)(spare)),
+            shape=dict(C=C, A=A, P=P, rcap=m, vcap=prog.vcap, state=x + eo.X_LEN, scap=c.scap,
+                       n_new=int(new.sum()), n_below=int(sl.below_threshold(new, hh[0], hh[1], tight).sum())),
+        )
+        out[label] = r
+        del prog
+        torch.cuda.empty_cache()
+    return out
+
+
+def lane_era_times(torch, np, smoke, reps) -> dict:
+    """K14f's COMMIT and epilogue at the 2pc-5 sweep's lanes."""
+    from stateright_tpu_torch.engines.gpu_bfs import widths
+    from stateright_tpu_torch.models import TwoPhaseTensor
+    from stateright_tpu_torch.ops import era as eo
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20)
+    N, C, A = LANES
+    tm = TwoPhaseTensor(5)
+    P, qcap = len(tm.tensor_properties()), 1 << 13
+    vcap, rcap, _d = widths(A, C)
+    plen = eo.params_len(A, P, True, 0)
+    cfg = eo.EraConfig(chunk=C, qmask=qcap - 1, vcap=vcap, rcap=rcap, P=P, A=A, cov_base=eo.P_LEN + 2 * P,
+                       s_base=-1, s_high=0, s_take=C, f_base=-1, fuse=1, x=plen, regrow=max(1, C // 16),
+                       budget_min=eo.BUDGET_MIN, n_cov=eo.cov_len(A, P), scap=0)
+    L = plen + eo.X_LEN
+    s = rng.integers(0, 1 << 20, size=(N, L)).astype(np.int64)
+    s[:, eo.P_COUNT] = rng.choice([0, 5, 3 * C], size=N)
+    s[:, eo.P_HIGH_WATER], s[:, eo.P_GROW_LIMIT], s[:, eo.P_MAX_STEPS] = qcap - C * A, 1 << 30, 1 << 20
+    s[:, eo.P_ERR] = s[:, eo.P_FIN_ANY] = s[:, eo.P_FIN_ALL_EN] = s[:, eo.P_BUDGET_CAP] = s[:, eo.P_REC] = 0
+    s[:, plen + eo.X_OPEN] = s[:, eo.P_COUNT] > 0
+    s[:, plen + eo.X_TAKE] = np.minimum(s[:, eo.P_COUNT], C)
+    st = torch.from_numpy(s).to(dev)
+    step = _Step(torch, np, cfg, N, C, A, P, rcap, False)
+    fold = _fold_api()
+    scratch = eo.step_scratch(N, P, A, dev) if fold else torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def prep():
+        return st.clone(), step.first()
+
+    def commit(glue):
+        return lambda a: step.commit(a[0], a[1], None, None, scratch, glue)
+
+    idle = prep()
+    rings = torch.from_numpy(rng.integers(0, 30, (N, qcap + 1))).to(dev)
+    first_epi = [torch.from_numpy(rng.random((P, N * C)) < 0.002).to(dev)] + [
+        torch.from_numpy(rng.integers(1, 9, (P, N * C))).to(dev) for _ in range(3)]
+
+    def eprep():
+        return [st.clone()] + [t.clone() for t in first_epi]
+
+    epi = eo.epilogue_scratch(N, P, C, dev) if fold else None
+
+    def epilogue(a):
+        kw = dict(scratch=epi) if fold else {}
+        eo.era_epilogue(cfg, a[0], *a[1:], rings, **kw)
+
+    eidle = eprep()
+    return dict(
+        commit=smoke.time_device_ms(torch, commit(False), prep=prep),
+        commit_with_glue=smoke.time_device_ms(torch, commit(True), prep=prep),
+        commit_kernels=call_kernels(torch, lambda: commit(False)(idle)),
+        commit_with_glue_kernels=call_kernels(torch, lambda: commit(True)(idle)),
+        epilogue=smoke.time_device_ms(torch, epilogue, prep=eprep),
+        epilogue_kernels=call_kernels(torch, lambda: epilogue(eidle)),
+        shape=dict(N=N, C=C, A=A, P=P, rcap=rcap, state=L),
+    )
+
+
+def capture_lanes_times(torch, np, smoke, reps) -> dict:
+    """K9a for every shard at phase 18's 8-shard receive widths."""
+    from stateright_tpu_torch.obs.sample import slab_high_water
+    from stateright_tpu_torch.ops import slab as sl
+    from stateright_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    lanes = getattr(sl, "capture_lanes", None)
+    out = {}
+    for label, C, A in (("2pc-7", 1024, 37), ("paxos-3", 2048, 21)):
+        n = MESH_N
+        R = n * mesh.quota_for(C, A, n)
+        scap = slab_high_water(64) + R
+        new = torch.from_numpy(rng.random((n, R)) < 0.7).to(dev)
+        hr = torch.from_numpy(rng.integers(0, 1 << 32, (3, n, R))).to(dev)
+        hr[0, :, :40] = 0x00800000
+        act = torch.zeros(R, dtype=torch.int64, device=dev)
+        scratch = sl.capture_scratch(n, R, dev) if lanes is not None else None
+
+        def fresh():
+            return (torch.zeros((4, n, scap + 1), dtype=torch.int64, device=dev),
+                    torch.zeros((n, 2), dtype=torch.int64, device=dev))
+
+        def call(thresh):
+            def go(t):
+                if lanes is not None:
+                    return lanes(t[0], t[1], new, hr[0], hr[1], hr[2], act, thresh, R, scratch)
+                for s in range(n):
+                    sl.capture(sl.Slab(*t[0][:, s], t[1][s]), new[s], hr[0, s], hr[1, s], hr[2, s], act,
+                               thresh, R)
+            return go
+
+        tight = torch.tensor([0x00800000, 0x40000000], device=dev)
+        idle = fresh()
+        out[label] = dict(
+            ms=smoke.time_device_ms(torch, call(tight), prep=fresh),
+            empty=smoke.time_device_ms(torch, call(torch.tensor([0, 0], device=dev)), prep=fresh),
+            kernels=call_kernels(torch, lambda: call(tight)(idle)),
+            by="lane form" if lanes is not None else "per-shard loop",
+            shape=dict(shards=n, R=R, scap=scap, n_new=int(new.sum())),
+        )
+    return out
+
+
+def step_nodes() -> dict:
+    """Kernel nodes of one captured step of each program (gates closed,
+    after one eager step: every lazy initialisation)."""
+    import torch
+
+    from stateright_tpu_torch.engines import era, graph
+    from stateright_tpu_torch.engines.multiplex import warm_lane_program
+    from stateright_tpu_torch.models import PaxosTensorExhaustive, TwoPhaseTensor
+    from stateright_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    out = {}
+
+    def closed(prog, x):
+        st = prog.state
+        st[..., x + 1] = 0  # X_OPEN
+        st[..., x] = 0  # X_TAKE
+        prog._step()
+        return dict(graph.captured_nodes(prog._step))
+
+    for label, tm, C, qcap in (("2pc-7", TwoPhaseTensor(7), 6144, 1 << 20),
+                               ("paxos-3", PaxosTensorExhaustive(3), 16384, 1 << 21)):
+        prog = era.EraProgram(tm, tm.tensor_properties(), C, qcap, 1 << 12, False, True, 64, 4, dev)
+        out[label] = closed(prog, prog.plen)
+        del prog
+    lanes = warm_lane_program(TwoPhaseTensor(5), device="cuda")
+    out["2pc-5 lanes (32)"] = closed(lanes, lanes.plen)
+    del lanes
+    tm = TwoPhaseTensor(7)
+    prog = mesh.MeshProgram(tm, tm.tensor_properties(), 1024, 1 << 17, 1 << 14, MESH_N,
+                            mesh.quota_for(1024, tm.max_actions, MESH_N), True, 64, 1, dev)
+    out["2pc-7 mesh (8 shards)"] = closed(prog, prog.x)
+    torch.cuda.empty_cache()
     return out
 
 

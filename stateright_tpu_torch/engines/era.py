@@ -14,9 +14,9 @@ until the device-side gate and the fused loop's continuation stop it:
         BEGIN                          (step kernel: open the era, the gate)
         while the gate is open:        (`cond`, tpu_bfs.py:403)
             one BFS step               (`body`, tpu_bfs.py:428: K7, K1, K11,
-                                        K2, K1, K3, K2, K4, K9a, K7, and the
-                                        first-hit and coverage updates)
-            COMMIT                     (step kernel: commit, then the gate)
+                                        K2, K1, K3, K2, K4, K9a, K7)
+            COMMIT                     (step kernel: the first-hit and coverage
+                                        updates, the commit, then the gate)
         epilogue                       (epilogue kernel: discoveries, max depth,
                                         the next budget, the fusion lanes)
     tail                               (K9b: the slab's bottom-k into the params)
@@ -52,7 +52,6 @@ import numpy as np
 import torch
 
 from ..fingerprint import hash_lanes
-from ..obs.coverage import DEPTH_CAP
 from ..obs.sample import DEVICE_STEP_CAP, slab_capacity, slab_entries, slab_high_water
 from ..ops import era as eo
 from ..ops import frontier as fr
@@ -126,10 +125,12 @@ class EraProgram:
         self.table = vs.empty_table(tcap, dev) if table is None else table
         self.epoch = torch.full((1,), self.table.epoch + 1, dtype=torch.int64, device=dev)
         self.slab = sl.empty_slab(scap, dev) if sample_k else None
-        self.hseen = torch.zeros((P, C), dtype=torch.bool, device=dev)
-        self.facc1, self.facc2, self.faccd = (
-            torch.zeros((P, C), dtype=torch.int64, device=dev) for _ in range(3)
-        )
+        self.first = eo.FirstHits.zeros(P, C, dev)
+        # The kernels' scratch words (tickets, accumulators), each left as
+        # it was found by every launch, so the era graph replays as it is.
+        self.step_scratch = eo.step_scratch(1, P, A, dev)
+        self.epilogue_scratch = eo.epilogue_scratch(1, P, C, dev)
+        self.capture_scratch = sl.capture_scratch(1, self.rcap, dev) if sample_k else None
         self.xp = TorchXP(dev)
         self.expand = build_expand_lean(tm, self.props, C, self.xp)
         # K11c under symmetry (`canon_fn.route`), else None.
@@ -141,9 +142,6 @@ class EraProgram:
         self._take = self.state[x + eo.X_TAKE]
         self._append_at = self.state[x + eo.X_TAIL:x + eo.X_TAIL + 1]
         self._thresh = self.state[self.s_base:self.s_base + 2] if sample_k else None
-        self._dhist = (
-            self.state[self.cov_base + A + P + 1:self.cov_base + ncov] if cov else None
-        )
         self._ring_depth = self.ring[S + 1]
         self._graph: Optional[gr.Graph] = None
         self.graph_captures = 0
@@ -228,7 +226,8 @@ class EraProgram:
             self.table, dh1, dh2, dp1, dp2, dvalid, epoch=self.epoch if self._on_card else None
         )
         if self.slab is not None:
-            sl.capture(self.slab, c_new, dh1, dh2, ddepth, dflat // C, self._thresh, DEVICE_STEP_CAP)
+            sl.capture(self.slab, c_new, dh1, dh2, ddepth, dflat // C, self._thresh, DEVICE_STEP_CAP,
+                       self.capture_scratch)
         # The inserted prefix is enqueued even on an overflow step: inserts
         # are idempotent and enqueue == inserted keeps every state exactly
         # once in the ring.
@@ -237,25 +236,20 @@ class EraProgram:
             torch.cat([cl.index_select(1, dids), ex.ebits.index_select(0, src)[None], ddepth[None]]),
             c_new,
         )
-        hs = pa = None
-        if P:
-            hits = torch.stack(ex.prop_hits)
-            first = hits & ~self.hseen
-            self.facc1.copy_(torch.where(first, row_h1, self.facc1))
-            self.facc2.copy_(torch.where(first, row_h2, self.facc2))
-            self.faccd.copy_(torch.where(first, depth, self.faccd))
-            self.hseen |= hits
-            hs = hits.sum(1)
-        if self.cov:
-            pa = ex.valid.view(A, C).sum(1)
-            self._dhist.index_add_(0, ddepth.clamp(max=DEPTH_CAP - 1), c_new.to(torch.int64))
-        step = eo.StepOperands(n_val, n_d, unresolved, c_new, ex.generated, hs, pa)
-        eo.era_step(eo.COMMIT, self.cfg, self.state, step, self.slab, self.epoch, handle)
+        # COMMIT folds the first hits, the coverage counts and the depth
+        # histogram in (ops/era.py StepOperands).
+        step = eo.StepOperands(
+            n_val, n_d, unresolved, c_new, ex.generated, ex.prop_hits if P else None,
+            ex.valid if self.cov else None, ddepth if self.cov else None,
+            (row_h1, row_h2, depth) if P else None, self.first if P else None,
+        )
+        eo.era_step(eo.COMMIT, self.cfg, self.state, step, self.slab, self.epoch, handle,
+                    self.step_scratch)
 
     def _epilogue(self, handle: int = 0) -> None:
         eo.era_epilogue(
-            self.cfg, self.state, self.hseen, self.facc1, self.facc2, self.faccd,
-            self._ring_depth, None if self.slab is None else self.slab.counts, handle,
+            self.cfg, self.state, *self.first, self._ring_depth,
+            None if self.slab is None else self.slab.counts, handle, self.epilogue_scratch,
         )
 
     def _tail(self) -> None:

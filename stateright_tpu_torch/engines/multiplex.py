@@ -25,8 +25,8 @@ X_LEN] on the card (ops/era.py), and a batch is (K14f):
     7. compaction to rcap per lane                  K2, lane form
     8. insert into each lane's table                K4, lane form
     9. ring append per lane                         K2 + K7, lane forms
-   10. first hits and the depth histogram           (torch)
-   11. COMMIT and the gate of every lane            K8f step kernel, lane axis
+   10. COMMIT and the gate of every lane, with the   K8f step kernel, lane axis
+       first hits and the depth histogram
   epilogue   each lane's discoveries and max depth  K8f epilogue, lane axis
 
 The take, head and tail of a lane are words of its row, so nothing of a
@@ -86,7 +86,7 @@ from .. import kernels
 from ..checker import Checker, CheckerBuilder
 from ..core import Expectation
 from ..fingerprint import combine64, hash_lanes
-from ..obs.coverage import DEPTH_CAP, Coverage
+from ..obs.coverage import Coverage
 from ..ops import era as eo
 from ..ops import frontier as fr
 from ..ops import visited_set as vs
@@ -171,20 +171,15 @@ class LaneProgram:
         self.init_slab = torch.zeros((S, icap), dtype=torch.int64, device=dev)
         self.n_init = torch.zeros(N, dtype=torch.int64, device=dev)
         self.dl_rows = torch.zeros(N * C, dtype=torch.int64, device=dev)
-        self.hseen = torch.zeros((P, N * C), dtype=torch.bool, device=dev)
-        self.facc1, self.facc2, self.faccd = (
-            torch.zeros((P, N * C), dtype=torch.int64, device=dev) for _ in range(3)
-        )
+        self.first = eo.FirstHits.zeros(P, N * C, dev)
         self.lane_c = torch.arange(N, device=dev) * C
         self.lane_v = (torch.arange(N, device=dev) * self.vcap)[:, None]
         self.arange_c = torch.arange(C, device=dev)
-        if cov:
-            # Each lane's depth histogram: the coverage tail of its row.
-            dbase = self.cov_base + A + P + 1
-            self.lane_dhist = (torch.arange(N, device=dev) * self.state.shape[1] + dbase)[:, None]
-        # The insert's stamp epoch and the lane gate's ticket, on the card.
+        # The insert's stamp epoch and the era kernels' scratch (the lanes'
+        # accumulators and tickets), on the card.
         self.epoch = torch.ones(1, dtype=torch.int64, device=dev) if self._on_card else None
-        self.ticket = torch.zeros(1, dtype=torch.int64, device=dev) if self._on_card else None
+        self.step_scratch = eo.step_scratch(N, P, A, dev) if self._on_card else None
+        self.epilogue_scratch = eo.epilogue_scratch(N, P, C, dev) if self._on_card else None
         self.lock = threading.Lock()
         self._graph: Optional[gr.Graph] = None
         # Builds of the batch program: on the card its graph captures; on
@@ -216,7 +211,7 @@ class LaneProgram:
         st[:, eo.P_UNIQUE] = unique
         st[:, eo.P_ERR] = unres
         eo.era_step(eo.START, self.cfg, st)
-        eo.era_step(eo.BEGIN, self.cfg, st, handle=handle, ticket=self.ticket)
+        eo.era_step(eo.BEGIN, self.cfg, st, handle=handle, scratch=self.step_scratch)
 
     def _step(self, handle: int = 0) -> None:
         """One step of every lane (tpu_bfs.py:428 body under vmap) at the
@@ -254,28 +249,20 @@ class LaneProgram:
             torch.cat([cl.index_select(1, gd), ex.ebits.index_select(0, src)[None], ddepth[None]]),
             c_new,
         )
-        hs = pa = None
-        if P:
-            hits = torch.stack(ex.prop_hits)
-            first = hits & ~self.hseen
-            self.facc1.copy_(torch.where(first, row_h1, self.facc1))
-            self.facc2.copy_(torch.where(first, row_h2, self.facc2))
-            self.faccd.copy_(torch.where(first, depth, self.faccd))
-            self.hseen |= hits
-            hs = hits.view(P, N, C).sum(2)
-        if self.cov:
-            pa = valid.sum(2).T.contiguous()
-            # Inserts count always, an overflowing lane's step too.
-            st.view(-1).index_add_(
-                0, (self.lane_dhist + ddepth.view(N, rcap).clamp(max=DEPTH_CAP - 1)).view(-1),
-                c_new.view(-1).to(torch.int64),
-            )
-        step = eo.StepOperands(n_val, n_d, unresolved, c_new, valid.sum((0, 2)), hs, pa)
-        eo.era_step(eo.COMMIT, self.cfg, st, step, epoch=self.epoch, handle=handle, ticket=self.ticket)
+        # COMMIT folds the first hits, the coverage counts, each lane's
+        # generated count and the depth histogram (an overflowing lane's
+        # inserts too) in (ops/era.py StepOperands).
+        step = eo.StepOperands(
+            n_val, n_d, unresolved, c_new, None, ex.prop_hits if P else None, ex.valid,
+            ddepth if self.cov else None, (row_h1, row_h2, depth) if P else None,
+            self.first if P else None,
+        )
+        eo.era_step(eo.COMMIT, self.cfg, st, step, epoch=self.epoch, handle=handle,
+                    scratch=self.step_scratch)
 
     def _epilogue(self) -> None:
-        eo.era_epilogue(self.cfg, self.state, self.hseen, self.facc1, self.facc2, self.faccd,
-                        self.rings[:, self.S + 1])
+        eo.era_epilogue(self.cfg, self.state, *self.first, self.rings[:, self.S + 1],
+                        scratch=self.epilogue_scratch)
 
     # -- a batch -------------------------------------------------------------
 

@@ -140,10 +140,17 @@ LOOKUP_PARENT, LOOKUP_PARENT_LANES = _with_lanes(
     "lookup_parent", "lookup_parent.cu", "srt_lookup_parent", _LOOKUP_ARGS,
     "stateright_tpu/ops/visited_set.py:411",
 )
+# K9a, solo and (the twin, same source and symbol) over every shard's
+# slab in one launch.
+_CAPTURE_ARGS = [_I64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _I64, _P, _P, _P, _P, _I64, _I64,
+                 _P, _I64, _P, _I64]
 SAMPLE_CAPTURE = Kernel(
-    "sample_capture", "sample_capture.cu", "srt_sample_capture",
-    [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, _P, _I64, _P, _I64],
+    "sample_capture", "sample_capture.cu", "srt_sample_capture", _CAPTURE_ARGS,
     "stateright_tpu/engines/tpu_bfs.py:519",
+)
+SAMPLE_CAPTURE_LANES = Kernel(
+    "sample_capture_lanes", "sample_capture.cu", "srt_sample_capture", _CAPTURE_ARGS,
+    "stateright_tpu/parallel/mesh.py:412",
 )
 SLAB_BOTTOMK = Kernel(
     "slab_bottomk", "slab_bottomk.cu", "srt_slab_bottomk", _BOTTOMK_ARGS,
@@ -159,12 +166,13 @@ SLAB_BOTTOMK_LANES = Kernel(
 # with a lane axis, K14f's (engines/multiplex.py), counted on the twins.
 ERA_STEP, ERA_STEP_LANES = _with_lanes(
     "era_step", "era_step.cu", "srt_era_step",
-    [_I32, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U64],
+    [_I32, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+     _P, _P, _P, _P, _P, _P, _P, _U64],
     "stateright_tpu/engines/tpu_bfs.py:403",
 )
 ERA_EPILOGUE, ERA_EPILOGUE_LANES = _with_lanes(
     "era_epilogue", "era_epilogue.cu", "srt_era_epilogue",
-    [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P, _U64],
+    [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P, _P, _U64],
     "stateright_tpu/engines/tpu_bfs.py:781",
 )
 
@@ -335,10 +343,10 @@ LANE_KERNELS = (
     RING_LANES, RING_APPEND_LANES, LOOKUP_PARENT_LANES, ERA_STEP_LANES, ERA_EPILOGUE_LANES,
 )
 # The sharded engine's path: the lane forms of the BFS kernels with the
-# shard axis, K9a per shard, K9b over every shard, K15a and K15f.
+# shard axis, K9a and K9b over every shard, K15a and K15f.
 MESH_KERNELS = (
     HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES, RING_LANES, RING_APPEND_LANES,
-    SAMPLE_CAPTURE, SLAB_BOTTOMK_LANES, LOOKUP_PARENT_LANES, EXCHANGE, MESH_ERA,
+    SAMPLE_CAPTURE_LANES, SLAB_BOTTOMK_LANES, LOOKUP_PARENT_LANES, EXCHANGE, MESH_ERA,
 )
 # The stage profiler's paths: each stage program's kernels and the loop's.
 BFS_STAGE_KERNELS = (
@@ -367,7 +375,8 @@ KERNELS = tuple(k for k in BFS_KERNELS if k is not RING_APPEND) + (
     WALK_RECORD, WALK_STEP, WALK_CAPTURE, WALK_SLAB, WALK_ERA, STAGE_LOOP, STAGE_WALK, EXCHANGE, MESH_ERA,
     LANE_AGREE, RING_DRAIN,
 ) + EXPAND_KERNELS + CANON_KERNELS
-ENTRIES = (KERNELS + (RING_APPEND, WALK_PROLOGUE, STAGE_LANES, RING_REFILL, SLAB_BOTTOMK_LANES)
+ENTRIES = (KERNELS + (RING_APPEND, WALK_PROLOGUE, STAGE_LANES, RING_REFILL, SLAB_BOTTOMK_LANES,
+                      SAMPLE_CAPTURE_LANES)
            + LANE_KERNELS[1:] + WALK_KERNELS)
 
 _lock = threading.Lock()
@@ -483,8 +492,8 @@ APPEND_TILE = 4096  # mask columns a block of K7's append (csrc/ring.cu kTile)
 
 
 def capture_scratch(n: int, device) -> torch.Tensor:
-    """The per-tile counts that K9a and K13c pass between their two
-    launches over n candidates, and the occupancy they start from."""
+    """The per-tile counts that K13c passes between its two launches over
+    n candidates, and the occupancy it starts from."""
     return torch.empty(-(-n // CAPTURE_TILE) + 1, dtype=torch.int64, device=device)
 
 

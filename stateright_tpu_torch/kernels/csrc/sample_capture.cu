@@ -1,4 +1,6 @@
-// K9a: bottom-k sample capture, one launch after the visited-set insert.
+// K9a: bottom-k sample capture, one launch after the visited-set insert;
+// with a lane axis, every shard's capture of the sharded step in the
+// same launch (stateright_tpu/parallel/mesh.py:398-431, per shard).
 //
 // Replaces the capture of stateright_tpu/engines/tpu_bfs.py:506-549
 // (`below` and `_capture`, under the `lax.cond` at :547). It fuses:
@@ -24,32 +26,44 @@
 //
 // Bound on the card: bytes. is_new is read once (1 byte a candidate),
 // h1 and h2 for each new candidate, and each captured row reads depth and
-// action and writes 4 x 8 bytes. Design: the multi-block scan and append
-// of capture_scan.cuh, shared with K13c.
+// action and writes 4 x 8 bytes. Design: capture_scan.cuh's one launch
+// over (tile, lane).
 
 #include "capture_scan.cuh"
 
-// The slab lanes hold scap + 1 int64 rows; counts is int64[2]; thresh is
-// int64[2] on the card; scratch holds at least ceil(n / 1024) + 1 int64.
-extern "C" int srt_sample_capture(const void* is_new, const void* h1,
-                                  const void* h2, const void* depth,
-                                  const void* act, long long n,
-                                  const void* thresh,
-                                  void* sfp1, void* sfp2, void* sdep,
-                                  void* sact, long long scap, void* counts,
-                                  long long step_cap, void* scratch,
+// lanes: slabs served (1: the solo step). is_new, h1, h2, depth: lane l's
+// n candidates at + l * in_stride; act at + l * act_stride (0: one action
+// lane for every slab). thresh: int64 [2] a lane at + l * thresh_stride
+// (0: one threshold) on the card. sfp1..sact: lane 0's slab lanes (scap +
+// 1 int64 rows), lane l's at + l * slab_stride. counts: int64 [lanes, 2].
+// scratch: lanes * (2 + ceil(n / 1024) * 65) zeroed int32, 8-byte
+// aligned (ops/slab.py capture_scratch), left as found.
+extern "C" int srt_sample_capture(long long lanes, const void* is_new,
+                                  const void* h1, const void* h2, const void* depth,
+                                  const void* act, long long n, long long in_stride,
+                                  long long act_stride, const void* thresh,
+                                  long long thresh_stride, void* sfp1, void* sfp2, void* sdep,
+                                  void* sact, long long slab_stride, long long scap,
+                                  void* counts, long long step_cap, void* scratch,
                                   long long scratch_len, void* stream) {
-  capture::Lanes lanes{};
   const void* src[4] = {h1, h2, depth, act};
   void* dst[4] = {sfp1, sfp2, sdep, sact};
-  for (int l = 0; l < 4; ++l) {
-    lanes.src[l] = (const long long*)src[l];
-    lanes.dst[l] = (long long*)dst[l];
+  capture::One in{};
+  in.sel = (const bool*)is_new;
+  in.h1 = (const long long*)h1;
+  in.h2 = (const long long*)h2;
+  in.n = n;
+  in.in_stride = in_stride;
+  in.thresh = (const long long*)thresh;
+  in.thresh_stride = thresh_stride;
+  for (int k = 0; k < 4; ++k) {
+    in.src[k] = (const long long*)src[k];
+    in.src_stride[k] = k == 3 ? act_stride : in_stride;
+    in.dst[k] = (long long*)dst[k];
   }
-  lanes.n = 4;
-  long long* c = (long long*)counts;
-  return capture::launch((const bool*)is_new, (const long long*)h1,
-                         (const long long*)h2, n, 0u, 0u,
-                         (const long long*)thresh, lanes, scap, c, c + 1, step_cap, (long long*)scratch,
-                         scratch_len, (cudaStream_t)stream);
+  in.dst_stride = slab_stride;
+  in.scap = scap;
+  in.step_cap = step_cap;
+  in.counts = (long long*)counts;
+  return capture::launch_one(in, lanes, (int*)scratch, scratch_len, (cudaStream_t)stream);
 }

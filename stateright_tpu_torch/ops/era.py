@@ -1,11 +1,12 @@
 """The BFS era's bookkeeping on the card (K8f): the state-vector layout,
-the step kernel (gate and commit) and the epilogue kernel, each with its
-plain torch version.
+the step kernel (gate, the step's fold and commit) and the epilogue
+kernel, each with its plain torch version.
 
 The port's counterpart of the scalar parts of
 `stateright_tpu/engines/tpu_bfs.py:361 _build_loop.loop`: the packed
 params layout (:106-126, :188 `params_len`, :947-1006), the `cond` gate
-(:403-426), the commit at the end of `body` (:585-685), `run_era`'s
+(:403-426), the step's coverage counts and first-hit lanes and the
+commit at the end of `body` (:585-685), `run_era`'s
 epilogue (:781-853) and the fused outer loop's continuation (:896-922).
 The era program (engines/era.py) keeps one int64 state vector on the
 card: the JAX params, word for word (uint32 values), then the port's
@@ -24,7 +25,7 @@ solo era, the one-lane case.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -128,21 +129,67 @@ class EraConfig:
         return ctypes.addressof(self._array)
 
 
+class FirstHits(NamedTuple):
+    """The era's first-hit lanes, each [P, N * chunk] (lane l's positions
+    at columns l * chunk ..): hseen (bool) and, at each property's first
+    hit of the era at each chunk position, the row's hash halves and depth
+    (int64). COMMIT sets them, the epilogue reads and zeroes them."""
+
+    hseen: torch.Tensor
+    facc1: torch.Tensor
+    facc2: torch.Tensor
+    faccd: torch.Tensor
+
+    @staticmethod
+    def zeros(P: int, width: int, device) -> "FirstHits":
+        hseen = torch.zeros((P, width), dtype=torch.bool, device=device)
+        return FirstHits(hseen, *(torch.zeros((P, width), dtype=torch.int64, device=device)
+                                  for _ in range(3)))
+
+
 class StepOperands(NamedTuple):
-    """What one step hands its commit: the valid and distinct candidate
-    counts (0-d), the insert's unresolved and new masks, the generated
-    count (0-d), each property's hit rows [P] and each action's valid
-    candidates [A] (None without properties / coverage). With N lanes:
-    n_val, n_d and generated [N], the masks [N, m], hs [P, N], pa
-    [N, A]."""
+    """What one step hands its COMMIT, which folds it (N lanes of chunk
+    C; the solo step is N = 1 with 0-d counts): the valid and distinct
+    candidate counts n_val, n_d [N]; the insert's unresolved and new masks
+    [N, m]; the generated count [N], or None to count the valid mask (the
+    lanes); the P property hit masks, each [N * C]; the valid mask [A * N
+    * C] (action-major over the lanes; None without coverage when
+    `generated` is given); each distinct candidate's depth [N * m] (the
+    depth histogram; None without coverage); the popped rows' (h1, h2,
+    depth), each [N * C], and the era's first-hit lanes (None without
+    properties)."""
 
     n_val: torch.Tensor
     n_d: torch.Tensor
     unresolved: torch.Tensor
     c_new: torch.Tensor
-    generated: torch.Tensor
-    hs: Optional[torch.Tensor]
-    pa: Optional[torch.Tensor]
+    generated: Optional[torch.Tensor]
+    hits: Optional[Sequence[torch.Tensor]]
+    valid: Optional[torch.Tensor]
+    ddepth: Optional[torch.Tensor]
+    rows: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    first: Optional[FirstHits]
+
+
+def step_scratch(lanes: int, P: int, A: int, device) -> torch.Tensor:
+    """The step kernel's scratch (era_step.cu): a lane's accumulators
+    (unresolved, new, the valid count, its ticket, hs[P], pa[A]) and the
+    last ticket, zero; every launch leaves it zero."""
+    return torch.zeros(lanes * (4 + P + A) + 1, dtype=torch.int64, device=device)
+
+
+EPILOGUE_TILE = 256  # chunk positions a block of era_epilogue.cu
+
+
+def epilogue_scratch(lanes: int, P: int, chunk: int, device) -> torch.Tensor:
+    """The epilogue kernel's scratch (era_epilogue.cu): each (lane,
+    property) minimum, all bits set; each lane's ticket, zero; each tile's
+    minima's fingerprints. Every launch leaves the minima and tickets as
+    it found them."""
+    tiles = -(-chunk // EPILOGUE_TILE)
+    t = torch.zeros(lanes * P + lanes + lanes * tiles * P * 2, dtype=torch.int64, device=device)
+    t[:lanes * P] = -1
+    return t
 
 
 def _fin_hit(s, rec: int) -> bool:
@@ -235,6 +282,36 @@ def _step_row(mode: int, c: EraConfig, s: list, step, l: int, occupied: int, sla
         raise ValueError(f"unknown era step mode {mode}")
 
 
+def _fold_plain(c: EraConfig, rows: torch.Tensor, step: StepOperands):
+    """COMMIT's fold of the step's operands (tpu_bfs.py:621-681), in
+    place: the first-hit lanes and the depth histogram (every step, an
+    overflowing one too); returns the per-lane hit counts hs [P][N], the
+    per-lane action counts pa [N][A] (None without coverage) and the
+    generated counts [N]."""
+    N, C, P, A = rows.shape[0], c.chunk, c.P, c.A
+    hs = []
+    if P:
+        hits = torch.stack([h.reshape(-1) for h in step.hits])
+        f = step.first
+        first = hits & ~f.hseen
+        for acc, src in zip(f[1:], step.rows):
+            acc.copy_(torch.where(first, src.reshape(-1), acc))
+        f.hseen.logical_or_(hits)
+        hs = hits.view(P, N, C).sum(2).tolist()
+    valid = None if step.valid is None else step.valid.reshape(A, N, C)
+    pa = None
+    if c.cov_base >= 0:
+        pa = valid.sum(2).T.tolist()
+        dcap = c.n_cov - A - P - 1
+        at = torch.arange(N, device=rows.device)[:, None] * rows.shape[1] + (c.cov_base + A + P + 1)
+        rows.view(-1).index_add_(
+            0, (at + step.ddepth.reshape(N, -1).clamp(max=dcap - 1)).view(-1),
+            step.c_new.reshape(-1).to(torch.int64),
+        )
+    gen = step.generated.reshape(N) if step.generated is not None else valid.sum((0, 2))
+    return hs, pa, gen.tolist()
+
+
 def era_step_plain(mode: int, c: EraConfig, state, step: Optional[StepOperands] = None,
                    slab=None, epoch=None) -> None:
     rows = state.view(-1, state.shape[-1])
@@ -242,12 +319,11 @@ def era_step_plain(mode: int, c: EraConfig, state, step: Optional[StepOperands] 
     occupied = int(slab.counts[0]) if slab is not None else 0
     ops = None
     if mode == COMMIT:
+        hs, pa, gen = _fold_plain(c, rows, step)
         ops = (
             step.n_val.reshape(N).tolist(), step.n_d.reshape(N).tolist(),
             step.unresolved.reshape(N, -1).sum(1).tolist(), step.c_new.reshape(N, -1).sum(1).tolist(),
-            step.generated.reshape(N).tolist(),
-            step.hs.reshape(-1, N).tolist() if step.hs is not None else [],
-            step.pa.reshape(N, -1).tolist() if step.pa is not None else None,
+            gen, hs, pa,
         )
     vals = rows.tolist()
     was_open = [s[c.x + X_OPEN] for s in vals]
@@ -259,39 +335,51 @@ def era_step_plain(mode: int, c: EraConfig, state, step: Optional[StepOperands] 
 
 
 def era_step(mode: int, c: EraConfig, state, step: Optional[StepOperands] = None,
-             slab=None, epoch=None, handle: int = 0, ticket=None) -> None:
+             slab=None, epoch=None, handle: int = 0, scratch=None) -> None:
     """One launch of K8f's step kernel on the era's state vector (int64,
     the JAX params then the X_* words), in place. START opens a dispatch
     (zeroes its outputs and the slab, clamps fuse_lim), BEGIN opens an
-    era (then the gate), COMMIT commits `step` if the gate was open
-    (raising `epoch`, the visited insert's) and runs the gate for the
-    next step: X_OPEN, X_TAKE (0 when closed) and X_TAIL. `slab` (the
-    sample slab, or None) is zeroed at START and its occupancy gates the
-    era. `handle` (a CUDA graph's conditional handle, or 0) receives the
-    gate. With a state [N, L] (N lanes, K14f) each lane's row is gated
-    and committed alone, `handle` receives the OR of the lanes' gates,
-    `epoch` rises once a step, and `ticket` (one zeroed int64 on the
-    card) carries the kernel's last-block ticket; no slab. On CPU
-    tensors the plain version runs."""
+    era (then the gate), COMMIT folds `step` (the first-hit lanes, the
+    depth histogram, the counts; see StepOperands), commits it if the
+    gate was open (raising `epoch`, the visited insert's) and runs the
+    gate for the next step: X_OPEN, X_TAKE (0 when closed) and X_TAIL.
+    `slab` (the sample slab, or None) is zeroed at START and its
+    occupancy gates the era. `handle` (a CUDA graph's conditional handle,
+    or 0) receives the gate. With a state [N, L] (N lanes, K14f) each
+    lane's row is gated and committed alone, `handle` receives the OR of
+    the lanes' gates and `epoch` rises once a step; no slab. `scratch`
+    (`step_scratch`, zero; COMMIT and the lanes' BEGIN) carries the
+    kernel's accumulators and tickets: a program passes its own, a call
+    without one gets a fresh one. On CPU tensors the plain version
+    runs."""
     if not kernels.on_card(state):
         return era_step_plain(mode, c, state, step, slab, epoch)
     p = kernels.ptr
     lanes = state.shape[0] if state.dim() == 2 else 1
-    if lanes > 1 and ticket is None and mode != START:
-        raise ValueError("the lane era step needs its ticket word")
+    if scratch is None and (mode == COMMIT or (lanes > 1 and mode == BEGIN)):
+        scratch = step_scratch(lanes, c.P, c.A, state.device)
 
     def opt(t):
         return None if t is None else p(t)
 
+    hits = None
     if step is None:
-        ops = [None, None, None, None, 0, None, None, None]
+        ops = [None, None, None, None, 0, None, None]
+        rows = first = [None] * 4
     else:
-        ops = [p(step.n_val), p(step.n_d), p(step.unresolved), p(step.c_new),
-               step.c_new.shape[-1], p(step.generated), opt(step.hs), opt(step.pa)]
+        if c.P:
+            if step.hits is None or len(step.hits) != c.P or step.first is None or step.rows is None:
+                raise ValueError("a step with properties needs its hits, rows and first-hit lanes")
+            hits = (ctypes.c_void_p * c.P)(*(p(h) for h in step.hits))
+        ops = [p(step.n_val), p(step.n_d), p(step.unresolved), p(step.c_new), step.c_new.shape[-1],
+               opt(step.ddepth), opt(step.generated)]
+        rows = [opt(step.valid)] + ([None] * 3 if step.rows is None else [p(t) for t in step.rows])
+        first = [None] * 4 if step.first is None else [p(t) for t in step.first]
     slab_lanes = [None] * 5 if slab is None else [p(t) for t in slab]
     kernel = kernels.ERA_STEP if state.dim() == 1 else kernels.ERA_STEP_LANES
-    kernel.launch(mode, c.ptr, p(state), lanes, state.shape[-1], *ops, *slab_lanes, opt(epoch),
-                  opt(ticket), int(handle))
+    kernel.launch(mode, c.ptr, p(state), lanes, state.shape[-1], *ops,
+                  None if hits is None else ctypes.addressof(hits), *rows, *first,
+                  *slab_lanes, opt(epoch), opt(scratch), int(handle))
 
 
 def _epilogue_row(c: EraConfig, s: list, found, fp1, fp2, maxd_at, occupied: int) -> None:
@@ -368,7 +456,7 @@ def era_epilogue_plain(c: EraConfig, state, hseen, facc1, facc2, faccd, ring_dep
 
 
 def era_epilogue(c: EraConfig, state, hseen, facc1, facc2, faccd, ring_depth,
-                 slab_counts=None, handle: int = 0) -> None:
+                 slab_counts=None, handle: int = 0, scratch=None) -> None:
     """One launch of K8f's epilogue kernel at an era's end, in place:
     each property's discovery (the shallowest first hit in the era's
     first-hit lanes hseen / facc1 / facc2 / faccd [P, chunk], the lowest
@@ -379,17 +467,21 @@ def era_epilogue(c: EraConfig, state, hseen, facc1, facc2, faccd, ring_depth,
     are zeroed for the next era. With a state [N, L] (N lanes, K14f) the
     first-hit lanes are [P, N * chunk] (lane l's at columns l * chunk ..)
     and `ring_depth` is [N, qcap + 1] (each lane's ring depth lane, a
-    strided view); no slab, no fusion tail, no handle. On CPU tensors the
-    plain version runs."""
+    strided view); no slab, no fusion tail, no handle. `scratch`
+    (`epilogue_scratch`) carries the kernel's minima and tickets: a
+    program passes its own, a call without one gets a fresh one. On CPU
+    tensors the plain version runs."""
     if not kernels.on_card(state, ring_depth):
         return era_epilogue_plain(c, state, hseen, facc1, facc2, faccd, ring_depth, slab_counts)
     p = kernels.ptr
     lanes = state.shape[0] if state.dim() == 2 else 1
     if ring_depth.stride(-1) != 1:
         raise ValueError("the ring's depth lane must be contiguous")
+    if scratch is None:
+        scratch = epilogue_scratch(lanes, c.P, c.chunk, state.device)
     kernel = kernels.ERA_EPILOGUE if state.dim() == 1 else kernels.ERA_EPILOGUE_LANES
     kernel.launch(
         c.ptr, p(state), lanes, state.shape[-1], p(hseen), p(facc1), p(facc2), p(faccd),
         ring_depth.data_ptr(), ring_depth.stride(0) if ring_depth.dim() == 2 else 0,
-        None if slab_counts is None else p(slab_counts), int(handle),
+        None if slab_counts is None else p(slab_counts), p(scratch), int(handle),
     )

@@ -10,8 +10,9 @@ loop captures into it after every insert, ends the era once `occupied`
 passes the sampler's high-water mark, and drains the sk2 rows with the
 smallest fp1 into `obs.sample.SpaceSampler.drain_slab`.
 
-`capture` and `bottom_k` run their kernels (kernels/csrc) on CUDA
-tensors and their plain torch versions on CPU tensors.
+`capture` and `bottom_k`, and their forms over every shard's slab
+(`capture_lanes`, `bottom_k_lanes`), run their kernels (kernels/csrc) on
+CUDA tensors and their plain torch versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -70,24 +71,85 @@ def capture_plain(slab: Slab, is_new, h1, h2, depth, action, thresh, step_cap: i
     slab.counts[1] += n_c - fit
 
 
-def capture(slab: Slab, is_new, h1, h2, depth, action, thresh, step_cap: int) -> None:
+CAPTURE_TILE = 1024  # candidates a block of K9a (csrc/capture_scan.cuh kTile)
+CAPTURE_WORDS = CAPTURE_TILE // 32  # a tile's capture bits, 32 candidates a word
+
+
+def _capture_ints(lanes: int, n: int) -> int:
+    return lanes * (2 + -(-n // CAPTURE_TILE) * (1 + 2 * CAPTURE_WORDS))
+
+
+def capture_scratch(lanes: int, n: int, device) -> torch.Tensor:
+    """K9a's scratch for `lanes` slabs of n candidates (int32, zero): each
+    lane's ticket, each tile's count, capture bits and words' first ranks.
+    Every launch leaves it as it found it, so a program keeps one for all
+    its steps."""
+    return torch.zeros(_capture_ints(lanes, n), dtype=torch.int32, device=device)
+
+
+def _capture_launch(kernel, lanes: int, dst, slab_stride: int, counts, is_new, h1, h2, depth,
+                    action, act_stride: int, thresh, thresh_stride: int, step_cap: int,
+                    scratch) -> None:
+    n = is_new.shape[-1]
+    if is_new.dtype != torch.bool or not thresh.is_contiguous() or thresh.shape[-1] != 2:
+        raise ValueError("capture takes a bool is_new mask and contiguous [2] thresholds")
+    if scratch is None:
+        scratch = capture_scratch(lanes, n, is_new.device)
+    if scratch.dtype != torch.int32 or scratch.numel() < _capture_ints(lanes, n):
+        raise ValueError("the capture scratch is too small")
+    p = kernels.ptr
+    kernel.launch(
+        lanes, p(is_new), p(h1), p(h2), p(depth), p(action), n, n, act_stride, p(thresh),
+        thresh_stride, *(t.data_ptr() for t in dst), slab_stride, dst[0].shape[-1] - 1, p(counts),
+        step_cap, p(scratch), scratch.numel(),
+    )
+
+
+def capture(slab: Slab, is_new, h1, h2, depth, action, thresh, step_cap: int,
+            scratch=None) -> None:
     """Append the new inserts below the threshold thresh = (t1, t2) to the
     slab, in candidate order, at most `step_cap` of them (the rest count
     as dropped); updates the slab and its counts in place. is_new bool
     [n]; h1, h2, depth, action int64 [n]; thresh int64 [2] on the same
     device, read there (the era's state vector holds it, so a captured
-    step reads the threshold of each era it runs in)."""
+    step reads the threshold of each era it runs in). `scratch`
+    (`capture_scratch(1, n)`): a program passes its own, a call without
+    one gets a fresh one."""
     if not kernels.on_card(slab.fp1, is_new, h1, h2, depth, action, thresh):
         return capture_plain(slab, is_new, h1, h2, depth, action, thresh, step_cap)
-    if is_new.dtype != torch.bool or thresh.numel() != 2 or not thresh.is_contiguous():
-        raise ValueError("capture takes a bool is_new mask and a contiguous [2] threshold")
+    if thresh.numel() != 2:
+        raise ValueError("capture takes one [2] threshold")
     args = [t.contiguous() for t in (is_new, h1, h2, depth, action)]
-    scratch = kernels.capture_scratch(is_new.shape[0], is_new.device)
-    kernels.SAMPLE_CAPTURE.launch(
-        *(kernels.ptr(t) for t in args), is_new.shape[0], kernels.ptr(thresh),
-        *(kernels.ptr(t) for t in slab[:4]), slab.capacity,
-        kernels.ptr(slab.counts), step_cap, kernels.ptr(scratch), scratch.shape[0],
-    )
+    _capture_launch(kernels.SAMPLE_CAPTURE, 1, slab[:4], 0, slab.counts, *args, 0, thresh, 0,
+                    step_cap, scratch)
+
+
+def capture_lanes_plain(slabs: torch.Tensor, counts: torch.Tensor, is_new, h1, h2, depth,
+                        action, thresh, step_cap: int) -> None:
+    N = slabs.shape[1]
+    for l in range(N):
+        capture_plain(Slab(*(slabs[k, l] for k in range(4)), counts[l]), is_new[l], h1[l], h2[l],
+                      depth[l], action if action.dim() == 1 else action[l],
+                      thresh if thresh.dim() == 1 else thresh[l], step_cap)
+
+
+def capture_lanes(slabs: torch.Tensor, counts: torch.Tensor, is_new, h1, h2, depth, action,
+                  thresh, step_cap: int, scratch=None) -> None:
+    """`capture` into every shard's slab in one launch (the sharded step's
+    capture, mesh.py:398-431 on each shard): slabs int64 [4, N, scap + 1]
+    (fp1, fp2, depth, action), counts int64 [N, 2]; is_new bool, h1, h2
+    and depth int64 [N, n]; action [N, n] or one [n] for every shard;
+    thresh [2] (one threshold) or [N, 2]. `scratch`:
+    `capture_scratch(N, n)`."""
+    if not kernels.on_card(slabs, counts, is_new, h1, h2, depth, action, thresh):
+        return capture_lanes_plain(slabs, counts, is_new, h1, h2, depth, action, thresh, step_cap)
+    N = slabs.shape[1]
+    if not slabs.is_contiguous() or counts.shape != (N, 2) or is_new.shape[0] != N:
+        raise ValueError("capture_lanes takes contiguous slabs [4, N, scap + 1] and counts [N, 2]")
+    args = [t.contiguous() for t in (is_new, h1, h2, depth, action)]
+    _capture_launch(kernels.SAMPLE_CAPTURE_LANES, N, tuple(slabs[:, 0]), slabs.shape[2], counts,
+                    *args, 0 if action.dim() == 1 else is_new.shape[1], thresh,
+                    0 if thresh.dim() == 1 else 2, step_cap, scratch)
 
 
 def bottom_k_lanes_plain(slabs: torch.Tensor, counts: torch.Tensor, k: int):

@@ -31,7 +31,7 @@ the state [NL, L] (one JAX params row a shard, ops/mesh_era.py).
                (W > 1: one all_to_all_single)
             8. owner-side fingerprints                 K1
             9. insert at R = N * quota rows per owner  K4, lane form
-           10. sample capture per shard               K9a
+           10. sample capture, every shard at once    K9a, lane form
            11. ring append per owner                   K2 + K7, lane forms
            12. first hits, depth histogram             (torch)
            13. COMMIT and the gate                     K15f COMMIT
@@ -195,6 +195,7 @@ class MeshProgram:
             self.slab = z((4, NL, self.scap + 1), dtype=torch.int64, device=dev)
             self.slab_counts = z((NL, 2), dtype=torch.int64, device=dev)
             self._no_action = z(R, dtype=torch.int64, device=dev)
+            self._capture_scratch = sl.capture_scratch(NL, R, dev)
         self.hseen = z((P, NL * C), dtype=torch.bool, device=dev)
         self.facc1, self.facc2, self.faccd = (
             z((P, NL * C), dtype=torch.int64, device=dev) for _ in range(3)
@@ -329,11 +330,9 @@ class MeshProgram:
         if on_card:
             self.epoch += 1  # the insert's stamp epoch rises after every call
         if self.slab is not None:
-            thresh = st[0, self.s_base:self.s_base + 2].contiguous()
-            for lane in range(NL):
-                slab = sl.Slab(*(self.slab[k, lane] for k in range(4)), self.slab_counts[lane])
-                sl.capture(slab, is_new[lane], rh1[lane], rh2[lane], rdepth[lane],
-                           self._no_action, thresh, R)
+            # Every shard's capture in one launch, under the shared threshold.
+            sl.capture_lanes(self.slab, self.slab_counts, is_new, rh1, rh2, rdepth, self._no_action,
+                             st[0, self.s_base:self.s_base + 2], R, self._capture_scratch)
         fr.ring_scatter_lanes(self.rings, st[:, x + me.X_TAIL].contiguous(),
                               recv[:S + 2].reshape(S + 2, NL * R), is_new)
         hs = pa = None

@@ -112,6 +112,35 @@ def test_sample_capture_kernel(dev):
         assert torch.equal(a.counts, b.counts)
 
 
+@pytest.mark.parametrize("N,n,step_cap", [(8, 12_629, 12_629), (8, 5_000, 512), (3, 1, 1)])
+def test_sample_capture_lanes_kernel(dev, N, n, step_cap):
+    """K9a over every shard's slab in one launch against the loop of the
+    plain capture over the shards: one shared threshold or one a shard,
+    an action lane shared or per shard, floods past step_cap, ties on the
+    threshold's high word, a shard with nothing new; the scratch's
+    tickets and tile counts are left zero."""
+    from stateright_tpu_torch.ops import slab as sl
+
+    rng = np.random.default_rng(n)
+    scap = 2 * n + 600
+    scratch = sl.capture_scratch(N, n, dev)
+    kept = N * (2 + -(-n // sl.CAPTURE_TILE))  # the tickets and tile counts
+    slabs = torch.from_numpy(_u32(rng, 4, N, scap + 1)).to(dev)
+    counts = torch.from_numpy(np.stack([rng.integers(0, 600, N), rng.integers(0, 5, N)], 1)).to(dev)
+    for t, shared in (((0xFFFFFFFF, 0xFFFFFFFF), True), ((0x01000000, 0x80000000), False), ((0, 0), True)):
+        new = torch.from_numpy(rng.random((N, n)) < 0.6).to(dev)
+        new[N - 1] = False
+        h = torch.from_numpy(_u32(rng, 4, N, n)).to(dev)
+        h[0, :, :40] = 0x01000000
+        thresh = torch.tensor(t, device=dev) if shared else torch.tensor([t] * N, device=dev)
+        act = h[3] if shared else h[3, 0]
+        a_slabs, a_counts = slabs.clone(), counts.clone()
+        sl.capture_lanes(slabs, counts, new, h[0], h[1], h[2], act, thresh, step_cap, scratch)
+        sl.capture_lanes_plain(a_slabs, a_counts, new, h[0], h[1], h[2], act, thresh, step_cap)
+        assert torch.equal(slabs[:, :, :scap], a_slabs[:, :, :scap]) and torch.equal(counts, a_counts)
+        assert not bool(scratch[:kept].any())
+
+
 def test_slab_bottomk_kernel(dev):
     from stateright_tpu_torch.ops import slab as sl
 
@@ -680,58 +709,118 @@ def test_simulation_graph_eras_match_cpu_eras(dev):
         assert counts[k.name] > 0, k.name
 
 
-def test_lane_era_kernels_match_plain_and_solo(dev):
-    """The lane-axis era kernels (K14f) against their plain versions on
-    random lane states, and at one lane against the solo kernels."""
+def _era_cfg(C, A, P, rcap, qcap=1 << 10, vcap=None, sampled=False, fuse=1):
     from stateright_tpu_torch.ops import era as eo
 
-    rng = np.random.default_rng(4)
-    N, C, A, P, qcap = 64, 32, 5, 3, 1 << 10
-    vcap, rcap = 60, 40
-    plen = eo.params_len(A, P, True, 0)
-    cfg = eo.EraConfig(chunk=C, qmask=qcap - 1, vcap=vcap, rcap=rcap, P=P, A=A, cov_base=eo.P_LEN + 2 * P,
-                       s_base=-1, s_high=0, s_take=C, f_base=-1, fuse=1, x=plen, regrow=2,
-                       budget_min=eo.BUDGET_MIN, n_cov=eo.cov_len(A, P), scap=0)
-    state = torch.from_numpy(rng.integers(0, 50, (N, plen + eo.X_LEN)))
-    state[:, eo.P_COUNT] = torch.from_numpy(rng.integers(0, 3, N))
-    state[:, eo.P_HIGH_WATER] = 40
+    plen = eo.params_len(A, P, True, 64 if sampled else 0, fuse)
+    return eo.EraConfig(
+        chunk=C, qmask=qcap - 1, vcap=vcap or 3 * rcap // 2, rcap=rcap, P=P, A=A,
+        cov_base=eo.P_LEN + 2 * P, s_base=eo.P_LEN + 2 * P + eo.cov_len(A, P) if sampled else -1,
+        s_high=300, s_take=max(1, 512 // A), f_base=eo.params_len(A, P, True, 64 if sampled else 0) if fuse > 1 else -1,
+        fuse=fuse, x=plen, regrow=2, budget_min=eo.BUDGET_MIN, n_cov=eo.cov_len(A, P), scap=600,
+    )
+
+
+def _era_state(rng, cfg, N, qcap=1 << 10):
+    from stateright_tpu_torch.ops import era as eo
+
+    state = torch.from_numpy(rng.integers(0, 50, (N, cfg.x + eo.X_LEN)))
+    state[:, eo.P_COUNT] = torch.from_numpy(rng.integers(0, 3 * cfg.chunk, N))
+    state[:, eo.P_HIGH_WATER] = qcap // 2
     state[:, eo.P_GROW_LIMIT] = 1000
     state[:, eo.P_MAX_STEPS] = torch.from_numpy(rng.integers(1, 4, N))
     state[:, eo.P_ERR] = torch.from_numpy((rng.random(N) < 0.1).astype(np.int64))
     state[:, eo.P_BUDGET_CAP] = 0
-    step = eo.StepOperands(
-        torch.from_numpy(rng.integers(0, 70, N)), torch.from_numpy(rng.integers(0, 45, N)),
-        torch.from_numpy(rng.random((N, rcap)) < 0.01), torch.from_numpy(rng.random((N, rcap)) < 0.3),
-        torch.from_numpy(rng.integers(0, 100, N)), torch.from_numpy(rng.integers(0, 3, (P, N))),
-        torch.from_numpy(rng.integers(0, 9, (N, A))),
-    )
-    hseen = torch.from_numpy(rng.random((P, N * C)) < 0.05)
-    facc = [torch.from_numpy(_u32(rng, P, N * C)) for _ in range(3)]
+    return state
+
+
+def _same_first(a, b):
+    return all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("C,A,P,rcap", [(32, 5, 3, 40), (151, 27, 3, 3456), (64, 37, 2, 4739)])
+def test_lane_era_kernels_match_plain_and_solo(dev, C, A, P, rcap):
+    """The lane-axis era kernels (K14f) against their plain versions on
+    random lane states (their step folds too: the first-hit lanes and the
+    histogram), at chunks off and on the 16-byte runs, and at one lane
+    against the solo kernels; every scratch word is left as found."""
+    from torch_era_ops import lane, random_operands, to
+
+    from stateright_tpu_torch.ops import era as eo
+
+    rng = np.random.default_rng(4)
+    N, qcap = 64, 1 << 10
+    cfg = _era_cfg(C, A, P, rcap, qcap)
+    state = _era_state(rng, cfg, N, qcap)
+    step = random_operands(rng, N, C, A, P, rcap, 3 * rcap // 2 + 5, rcap + 3, gen=False)
     ring_depth = torch.from_numpy(rng.integers(0, 30, (N, qcap + 1)))
-    ticket = torch.zeros(1, dtype=torch.int64, device=dev)
-    on = [state.to(dev)] + [t.to(dev) for t in (hseen, *facc, ring_depth)]
-    off = [state.clone(), hseen.clone(), *(t.clone() for t in facc), ring_depth]
-    card_step = eo.StepOperands(*(t.to(dev) for t in step))
+    scratch = eo.step_scratch(N, P, A, dev)
+    epi = eo.epilogue_scratch(N, P, C, dev)
+    epi0 = epi.clone()
+    on = [state.to(dev), ring_depth.to(dev)]
+    off = [state.clone(), ring_depth]
+    card_step = to(step, dev)
     for mode in (eo.START, eo.BEGIN, eo.COMMIT, eo.COMMIT):
-        eo.era_step(mode, cfg, on[0], card_step if mode == eo.COMMIT else None, ticket=ticket)
+        eo.era_step(mode, cfg, on[0], card_step if mode == eo.COMMIT else None, scratch=scratch)
         eo.era_step_plain(mode, cfg, off[0], step if mode == eo.COMMIT else None)
         assert torch.equal(on[0].cpu(), off[0]), mode
-    eo.era_epilogue(cfg, on[0], *on[1:5], on[5])
-    eo.era_epilogue_plain(cfg, off[0], *off[1:5], off[5])
-    assert torch.equal(on[0].cpu(), off[0]) and not bool(on[1].any())
-    assert int(ticket) == 0
+        assert _same_first(card_step.first, step.first), mode
+        assert not bool(scratch.any())
+    eo.era_epilogue(cfg, on[0], *card_step.first, on[1], scratch=epi)
+    eo.era_epilogue_plain(cfg, off[0], *step.first, off[1])
+    assert torch.equal(on[0].cpu(), off[0]) and not bool(card_step.first.hseen.any())
+    assert torch.equal(epi[:N * P + N], epi0[:N * P + N])
     # One lane: the lane kernels equal the solo ones on the same row.
-    solo, lane = state[3].clone().to(dev), state[3:4].clone().to(dev)
-    one = eo.StepOperands(step.n_val[3].to(dev), step.n_d[3].to(dev), step.unresolved[3].to(dev),
-                          step.c_new[3].to(dev), step.generated[3].to(dev), step.hs[:, 3].contiguous().to(dev),
-                          step.pa[3].to(dev))
-    one_l = eo.StepOperands(one.n_val.reshape(1), one.n_d.reshape(1), one.unresolved[None], one.c_new[None],
-                            one.generated.reshape(1), one.hs[:, None].contiguous(), one.pa[None])
+    step = random_operands(rng, N, C, A, P, rcap, 3 * rcap // 2 + 5, rcap + 3)
+    solo, one_lane = state[3].clone().to(dev), state[3:4].clone().to(dev)
+    one, one_l = to(lane(step, 3, C, solo=True), dev), to(lane(step, 3, C), dev)
     for mode in (eo.START, eo.BEGIN, eo.COMMIT):
         eo.era_step(mode, cfg, solo, one if mode == eo.COMMIT else None, epoch=torch.ones(1, dtype=torch.int64, device=dev))
-        eo.era_step(mode, cfg, lane, one_l if mode == eo.COMMIT else None, ticket=ticket,
+        eo.era_step(mode, cfg, one_lane, one_l if mode == eo.COMMIT else None, scratch=eo.step_scratch(1, P, A, dev),
                     epoch=torch.ones(1, dtype=torch.int64, device=dev))
-        assert torch.equal(solo, lane[0]), mode
+        assert torch.equal(solo, one_lane[0]), mode
+    assert all(torch.equal(x, y) for x, y in zip(one.first, one_l.first))
+
+
+@pytest.mark.parametrize("C,A,P,rcap", [(6144, 37, 3, 30310), (100, 6, 2, 768), (16384, 21, 2, 45875)])
+def test_era_kernels_match_plain(dev, C, A, P, rcap):
+    """K8f's COMMIT (the fold with it) and epilogue against their plain
+    versions, solo, sampled and fused, at the 2pc-7 and paxos-3 widths
+    and a chunk off the 16-byte runs; depth ties among the first hits
+    (the lowest position wins); the scratch words are left as found."""
+    from torch_era_ops import random_operands, to
+
+    from stateright_tpu_torch.ops import era as eo
+    from stateright_tpu_torch.ops import slab as sl
+
+    rng = np.random.default_rng(C)
+    qcap = 1 << 14
+    cfg = _era_cfg(C, A, P, rcap, qcap, sampled=True, fuse=4)
+    scratch, epi = eo.step_scratch(1, P, A, dev), eo.epilogue_scratch(1, P, C, dev)
+    epi0 = epi.clone()
+    ring_depth = torch.from_numpy(rng.integers(0, 30, qcap + 1)).to(dev)
+    for trial in range(4):
+        st = _era_state(rng, cfg, 1, qcap)[0]
+        st[cfg.x + eo.X_OPEN], st[cfg.x + eo.X_TAKE] = trial != 3, min(int(st[eo.P_COUNT]), C)
+        st[cfg.f_base] = 4
+        st[cfg.x + eo.X_K] = trial % 3
+        step = random_operands(rng, 1, C, A, P, rcap, 3 * rcap // 2 + 5, rcap + 3,
+                               unres=0.0 if trial < 2 else 0.001, solo=True)
+        step.first.faccd.clamp_(max=3)  # depth ties
+        slab = sl.empty_slab(cfg.scap, "cpu")
+        slab.counts[0] = int(rng.integers(0, 400))
+        a, b = st.to(dev), st.clone()
+        ea, eb = torch.ones(1, dtype=torch.int64, device=dev), torch.ones(1, dtype=torch.int64)
+        card = to(step, dev)
+        eo.era_step(eo.COMMIT, cfg, a, card, sl.Slab(*(t.to(dev) for t in slab)), ea, scratch=scratch)
+        eo.era_step_plain(eo.COMMIT, cfg, b, step, slab, eb)
+        assert torch.equal(a.cpu(), b) and torch.equal(ea.cpu(), eb), trial
+        assert _same_first(card.first, step.first) and not bool(scratch.any())
+        counts = slab.counts.to(dev)
+        eo.era_epilogue(cfg, a, *card.first, ring_depth, counts, scratch=epi)
+        eo.era_epilogue_plain(cfg, b, *step.first, ring_depth.cpu(), slab.counts)
+        assert torch.equal(a.cpu(), b), trial
+        assert _same_first(card.first, step.first) and torch.equal(epi[:P + 1], epi0[:P + 1])
 
 
 def test_warm_lane_program_captures_once(dev):

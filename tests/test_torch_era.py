@@ -30,6 +30,7 @@ from stateright_tpu.ops import visited_set as jvs
 from stateright_tpu_torch.engines import era
 from stateright_tpu_torch.ops import era as eo
 from stateright_tpu_torch.ops import slab as sl
+from torch_era_ops import step_operands
 from torch_parity import one_torch_thread, reference_uncached  # noqa: F401
 
 M32 = 0xFFFFFFFF
@@ -40,6 +41,8 @@ CASES = {
     "2pc-5 unsampled": ("TwoPhaseTensor", (5,), 64, 1 << 12, 1 << 15, False, 0),
     "paxos-2": ("PaxosTensor", (2,), 256, 1 << 14, 1 << 16, False, 64),
     "2pc-5 symmetry": ("TwoPhaseTensor", (5,), 64, 1 << 12, 1 << 15, True, 64),
+    # Two properties first hit in one era at one depth.
+    "single-copy 2x2": ("SingleCopyTensor", (2, 2), 64, 1 << 12, 1 << 12, False, 64),
 }
 _JAX_MODELS = {}
 
@@ -200,12 +203,8 @@ def test_gate_cases(case, words, sampled, occ, want):
 
 
 def _commit(c, s, n_val, n_d, unresolved, new, generated=7, hs=(0, 0), pa=(1, 2, 3)):
-    step = eo.StepOperands(
-        torch.tensor(n_val), torch.tensor(n_d),
-        torch.tensor([True] * unresolved + [False] * (RCAP - unresolved)),
-        torch.tensor([True] * new + [False] * (RCAP - new)),
-        torch.tensor(generated), torch.tensor(hs), torch.tensor(pa),
-    )
+    step = step_operands(C, A, P, RCAP, [n_val], [n_d], [unresolved], [new], [hs], [pa],
+                         gen=[generated], solo=True)
     epoch = torch.ones(1, dtype=torch.int64)
     eo.era_step_plain(eo.COMMIT, c, s, step, None, epoch)
     return epoch

@@ -28,8 +28,10 @@ from hypothesis import strategies as st
 from test_torch_mesh import _jax_exchange
 
 from stateright_tpu.ops import visited_set as jvs
+from stateright_tpu_torch.ops import era as eo
 from stateright_tpu_torch.ops import exchange as xc
 from stateright_tpu_torch.ops import frontier as fr
+from stateright_tpu_torch.ops import slab as sl
 from stateright_tpu_torch.ops import visited_set as vs
 
 SUB = vs.COMPACT_SUB
@@ -668,3 +670,314 @@ def test_k4_phases_in_random_interleavings_equal_the_jax_insert(N, mode, seed):
     is_new, unres = _k4_transcribed(tk, tp, stamps, epoch, h1, h2, p1, p2, act, seed)
     assert np.array_equal(is_new, want[0]) and np.array_equal(unres, want[1])
     assert [_row_map(k, p) for k, p in zip(tk, tp)] == want[2]
+
+
+# ---------------------------------------------------------------------------
+# K8f's COMMIT and epilogue, and K9a: the blocks in random orders
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+COMMIT_TILE, COMMIT_RUN = 4096, 16  # era_step.cu kTile, kRun
+EPI_TILE = eo.EPILOGUE_TILE  # era_epilogue.cu kTile
+CAP_TILE, CAP_WORDS = sl.CAPTURE_TILE, sl.CAPTURE_WORDS  # capture_scan.cuh kTile, kWords
+
+
+def _era_cfg(C, A, P, m, N_cov=True):
+    plen = eo.params_len(A, P, N_cov, 0)
+    return eo.EraConfig(
+        chunk=C, qmask=(1 << 12) - 1, vcap=3 * m // 2, rcap=m, P=P, A=A,
+        cov_base=eo.P_LEN + 2 * P if N_cov else -1, s_base=-1, s_high=0, s_take=C, f_base=-1, fuse=1,
+        x=plen, regrow=2, budget_min=eo.BUDGET_MIN, n_cov=eo.cov_len(A, P) if N_cov else 0, scap=0,
+    )
+
+
+def _era_rows(rng, c, N):
+    L = c.x + eo.X_LEN
+    s = rng.integers(0, 50, (N, L)).astype(np.int64)
+    s[:, eo.P_COUNT] = rng.integers(0, 3 * c.chunk, N)
+    s[:, eo.P_HIGH_WATER], s[:, eo.P_GROW_LIMIT], s[:, eo.P_MAX_STEPS] = 1 << 11, 1 << 30, 1 << 20
+    s[:, eo.P_ERR] = s[:, eo.P_FIN_ANY] = s[:, eo.P_FIN_ALL_EN] = s[:, eo.P_BUDGET_CAP] = 0
+    s[:, c.x + eo.X_OPEN] = rng.random(N) < 0.8
+    s[:, c.x + eo.X_TAKE] = np.minimum(s[:, eo.P_COUNT], c.chunk) * s[:, c.x + eo.X_OPEN]
+    return s
+
+
+def _commit_transcribed(c, rows, step, seed):
+    """era_step.cu's COMMIT over N lanes, block by block in an order drawn
+    from `seed`: each thread's 16-element run, the first row of a run
+    counted for its warp's group and the rest of a run that crosses rows
+    bit by bit, the block's sums added to its lane's accumulators (the
+    histogram to the row), the lane's ticket; the last block of a lane
+    commits it (the plain version's row rules) and zeroes its words; the
+    last lane zeroes the last ticket. Returns the scratch after the
+    launch."""
+    N, L = rows.shape
+    C, P, A = c.chunk, c.P, c.A
+    m = step.c_new.shape[-1]
+    unres = step.unresolved.reshape(N, m).numpy()
+    new = step.c_new.reshape(N, m).numpy()
+    ddepth = step.ddepth.reshape(N, m).numpy()
+    hits = [h.reshape(-1).numpy() for h in step.hits]
+    valid = step.valid.reshape(-1).numpy()
+    rh1, rh2, rdep = (r.reshape(-1).numpy() for r in step.rows)
+    hseen, f1, f2, fd = (t.numpy() for t in step.first)  # views: written in place
+    n_val, n_d = step.n_val.reshape(N).tolist(), step.n_d.reshape(N).tolist()
+    gen = None if step.generated is None else step.generated.reshape(N).tolist()
+    t_mask, t_hits, t_valid = -(-m // COMMIT_TILE), -(-(P * C) // COMMIT_TILE), -(-(A * C) // COMMIT_TILE)
+    tiles = t_mask + t_hits + t_valid
+    W = 4 + P + A
+    scratch = np.zeros(N * W + 1, dtype=np.int64)
+    dcap = c.n_cov - A - P - 1
+    dbase = c.cov_base + A + P + 1
+    blocks = [(t, l) for l in range(N) for t in range(tiles)]
+    random.Random(seed).shuffle(blocks)
+    for tile, l in blocks:
+        acc = l * W
+        if tile < t_mask:
+            for t in range(256):
+                e0 = tile * COMMIT_TILE + t * COMMIT_RUN
+                for e in range(e0, min(e0 + COMMIT_RUN, m)):
+                    scratch[acc] += unres[l, e]
+                    if new[l, e]:
+                        scratch[acc + 1] += 1
+                        rows[l, dbase + min(ddepth[l, e], dcap - 1)] += 1
+        else:
+            is_hits = tile < t_mask + t_hits
+            R = P if is_hits else A
+            lo = (tile - t_mask - (0 if is_hits else t_hits)) * COMMIT_TILE
+            cnt = np.zeros(R, dtype=np.int64)
+            for t in range(256):
+                e0 = lo + t * COMMIT_RUN
+                left = (e0 // C + 1) * C - e0
+                for k in range(COMMIT_RUN):
+                    e = e0 + k
+                    if e >= R * C:
+                        break
+                    i, p = divmod(e, C)
+                    q = l * C + p
+                    bit = hits[i][q] if is_hits else valid[i * N * C + q]
+                    if not bit:
+                        continue
+                    # a run's first row summed over its warp's group, the rest bit by bit
+                    cnt[e0 // C if k < left else i] += 1
+                    if is_hits and not hseen[i, q]:  # a first hit
+                        f1[i, q], f2[i, q], fd[i, q] = rh1[q], rh2[q], rdep[q]
+                        hseen[i, q] = True
+            if not is_hits:
+                scratch[acc + 2] += cnt.sum()
+            base = acc + 4 + (0 if is_hits else P)
+            scratch[base:base + R] += cnt
+        scratch[acc + 3] += 1
+        if scratch[acc + 3] != tiles:
+            continue
+        sums = scratch[acc:acc + W].copy()
+        scratch[acc:acc + W] = 0
+        ops = ([n_val[l]] * N, [n_d[l]] * N, [int(sums[0])] * N, [int(sums[1])] * N,
+               [gen[l] if gen is not None else int(sums[2])] * N,
+               [[int(sums[4 + i])] * N for i in range(P)], [[int(v) for v in sums[4 + P:W]]] * N)
+        s = rows[l].tolist()
+        eo._step_row(eo.COMMIT, c, s, ops, l, 0, None)
+        rows[l] = s
+        scratch[N * W] += 1
+        if scratch[N * W] == N:
+            scratch[N * W] = 0
+    return scratch
+
+
+@pytest.mark.parametrize("N,C,A,P,m,gen", [
+    (1, 1000, 6, 3, 5000, True),     # rcap off the runs, rows off the 16-element runs
+    (1, 2048, 37, 3, 30_310, True),  # 2pc-7's rcap: the masks off the tile, rows on the runs
+    (3, 64, 5, 2, 4096, False),      # the lanes: generated counted from the valid mask
+    (2, 8, 3, 2, 6, True),           # the plain-kernel tests' widths
+])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k8f_commit_blocks_in_random_orders_equal_the_plain_commit(N, C, A, P, m, gen, seed):
+    from torch_era_ops import random_operands
+
+    rng = np.random.default_rng(seed + 10 * N)
+    c = _era_cfg(C, A, P, m)
+    rows = _era_rows(rng, c, N)
+    step = random_operands(rng, N, C, A, P, m, 3 * m // 2 + 3, m + 2, unres=0.002, hit=0.05, seen=0.3,
+                           gen=gen, solo=False)
+    want = torch.from_numpy(rows.copy())
+    ref = step._replace(first=eo.FirstHits(*(t.clone() for t in step.first)))
+    eo.era_step_plain(eo.COMMIT, c, want, ref)
+    scratch = _commit_transcribed(c, rows, step, seed)
+    assert np.array_equal(rows, want.numpy())
+    for a, b in zip(step.first, ref.first):
+        assert torch.equal(a, b)
+    assert not scratch.any()
+
+
+def _epilogue_transcribed(c, rows, first, ring_depth, seed):
+    """era_epilogue.cu over N lanes, block by block in an order drawn from
+    `seed`: each block's minimum key a property over its positions, its
+    minima's fingerprints in its slots, the lane's minima raised, its
+    slice cleared, the lane's ticket; the last block of a lane reads the
+    minima (resetting them), takes each winner's fingerprints from the
+    slot of the tile holding its position and does the scalar work.
+    Returns the minima and tickets after the launch."""
+    N = rows.shape[0]
+    C, P = c.chunk, c.P
+    tiles = -(-C // EPI_TILE)
+    hseen, f1, f2, fd = (t.numpy() for t in first)
+    none = (1 << 64) - 1
+    best = [none] * (N * P)
+    ticket = [0] * N
+    fp = {}
+    blocks = [(t, l) for l in range(N) for t in range(tiles)]
+    random.Random(seed).shuffle(blocks)
+    for tile, l in blocks:
+        kmin = [none] * P
+        span = range(tile * EPI_TILE, min(C, (tile + 1) * EPI_TILE))
+        for p in span:
+            for i in range(P):
+                if hseen[i, l * C + p]:
+                    kmin[i] = min(kmin[i], (int(fd[i, l * C + p]) & M32) << 32 | p)
+        for i in range(P):
+            if kmin[i] != none:
+                q = l * C + (kmin[i] & M32)
+                fp[(l, tile, i)] = (int(f1[i, q]), int(f2[i, q]))
+                best[l * P + i] = min(best[l * P + i], kmin[i])
+        for p in span:
+            hseen[:, l * C + p] = False
+            f1[:, l * C + p] = f2[:, l * C + p] = fd[:, l * C + p] = 0
+        ticket[l] += 1
+        if ticket[l] != tiles:
+            continue
+        found, w1, w2 = [False] * P, [0] * P, [0] * P
+        for i in range(P):
+            m, best[l * P + i] = best[l * P + i], none
+            if m != none:
+                found[i] = True
+                w1[i], w2[i] = fp[(l, (m & M32) // EPI_TILE, i)]
+        ticket[l] = 0
+        s = rows[l].tolist()
+        eo._epilogue_row(c, s, found, w1, w2, lambda j, l=l: int(ring_depth[l, j]), 0)
+        rows[l] = s
+    return best, ticket
+
+
+@pytest.mark.parametrize("N,C,P", [(1, 6144, 3), (1, 16384, 4), (3, 1000, 2), (4, 151, 3), (2, 8, 2)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k8f_epilogue_blocks_in_random_orders_equal_the_plain_epilogue(N, C, P, seed):
+    rng = np.random.default_rng(seed + N)
+    c = _era_cfg(C, 3, P, 40)
+    rows = _era_rows(rng, c, N)
+    rows[:, c.x + eo.X_ESTEPS] = rng.integers(0, 3, N)
+    rows[:, c.x + eo.X_REC0] = rng.integers(0, 1 << P, N)
+    first = eo.FirstHits(torch.from_numpy(rng.random((P, N * C)) < 0.02),
+                         *(torch.from_numpy(rng.integers(0, 1 << 32, (P, N * C))) for _ in range(2)),
+                         torch.from_numpy(rng.integers(1, 4, (P, N * C))))  # depth ties
+    ring_depth = rng.integers(0, 30, (N, (1 << 12) + 1))
+    want = torch.from_numpy(rows.copy())
+    ref = eo.FirstHits(*(t.clone() for t in first))
+    eo.era_epilogue_plain(c, want if N > 1 else want[0], *ref,
+                          torch.from_numpy(ring_depth if N > 1 else ring_depth[0]))
+    best, ticket = _epilogue_transcribed(c, rows, first, ring_depth, seed)
+    assert np.array_equal(rows, want.numpy())
+    assert all(not t.any() for t in first) and all(not t.any() for t in ref)
+    assert best == [(1 << 64) - 1] * (N * P) and ticket == [0] * N
+
+
+def _k9a_transcribed(slabs, counts, is_new, h1, h2, depth, action, thresh, step_cap, seed):
+    """capture_scan.cuh's one launch over (tile, lane), block by block in an
+    order drawn from `seed`: each block's count and, where it captured,
+    its capture bits and each 32-candidate word's first rank in the tile
+    (four candidates a thread, eight threads a word); every block adds its
+    arrival and its count to the lane's ticket; the last block returns at
+    once when the lane captured nothing, else scans the tile counts 256 a
+    round (zeroing them) and writes the captured rows of the tiles whose
+    first rank is below step_cap from their words, in an order drawn from
+    `seed`; then the counters. Returns the tickets and tile counts after
+    the launch."""
+    N, n = is_new.shape
+    scap = slabs.shape[2] - 1
+    tiles = -(-n // CAP_TILE)
+    rng = random.Random(seed)
+    t1, t2 = thresh[..., 0], thresh[..., 1]
+
+    def below(l, i):
+        a, b = (t1, t2) if thresh.ndim == 1 else (t1[l], t2[l])
+        return is_new[l, i] & ((h1[l, i] < a) | ((h1[l, i] == a) & (h2[l, i] < b)))
+
+    tile_cnt = np.zeros((N, tiles), dtype=np.int64)
+    bits = np.full((N, tiles, CAP_WORDS), -1, dtype=np.int64)  # unwritten words read as garbage
+    word_rank = np.full((N, tiles, CAP_WORDS), -1, dtype=np.int64)
+    ticket = [(0, 0)] * N  # (arrived, captured)
+    blocks = [(t, l) for l in range(N) for t in range(tiles)]
+    rng.shuffle(blocks)
+    srcs = (h1, h2, depth, action)
+    for tile, l in blocks:
+        i = tile * CAP_TILE + np.arange(CAP_TILE)
+        flags = np.zeros(CAP_TILE, dtype=bool)
+        flags[i < n] = below(l, i[i < n])
+        total = int(flags.sum())
+        if total:
+            nib = flags.reshape(256, 4)  # thread t's four candidates
+            rank = np.concatenate([[0], np.cumsum(nib.sum(1))[:-1]])  # each thread's first rank
+            for w in range(CAP_WORDS):
+                bits[l, tile, w] = int(sum(int(b) << k for k, b in enumerate(flags[w * 32:(w + 1) * 32])))
+                word_rank[l, tile, w] = rank[8 * w]
+            tile_cnt[l, tile] = total
+        arrived, captured = ticket[l]
+        ticket[l] = (arrived + 1, captured + total)
+        if ticket[l][0] != tiles:
+            continue
+        if ticket[l][1] == 0:  # nothing captured: nothing to write or advance
+            ticket[l] = (0, 0)
+            continue
+        occupied, carry = int(counts[l, 0]), 0
+        for r0 in range(0, tiles, 256):
+            v = tile_cnt[l, r0:r0 + 256].copy()
+            tile_cnt[l, r0:r0 + 256] = 0
+            first_rank = carry + np.cumsum(v) - v
+            work = [(r0 + j, int(first_rank[j])) for j in range(len(v)) if v[j] > 0 and first_rank[j] < step_cap]
+            pairs = [(j, rank0, w) for j, rank0 in work for w in range(CAP_WORDS)]
+            rng.shuffle(pairs)
+            for j, rank0, w in pairs:
+                m = int(bits[l, j, w])
+                for k in range(32):
+                    if not (m >> k) & 1:
+                        continue
+                    rank = rank0 + int(word_rank[l, j, w]) + bin(m & ((1 << k) - 1)).count("1")
+                    if rank >= step_cap:
+                        break
+                    row = min(occupied + rank, scap)
+                    cand = j * CAP_TILE + w * 32 + k
+                    for q, src in enumerate(srcs):
+                        slabs[q, l, row] = src[cand] if src.ndim == 1 else src[l, cand]
+            carry += int(v.sum())
+        fit = min(carry, step_cap)
+        counts[l, 0] = occupied + fit
+        counts[l, 1] += carry - fit
+        ticket[l] = (0, 0)
+    return ticket, tile_cnt
+
+
+@pytest.mark.parametrize("N,n,density,thresh,step_cap,shared", [
+    (1, 30_310, 0.5, (M32, M32), 512, True),                     # a flood past 512, rcap off the tile
+    (1, 30_310, 0.5, (0x00800000, 0x40000000), 512, True),       # ties on the threshold's high word
+    (1, 5_000, 0.5, (0, 0), 512, True),                          # nothing below the threshold
+    (1, 300 * CAP_TILE + 7, 0.0005, (M32, M32), 512, True),     # over 256 tiles: two rounds
+    (8, 12_629, 0.7, (0x10000000, 0), 12_629, True),             # every shard, the receive width
+    (3, 2_100, 0.6, (0x80000000, 0x1), 300, False),              # a threshold and an action lane a shard
+])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k9a_blocks_in_random_orders_equal_the_plain_capture(N, n, density, thresh, step_cap, shared, seed):
+    rng = np.random.default_rng(seed + n)
+    scap = 1_100
+    is_new = rng.random((N, n)) < density
+    h = rng.integers(0, 1 << 32, (4, N, n)).astype(np.int64)
+    h[0, :, :40] = 0x00800000
+    th = np.array(thresh if shared else [thresh] * N, dtype=np.int64)
+    act = h[3] if not shared else h[3, 0]
+    slabs = rng.integers(0, 1 << 32, (4, N, scap + 1)).astype(np.int64)
+    counts = np.stack([rng.integers(0, 600, N), rng.integers(0, 5, N)], 1).astype(np.int64)
+    want_slabs, want_counts = torch.from_numpy(slabs.copy()), torch.from_numpy(counts.copy())
+    sl.capture_lanes_plain(want_slabs, want_counts, torch.from_numpy(is_new), *(torch.from_numpy(x) for x in h[:3]),
+                           torch.from_numpy(act), torch.from_numpy(th), step_cap)
+    ticket, tile_cnt = _k9a_transcribed(slabs, counts, is_new, h[0], h[1], h[2], act, th, step_cap, seed)
+    assert np.array_equal(slabs[:, :, :scap], want_slabs.numpy()[:, :, :scap])
+    assert np.array_equal(counts, want_counts.numpy())
+    assert ticket == [(0, 0)] * N and not tile_cnt.any()

@@ -28,6 +28,8 @@ from stateright_tpu.fingerprint import hash_words_np
 from stateright_tpu_torch.engines.multiplex import LaneProgram
 from stateright_tpu_torch.ops import era as eo
 from stateright_tpu_torch.ops import visited_set as vs
+from torch_era_ops import lane as lane_of
+from torch_era_ops import step_operands
 from torch_parity import _JAX_MODELS, one_torch_thread, reference_uncached  # noqa: F401
 
 M32 = 0xFFFFFFFF
@@ -37,6 +39,9 @@ CASES = {
     "2pc-3 mixed": ("TwoPhaseTensor", (3,), 8, 6, 64, 1 << 12, 1 << 13, 16),
     "increment-2": ("IncrementTensor", (2,), 4, 3, 256, 1 << 13, 1 << 12, 64),
     "2pc-6 partial": ("TwoPhaseTensor", (6,), 2, 2, 1024, 1 << 16, 1 << 18, 64),
+    # Two properties ("linearizable", "value chosen") first hit in one era
+    # at one depth.
+    "single-copy 2x2": ("SingleCopyTensor", (2, 2), 4, 3, 64, 1 << 12, 1 << 12, 16),
 }
 
 
@@ -58,9 +63,11 @@ def _draw(rng, n, P, case):
     fin_any = np.array([rng.choice([0, 0, 1 << int(rng.integers(0, P))]) for _ in range(n)])
     fin_all_en = rng.integers(0, 2, size=n)
     fin_all = np.full(n, (1 << P) - 1)
-    if case == "2pc-6 partial":
+    if case in ("2pc-6 partial", "single-copy 2x2"):
         fin_any[:] = 0
         fin_all_en[:] = 0
+    if case == "single-copy 2x2":
+        depth = np.full(n, M32)
     return depth, fin_any, fin_all, fin_all_en
 
 
@@ -104,6 +111,8 @@ def test_lane_batch_matches_the_jax_lane_program(case):
     assert (res.unique[:n] > 1).all() and not res.params[n:, eo.P_UNIQUE].any()
     if case == "2pc-6 partial":
         assert (res.partial > 0).all()
+    if case == "single-copy 2x2":
+        assert ((res.params[:n, eo.P_REC] & 3) == 3).all()
 
 
 # -- (c) the lane axis of the plain era kernels --------------------------------
@@ -135,13 +144,7 @@ def _lanes(c, rows):
 
 
 def _step(N, n_val, n_d, unres, new, gen, hs, pa):
-    m = torch.zeros((N, RCAP), dtype=torch.bool)
-    um = m.clone()
-    for l in range(N):
-        m[l, :new[l]] = True
-        um[l, :unres[l]] = True
-    return eo.StepOperands(torch.tensor(n_val), torch.tensor(n_d), um, m, torch.tensor(gen),
-                           torch.tensor(hs).T.contiguous(), torch.tensor(pa))
+    return step_operands(C, A, P, RCAP, n_val, n_d, unres, new, hs, pa, gen=gen)
 
 
 # case -> (lane rows, step operands per lane, the words each lane must
@@ -208,11 +211,7 @@ def test_one_lane_equals_the_solo_era_kernels(case):
     for l in range(len(rows)):
         solo = _lanes(c, [rows[l]])[0]
         lane = solo.clone()[None]
-        one = eo.StepOperands(full.n_val[l], full.n_d[l], full.unresolved[l], full.c_new[l],
-                              full.generated[l], full.hs[:, l].contiguous(), full.pa[l])
-        one_l = eo.StepOperands(full.n_val[l:l + 1], full.n_d[l:l + 1], full.unresolved[l:l + 1],
-                                full.c_new[l:l + 1], full.generated[l:l + 1],
-                                full.hs[:, l:l + 1].contiguous(), full.pa[l:l + 1])
+        one, one_l = lane_of(full, l, C, solo=True), lane_of(full, l, C)
         for mode, a, b in ((eo.START, None, None), (eo.BEGIN, None, None), (eo.COMMIT, one, one_l)):
             eo.era_step_plain(mode, c, solo, a)
             eo.era_step_plain(mode, c, lane, b)

@@ -292,6 +292,8 @@ ENGINE_CASES = {
     "increment-2 n8": ("IncrementTensor", (2,), 8, SMALL),
     "paxos-2 n8": ("PaxosTensor", (2,), 8, dict(chunk_size=256)),
     "abd-2 n8": ("AbdTensor", (2,), 8, dict(chunk_size=128)),
+    # Two properties first hit in one era at one depth.
+    "single-copy 2x2 n8": ("SingleCopyTensor", (2, 2), 8, SMALL),
 }
 
 
