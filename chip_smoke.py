@@ -22,7 +22,9 @@ exits non-zero:
      library call that does the same work; beside them the times of K5
      rehash and K10 seed, which run through those kernels and torch; K2's
      kernels a call counted on the card (the kernel nodes of one captured
-     call: COUNT and WRITE, no memset). Every kernel row of the later
+     call: COUNT and WRITE, no memset; K3's: CLAIM and KEEP, on a scratch
+     its earlier calls left stale, each lane's valid prefix n_val). Every
+     kernel row of the later
      phases is timed on the device alone too (a call that changes its
      input on fresh inputs made outside the window), with `call_ms`
      beside it;
@@ -145,13 +147,14 @@ exits non-zero:
      the 2^28-slot table).
 
  18. the sharded mesh (K15): K15a (`exchange.cu`, the owner buckets),
-     K15f (`mesh_era.cu`, the shard-coupled gate, commit, epilogue and
-     tail) and K9b's lane form (every shard's slab in one launch, also at
+     K15f (`mesh_era.cu`: the COMMIT grid that folds the step's first
+     hits, counts and depth histogram, and the gate, epilogue and tail)
+     and K9b's lane form (every shard's slab in one launch, also at
      16,384 rows with ties) against their plain versions, exactly, at
      the 2pc-7 (chunk 1,024) and paxos-3 (chunk 2,048) widths at 1 and
      8 shards, with
-     buckets past the quota, vetoed and unresolved commits and every
-     budget rule; 2pc-5 and paxos-2 at 8 shards on cuda == cpu (the
+     buckets past the quota, vetoed, unresolved and closed-gate commits
+     and every budget rule; K3's lane form at the 8 shards' widths; 2pc-5 and paxos-2 at 8 shards on cuda == cpu (the
      sample and the paths included; 2pc-5 takes partial commits); 2pc-7
      and paxos-3 at 8 shards on one card and at 1 shard: the goldens,
      the single-device run's discoveries (the same properties at the same
@@ -479,6 +482,66 @@ def max_abs_err(torch, pairs):
     return err
 
 
+def k3_case(torch, np, rng, N, n, dedup_cap, lanes):
+    """K3 against its plain version on [N, n] candidates from one key pool
+    (many duplicates a lane, slot contenders), each lane's valid prefix
+    n_val as the compaction gives it (0, partial, the full width, past
+    it; about 0.8 n in the timed call), on one program-owned scratch that
+    earlier calls left stale winners and epochs in; also a mask with
+    holes inside the prefix, and a fresh scratch. `lanes`: the lane form
+    (else the solo call, N = 1). Returns the timing dict."""
+    from stateright_tpu_torch.ops import frontier as fr
+
+    dev = torch.device("cuda")
+
+    def gpu(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    pool = rng.integers(0, 1 << 32, size=(2, max(8, n // 8)))
+    scratch = fr.dedup_scratch(N, dedup_cap, dev)
+
+    def call(h1, h2, valid, n_val, s=scratch):
+        if lanes:
+            return fr.claim_dedup_lanes(h1, h2, valid, dedup_cap, n_val, s)
+        return fr.claim_dedup(h1[0], h2[0], valid[0], dedup_cap, n_val[0], s)[None]
+
+    errs = []
+    for case in range(4):
+        pick = rng.integers(0, pool.shape[1], size=(N, n))
+        h1, h2 = gpu(pool[0, pick]), gpu(pool[1, pick])
+        h1[:, :32] = 5
+        h2[:, :32] = torch.arange(32, device=dev)  # one h1, many h2: shared slots when mixed
+        nv = (rng.random(N) * 0.4 + 0.6) * n if case == 3 else rng.integers(0, n + 1, size=N)
+        nv = nv.astype(np.int64)
+        if case == 0:
+            nv[:] = n  # the whole width first: later calls find stale winners above them
+        elif N > 2:
+            nv[:3] = [0, n, n + 9]
+        n_val = gpu(nv)
+        valid = torch.arange(n, device=dev)[None, :] < n_val[:, None]
+        if case == 1:
+            valid &= gpu(rng.random((N, n)) < 0.7)  # holes inside the prefix
+        want = fr.claim_dedup_lanes_plain(h1, h2, valid, dedup_cap, n_val)
+        errs.append(max_abs_err(torch, [(call(h1, h2, valid, n_val), want)]))
+        if case == 2:
+            errs.append(max_abs_err(torch, [(call(h1, h2, valid, n_val, fr.dedup_scratch(N, dedup_cap, dev)), want)]))
+    lim = n_val.clamp(max=n)
+    p, v = int(lim.sum()), int(valid.sum())
+    what = "K3 lanes" if lanes else "K3"
+    return dict(
+        max_abs_err=max(errs),
+        ms=time_device_ms(torch, lambda _: call(h1, h2, valid, n_val)),
+        call_ms=time_ms(torch, lambda _: call(h1, h2, valid, n_val)),
+        plain_ms=time_ms(torch, lambda _: fr.claim_dedup_lanes_plain(h1, h2, valid, dedup_cap, n_val)),
+        launches_a_call=kernels_a_call(torch, f"{what} [{N}, {n}]", lambda: call(h1, h2, valid, n_val), 2),
+        # the prefix's keys and mask read once, keep written over the
+        # width, each valid candidate's atomic, slot read and winner's key
+        bytes=17 * p + N * n + 32 * v, ops=8 * v,
+        library_ms=None,
+        shape=f"[{N}, {n}], {p} in the prefixes, {v} valid, scratch [{N}, {dedup_cap}] x 8 bytes",
+    )
+
+
 def finish(results):
     """Bound each timed function by the larger of its bytes over the HBM
     rate and its operations over the 32-bit rate, print it, and check
@@ -572,26 +635,8 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
         shape=f"[{CA}] -> [{cap}]",
     )
 
-    # K3: [vcap] candidates drawn from a small key pool (many duplicates)
-    # with forced slot collisions.
-    pool = u32(2, vcap // 8)
-    pick = rng.integers(0, pool.shape[1], size=vcap)
-    h1, h2 = gpu(pool[0, pick]), gpu(pool[1, pick])
-    h1[:32] = 5
-    h2[:32] = torch.arange(32)  # one h1, many h2: shared slots when mixed
-    valid = gpu(rng.random(vcap) < 0.9)
-    keep = fr.claim_dedup(h1, h2, valid, dedup_cap)
-    keep_plain = fr.claim_dedup_plain(h1, h2, valid, dedup_cap)
-    results["claim_dedup"] = dict(
-        max_abs_err=max_abs_err(torch, [(keep, keep_plain)]),
-        ms=time_device_ms(torch, lambda _: fr.claim_dedup(h1, h2, valid, dedup_cap)),
-        call_ms=time_ms(torch, lambda _: fr.claim_dedup(h1, h2, valid, dedup_cap)),
-        plain_ms=time_ms(torch, lambda _: fr.claim_dedup_plain(h1, h2, valid, dedup_cap)),
-        bytes=vcap * (8 + 8 + 1 + 1),
-        ops=vcap * 8,
-        library_ms=None,
-        shape=f"[{vcap}]",
-    )
+    # K3: [vcap] candidates, the step's valid prefix, on the era's scratch.
+    results["claim_dedup"] = k3_case(torch, np, rng, 1, vcap, dedup_cap, lanes=False)
 
     # K4: a tcap-slot table filled to ~0.25 load, then an [rcap] batch of
     # found keys, new keys and in-batch duplicates; and a duplicate-heavy
@@ -1246,11 +1291,13 @@ def sim_line(label, c, wall, card, peak=None):
 
 # -- phases 12 to 14: multiplexed lanes -------------------------------------
 
-def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
+def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap, dedup_for=None):
     """The lane forms of K2, K3, K4, K6 and K7 against their plain
     versions at the widths one lane step of N lanes of a model with C, A,
-    S gives them (tables [N, tcap], rings [N, S + 2, qcap]), each also at
-    one lane against its solo call; returns {entry name: timing dict}."""
+    S gives them (tables [N, tcap], rings [N, S + 2, qcap]; `dedup_for`:
+    the dedup scratch's width from vcap where it is not the lanes'), each
+    also at one lane against its solo call; returns {entry name: timing
+    dict}."""
     from stateright_tpu_torch.engines.gpu_bfs import widths
     from stateright_tpu_torch.ops import frontier as fr
     from stateright_tpu_torch.ops import visited_set as vs
@@ -1293,29 +1340,19 @@ def lane_kernel_parity(torch, np, N, C, A, S, tcap, qcap):
         shape=f"[{A}, {N}, {C}] as [{N}, {A}*{C}] -> [{N}, {vcap}]",
     )
 
-    # K3: [N, vcap] candidates from one key pool for every lane (the same
-    # keys across lanes, many duplicates within a lane), slot contenders.
-    pool = u32(2, vcap // 8)
-    pick = rng.integers(0, pool.shape[1], size=(N, vcap))
-    h1, h2 = gpu(pool[0, pick]), gpu(pool[1, pick])
-    h1[:, :32] = 5
-    h2[:, :32] = torch.arange(32, device=dev)
-    valid = gpu(rng.random((N, vcap)) < 0.9)
-    keep = fr.claim_dedup_lanes(h1, h2, valid, dedup_cap)
-    err = max_abs_err(torch, [(keep, fr.claim_dedup_lanes_plain(h1, h2, valid, dedup_cap))])
-    solo_equal([(fr.claim_dedup_lanes(h1[:1], h2[:1], valid[:1], dedup_cap)[0],
-                 fr.claim_dedup(h1[0], h2[0], valid[0], dedup_cap))])
-    results["claim_dedup_lanes"] = dict(
-        max_abs_err=err,
-        ms=time_device_ms(torch, lambda _: fr.claim_dedup_lanes(h1, h2, valid, dedup_cap)),
-        call_ms=time_ms(torch, lambda _: fr.claim_dedup_lanes(h1, h2, valid, dedup_cap)),
-        plain_ms=time_ms(torch, lambda _: fr.claim_dedup_lanes_plain(h1, h2, valid, dedup_cap)),
-        bytes=N * vcap * (8 + 8 + 1 + 1),
-        ops=N * vcap * 8,
-        library_ms=None,
-        shape=f"[{N}, {vcap}], scratch [{N}, {dedup_cap}]",
-    )
-    del h1, h2, valid, keep, amask, view, reps
+    # K3: [N, vcap] candidates, each lane's valid prefix, on the program's
+    # scratch (the mesh's dedup scratch at its shards: mesh.dedup_cap_for);
+    # at one lane against the solo call.
+    if dedup_for is not None:
+        dedup_cap = dedup_for(vcap)
+    results["claim_dedup_lanes"] = k3_case(torch, np, rng, N, vcap, dedup_cap, lanes=True)
+    pick = rng.integers(0, 64, size=(2, vcap))
+    h1, h2 = gpu(pick[0]), gpu(pick[1])
+    n1 = torch.tensor(vcap // 2, device=dev)
+    valid = torch.arange(vcap, device=dev) < n1
+    solo_equal([(fr.claim_dedup_lanes(h1[None], h2[None], valid[None], dedup_cap, n1[None])[0],
+                 fr.claim_dedup(h1, h2, valid, dedup_cap, n1))])
+    del h1, h2, valid, amask, view, reps
 
     # K4: each lane's table filled to the load a finished 2pc-5 lane has
     # (8,832 of 2^16), then an [N, rcap] batch of found keys, new keys and
@@ -1586,29 +1623,30 @@ def commit_bytes(torch, op, P, C, A, m, N, L):
     return N * (2 * m + P * C + A * C + 2 * 8 * L) + 8 * int(op.c_new.sum()) + hits + 49 * firsts
 
 
-# The kernel nodes of one captured step on the tree before K8f's COMMIT
-# took in the step's first-hit, coverage and histogram launches and K9a
-# became one launch (solo and over every shard), and how far each must
-# have fallen since: `scripts/kernel_times.py --rows step_nodes` on that
-# tree and this one, one H100 80GB HBM3 at 700 W. The solo step lost 14
-# torch launches and K9a's second kernel; the lane step the 18 launches
-# of its glue; the 8-shard step 15 of K9a's 16.
-PARENT_STEP_NODES = {"solo": 50, "lanes": 60, "mesh": 75}
-STEP_NODES_FALL = {"solo": 15, "lanes": 18, "mesh": 15}
+# The kernel nodes of one captured step on the tree before K3 lost its
+# memset and K15f's COMMIT took in the mesh step's first-hit, coverage and
+# histogram launches, and how far each must have fallen since:
+# `scripts/kernel_times.py --rows step_nodes` on that tree and this one,
+# one H100 80GB HBM3 at 700 W. K3's memset was a memset node, not a
+# kernel node: no step may hold a memset node now. The 8-shard step lost
+# the 18 torch launches of its glue.
+PARENT_STEP_NODES = {"solo": 35, "lanes": 42, "mesh": 60}
+STEP_NODES_FALL = {"solo": 0, "lanes": 0, "mesh": 18}
 
 
 def step_nodes(torch, label, program, kind):
     """The kernel nodes of one captured step of `program` (its `_step`,
     gate closed: a capture runs nothing), printed beside the parent
-    tree's and checked to have fallen by STEP_NODES_FALL."""
+    tree's and checked to have fallen by STEP_NODES_FALL, with no memset
+    node."""
     from stateright_tpu_torch.engines import graph
 
     nodes = graph.captured_nodes(program._step)
     print(f"{label}: {nodes['kernels']} kernel nodes and {nodes['memsets']} memset nodes a captured step "
           f"({nodes['nodes']} nodes; the parent tree's step: {PARENT_STEP_NODES[kind]} kernel nodes)", flush=True)
-    check(nodes["kernels"] <= PARENT_STEP_NODES[kind] - STEP_NODES_FALL[kind],
-          f"{label}: {nodes['kernels']} kernel nodes a step, not {STEP_NODES_FALL[kind]} fewer than "
-          f"{PARENT_STEP_NODES[kind]}")
+    check(nodes["kernels"] <= PARENT_STEP_NODES[kind] - STEP_NODES_FALL[kind] and nodes["memsets"] == 0,
+          f"{label}: {nodes['kernels']} kernel nodes a step ({nodes['memsets']} memset nodes), not "
+          f"{STEP_NODES_FALL[kind]} fewer than {PARENT_STEP_NODES[kind]} with no memset")
     return nodes["kernels"]
 
 
@@ -2603,7 +2641,7 @@ def mesh_kernel_parity(torch, np, label, tm, C):
             results["sample_capture_lanes"]["step_nodes"] = step_nodes(torch, f"{label} step at {n} shards", prog,
                                                                        "mesh")
 
-        def state(count=None, its=3, max_steps=64, cap=64, rec=0, k=0, take=None, pressure=False):
+        def state(count=None, its=3, max_steps=64, cap=64, rec=0, k=0, take=None, pressure=False, open_=1):
             s = rng.integers(0, 1 << 20, size=(n, L)).astype(np.int64)
             cnt = rng.integers(0, 3 * C, size=n) if count is None else np.full(n, count)
             for l in range(n):
@@ -2615,19 +2653,24 @@ def mesh_kernel_parity(torch, np, label, tm, C):
             s[:, prog.f_base] = 4
             s[:, prog.d_base + 2 * P:prog.d_base + 3 * P] = 0xFFFFFFFF
             s[:, x + me.X_ITS] = s[:, x + me.X_ESTEPS] = its
-            s[:, x + me.X_REC0], s[:, x + me.X_K], s[:, x + me.X_OPEN] = rec, k, 1
+            s[:, x + me.X_REC0], s[:, x + me.X_K], s[:, x + me.X_OPEN] = rec, k, open_
             s[:, x + me.X_TAKE] = np.minimum(cnt, C) if take is None else take
             return torch.from_numpy(s).to(dev)
 
         def operands(unres=0.0, ovf=0.0, density=0.01):
+            rdepth = rng.integers(1, 60, size=(n, R))
+            rdepth[:, :64] = rng.integers(120, 200, size=(n, 64))  # at and past the histogram's last bin
             return me.MeshOperands(
                 is_new=torch.from_numpy(rng.random((n, R)) < 0.4).to(dev),
                 unresolved=torch.from_numpy(rng.random((n, R)) < unres).to(dev),
+                rdepth=torch.from_numpy(rdepth).to(dev),
                 n_ovf=torch.from_numpy(np.where(rng.random(n) < ovf, rng.integers(1, 9, size=n), 0)).to(dev),
                 n_val=torch.from_numpy(rng.integers(0, 2 * V, size=n)).to(dev),
-                generated=torch.from_numpy(rng.integers(0, C * A, size=n)).to(dev),
-                hs=torch.from_numpy(rng.integers(0, C, size=(P, n))).to(dev),
-                pa=torch.from_numpy(rng.integers(0, C, size=(n, A))).to(dev),
+                hits=[torch.from_numpy(rng.random(n * C) < 0.05).to(dev) for _ in range(P)],
+                valid=torch.from_numpy(rng.random(A * n * C) < 0.3).to(dev),
+                rows=(torch.from_numpy(rng.integers(0, 1 << 32, size=n * C)).to(dev),
+                      torch.from_numpy(rng.integers(0, 1 << 32, size=n * C)).to(dev),
+                      torch.from_numpy(rng.integers(1, 40, size=n * C)).to(dev)),
                 hseen=torch.from_numpy(rng.random((P, n * C)) < density).to(dev),
                 facc1=torch.from_numpy(rng.integers(0, 1 << 32, size=(P, n * C))).to(dev),
                 facc2=torch.from_numpy(rng.integers(0, 1 << 32, size=(P, n * C))).to(dev),
@@ -2638,11 +2681,14 @@ def mesh_kernel_parity(torch, np, label, tm, C):
             )
 
         def clone(ops):
-            return ops._replace(**{f: getattr(ops, f).clone() for f in ops._fields
-                                   if f != "ring_depth" and getattr(ops, f) is not None})
+            return ops._replace(
+                hits=[h.clone() for h in ops.hits], rows=tuple(r.clone() for r in ops.rows),
+                **{f: getattr(ops, f).clone() for f in ops._fields
+                   if f not in ("ring_depth", "hits", "rows") and getattr(ops, f) is not None})
 
         def pairs(a, b):
-            return [(getattr(a, f), getattr(b, f)) for f in a._fields if getattr(a, f) is not None]
+            return [(getattr(a, f), getattr(b, f)) for f in a._fields
+                    if f not in ("hits", "rows") and getattr(a, f) is not None]
 
         cases = [
             (me.START, state(), operands()),
@@ -2651,6 +2697,7 @@ def mesh_kernel_parity(torch, np, label, tm, C):
             (me.COMMIT, state(), operands(ovf=0.5)),
             (me.COMMIT, state(), operands(unres=0.001)),
             (me.COMMIT, state(count=1, take=1), operands(unres=0.01)),
+            (me.COMMIT, state(open_=0), operands()),
             (me.EPILOGUE, state(count=3 * C, its=64, k=0), operands(density=0.01)),
             (me.EPILOGUE, state(its=10, k=1, pressure=True), operands(density=0.001)),
             (me.EPILOGUE, state(count=3 * C, its=64, rec=1 << (P - 1), k=2), operands(density=0.02)),
@@ -2663,36 +2710,62 @@ def mesh_kernel_parity(torch, np, label, tm, C):
             sa, sb, oa, ob = st.clone(), st.clone(), clone(ops), clone(ops)
             za = torch.zeros_like(prog.sums)
             zb = torch.zeros_like(prog.sums)
-            me.mesh_era(mode, c, sa, za, oa)
+            # COMMIT on the program's scratch, which every launch leaves zero.
+            me.mesh_era(mode, c, sa, za, oa, scratch=prog.commit_scratch)
             me.mesh_era_plain(mode, c, sb, zb, ob)
             errs.append(max_abs_err(torch, [(sa, sb), (za, zb)] + pairs(oa, ob)))
+        check(not bool(prog.commit_scratch.any()), f"{label} N={n}: K15f's COMMIT left its scratch set")
         print(f"{label} K15f N={n}: {len(cases)} cases, max_abs_err={max(errs)}", flush=True)
         check(max(errs) == 0, f"{label} N={n}: K15f disagrees with its plain version")
         if n == MESH_N:
             _m, st_c, ops_c = cases[2]
-            _m, st_e, ops_e = cases[6]
+            _m, st_e, ops_e = cases[7]
 
             def run_k(mode, st_, ops_, plain):
                 def go(a):
-                    (me.mesh_era_plain if plain else me.mesh_era)(mode, c, a[0], a[1], a[2])
+                    if plain:
+                        me.mesh_era_plain(mode, c, a[0], a[1], a[2])
+                    else:
+                        me.mesh_era(mode, c, a[0], a[1], a[2], scratch=prog.commit_scratch)
                 return go
 
             def prep(st_, ops_):
                 return lambda: (st_.clone(), torch.zeros_like(prog.sums), clone(ops_))
 
-            results["mesh_era"] = dict(
+            idle = prep(st_c, ops_c)()
+            o = ops_c
+            hit_n = sum(int(h.sum()) for h in o.hits)
+            firsts = sum(int((h.view(1, -1) & ~o.hseen[i:i + 1]).sum()) for i, h in enumerate(o.hits))
+            results["mesh_commit"] = dict(
                 max_abs_err=max(errs),
                 ms=time_device_ms(torch, run_k(me.COMMIT, st_c, ops_c, False), prep=prep(st_c, ops_c)),
                 call_ms=time_ms(torch, run_k(me.COMMIT, st_c, ops_c, False), prep=prep(st_c, ops_c)),
                 plain_ms=time_ms(torch, run_k(me.COMMIT, st_c, ops_c, True), prep=prep(st_c, ops_c), reps=5),
-                epilogue_ms=time_device_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, False), prep=prep(st_e, ops_e)),
-                epilogue_plain_ms=time_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, True), prep=prep(st_e, ops_e),
-                                          reps=5),
+                launches_a_call=kernels_a_call(torch, f"{label} K15f COMMIT N={n}",
+                                               lambda: run_k(me.COMMIT, st_c, ops_c, False)(idle), 1),
                 library_ms=None,
-                # the two insert masks once, the state read and written, the
-                # first-hit lanes' any per (property, shard)
-                bytes=2 * n * R + 2 * 8 * n * L + P * n * C + 8 * n * (P + A + 2), ops=2 * n * R,
-                shape=f"COMMIT of N={n} shards over [{R}] insert masks, {L} state words a shard",
+                # the two insert masks, the hits, hseen and the valid mask
+                # read once, each new insert's depth, each first hit's
+                # hashes and depth read and its four lanes written, each
+                # shard's 31 scalars and its coverage words read and written
+                bytes=n * (2 * R + 2 * P * C + A * C) + 8 * int(o.is_new.sum()) + 49 * firsts
+                + 2 * 8 * n * (31 + A + P + 1),
+                ops=n * (2 * R + 2 * P * C + A * C) + hit_n,
+                shape=f"COMMIT of N={n} shards: [{R}] insert masks, [{P}, {C}] hits, [{A}, {C}] valid, "
+                      f"{L} state words a shard",
+            )
+            results["mesh_era"] = dict(
+                max_abs_err=max(errs),
+                ms=time_device_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, False), prep=prep(st_e, ops_e)),
+                call_ms=time_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, False), prep=prep(st_e, ops_e)),
+                plain_ms=time_ms(torch, run_k(me.EPILOGUE, st_e, ops_e, True), prep=prep(st_e, ops_e), reps=5),
+                begin_ms=time_device_ms(torch, run_k(me.BEGIN, cases[1][1], cases[1][2], False),
+                                        prep=prep(cases[1][1], cases[1][2])),
+                library_ms=None,
+                # the epilogue: each shard's state read and written, the
+                # first-hit lanes read and zeroed
+                bytes=2 * 8 * n * L + 2 * 25 * P * n * C, ops=P * n * C,
+                shape=f"EPILOGUE of N={n} shards, [{P}, {n * C}] first-hit lanes, {L} state words a shard",
             )
         del prog
     # K15g (mesh.py:1089 _build_grow): every shard's table rehashed into
@@ -4163,7 +4236,9 @@ def main(argv) -> int:
 
     # The lane forms at one sharded step of phase 18's 2pc-7 run (8 shards,
     # chunk 1,024, table 2^18 and ring 2^17 a shard), for K15's bound.
-    lane_mesh = lane_kernel_parity(torch, np, MESH_N, 1024, 37, 3, 1 << 18, 1 << 17)
+    from stateright_tpu_torch.parallel.mesh import dedup_cap_for
+
+    lane_mesh = lane_kernel_parity(torch, np, MESH_N, 1024, 37, 3, 1 << 18, 1 << 17, dedup_cap_for)
     torch.cuda.empty_cache()
 
     phase("19 the speclint pre-flight (K16, K16a): K16a; analyze() cuda == cpu; full width; fixtures; strict")
@@ -4208,7 +4283,7 @@ def main(argv) -> int:
 
     line = {"kernels": []}
     for k in kernels.KERNELS + (kernels.RING_APPEND, kernels.SLAB_BOTTOMK_LANES, kernels.STAGE_LANES,
-                                kernels.RING_REFILL, kernels.SAMPLE_CAPTURE_LANES):
+                                kernels.RING_REFILL, kernels.SAMPLE_CAPTURE_LANES, kernels.MESH_COMMIT):
         # BFS kernels at the 2pc-7 widths and launches; the walk kernels
         # at the paxos-3 simulation widths and launches; the stage
         # profiler's at the 2pc-7 widths (K12a) and the paxos-3 simulation
@@ -4217,8 +4292,9 @@ def main(argv) -> int:
             r = stage_res[k.name]
             n = (launches_stage_sim if k is kernels.STAGE_WALK else launches_stage)[k.name]
         elif k.name in mesh_res:
-            # K15a and K15f at the 2pc-7 widths at 8 shards, with the
-            # launches of phase 18's 2pc-7 run at 8 shards.
+            # K15a and K15f (its COMMIT grid and its other phases) at the
+            # 2pc-7 widths at 8 shards, with the launches of phase 18's
+            # 2pc-7 run at 8 shards.
             r, n = mesh_res[k.name], launches_mesh[k.name]
         elif k.name in lint_res:
             # K16a at the paxos-3 widths, with the launches of phase 19's

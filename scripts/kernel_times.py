@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of K2, K4, K7, K7s, K8f, K9, K14f and K15a on the card, to hold
+"""Device times of K2, K3, K4, K7, K7s, K8f, K9, K14f, K15a and K15f on the card, to hold
 checkouts of the port against each other with one yardstick within one
 call.
 
@@ -53,10 +53,27 @@ and, once a tree:
                    1,024) and paxos-3 (chunk 2,048) receive widths: one
                    launch where the tree has the lane form, else the
                    per-shard loop;
+  dedup            K3 in its three forms: solo at the 2pc-7 and paxos-3
+                   BFS widths (vcap candidates, a valid prefix of 0.8
+                   vcap), lanes at the 2pc-5 sweep's 1,024 lanes (each
+                   lane's prefix drawn from 0 to vcap, a third of them
+                   empty, as a sweep's finished lanes are), and over the
+                   8 shards of phase 18's 2pc-7 and paxos-3 widths; on a
+                   scratch the program owns where the tree takes one (its
+                   memset otherwise), with its nodes a call;
+  mesh_commit      K15f's COMMIT at the 8-shard 2pc-7 (chunk 1,024),
+                   paxos-3 (chunk 2,048) and 2pc-10 (chunk 1,024) widths:
+                   the kernel alone (`commit`, the sums made once outside
+                   where the tree's COMMIT takes them) and with the torch
+                   launches the mesh step made before it where the tree
+                   has them (`commit_with_glue`: the first hits, hs, pa,
+                   generated and the owner's depth histogram; a tree whose
+                   COMMIT folds them times the same call twice), each with
+                   its nodes a call;
   step_nodes       the kernel nodes of one captured step of the solo
                    2pc-7 and paxos-3 programs (bench chunks), of a 2pc-5
-                   lane program (32 lanes) and of the 2pc-7 mesh at 8
-                   shards;
+                   lane program (32 lanes) and of the 2pc-7 and paxos-3
+                   meshes at 8 shards;
   spill            K7s DRAIN and REFILL at phase 20's widths: 2,416,640
                    rows x 5 of a 2^22 ring from a head that wraps, and 8
                    rings of 2^15 with ragged counts; each also with its
@@ -99,7 +116,7 @@ LANES = (1024, 151, 27)  # phase 12: the 2pc-5 sweep's lanes, chunk and actions
 # Phase 20's ragged rings: capacity, rows a ring, start positions.
 # The groups of rows, all timed unless --rows names some.
 ROWS = ("bfs", "insert", "mesh_tail", "compact_lanes", "insert_lanes", "exchange", "spill", "era",
-        "lane_era", "capture_lanes", "step_nodes")
+        "lane_era", "capture_lanes", "dedup", "mesh_commit", "step_nodes")
 SPILL_RAGGED = (1 << 15, [0, 17, 1 << 15, 4_096, 1, 30_000, 12_345, 999],
                 [(1 << 15) - 5, 3, 0, (1 << 15) - 2_000, 77, 10, (1 << 15) - 1, 31_000])
 
@@ -309,6 +326,10 @@ def one_tree(tree: str, reps: int, groups=None) -> dict:
         out["lane_era"] = lane_era_times(torch, np, smoke, reps)
     if "capture_lanes" in groups:
         out["capture_lanes"] = capture_lanes_times(torch, np, smoke, reps)
+    if "dedup" in groups:
+        out["dedup"] = dedup_times(torch, np, smoke)
+    if "mesh_commit" in groups:
+        out["mesh_commit"] = mesh_commit_times(torch, np, smoke)
     if "step_nodes" in groups:
         out["step_nodes"] = step_nodes()
     return out
@@ -594,6 +615,158 @@ def capture_lanes_times(torch, np, smoke, reps) -> dict:
     return out
 
 
+def dedup_times(torch, np, smoke) -> dict:
+    """K3 at the solo BFS widths, the 2pc-5 sweep's lanes and the 8-shard
+    mesh widths: each lane's valid prefix as the compaction leaves it."""
+    import inspect
+
+    from stateright_tpu_torch.engines.gpu_bfs import widths
+    from stateright_tpu_torch.ops import frontier as fr
+    from stateright_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(22)
+    owned = "n_val" in inspect.signature(fr.claim_dedup_lanes).parameters
+    cells = [("2pc-7 solo", 1, 6144, 37, False), ("paxos-3 solo", 1, 16384, 21, False),
+             ("2pc-5 sweep lanes", LANES[0], LANES[1], LANES[2], False),
+             ("2pc-7 8 shards", MESH_N, 1024, 37, True), ("paxos-3 8 shards", MESH_N, 2048, 21, True)]
+    out = {}
+    for label, N, C, A, sharded in cells:
+        vcap, _rcap, cap = widths(A, C)
+        if sharded:
+            cap = mesh.dedup_cap_for(vcap)
+        if N == 1:
+            nv = np.array([int(0.8 * vcap)])
+        else:
+            nv = rng.integers(0, vcap + 1, size=N)
+            nv[rng.random(N) < 1 / 3] = 0
+        pool = rng.integers(0, 1 << 32, size=(2, vcap // 4))
+        pick = rng.integers(0, pool.shape[1], size=(N, vcap))
+        h1, h2 = (torch.from_numpy(pool[i, pick]).to(dev) for i in range(2))
+        n_val = torch.from_numpy(nv).to(dev)
+        valid = torch.arange(vcap, device=dev)[None, :] < n_val[:, None]
+        if owned:
+            scratch = fr.dedup_scratch(N, cap, dev)
+            if N == 1:
+                def call():
+                    return fr.claim_dedup(h1[0], h2[0], valid[0], cap, n_val[0], scratch)
+            else:
+                def call():
+                    return fr.claim_dedup_lanes(h1, h2, valid, cap, n_val, scratch)
+        elif N == 1:
+            def call():
+                return fr.claim_dedup(h1[0], h2[0], valid[0], cap)
+        else:
+            def call():
+                return fr.claim_dedup_lanes(h1, h2, valid, cap)
+        out[label] = dict(
+            ms=smoke.time_device_ms(torch, lambda _: call()), kernels=call_kernels(torch, call),
+            shape=dict(N=N, vcap=vcap, scratch_cap=cap, prefix=int(n_val.clamp(max=vcap).sum()),
+                       owned_scratch=owned),
+        )
+        del h1, h2, valid
+        torch.cuda.empty_cache()
+    return out
+
+
+class _MeshStep:
+    """One 8-shard step's COMMIT operands (numpy seed 23) and the call
+    each tree makes: the COMMIT grid that folds the step, or the parent's
+    torch launches (stack, first hits, hs, pa, generated, the owner's
+    depth histogram) then its COMMIT."""
+
+    def __init__(self, torch, np, prog):
+        self.torch, self.prog = torch, prog
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(23)
+        n, C, A, P, R = prog.NL, prog.C, prog.A, prog.P, prog.R
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        self.is_new = t(rng.random((n, R)) < 0.3)
+        self.unres = t(np.zeros((n, R), dtype=bool))
+        self.rdepth = t(rng.integers(2, 40, n)[:, None] + rng.integers(0, 2, (n, R)))  # a BFS step's
+        self.n_ovf = t(np.zeros(n, dtype=np.int64))
+        self.n_val = t(rng.integers(0, prog.vcap, n))
+        self.hits = [t(rng.random(n * C) < 0.002) for _ in range(P)]
+        self.valid = t(rng.random(A * n * C) < 0.3)
+        self.rows = tuple(t(rng.integers(0, 1 << 32, n * C)) for _ in range(3))
+        st = prog.state.clone()
+        st[:, 1] = 3 * C  # P_COUNT
+        st[:, 6], st[:, 5], st[:, 7] = prog.qcap, 1 << 30, 64  # P_HIGH_WATER, P_GROW_LIMIT, P_MAX_STEPS
+        st[:, 12] = C  # P_TAKE_CAP
+        st[:, prog.x + 1], st[:, prog.x] = 1, C  # X_OPEN, X_TAKE
+        self.st = st
+
+    def prep(self):
+        p = self.prog
+        return self.st.clone(), self.torch.zeros_like(p.sums), [t.clone() for t in (p.hseen, p.facc1, p.facc2,
+                                                                                      p.faccd)]
+
+    def commit(self, a, glue=True):
+        torch, p = self.torch, self.prog
+        me = __import__("stateright_tpu_torch.ops.mesh_era", fromlist=["mesh_era"])
+        st, sums, (hseen, f1, f2, fd) = a
+        n, C, A, P = p.NL, p.C, p.A, p.P
+        if hasattr(me, "commit_scratch"):
+            ops = me.MeshOperands(
+                is_new=self.is_new, unresolved=self.unres, rdepth=self.rdepth, n_ovf=self.n_ovf, n_val=self.n_val,
+                hits=self.hits, valid=self.valid, rows=self.rows, hseen=hseen, facc1=f1, facc2=f2, faccd=fd,
+                slab_counts=p.slab_counts)
+            return me.mesh_era(me.COMMIT, p.cfg, st, sums, ops, scratch=p.commit_scratch)
+        if glue:
+            # parallel/mesh.py's step before the fold, then its COMMIT
+            hits = torch.stack(self.hits)
+            first = hits & ~hseen
+            f1.copy_(torch.where(first, self.rows[0], f1))
+            f2.copy_(torch.where(first, self.rows[1], f2))
+            fd.copy_(torch.where(first, self.rows[2], fd))
+            hseen |= hits
+            hs = hits.view(P, n, C).sum(2)
+            valid = self.valid.view(A, n, C)
+            pa = valid.sum(2).T.contiguous()
+            dbase = p.cov_base + A + P + 1
+            at = (torch.arange(n, device=st.device) * p.L + dbase)[:, None]
+            st.view(-1).index_add_(0, (at + self.rdepth.clamp(max=127)).view(-1), self.is_new.view(-1).to(torch.int64))
+            gen = valid.sum((0, 2))
+        else:
+            if not hasattr(self, "_sums"):
+                valid = self.valid.view(A, n, C)
+                self._sums = (torch.stack(self.hits).view(P, n, C).sum(2), valid.sum(2).T.contiguous(),
+                              valid.sum((0, 2)))
+            hs, pa, gen = self._sums
+        ops = me.MeshOperands(is_new=self.is_new, unresolved=self.unres, n_ovf=self.n_ovf, n_val=self.n_val,
+                              generated=gen, hs=hs, pa=pa, hseen=hseen, slab_counts=p.slab_counts)
+        return me.mesh_era(me.COMMIT, p.cfg, st, sums, ops)
+
+
+def mesh_commit_times(torch, np, smoke) -> dict:
+    """K15f's COMMIT, alone and with the glue before it, at the 8-shard
+    widths of phase 18 (2pc-7, paxos-3) and of 2pc-10 at 8 shards."""
+    from stateright_tpu_torch.models import PaxosTensorExhaustive, TwoPhaseTensor
+    from stateright_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    out = {}
+    for label, tm, C in (("2pc-7", TwoPhaseTensor(7), 1024), ("paxos-3", PaxosTensorExhaustive(3), 2048),
+                         ("2pc-10", TwoPhaseTensor(10), 1024)):
+        prog = mesh.MeshProgram(tm, tm.tensor_properties(), C, 1 << 16, 1 << 12, MESH_N,
+                                mesh.quota_for(C, tm.max_actions, MESH_N), True, 64, 1, dev)
+        step = _MeshStep(torch, np, prog)
+        idle = step.prep()
+        out[label] = dict(
+            commit=smoke.time_device_ms(torch, lambda a: step.commit(a, False), prep=step.prep),
+            commit_with_glue=smoke.time_device_ms(torch, lambda a: step.commit(a, True), prep=step.prep),
+            commit_kernels=call_kernels(torch, lambda: step.commit(idle, False)),
+            commit_with_glue_kernels=call_kernels(torch, lambda: step.commit(idle, True)),
+            shape=dict(N=MESH_N, C=C, A=prog.A, P=prog.P, R=prog.R, L=prog.L),
+        )
+        del prog, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def step_nodes() -> dict:
     """Kernel nodes of one captured step of each program (gates closed,
     after one eager step: every lazy initialisation)."""
@@ -622,11 +795,12 @@ def step_nodes() -> dict:
     lanes = warm_lane_program(TwoPhaseTensor(5), device="cuda")
     out["2pc-5 lanes (32)"] = closed(lanes, lanes.plen)
     del lanes
-    tm = TwoPhaseTensor(7)
-    prog = mesh.MeshProgram(tm, tm.tensor_properties(), 1024, 1 << 17, 1 << 14, MESH_N,
-                            mesh.quota_for(1024, tm.max_actions, MESH_N), True, 64, 1, dev)
-    out["2pc-7 mesh (8 shards)"] = closed(prog, prog.x)
-    torch.cuda.empty_cache()
+    for label, tm, C in (("2pc-7", TwoPhaseTensor(7), 1024), ("paxos-3", PaxosTensorExhaustive(3), 2048)):
+        prog = mesh.MeshProgram(tm, tm.tensor_properties(), C, 1 << 17, 1 << 14, MESH_N,
+                                mesh.quota_for(C, tm.max_actions, MESH_N), True, 64, 1, dev)
+        out[f"{label} mesh (8 shards)"] = closed(prog, prog.x)
+        del prog
+        torch.cuda.empty_cache()
     return out
 
 

@@ -141,6 +141,13 @@ def main(argv) -> int:
         for r, proc in enumerate(procs):
             logs.append(proc.communicate(timeout=max(1.0, a.limit - (time.monotonic() - t0)))[0])
             failed |= proc.returncode != 0
+    except subprocess.TimeoutExpired:
+        # Past the limit: every rank's log so far, after the kill.
+        print(f"mesh_ranks: the ranks ran past {a.limit:.0f} s", file=sys.stderr)
+        failed = True
+        for proc in procs:
+            proc.kill()
+        logs += [proc.communicate()[0] for proc in procs[len(logs):]]
     finally:
         for proc in procs:
             if proc.poll() is None:

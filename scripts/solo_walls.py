@@ -26,7 +26,9 @@ group; default `bfs`):
          at its solo golden count;
   mesh   2pc-7 and paxos-3 at 8 shards on one card (`chip_smoke.py`
          phase 18's options), each at its golden unique count; a step
-         is a lockstep step, one exchange launch.
+         is a lockstep step, one exchange launch. `2pc-10 x8` (by name:
+         2pc-10 at 8 shards, phase 18's options, 15.8 GB) is not in the
+         group.
 
 A simulation cell's result (states, steps, eras, max depth and the
 discoveries) and a lane cell's per-lane counts are printed with it:
@@ -99,8 +101,11 @@ MESHES = {
     "paxos-3 x8": ("PaxosTensorExhaustive", 3, 8,
                    dict(chunk_size=2048, queue_capacity_per_shard=1 << 18, table_capacity_per_shard=1 << 20),
                    1_194_428),
+    "2pc-10 x8": ("TwoPhaseTensor", 10, 8,
+                  dict(chunk_size=1024, queue_capacity_per_shard=1 << 23, table_capacity_per_shard=1 << 25),
+                  61_515_776),
 }
-GROUPS = {"bfs": ["2pc-7", "paxos-3"], "sim": list(SIMS), "lanes": list(LANES), "mesh": list(MESHES)}
+GROUPS = {"bfs": ["2pc-7", "paxos-3"], "sim": list(SIMS), "lanes": list(LANES), "mesh": ["2pc-7 x8", "paxos-3 x8"]}
 
 
 def _digest(lanes) -> list:

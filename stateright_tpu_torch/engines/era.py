@@ -131,6 +131,7 @@ class EraProgram:
         self.step_scratch = eo.step_scratch(1, P, A, dev)
         self.epilogue_scratch = eo.epilogue_scratch(1, P, C, dev)
         self.capture_scratch = sl.capture_scratch(1, self.rcap, dev) if sample_k else None
+        self.dedup_scratch = fr.dedup_scratch(1, self.dedup_cap, dev) if dev.type == "cuda" else None
         self.xp = TorchXP(dev)
         self.expand = build_expand_lean(tm, self.props, C, self.xp)
         # K11c under symmetry (`canon_fn.route`), else None.
@@ -213,7 +214,7 @@ class EraProgram:
             # (tpu_bfs.py:478-482).
             cl = self.canon_fn(cl)
         ch1, ch2 = hash_lanes(cl)
-        reps = fr.claim_dedup(ch1, ch2, vvalid, self.dedup_cap)
+        reps = fr.claim_dedup(ch1, ch2, vvalid, self.dedup_cap, n_val, self.dedup_scratch)
         dids, dvalid, n_d = vs.compact_ids(reps, self.rcap)
         dflat = vids.index_select(0, dids)
         src = dflat % C  # candidate a*C + c has parent row c

@@ -180,6 +180,7 @@ class LaneProgram:
         self.epoch = torch.ones(1, dtype=torch.int64, device=dev) if self._on_card else None
         self.step_scratch = eo.step_scratch(N, P, A, dev) if self._on_card else None
         self.epilogue_scratch = eo.epilogue_scratch(N, P, C, dev) if self._on_card else None
+        self.dedup_scratch = fr.dedup_scratch(N, self.dedup_cap, dev) if self._on_card else None
         self.lock = threading.Lock()
         self._graph: Optional[gr.Graph] = None
         # Builds of the batch program: on the card its graph captures; on
@@ -232,7 +233,8 @@ class LaneProgram:
         lane_c = self.lane_c
         cl = ex.flat.index_select(1, ((vids // C) * (N * C) + lane_c[:, None] + vids % C).view(-1))
         ch1, ch2 = hash_lanes(cl)
-        reps = fr.claim_dedup_lanes(ch1.view(N, vcap), ch2.view(N, vcap), vvalid, self.dedup_cap)
+        reps = fr.claim_dedup_lanes(ch1.view(N, vcap), ch2.view(N, vcap), vvalid, self.dedup_cap, n_val,
+                                    self.dedup_scratch)
         dids, dvalid, n_d = vs.compact_ids_lanes(reps, rcap)
         src = (lane_c[:, None] + vids.gather(1, dids) % C).view(-1)  # parent row
         gd = (self.lane_v + dids).view(-1)

@@ -263,11 +263,14 @@ class BfsStages(_Programs):
 
         claim_keys, claim_h1 = self._lane(2, vcap, salt=31, step=6), z(1, vcap)
         ones_v = torch.ones(vcap, dtype=torch.bool, device=self.device)
+        # Every candidate valid: the whole width is the prefix.
+        n_all = torch.full((), vcap, dtype=torch.int64, device=self.device)
+        claim_scratch = fr.dedup_scratch(1, dedup_cap, self.device) if self._card else None
 
         def claim_round(h):
             st = self.stages["claim"].st
             sg.xor_lanes(claim_h1, claim_keys[:1], st)
-            reps = fr.claim_dedup(claim_h1[0], claim_keys[1], ones_v, dedup_cap)
+            reps = fr.claim_dedup(claim_h1[0], claim_keys[1], ones_v, dedup_cap, n_all, claim_scratch)
             sg.fold(st, [sg.term(reps)], iters, handle=h)
 
         self._add("claim", claim_round)
@@ -558,11 +561,14 @@ class MeshStages(_Programs):
 
         p1, p2 = self._lane(vcap, salt=31), self._lane(vcap, salt=37)
         ones_v = torch.ones((NL, vcap), dtype=torch.bool, device=dev)
+        n_all = torch.full((NL,), vcap, dtype=torch.int64, device=dev)
+        claim_scratch = fr.dedup_scratch(NL, dedup_cap, dev) if self._card else None
         ch1 = z(NL, vcap)
 
         def claim_round(h):
             ch1.copy_(p1[None, :] ^ flip("claim"))
-            reps = fr.claim_dedup_lanes(ch1, p2.expand(NL, vcap).contiguous(), ones_v, dedup_cap)
+            reps = fr.claim_dedup_lanes(ch1, p2.expand(NL, vcap).contiguous(), ones_v, dedup_cap, n_all,
+                                        claim_scratch)
             fold("claim", h, reps.sum(1))
 
         add("claim", claim_round)

@@ -98,7 +98,7 @@ HASH_LANES = Kernel(
 # Each source has two counted entries: the solo calls count on the first,
 # the lane calls on its `_lanes` twin (same source, same C symbol).
 _COMPACT_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P]
-_DEDUP_ARGS = [_P, _P, _P, _I64, _I64, _P, _I64, _P]
+_DEDUP_ARGS = [_P, _P, _P, _P, _I64, _I64, _P, _I64, _P]
 _INSERT_ARGS = [_P, _P, _P, _I64, _U64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P]
 _RING_ARGS = [_P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I64]
 _APPEND_ARGS = [_I32, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _P, _I64, _I64, _P]
@@ -240,9 +240,16 @@ EXCHANGE = Kernel(
 )
 MESH_ERA = Kernel(
     "mesh_era", "mesh_era.cu", "srt_mesh_era",
-    [_I32, _I32, _I32, _P, _P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-     _P, _I64, _P, _P, _U64],
+    [_I32, _I32, _I32, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _U64],
     "stateright_tpu/parallel/mesh.py:257",
+)
+# K15f's COMMIT, the same source's second entry: the step's fold and
+# commit as one grid over (tile, shard).
+MESH_COMMIT = Kernel(
+    "mesh_commit", "mesh_era.cu", "srt_mesh_commit",
+    [_I32, _P, _P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+     _P, _U64],
+    "stateright_tpu/parallel/mesh.py:437",
 )
 
 # K16a: the speclint probes' agreement table (analysis/device.py STR205,
@@ -346,7 +353,7 @@ LANE_KERNELS = (
 # shard axis, K9a and K9b over every shard, K15a and K15f.
 MESH_KERNELS = (
     HASH_LANES, COMPACT_IDS_LANES, CLAIM_DEDUP_LANES, VISITED_INSERT_LANES, RING_LANES, RING_APPEND_LANES,
-    SAMPLE_CAPTURE_LANES, SLAB_BOTTOMK_LANES, LOOKUP_PARENT_LANES, EXCHANGE, MESH_ERA,
+    SAMPLE_CAPTURE_LANES, SLAB_BOTTOMK_LANES, LOOKUP_PARENT_LANES, EXCHANGE, MESH_ERA, MESH_COMMIT,
 )
 # The stage profiler's paths: each stage program's kernels and the loop's.
 BFS_STAGE_KERNELS = (
@@ -376,7 +383,7 @@ KERNELS = tuple(k for k in BFS_KERNELS if k is not RING_APPEND) + (
     LANE_AGREE, RING_DRAIN,
 ) + EXPAND_KERNELS + CANON_KERNELS
 ENTRIES = (KERNELS + (RING_APPEND, WALK_PROLOGUE, STAGE_LANES, RING_REFILL, SLAB_BOTTOMK_LANES,
-                      SAMPLE_CAPTURE_LANES)
+                      SAMPLE_CAPTURE_LANES, MESH_COMMIT)
            + LANE_KERNELS[1:] + WALK_KERNELS)
 
 _lock = threading.Lock()

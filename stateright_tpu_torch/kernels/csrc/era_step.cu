@@ -87,14 +87,17 @@
 // words; latency in practice (a few hundred KB a step).
 
 #include "era.cuh"
+#include "fold.cuh"
 
 namespace {
 
 using namespace era;
+using fold::add_rows;
+using fold::kRun;
+using fold::run_bits;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRun = 16;                    // elements a thread: one 16-byte load
 constexpr int kTile = kThreads * kRun;      // 4,096 elements a block
 constexpr int kMaxProps = 32;
 constexpr int kMaxRows = 1024;              // actions or properties a tile's counters hold
@@ -256,64 +259,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Four bool bytes (0 or 1) as four bits, byte k at bit k.
-__device__ __forceinline__ unsigned pack4(unsigned w) {
-  return ((w & 0x01010101u) * 0x01020408u) >> 24;
-}
-
-// The 16 elements e0 .. e0 + 15 (those below `total`) of a bool matrix
-// [R, C] whose row r starts at row(r), as bits (element e0 + k at bit
-// k). `vec`: C is a multiple of 16 and every row start is 16-byte
-// aligned, so a whole run is one load from one row.
-template <class Row>
-__device__ __forceinline__ unsigned run_bits(Row row, long long C, long long total, long long e0,
-                                             bool vec) {
-  if (vec && e0 + kRun <= total) {
-    const long long r = e0 / C;
-    const uint4 v = *reinterpret_cast<const uint4*>(row(r) + (e0 - r * C));
-    return pack4(v.x) | pack4(v.y) << 4 | pack4(v.z) << 8 | pack4(v.w) << 12;
-  }
-  unsigned m = 0;
-  for (int k = 0; k < kRun && e0 + k < total; ++k) {
-    const long long e = e0 + k, r = e / C;
-    m |= (unsigned)(row(r)[e - r * C] != 0) << k;
-  }
-  return m;
-}
-
-// Adds the set bits of a thread's run (element e0 + k at bit k, rows of
-// C elements) to cnt[row]: the bits of the run's first row summed over
-// the warp's threads that share that row first, one shared atomic each
-// group; the rest of a run that crosses rows one atomic a bit. Every
-// thread of the warp calls it (a run past the end has no bits).
-__device__ __forceinline__ void add_rows(unsigned m, long long e0, long long C, int* cnt) {
-  const long long r0 = e0 / C;
-  const long long left = (r0 + 1) * C - e0;  // elements of the run in row r0
-  unsigned first = m, rest = 0;
-  if (left < kRun) {
-    first = m & ((1u << left) - 1u);
-    rest = m & ~((1u << left) - 1u);
-  }
-  const unsigned peers = __match_any_sync(0xffffffffu, (int)r0);
-  const int tot = __reduce_add_sync(peers, __popc(first));
-  if (tot && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&cnt[r0], tot);
-  while (rest) {
-    const int k = __ffs(rest) - 1;
-    rest &= rest - 1;
-    atomicAdd(&cnt[(e0 + k) / C], 1);
-  }
-}
-
-__device__ __forceinline__ long long block_sum(long long v, long long* red) {
-  v = __reduce_add_sync(0xffffffffu, (unsigned)v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  long long total = 0;
-  for (int w = 0; w < kWarps; ++w) total += red[w];
-  __syncthreads();
-  return total;
-}
-
 __global__ void __launch_bounds__(kThreads)
     era_commit_kernel(const Cfg c, long long* s0, const __grid_constant__ StepIn in,
                       cudaGraphConditionalHandle h) {
@@ -324,7 +269,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ long long scal[4];         // n_val, n_d, generated, occupancy
   __shared__ bool last, ovf;
   extern __shared__ long long srow[];   // the lane's state row, in its last block
-  const int t = threadIdx.x, lane = t & 31;
+  const int t = threadIdx.x;
   const long long l = blockIdx.y, N = in.lanes, C = c.chunk;
   const int tile = blockIdx.x;
   const int W = ACC_HS + (int)(c.P + c.A);
@@ -351,28 +296,9 @@ __global__ void __launch_bounds__(kThreads)
     }
     const unsigned bu = run_bits([&](long long) { return um; }, in.n, in.n, e0, vec);
     const unsigned bn = run_bits([&](long long) { return nm; }, in.n, in.n, e0, vec);
-    if (hist_on) {
-      // A thread's inserts by bin, a run of one bin counted at once; the
-      // last run's count summed over the warp's threads that end in the
-      // same bin, one shared atomic each group.
-      int bin = -1, run = 0;
-#pragma unroll
-      for (int k = 0; k < kRun; ++k) {
-        if (!((bn >> k) & 1u)) continue;
-        const int b = (int)(dk[k] < kDepthCap - 1 ? dk[k] : kDepthCap - 1);
-        if (b != bin) {
-          if (run) atomicAdd(&hist[bin], run);
-          bin = b;
-          run = 0;
-        }
-        ++run;
-      }
-      const unsigned peers = __match_any_sync(0xffffffffu, bin);
-      const int tot = (int)__reduce_add_sync(peers, (unsigned)run);
-      if (tot && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], tot);
-    }
-    const long long unres = block_sum(__popc(bu), red);
-    const long long fresh = block_sum(__popc(bn), red);
+    if (hist_on) fold::hist_run(bn, dk, kDepthCap, hist);
+    const long long unres = fold::block_sum<kWarps>(__popc(bu), red);
+    const long long fresh = fold::block_sum<kWarps>(__popc(bn), red);
     if (t == 0) {
       if (unres) atomicAdd(acc + ACC_UNRES, (unsigned long long)unres);
       if (fresh) atomicAdd(acc + ACC_NEW, (unsigned long long)fresh);
@@ -417,7 +343,7 @@ __global__ void __launch_bounds__(kThreads)
                    in.vec_valid);
     }
     add_rows(m, e0, C, cnt);
-    const long long all = hits ? 0 : block_sum(__popc(m), red);  // also the barrier
+    const long long all = hits ? 0 : fold::block_sum<kWarps>(__popc(m), red);  // also the barrier
     if (hits) __syncthreads();
     if (t == 0 && all) atomicAdd(acc + ACC_VALID, (unsigned long long)all);
     const int base = hits ? ACC_HS : ACC_HS + (int)c.P;

@@ -33,9 +33,18 @@ from ..fingerprint import mul32
 DEDUP_MUL = 0x9E3779B9
 
 
-def claim_dedup_lanes_plain(h1, h2, valid, scratch_cap: int):
+def _prefix_mask(valid, n_val):
+    """valid & (index < n_val), lane by lane: the candidates K3 reads."""
+    if n_val is None:
+        return valid
+    N, n = valid.shape
+    return valid & (torch.arange(n, device=valid.device)[None, :] < n_val.reshape(N, 1))
+
+
+def claim_dedup_lanes_plain(h1, h2, valid, scratch_cap: int, n_val=None):
     N, n = h1.shape
     dev = h1.device
+    valid = _prefix_mask(valid, n_val)
     row = (torch.arange(N, dtype=torch.int64, device=dev) * scratch_cap)[:, None]
     slot = (row + ((h1 ^ mul32(h2, DEDUP_MUL)) & (scratch_cap - 1))).reshape(-1)
     ids = torch.arange(N * n, dtype=torch.int64, device=dev)
@@ -52,43 +61,61 @@ def claim_dedup_lanes_plain(h1, h2, valid, scratch_cap: int):
     return valid & ((win == ids) | ~same_key).view(N, n)
 
 
-def _claim_dedup(h1, h2, valid, scratch_cap: int, kernel):
+def dedup_scratch(lanes: int, scratch_cap: int, device) -> torch.Tensor:
+    """K3's workspace (claim_dedup.cu): a 64-bit slot a lane's scratch
+    position, tagged with the call's epoch, then the epoch word; zero
+    when made. Each call leaves it as the next expects it, so a program
+    makes it once and every call (and a CUDA-graph replay) reuses it."""
+    return torch.zeros(lanes * scratch_cap + 1, dtype=torch.int64, device=device)
+
+
+def _claim_dedup(h1, h2, valid, scratch_cap: int, n_val, scratch, kernel):
     if scratch_cap & (scratch_cap - 1):
         raise ValueError("dedup scratch capacity must be a power of two")
-    if not kernels.on_card(h1, h2, valid):
-        return claim_dedup_lanes_plain(h1, h2, valid, scratch_cap)
+    if not kernels.on_card(h1, h2, valid, *(() if n_val is None else (n_val,))):
+        return claim_dedup_lanes_plain(h1, h2, valid, scratch_cap, n_val)
     N, n = h1.shape
     if valid.dtype != torch.bool or n >= 0xFFFFFFFF:
         raise ValueError("claim_dedup takes a bool mask and n < 2^32 - 1")
+    if scratch is None:
+        scratch = dedup_scratch(N, scratch_cap, h1.device)
+    elif scratch.numel() != N * scratch_cap + 1 or scratch.dtype != torch.int64:
+        raise ValueError(f"the dedup scratch must be dedup_scratch({N}, {scratch_cap})")
     h1, h2, valid = h1.contiguous(), h2.contiguous(), valid.contiguous()
-    scratch = torch.empty((N, scratch_cap), dtype=torch.int32, device=h1.device)
     keep = torch.empty((N, n), dtype=torch.bool, device=h1.device)
     kernel.launch(
-        kernels.ptr(h1), kernels.ptr(h2), kernels.ptr(valid), N, n,
+        kernels.ptr(h1), kernels.ptr(h2), kernels.ptr(valid),
+        None if n_val is None else kernels.ptr(n_val.reshape(N)), N, n,
         kernels.ptr(scratch), scratch_cap, kernels.ptr(keep),
     )
     return keep
 
 
-def claim_dedup_lanes(h1, h2, valid, scratch_cap: int):
+def claim_dedup_lanes(h1, h2, valid, scratch_cap: int, n_val=None, scratch=None):
     """`claim_dedup` in each lane (the vmapped JAX op): candidates [N, n],
     one scratch_cap-slot scratch a lane, the highest index within a lane
-    wins its slot. Returns keep [N, n] bool."""
-    return _claim_dedup(h1, h2, valid, scratch_cap, kernels.CLAIM_DEDUP_LANES)
+    wins its slot. `n_val` [N] (or None: the whole width): lane l's
+    candidates past n_val[l] count as invalid, and the kernel does not
+    read them. `scratch`: the caller's `dedup_scratch(N, scratch_cap)`
+    (None: a fresh one). Returns keep [N, n] bool."""
+    return _claim_dedup(h1, h2, valid, scratch_cap, n_val, scratch, kernels.CLAIM_DEDUP_LANES)
 
 
-def claim_dedup_plain(h1, h2, valid, scratch_cap: int):
-    return claim_dedup_lanes_plain(h1[None], h2[None], valid[None], scratch_cap)[0]
+def claim_dedup_plain(h1, h2, valid, scratch_cap: int, n_val=None):
+    nv = None if n_val is None else n_val.reshape(1)
+    return claim_dedup_lanes_plain(h1[None], h2[None], valid[None], scratch_cap, nv)[0]
 
 
-def claim_dedup(h1, h2, valid, scratch_cap: int):
+def claim_dedup(h1, h2, valid, scratch_cap: int, n_val=None, scratch=None):
     """Approximate in-batch dedup: each valid candidate claims the scratch
     slot (h1 ^ h2*0x9E3779B9) & (scratch_cap-1), the highest index wins,
     and a candidate is kept if it won or if the winner's key differs. Two
     keys on one slot both survive; the visited-set insert arbitrates them
-    exactly. Returns keep [n] bool. The one-lane case of
+    exactly. `n_val` (a 0-d count, or None): candidates past it count as
+    invalid. Returns keep [n] bool. The one-lane case of
     `claim_dedup_lanes`."""
-    return _claim_dedup(h1[None], h2[None], valid[None], scratch_cap, kernels.CLAIM_DEDUP)[0]
+    nv = None if n_val is None else n_val.reshape(1)
+    return _claim_dedup(h1[None], h2[None], valid[None], scratch_cap, nv, scratch, kernels.CLAIM_DEDUP)[0]
 
 
 def empty_ring(width: int, qcap: int, device, lanes=None) -> torch.Tensor:

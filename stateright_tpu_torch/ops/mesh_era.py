@@ -1,7 +1,7 @@
 """The sharded era's bookkeeping on the card (K15f): the shard params
 layout, and the shard-coupled gate, step commit, epilogue and dispatch
-tail as one kernel (kernels/csrc/mesh_era.cu) with its plain torch
-version.
+tail (kernels/csrc/mesh_era.cu: COMMIT one grid over (tile, shard), the
+other phases one block) with its plain torch version.
 
 The port's counterpart of the scalar parts of
 `stateright_tpu/parallel/mesh.py:152 _build_block`: the packed per-shard
@@ -10,7 +10,10 @@ uniform gate `global_gates` (:257-298), the overflow / unresolved veto
 and the commit at the end of the step (:445-500), the era epilogue with
 its adaptive budget (:580-640), the fused outer loop (:697-760) and the
 dispatch's output row (:762-810: the coverage psum, the sample tail's
-header, the error word).
+header, the error word). COMMIT also folds the step's operands as the
+JAX step does before its commit (:437-500): the first-hit lanes, the
+hit and action counts, the generated count and the owner's depth
+histogram.
 
 A rank holds its shards as a leading axis: the state is [N, L] int64,
 one row a local shard — the JAX shard's params row, word for word
@@ -33,12 +36,15 @@ size 1) every phase of a mode runs in ONE launch and a rank's partials
 are the totals. Across ranks (`group`) the phases run one launch each,
 with an `all_reduce` of `sums` between them, so every rank applies the
 same totals: a shard never reads its own partial for a global value.
+COMMIT's first phase (C1, with the fold) is the commit grid; across
+ranks it leaves its accumulators in the `commit_scratch` for the C2
+launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -168,23 +174,29 @@ class MeshConfig:
 class MeshOperands(NamedTuple):
     """The tensors a mode reads besides the state and the sums (None where
     a mode does not read them). N local shards, chunk C, receive width R:
-    is_new / unresolved [N, R] bool (the owner-side insert), n_ovf [N]
-    (K15a's overflow past the quota, at the sender), n_val [N] (each
-    sender's valid candidates, against vcap), generated [N], hs
-    [P, N] (rows that hit each property), pa [N, A] (valid candidates of
-    each action), hseen [P, N * C] bool and facc1 / facc2 / faccd [P, N *
-    C] (the era's first hits; shard l's at columns l * C ..), ring_depth
-    [N, qcap + 1] (each shard ring's depth lane, a strided view), slab
-    [4, N, scap + 1] (the sample slabs' fp1, fp2, depth, action lanes) and
-    slab_counts [N, 2] (occupied, dropped)."""
+    is_new / unresolved [N, R] bool (the owner-side insert), rdepth [N, R]
+    (each received row's depth: the owner's depth histogram; None
+    without coverage), n_ovf [N] (K15a's overflow past the quota, at the
+    sender), n_val [N] (each sender's valid candidates, against vcap),
+    hits (P masks, each [N * C]: the popped rows that hit each property),
+    valid [A, N, C] bool (each sender's valid candidates, action-major:
+    the expand's mask; its counts are the action coverage and the
+    generated count), rows (h1, h2, depth), each [N * C] (the popped
+    rows': a first hit's fingerprint and depth), hseen [P, N * C] bool and
+    facc1 / facc2 / faccd [P, N * C] (the era's first hits; shard l's at
+    columns l * C ..), ring_depth [N, qcap + 1] (each shard ring's depth
+    lane, a strided view), slab [4, N, scap + 1] (the sample slabs' fp1,
+    fp2, depth, action lanes) and slab_counts [N, 2] (occupied,
+    dropped)."""
 
     is_new: Optional[torch.Tensor] = None
     unresolved: Optional[torch.Tensor] = None
+    rdepth: Optional[torch.Tensor] = None
     n_ovf: Optional[torch.Tensor] = None
     n_val: Optional[torch.Tensor] = None
-    generated: Optional[torch.Tensor] = None
-    hs: Optional[torch.Tensor] = None
-    pa: Optional[torch.Tensor] = None
+    hits: Optional[Sequence[torch.Tensor]] = None
+    valid: Optional[torch.Tensor] = None
+    rows: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
     hseen: Optional[torch.Tensor] = None
     facc1: Optional[torch.Tensor] = None
     facc2: Optional[torch.Tensor] = None
@@ -192,6 +204,14 @@ class MeshOperands(NamedTuple):
     ring_depth: Optional[torch.Tensor] = None
     slab: Optional[torch.Tensor] = None
     slab_counts: Optional[torch.Tensor] = None
+
+
+def commit_scratch(N: int, P: int, A: int, device) -> torch.Tensor:
+    """The commit grid's scratch (mesh_era.cu): each shard's accumulators
+    (unresolved, new, valid, a spare word, hs[P], the hit-or-seen
+    counts[P], pa[A]) and the grid's ticket, zero. A launch on one rank
+    leaves it zero; across ranks the C2 launch zeroes what the grid left."""
+    return torch.zeros(N * (4 + 2 * P + A) + 1, dtype=torch.int64, device=device)
 
 
 # -- the plain version ---------------------------------------------------------
@@ -275,6 +295,7 @@ class _Plain:
                 s[P_TAKE_CAP] = min(max(s[P_TAKE_CAP], 1), c.chunk)
             self.gate_partials(False)
         elif phase == PH_C1:
+            self.fold()
             if not self.open_flag():
                 return
             unres = self.ops.unresolved.sum(1).tolist()
@@ -292,9 +313,10 @@ class _Plain:
             g_unres, g_shrink = self.sums[S_UNRES], self.sums[S_SHRINK]
             n_ovf = o.n_ovf.tolist()
             n_val = o.n_val.tolist()
-            gen = o.generated.tolist()
-            hs = o.hs.tolist() if o.hs is not None else [[] for _ in range(c.P)]
-            pa = o.pa.tolist() if o.pa is not None else None
+            valid = o.valid.reshape(c.A, self.N, self.C)
+            gen = valid.sum((0, 2)).tolist()
+            pa = valid.sum(2).T.tolist()
+            hs = self.hit_mask().view(c.P, self.N, self.C).sum(2).tolist()
             for l, s in enumerate(self.rows):
                 take, new = s[x + X_TAKE], s[x + X_NEW]
                 pred = s[P_COUNT] > 0
@@ -362,6 +384,32 @@ class _Plain:
                     s[c.s_base + 3] = 0
         else:
             raise ValueError(f"unknown mesh era phase {phase}")
+
+    def hit_mask(self) -> torch.Tensor:
+        """[P, N * C]: the popped rows that hit each property."""
+        hits = self.ops.hits or ()
+        return torch.stack([h.reshape(-1) for h in hits]) if hits else torch.zeros(
+            (0, self.N * self.C), dtype=torch.bool)
+
+    def fold(self) -> None:
+        """COMMIT's fold, on every step whatever the gate (mesh.py:437-500):
+        the first-hit lanes (where a hit was not seen, the row's hashes and
+        depth) and, with coverage, each new insert counted at the owner at
+        min(its depth, DEPTH_CAP - 1)."""
+        c, o = self.c, self.ops
+        if c.P:
+            hits = self.hit_mask()
+            first = hits & ~o.hseen
+            for acc, src in zip((o.facc1, o.facc2, o.faccd), o.rows):
+                acc.copy_(torch.where(first, src.reshape(-1), acc))
+            o.hseen.logical_or_(hits)
+        if c.cov_base >= 0:
+            at = torch.arange(self.N)[:, None] * DEPTH_CAP + o.rdepth.cpu().clamp(max=DEPTH_CAP - 1)
+            hist = torch.zeros(self.N * DEPTH_CAP, dtype=torch.int64).index_add_(
+                0, at.view(-1), o.is_new.cpu().view(-1).to(torch.int64)).view(self.N, DEPTH_CAP).tolist()
+            base = c.cov_base + c.A + c.P + 1
+            for s, h in zip(self.rows, hist):
+                s[base:base + DEPTH_CAP] = [a + b for a, b in zip(s[base:base + DEPTH_CAP], h)]
 
     def epilogue(self) -> None:
         c, x, P, C = self.c, self.c.x, self.c.P, self.C
@@ -440,59 +488,83 @@ def mesh_era_plain(phases, c: MeshConfig, state, sums, ops: MeshOperands) -> Non
     pl.write()
 
 
-def _launch(phases, c: MeshConfig, state, sums, ops: MeshOperands, handle: int) -> None:
+def _launch(phases, c: MeshConfig, state, sums, ops: MeshOperands, handle: int, scratch,
+            final: bool = True) -> None:
+    """One launch: the commit grid where `phases` start with C1 (`final`:
+    on one rank, C1, C2 and CGATE; else C1 alone), else the one-block
+    kernel over `phases`."""
     p = kernels.ptr
 
     def opt(t):
         return None if t is None else p(t)
 
     o = ops
+    N, L = state.shape
+    if phases[0] == PH_C1:
+        need = {"is_new", "unresolved", "n_ovf", "n_val", "valid"}
+        if c.P:
+            need |= {"hits", "rows", "hseen", "facc1", "facc2", "faccd"}
+        if c.cov_base >= 0:
+            need.add("rdepth")
+        missing = sorted(f for f in need if getattr(o, f) is None)
+        if missing or scratch is None:
+            raise ValueError(f"the mesh commit reads {missing + ([] if scratch is not None else ['scratch'])}")
+        hits = (ctypes.c_void_p * max(1, c.P))(*(p(h) for h in (o.hits or ()))) if c.P else None
+        rows = [None] * 3 if o.rows is None else [p(t) for t in o.rows]
+        kernels.MESH_COMMIT.launch(
+            int(final), c.ptr, p(state), N, L, p(sums), p(o.is_new), p(o.unresolved), o.is_new.shape[1],
+            opt(o.rdepth), p(o.n_ovf), p(o.n_val), None if hits is None else ctypes.addressof(hits),
+            p(o.valid), *rows, opt(o.hseen), opt(o.facc1), opt(o.facc2), opt(o.faccd),
+            opt(o.slab_counts), p(scratch), int(handle),
+        )
+        return
     need = set()
-    if PH_C1 in phases or PH_C2 in phases:
-        need |= {"is_new", "unresolved", "n_ovf", "n_val", "generated", "hseen"}
+    if PH_C2 in phases:
+        need |= {"n_ovf", "n_val"}
     if PH_E2 in phases:
         need |= {"hseen", "facc1", "facc2", "faccd", "ring_depth"}
     missing = sorted(f for f in need if getattr(o, f) is None)
-    if missing:
-        raise ValueError(f"the mesh era kernel's phases {tuple(phases)} read {missing}")
-    N, L = state.shape
-    n = o.is_new.shape[1] if o.is_new is not None else 0
+    if missing or (PH_C2 in phases and scratch is None):
+        raise ValueError(f"the mesh era kernel's phases {tuple(phases)} read {missing or ['scratch']}")
     if o.ring_depth is not None and o.ring_depth.stride(-1) != 1:
         raise ValueError("the ring's depth lane must be contiguous")
     ph = list(phases) + [-1] * (3 - len(phases))
     kernels.MESH_ERA.launch(
-        ph[0], ph[1], ph[2], c.ptr, p(state), N, L, p(sums),
-        opt(o.is_new), opt(o.unresolved), n, opt(o.n_ovf), opt(o.n_val), opt(o.generated),
-        opt(o.hs), opt(o.pa),
+        ph[0], ph[1], ph[2], c.ptr, p(state), N, L, p(sums), opt(o.n_ovf), opt(o.n_val),
         opt(o.hseen), opt(o.facc1), opt(o.facc2), opt(o.faccd),
         None if o.ring_depth is None else o.ring_depth.data_ptr(),
         0 if o.ring_depth is None else o.ring_depth.stride(0),
-        opt(o.slab), opt(o.slab_counts), int(handle),
+        opt(o.slab), opt(o.slab_counts), opt(scratch), int(handle),
     )
 
 
 def mesh_era(mode, c: MeshConfig, state, sums, ops: MeshOperands = MeshOperands(),
-             reduce=None, handle: int = 0) -> None:
+             reduce=None, handle: int = 0, scratch=None) -> None:
     """Run the phases of `mode` (START, BEGIN, COMMIT, EPILOGUE, TAIL) on
     a rank's shard state [N, L] and sums vector, in place.
 
     START opens a dispatch (zeroes its outputs, the discovery outputs,
     the sample slabs; clamps fuse_lim); BEGIN opens an era (the gate);
-    COMMIT commits the step of every shard under the global veto — an
-    overflow at a shard's sender (a bucket past its quota, or more valid
-    candidates than the compaction's vcap), or any unresolved insert
-    anywhere, consumes none of that shard's pops and halves its take_cap
-    — then the gate; EPILOGUE ends an era (each shard's discoveries and max depth,
-    the global next budget, the fusion continuation); TAIL ends the
-    dispatch (the coverage tail summed over the mesh into every row, the
-    error word as 0/1, the sample tail's header). The gate is the same on
-    every shard: X_OPEN, and X_TAKE / X_TAIL per shard.
+    COMMIT folds the step's operands (the first-hit lanes and the owner's
+    depth histogram, on every step) and, while the gate is open, commits
+    the step of every shard under the global veto — an overflow at a
+    shard's sender (a bucket past its quota, or more valid candidates
+    than the compaction's vcap), or any unresolved insert anywhere,
+    consumes none of that shard's pops and halves its take_cap — with its
+    coverage counts, then the gate; EPILOGUE ends an era (each shard's
+    discoveries and max depth, the global next budget, the fusion
+    continuation); TAIL ends the dispatch (the coverage tail summed over
+    the mesh into every row, the error word as 0/1, the sample tail's
+    header). The gate is the same on every shard: X_OPEN, and X_TAKE /
+    X_TAIL per shard.
 
     `reduce` (None on one rank) is called on `sums` between two phases:
     the all_reduce of a world with several ranks. `handle` (a CUDA
     graph's conditional handle, or 0; one rank only) receives the gate
-    (BEGIN, COMMIT), 1 (START) or the continuation (EPILOGUE). On CPU
-    tensors the plain version runs."""
+    (BEGIN, COMMIT), 1 (START) or the continuation (EPILOGUE). `scratch`
+    (`commit_scratch`, COMMIT on the card; a program passes its own, a
+    call without one gets a fresh one) carries the commit grid's
+    accumulators and ticket. On CPU tensors the plain version runs."""
     if not kernels.on_card(state, sums):
         if reduce is None:
             return mesh_era_plain(mode, c, state, sums, ops)
@@ -501,11 +573,13 @@ def mesh_era(mode, c: MeshConfig, state, sums, ops: MeshOperands = MeshOperands(
             if i + 1 < len(mode):
                 reduce(sums)
         return
+    if scratch is None and PH_C1 in mode:
+        scratch = commit_scratch(state.shape[0], c.P, c.A, state.device)
     if reduce is None:
-        return _launch(mode, c, state, sums, ops, handle)
+        return _launch(mode, c, state, sums, ops, handle, scratch)
     if handle:
         raise ValueError("a graph's handle takes the one-rank mesh era")
     for i, ph in enumerate(mode):
-        _launch((ph,), c, state, sums, ops, 0)
+        _launch((ph,), c, state, sums, ops, 0, scratch, final=False)
         if i + 1 < len(mode):
             reduce(sums)

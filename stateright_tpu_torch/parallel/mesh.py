@@ -32,9 +32,9 @@ the state [NL, L] (one JAX params row a shard, ops/mesh_era.py).
             8. owner-side fingerprints                 K1
             9. insert at R = N * quota rows per owner  K4, lane form
            10. sample capture, every shard at once    K9a, lane form
-           11. ring append per owner                   K2 + K7, lane forms
-           12. first hits, depth histogram             (torch)
-           13. COMMIT and the gate                     K15f COMMIT
+           11. ring append per owner                   K7, lane form
+           12. the fold (first hits, counts, depth     K15f COMMIT (one
+               histogram), COMMIT and the gate         grid)
         EPILOGUE                          K15f EPILOGUE
     TAIL                                  K15f TAIL, K9b over every shard
 
@@ -94,7 +94,6 @@ from ..engines.gpu_bfs import (
     GpuBfsChecker, ProbeBudgetExhausted, adapt_budget_cap, poll_target_of, resolve_device, run_chain,
 )
 from ..fingerprint import combine64, hash_lanes, hash_words_np, split64
-from ..obs.coverage import DEPTH_CAP
 from ..obs.sample import slab_entries, slab_high_water
 from ..ops import exchange as xc
 from ..ops import frontier as fr
@@ -196,6 +195,8 @@ class MeshProgram:
             self.slab_counts = z((NL, 2), dtype=torch.int64, device=dev)
             self._no_action = z(R, dtype=torch.int64, device=dev)
             self._capture_scratch = sl.capture_scratch(NL, R, dev)
+        self.dedup_scratch = fr.dedup_scratch(NL, self.dedup_cap, dev) if dev.type == "cuda" else None
+        self.commit_scratch = me.commit_scratch(NL, P, A, dev) if dev.type == "cuda" else None
         self.hseen = z((P, NL * C), dtype=torch.bool, device=dev)
         self.facc1, self.facc2, self.faccd = (
             z((P, NL * C), dtype=torch.int64, device=dev) for _ in range(3)
@@ -206,9 +207,6 @@ class MeshProgram:
         self.expand = build_expand_lean(tm, self.props, NL * C, self.xp)
         self.lane_c = torch.arange(NL, device=dev) * C
         self.arange_c = torch.arange(C, device=dev)
-        if cov:
-            dbase = self.cov_base + A + P + 1
-            self.lane_dhist = (torch.arange(NL, device=dev) * self.L + dbase)[:, None]
         self._depth_limit = self.state[0, me.P_DEPTH_LIMIT]
         self._reduce = None
         if self.world > 1:
@@ -273,7 +271,7 @@ class MeshProgram:
     # -- the segments (each a child graph on the card) -----------------------
 
     def _era(self, mode, ops=me.MeshOperands(), handle: int = 0) -> None:
-        me.mesh_era(mode, self.cfg, self.state, self.sums, ops, self._reduce, handle)
+        me.mesh_era(mode, self.cfg, self.state, self.sums, ops, self._reduce, handle, self.commit_scratch)
 
     def _start(self, handle: int = 0) -> None:
         self._era(me.START, me.MeshOperands(slab=self.slab, slab_counts=self.slab_counts), handle)
@@ -311,7 +309,8 @@ class MeshProgram:
         ch1, ch2 = hash_lanes(cl)
         src = (lane_c + vids % C).view(-1)  # the candidate's parent row
         vv = vvalid.view(-1)
-        reps = fr.claim_dedup_lanes(ch1.view(NL, vcap), ch2.view(NL, vcap), vvalid, self.dedup_cap)
+        reps = fr.claim_dedup_lanes(ch1.view(NL, vcap), ch2.view(NL, vcap), vvalid, self.dedup_cap, n_val,
+                                    self.dedup_scratch)
         vals = torch.cat([
             cl, ex.ebits.index_select(0, src)[None], (depth.index_select(0, src) + 1)[None],
             torch.where(vv, row_h1.index_select(0, src), 0)[None],
@@ -335,25 +334,13 @@ class MeshProgram:
                              st[0, self.s_base:self.s_base + 2], R, self._capture_scratch)
         fr.ring_scatter_lanes(self.rings, st[:, x + me.X_TAIL].contiguous(),
                               recv[:S + 2].reshape(S + 2, NL * R), is_new)
-        hs = pa = None
-        if P:
-            hits = torch.stack(ex.prop_hits)
-            first = hits & ~self.hseen
-            self.facc1.copy_(torch.where(first, row_h1, self.facc1))
-            self.facc2.copy_(torch.where(first, row_h2, self.facc2))
-            self.faccd.copy_(torch.where(first, depth, self.faccd))
-            self.hseen |= hits
-            hs = hits.view(P, NL, C).sum(2)
-        if self.cov:
-            pa = valid.sum(2).T.contiguous()
-            # Inserts count at the owner, on every step (mesh.py:474).
-            st.view(-1).index_add_(
-                0, (self.lane_dhist + rdepth.clamp(max=DEPTH_CAP - 1)).view(-1),
-                is_new.view(-1).to(torch.int64),
-            )
+        # COMMIT folds the first hits, the hit and action counts and the
+        # owner's depth histogram (every step) in (ops/mesh_era.py).
         ops = me.MeshOperands(
-            is_new=is_new, unresolved=unres, n_ovf=n_ovf, n_val=n_val, generated=valid.sum((0, 2)), hs=hs,
-            pa=pa, hseen=self.hseen, slab_counts=self.slab_counts,
+            is_new=is_new, unresolved=unres, rdepth=rdepth if self.cov else None, n_ovf=n_ovf,
+            n_val=n_val, hits=ex.prop_hits if P else None, valid=ex.valid,
+            rows=(row_h1, row_h2, depth) if P else None, hseen=self.hseen, facc1=self.facc1,
+            facc2=self.facc2, faccd=self.faccd, slab_counts=self.slab_counts,
         )
         self._era(me.COMMIT, ops, handle)
 

@@ -1691,3 +1691,177 @@ def test_canon_kernel_matches_plain_one_node_a_call(dev):
         assert torch.equal(kb(lanes), build_canon_plain(big, xp)(lanes))
         counts = graph.captured_nodes(lambda: kb(lanes))
         assert counts["kernels"] == 1 and counts["memsets"] == 0, counts
+
+
+# -- K3 without its memset, K15f's COMMIT grid -------------------------------
+
+def test_claim_dedup_prefix_on_a_stale_scratch_in_a_replayed_graph(dev):
+    """K3's solo and lane calls, each on one program-owned scratch,
+    captured once and replayed on new keys and prefixes (0, partial, the
+    whole width, past it) with the stale slots of every earlier call left
+    in the scratch: the plain results each time; two kernel nodes and no
+    memset a call."""
+    from stateright_tpu_torch.engines import graph
+
+    rng = np.random.default_rng(61)
+    N, n, cap = 37, 3_000, 1 << 13
+    pool = _u32(rng, 2, 400)
+    h1, h2 = (torch.zeros((N, n), dtype=torch.int64, device=dev) for _ in range(2))
+    valid = torch.zeros((N, n), dtype=torch.bool, device=dev)
+    n_val = torch.zeros(N, dtype=torch.int64, device=dev)
+    scratch = fr.dedup_scratch(N, cap, dev)
+    solo_scratch = fr.dedup_scratch(1, cap, dev)
+
+    def lane_call():
+        return fr.claim_dedup_lanes(h1, h2, valid, cap, n_val, scratch)
+
+    def solo_call():
+        return fr.claim_dedup(h1[3], h2[3], valid[3], cap, n_val[3], solo_scratch)
+
+    def calls():
+        return lane_call(), solo_call()
+
+    for fn in (lane_call, solo_call):
+        fn()
+        counts = graph.captured_nodes(fn)
+        assert counts["kernels"] == 2 and counts["memsets"] == 0, counts
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with graph.capture_guard() as stream:
+        with torch.cuda.graph(g, stream=stream):
+            lanes, solo = calls()
+    for rep in range(4):
+        pick = rng.integers(0, 400, size=(N, n))
+        h1.copy_(torch.from_numpy(pool[0, pick]))
+        h2.copy_(torch.from_numpy(pool[1, pick]))
+        nv = np.full(N, n) if rep == 0 else rng.integers(0, n + 1, size=N)
+        nv[:3] = [0, n, n + 5] if rep else nv[:3]
+        n_val.copy_(torch.from_numpy(nv))
+        valid.copy_((torch.arange(n)[None, :] < torch.from_numpy(nv)[:, None])
+                    & torch.from_numpy(rng.random((N, n)) < (0.8 if rep == 2 else 1.0)))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(lanes, fr.claim_dedup_lanes_plain(h1, h2, valid, cap, n_val)), rep
+        assert torch.equal(solo, fr.claim_dedup_plain(h1[3], h2[3], valid[3], cap, n_val[3])), rep
+    assert int(scratch[-1]) == int(solo_scratch[-1]) == 1 + 4  # the epoch: a rise a call
+
+
+def _mesh_commit_case(rng, dev, n, closed=False, unres=0.0, ovf=0.0):
+    from stateright_tpu_torch.ops import mesh_era as me
+    from stateright_tpu_torch.parallel import mesh
+
+    tm = TwoPhaseTensor(5)
+    C = 100
+    prog = mesh.MeshProgram(tm, tm.tensor_properties(), C, 1 << 12, 1 << 10, n,
+                            mesh.quota_for(C, tm.max_actions, n), True, 64, 4, dev)
+    c, x, R, P, A = prog.cfg, prog.x, prog.R, prog.P, prog.A
+    s = rng.integers(0, 1 << 20, size=(n, prog.L)).astype(np.int64)
+    cnt = rng.integers(0, 3 * C, size=n)
+    for l in range(n):
+        s[l, :me.P_LEN] = [int(rng.integers(0, 1 << 12)), cnt[l], 10 ** 6, 0, 0xFFFFFFFF, 2 * 10 ** 6, 1 << 11,
+                           64, 5, 7, 2, 0, C, 1 << (P - 1), 0, 0, 64]
+    s[:, x + me.X_ITS] = 3
+    s[:, x + me.X_REC0] = 0
+    s[:, x + me.X_OPEN] = 0 if closed else 1
+    s[:, x + me.X_TAKE] = np.minimum(cnt, C)
+    rdepth = rng.integers(1, 40, size=(n, R))
+    rdepth[:, :50] = rng.integers(120, 190, size=(n, 50))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ops = me.MeshOperands(
+        is_new=t(rng.random((n, R)) < 0.4), unresolved=t(rng.random((n, R)) < unres), rdepth=t(rdepth),
+        n_ovf=t(np.where(rng.random(n) < ovf, 3, 0)), n_val=t(rng.integers(0, c.vcap + 2, size=n)),
+        hits=[t(rng.random(n * C) < 0.05) for _ in range(P)], valid=t(rng.random(A * n * C) < 0.3),
+        rows=(t(_u32(rng, n * C)), t(_u32(rng, n * C)), t(rng.integers(1, 40, size=n * C))),
+        hseen=t(rng.random((P, n * C)) < 0.02), facc1=t(_u32(rng, P, n * C)), facc2=t(_u32(rng, P, n * C)),
+        faccd=t(rng.integers(1, 9, size=(P, n * C))), slab_counts=t(rng.integers(0, 700, size=(n, 2))),
+    )
+    return prog, t(s), ops
+
+
+def _clone_mesh_ops(o):
+    return o._replace(hits=[h.clone() for h in o.hits], rows=tuple(r.clone() for r in o.rows),
+                      **{f: getattr(o, f).clone() for f in ("is_new", "unresolved", "rdepth", "n_ovf", "n_val",
+                                                            "valid", "hseen", "facc1", "facc2", "faccd",
+                                                            "slab_counts")})
+
+
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("how", ["clean", "veto", "overflow", "closed"])
+def test_mesh_commit_grid_matches_plain(dev, n, how):
+    """K15f's COMMIT, one grid launch on one rank (one kernel node, no
+    memset), against the plain COMMIT: rows, sums and first-hit lanes; the
+    program's scratch left zero."""
+    from stateright_tpu_torch.engines import graph
+    from stateright_tpu_torch.ops import mesh_era as me
+
+    rng = np.random.default_rng(70 + n)
+    prog, st, ops = _mesh_commit_case(rng, dev, n, closed=how == "closed", unres=0.003 if how == "veto" else 0.0,
+                                      ovf=0.5 if how == "overflow" else 0.0)
+    c = prog.cfg
+    sa, sb, oa, ob = st.clone(), st.clone(), _clone_mesh_ops(ops), _clone_mesh_ops(ops)
+    za, zb = torch.zeros_like(prog.sums), torch.zeros_like(prog.sums)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    me.mesh_era(me.COMMIT, c, sa, za, oa, scratch=prog.commit_scratch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["mesh_commit"] == 1 and counts["mesh_era"] == 0
+    me.mesh_era_plain(me.COMMIT, c, sb, zb, ob)
+    assert torch.equal(sa, sb) and torch.equal(za, zb)
+    for f in ("hseen", "facc1", "facc2", "faccd"):
+        assert torch.equal(getattr(oa, f), getattr(ob, f)), f
+    assert not prog.commit_scratch.any()
+    spare = _clone_mesh_ops(ops)
+    nodes = graph.captured_nodes(lambda: me.mesh_era(me.COMMIT, c, st.clone(), za, spare,
+                                                     scratch=prog.commit_scratch))
+    assert nodes["kernels"] == 1 and nodes["memsets"] == 0, nodes
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_commit_phases_across_ranks_on_one_card(dev, world):
+    """The protocol across ranks, its launches made by hand on one card:
+    each rank's grid stops after C1 and leaves its accumulators, the sums
+    are summed over the ranks, each rank's C2 launch reads and zeroes
+    them, the sums again, CGATE: every shard's row as one rank's COMMIT."""
+    from stateright_tpu_torch.ops import mesh_era as me
+
+    rng = np.random.default_rng(80 + world)
+    n = 8
+    prog, st, ops = _mesh_commit_case(rng, dev, n, unres=0.002)
+    c = prog.cfg
+    want, wsums, wops = st.clone(), torch.zeros_like(prog.sums), _clone_mesh_ops(ops)
+    me.mesh_era_plain(me.COMMIT, c, want, wsums, wops)
+    nl, C = n // world, c.chunk
+    ranks = []
+    for r in range(world):
+        lo, hi = r * nl, (r + 1) * nl
+        cols = slice(lo * C, hi * C)
+        o = me.MeshOperands(
+            is_new=ops.is_new[lo:hi].clone(), unresolved=ops.unresolved[lo:hi].clone(),
+            rdepth=ops.rdepth[lo:hi].clone(), n_ovf=ops.n_ovf[lo:hi].clone(), n_val=ops.n_val[lo:hi].clone(),
+            hits=[h[cols].clone() for h in ops.hits],
+            valid=ops.valid.view(c.A, n, C)[:, lo:hi].reshape(-1).clone(),
+            rows=tuple(t[cols].clone() for t in ops.rows), hseen=ops.hseen[:, cols].clone(),
+            facc1=ops.facc1[:, cols].clone(), facc2=ops.facc2[:, cols].clone(), faccd=ops.faccd[:, cols].clone(),
+            slab_counts=ops.slab_counts[lo:hi].clone(),
+        )
+        ranks.append((st[lo:hi].clone(), torch.zeros_like(prog.sums), o, me.commit_scratch(nl, c.P, c.A, dev)))
+
+    def reduce():
+        total = sum(r[1] for r in ranks)
+        for r in ranks:
+            r[1].copy_(total)
+
+    for phase in me.COMMIT:
+        for s_, sm, o, scr in ranks:
+            me._launch((phase,), c, s_, sm, o, 0, scr, final=False)
+        if phase != me.PH_CGATE:
+            reduce()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([r[0] for r in ranks]), want)
+    for f in ("hseen", "facc1", "facc2", "faccd"):
+        assert torch.equal(torch.cat([getattr(r[2], f) for r in ranks], 1), getattr(wops, f)), f
+    assert not any(bool(r[3].any()) for r in ranks)

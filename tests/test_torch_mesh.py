@@ -395,12 +395,16 @@ def test_commit_vetoes_a_sender_past_vcap():
     st[:, me.P_MAX_STEPS] = 10
     st[:, x + me.X_OPEN] = 1
     st[:, x + me.X_TAKE] = 64
-    R = prog.R
+    R, C, A = prog.R, prog.C, prog.A
+    valid = torch.zeros((A, n, C), dtype=torch.bool)
+    valid[0, :, :7] = True  # 7 generated a shard
     ops = me.MeshOperands(
         is_new=torch.zeros((n, R), dtype=torch.bool), unresolved=torch.zeros((n, R), dtype=torch.bool),
+        rdepth=torch.ones((n, R), dtype=torch.int64),
         n_ovf=torch.zeros(n, dtype=torch.int64), n_val=torch.tensor([c.vcap + 1, c.vcap, 5, 0]),
-        generated=torch.full((n,), 7), hs=torch.zeros((prog.P, n), dtype=torch.int64),
-        pa=torch.zeros((n, prog.A), dtype=torch.int64), hseen=prog.hseen,
+        hits=[torch.zeros(n * C, dtype=torch.bool) for _ in range(prog.P)], valid=valid.view(-1),
+        rows=tuple(torch.zeros(n * C, dtype=torch.int64) for _ in range(3)), hseen=prog.hseen,
+        facc1=prog.facc1, facc2=prog.facc2, faccd=prog.faccd,
     )
     me.mesh_era(me.COMMIT, c, st, prog.sums, ops)
     assert st[:, me.P_HEAD].tolist() == [0, 64, 64, 64]
