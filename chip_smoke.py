@@ -547,10 +547,7 @@ def finish(results):
     rate and its operations over the 32-bit rate, print it, and check
     every kernel's parity."""
     for name, r in results.items():
-        bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        bound_ops = r["ops"] / INT32_OPS_PER_S * 1e3
-        r["bound_ms"] = max(bound_bytes, bound_ops)
-        r["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
+        r["bound_ms"], r["bound_by"] = bound_of(r["bytes"], r["ops"])
         print(f"kernel {name} {r['shape']}: max_abs_err={r['max_abs_err']} "
               f"ms={r['ms']:.4f} call_ms={r.get('call_ms')} plain_ms={r['plain_ms']} bound_ms={r['bound_ms']:.5f} "
               f"bound_by={r['bound_by']} library_ms={r['library_ms']}", flush=True)
@@ -809,7 +806,7 @@ def kernel_parity(torch, np, label, C, A, S, tcap, qcap):
         library_ms=None,
         shape=f"[{rcap}], {n_new} new, {n_below} below a tight threshold",
     )
-    check(not bool(cap_scratch[:2 + -(-rcap // sl.CAPTURE_TILE)].any()), "K9a left its ticket or a tile count set")
+    check(not bool(cap_scratch.any()), "K9a left its scratch set")
 
     # K9b: the era epilogue over a full-width slab at several occupancies,
     # with many equal keys (top_k's tie order).
@@ -1076,97 +1073,187 @@ def check_canon(kernels, label, c, launches, symmetric, steps_key="claim_dedup",
 
 # -- phases 8 to 11: simulation ---------------------------------------------
 
-def sim_kernel_parity(torch, np, label, tm, B, L):
-    """K13a-d against their plain versions on the walk state of a real era
-    (64 steps from seed 0, walked without properties so that no walk
-    freezes, with a fixed threshold that lets about 1 in 1,000 counted
-    states into the slab; then a seventh of the walks frozen, as first
-    hits leave them), at the widths the step gives them; returns
-    {kernel: timing dict}."""
+def bound_of(nbytes, ops):
+    """(bound ms, bound_by) of work that moves `nbytes` and does `ops`."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return max(b, o), "bytes" if b >= o else "operations"
+
+
+def walk_states(torch, tm, B, L):
+    """The walk states phase 8 holds K13a and K13c on (and
+    scripts/kernel_times.py times them on), at the simulation widths of
+    `tm` (B walks, paths of L, sampling on), each (walk, path, h1, h2):
+    `era`, after one era of 64 steps from seed 0 walked without
+    properties (so that no walk freezes) under a threshold that lets about
+    1 in 1,000 counted states into the slab, then a seventh of the walks
+    frozen, as first hits leave them; `long`, the same walks with ptr
+    drawn over 0..L (every length, L itself among them), the slots above
+    the era's paths drawn at random and an eighth of the active walks on
+    a cycle at a slot below ptr (slot 0, ptr - 1, or one drawn between);
+    `fresh`, the seeded walks (every walk on an init state at ptr 0: a
+    slab of duplicates). Returns (program, states, the era's result)."""
     from stateright_tpu_torch.engines.gpu_simulation import SimProgram
     from stateright_tpu_torch.fingerprint import hash_lanes
+    from stateright_tpu_torch.ops.visited_set import pack64
+
+    dev = torch.device("cuda")
+    S = tm.state_width
+    prog = SimProgram(tm, [], B, L, True, 64, dev)
+    walk, path = prog.seed(0)
+    fresh = walk.clone()
+    era = prog.era(walk, path, rec_bits=0, max_steps=64, fin_any=0, fin_all=0, fin_all_en=0,
+                   target_gen=0, gen0=0, threshold=(0x00400000, 0))
+    iota = torch.arange(B, device=dev)
+    walk[S + 3] = (iota % 7 == 0).to(torch.int64)
+    h1, h2 = hash_lanes(walk[:S])
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    lwalk, lpath = walk.clone(), path.clone()
+    ptr = torch.randint(0, L + 1, (B,), device=dev, generator=g)
+    ptr[1:5] = torch.tensor([0, 1, L - 1, L], device=dev)
+    above = torch.arange(L, device=dev)[None, :] >= walk[S + 1][:, None]
+    lpath.copy_(torch.where(above, torch.randint(-(1 << 62), 1 << 62, (B, L), device=dev, generator=g), lpath))
+    lwalk[S + 1] = ptr
+    at = torch.randint(0, 1 << 30, (B,), device=dev, generator=g) % ptr.clamp(min=1)
+    at = torch.where(iota % 24 == 3, 0, torch.where(iota % 24 == 11, ptr - 1, at))
+    cyc = ((iota % 8 == 3) & (ptr > 0) & (lwalk[S + 3] == 0)).nonzero().view(-1)
+    lpath[cyc, at[cyc]] = pack64(h1, h2)[cyc]
+    fh1, fh2 = hash_lanes(fresh[:S])
+    states = dict(era=(walk, path, h1, h2), long=(lwalk, lpath, h1, h2), fresh=(fresh, path.clone(), fh1, fh2))
+    return prog, states, era
+
+
+def sim_kernel_parity(torch, np, label, tm, B, L):
+    """K13a-d against their plain versions at the widths the walk step
+    gives them (`walk_states`): K13a on the era's walks and on the long
+    paths, K13c at the loose threshold (MAX: every counted walk), the
+    tight one (0x00400000, 0: the common step) and on the fresh walks, and
+    near the slab's end (its trash row); K13b and K13d on the era's
+    state; returns {kernel: timing dict}."""
+    from stateright_tpu_torch.engines import graph
     from stateright_tpu_torch.obs.sample import slab_entries
     from stateright_tpu_torch.ops import walk as wk
     from stateright_tpu_torch.ops.expand import build_walk_step, build_walk_step_plain
+    from stateright_tpu_torch.ops.slab import capture_scratch
     from stateright_tpu_torch.xp import TorchXP
 
     dev = torch.device("cuda")
     props = tm.tensor_properties()
     S, A, P = tm.state_width, tm.max_actions, len(props)
     sk2 = slab_entries(64)
-    prog = SimProgram(tm, [], B, L, True, 64, dev)
-    walk, path = prog.seed(0)
-    fresh = walk.clone()  # every walk on the init state: a slab of duplicates
-    era = prog.era(walk, path, rec_bits=0, max_steps=64, fin_any=0, fin_all=0, fin_all_en=0,
-                   target_gen=0, gen0=0, threshold=(0x00400000, 0))
-    walk[S + 3] = (torch.arange(B, device=dev) % 7 == 0).to(torch.int64)
+    prog, states, era = walk_states(torch, tm, B, L)
+    walk, path, h1, h2 = states["era"]
+    fresh = states["fresh"][0]
     ev_mask, al_mask = wk.prop_masks(props)
     init_ebits = (1 << bin(ev_mask).count("1")) - 1
     print(f"sim widths ({label}): B={B} L={L} S={S} A={A} P={P}; state after one era: "
           f"steps={era.steps} gen={era.gen} maxd={era.maxd} frozen={int(walk[S + 3].sum())}", flush=True)
     results = {}
-    h1, h2 = hash_lanes(walk[:S])
 
-    # K13a on the era's walks: paths of every length, cycles, frozen walks.
-    def rec_in():
-        return (walk.clone(), path.clone(), torch.zeros(5, dtype=torch.int64, device=dev),
-                torch.zeros(128, dtype=torch.int64, device=dev))
+    # K13a on the era's walks and on the long paths: paths of every
+    # length, cycles, frozen walks; with the depth histogram, and once
+    # without it.
+    rec = {}
+    for name in ("era", "long"):
+        w0, p0, a1, a2 = states[name]
 
-    a, b = rec_in(), rec_in()
-    ra = wk.record(h1, h2, *a)
-    rb = wk.record_plain(h1, h2, *b)
-    err = max_abs_err(torch, zip(a + ra, b + rb))
-    walk1, counted, cycle = a[0], ra[0], ra[1]
-    live = walk[S + 3] == 0
-    ptr_sum = int(torch.where(live, walk[S + 1].clamp(max=L), 0).sum())
-    n_counted = int(counted.sum())
-    del b, rb
-    results["walk_record"] = dict(
-        max_abs_err=err,
-        ms=time_device_ms(torch, lambda t: wk.record(h1, h2, *t), prep=rec_in),
-        call_ms=time_ms(torch, lambda t: wk.record(h1, h2, *t), prep=rec_in),
-        plain_ms=time_ms(torch, lambda t: wk.record_plain(h1, h2, *t), prep=rec_in, reps=5),
-        bytes=B * 32 + ptr_sum * 8 + B * 2 + n_counted * 16 + 128 * 8,
-        ops=ptr_sum + B * 4,
-        library_ms=None,
-        shape=f"B={B}, L={L}, {ptr_sum} path slots below ptr, {n_counted} counted",
-    )
+        def rec_in(w0=w0, p0=p0):
+            return (w0.clone(), p0.clone(), torch.zeros(5, dtype=torch.int64, device=dev),
+                    torch.zeros(128, dtype=torch.int64, device=dev))
 
-    # K13c: the first step of an era (threshold MAX: every counted walk),
-    # a tight threshold, and the freshly seeded walks (all duplicates).
+        a, b = rec_in(), rec_in()
+        ra = wk.record(a1, a2, *a)
+        rb = wk.record_plain(a1, a2, *b)
+        err = max_abs_err(torch, zip(a + ra, b + rb))
+        c, d = rec_in()[:3], rec_in()[:3]
+        err = max(err, max_abs_err(torch, zip(c + wk.record(a1, a2, *c), d + wk.record_plain(a1, a2, *d, None))))
+        live = w0[S + 3] == 0
+        ptr_sum = int(torch.where(live, w0[S + 1].clamp(max=L), 0).sum())
+        n_counted = int(ra[0].sum())
+        nbytes = B * 32 + ptr_sum * 8 + B * 2 + n_counted * 16 + 128 * 8
+        rec[name] = dict(
+            max_abs_err=err,
+            ms=time_device_ms(torch, lambda t, a1=a1, a2=a2: wk.record(a1, a2, *t), prep=rec_in),
+            call_ms=time_ms(torch, lambda t, a1=a1, a2=a2: wk.record(a1, a2, *t), prep=rec_in),
+            plain_ms=time_ms(torch, lambda t, a1=a1, a2=a2: wk.record_plain(a1, a2, *t), prep=rec_in, reps=5),
+            bytes=nbytes, ops=ptr_sum + B * 4, library_ms=None,
+            shape=f"B={B}, L={L}, {ptr_sum} path slots below ptr, {n_counted} counted ({name})",
+        )
+        if name == "era":
+            walk1, counted, cycle = a[0], ra[0], ra[1]
+        del a, b, c, d, ra, rb
+    results["walk_record"] = rec["era"]
+    lb, _by = bound_of(rec["long"]["bytes"], rec["long"]["ops"])
+    check(rec["long"]["max_abs_err"] == 0, f"{label}: K13a disagrees with its plain version on the long paths")
+    rec["era"].update(long_ms=rec["long"]["ms"], long_plain_ms=rec["long"]["plain_ms"], long_bound_ms=lb)
+    print(f"kernel walk_record {rec['long']['shape']}: max_abs_err=0 ms={rec['long']['ms']:.4f} "
+          f"plain_ms={rec['long']['plain_ms']} bound_ms={lb:.5f}", flush=True)
+
+    # K13c on K13a's output (its ptr lane incremented), at the three
+    # thresholds and near the slab's end, on one scratch the way the
+    # program owns it: left as found, one kernel node a call.
     scap = prog.s_high + B
-
-    def cap_in():
-        return wk.empty_walk_slab(S, scap, dev), torch.zeros(5, dtype=torch.int64, device=dev)
-
-    errs = []
-    slabs = {}
+    scratch = capture_scratch(1, B, dev)
+    loose, tight = (0xFFFFFFFF, 0xFFFFFFFF), (0x00400000, 0)
     fresh_counted = fresh[S + 3] == 0
-    fh1, fh2 = hash_lanes(fresh[:S])
-    for name, args, t in (("loose", (counted, h1, h2, walk1), (0xFFFFFFFF, 0xFFFFFFFF)),
-                          ("tight", (counted, h1, h2, walk1), (0x00400000, 0)),
-                          ("fresh", (fresh_counted, fh1, fh2, fresh), (0xFFFFFFFF, 0xFFFFFFFF))):
-        (sa, ta), (sb, tb) = cap_in(), cap_in()
+    fh1, fh2 = states["fresh"][2:]
+    cases = {"tight": ((counted, h1, h2, walk1), tight, 0), "loose": ((counted, h1, h2, walk1), loose, 0),
+             "fresh": ((fresh_counted, fh1, fh2, fresh), loose, 0),
+             "near the trash row": ((counted, h1, h2, walk1), loose, scap - 1000)}
+    cap, slabs = {}, {}
+    for name, (args, t, occ) in cases.items():
         thresh = torch.tensor(t, device=dev)  # read on the card, as the era's state holds it
-        wk.capture(sa, ta, *args, thresh)
+
+        def cap_in(occ=occ):
+            st = torch.zeros(5, dtype=torch.int64, device=dev)
+            st[wk.OCC] = occ
+            return wk.empty_walk_slab(S, scap, dev), st
+
+        (sa, ta), (sb, tb) = cap_in(), cap_in()
+        wk.capture(sa, ta, *args, thresh, scratch)
         wk.capture_plain(sb, tb, *args, thresh)
-        errs.append(max_abs_err(torch, [(sa[:, :scap], sb[:, :scap]), (ta, tb)]))
+        err = max_abs_err(torch, [(sa[:, :scap], sb[:, :scap]), (ta, tb)])
+        check(not bool(scratch.any()), f"{label}: K13c left its scratch set ({name})")
+        n_cap, n_sel = int(ta[wk.OCC]) - occ, int(args[0].sum())
+        if occ:
+            check(err == 0, f"{label}: K13c disagrees with its plain version {name}")
+            continue
+        cap[name] = dict(
+            max_abs_err=err,
+            ms=time_device_ms(torch, lambda u, args=args, th=thresh: wk.capture(u[0], u[1], *args, th, scratch),
+                              prep=cap_in),
+            call_ms=time_ms(torch, lambda u, args=args, th=thresh: wk.capture(u[0], u[1], *args, th, scratch),
+                            prep=cap_in),
+            plain_ms=time_ms(torch, lambda u, args=args, th=thresh: wk.capture_plain(u[0], u[1], *args, th),
+                             prep=cap_in),
+            # sel once, h1 and h2 of each selected walk; a captured walk
+            # reads ptr and its S lanes and writes its 3 + S slab lanes.
+            bytes=B + n_sel * 16 + n_cap * ((S + 1) + (3 + S)) * 8 + 16,
+            ops=B + n_cap * (3 + S), library_ms=None,
+            shape=f"B={B} into a {scap}-row slab, {n_cap} captured ({name})",
+        )
         slabs[name] = (sa, ta)
-    n_loose = int(slabs["loose"][1][1])
-    loose = torch.tensor([0xFFFFFFFF, 0xFFFFFFFF], device=dev)
-    results["walk_capture"] = dict(
-        max_abs_err=max(errs),
-        ms=time_device_ms(torch, lambda t: wk.capture(t[0], t[1], counted, h1, h2, walk1, loose), prep=cap_in),
-        call_ms=time_ms(torch, lambda t: wk.capture(t[0], t[1], counted, h1, h2, walk1, loose), prep=cap_in),
-        plain_ms=time_ms(torch, lambda t: wk.capture_plain(t[0], t[1], counted, h1, h2, walk1, loose),
-                         prep=cap_in),
-        # counted once, h1 and h2 of each counted walk; a captured walk
-        # reads ptr and its S lanes and writes its 3 + S slab lanes.
-        bytes=B + n_counted * 16 + n_loose * ((S + 1) + (3 + S)) * 8 + 16,
-        ops=B + n_loose * (3 + S),
-        library_ms=None,
-        shape=f"B={B} into a {scap}-row slab, {n_loose} captured (threshold MAX)",
-    )
+    n_loose = int(slabs["loose"][1][wk.OCC])
+    # The kernels line's row is the loose step, as before; the tight
+    # (common) step and the fresh walks stand beside it.
+    results["walk_capture"] = cap["loose"]
+    sc, tc = cap_in()
+    tight_t = torch.tensor(tight, device=dev)  # made before the capture: a graph copies nothing from the host
+    cap["loose"]["launches_a_call"] = kernels_a_call(
+        torch, f"K13c ({label})", lambda: wk.capture(sc, tc, counted, h1, h2, walk1, tight_t, scratch), 1)
+    for name in ("tight", "fresh"):
+        b_ms, _by = bound_of(cap[name]["bytes"], cap[name]["ops"])
+        check(cap[name]["max_abs_err"] == 0, f"{label}: K13c disagrees with its plain version ({name})")
+        cap["loose"].update({f"{name}_ms": cap[name]["ms"], f"{name}_plain_ms": cap[name]["plain_ms"],
+                             f"{name}_bound_ms": b_ms})
+        print(f"kernel walk_capture {cap[name]['shape']}: max_abs_err=0 ms={cap[name]['ms']:.4f} "
+              f"plain_ms={cap[name]['plain_ms']} bound_ms={b_ms:.5f}", flush=True)
+    # One captured sampled simulation step: its kernel nodes, none a memset.
+    nodes = graph.captured_nodes(prog._step)
+    check(nodes["memsets"] == 0, f"{label}: a captured simulation step holds {nodes['memsets']} memset nodes")
+    print(f"{label} simulation step: {nodes['kernels']} kernel nodes, {nodes['memsets']} memset nodes a "
+          f"captured step", flush=True)
+    cap["loose"]["step_nodes"] = nodes["kernels"]
 
     # K13b on the same step: the model's checks and successors from K11's
     # WALK, held against its plain version on the era's walks.
@@ -1245,7 +1332,7 @@ def sim_kernel_parity(torch, np, label, tm, B, L):
         library_ms=None,
         shape=f"{n_loose} used of {scap} rows -> [{3 + S}, {sk2}] ({sorts} block sorts)",
     )
-    del slabs, sa, ta, walk, path, walk1, fresh, prog
+    del slabs, sa, ta, sc, tc, walk, path, walk1, fresh, states, prog
     torch.cuda.empty_cache()
     return finish(results)
 
@@ -4334,7 +4421,8 @@ def main(argv) -> int:
                       "epilogue_ms", "epilogue_plain_ms", "ring_ms", "mix_ms", "record_ms",
                       "record_plain_ms", "record_bound_ms", "choose_ms", "choose_plain_ms", "choose_bound_ms",
                       "lanes_ms", "graph_plain_ms", "plain_launches", "rows_compared", "empty_ms",
-                      "step_nodes"):
+                      "step_nodes", "long_ms", "long_plain_ms", "long_bound_ms", "tight_ms", "tight_plain_ms",
+                      "tight_bound_ms", "fresh_ms", "fresh_plain_ms", "fresh_bound_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         line["kernels"].append(entry)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of K2, K3, K4, K7, K7s, K8f, K9, K14f, K15a and K15f on the card, to hold
+"""Device times of K2, K3, K4, K7, K7s, K8f, K9, K13a, K13c, K14f, K15a and K15f on the card, to hold
 checkouts of the port against each other with one yardstick within one
 call.
 
@@ -74,6 +74,14 @@ and, once a tree:
                    2pc-7 and paxos-3 programs (bench chunks), of a 2pc-5
                    lane program (32 lanes) and of the 2pc-7 and paxos-3
                    meshes at 8 shards;
+  walk             K13a (the walk record) at the paxos-3 and 2pc-10
+                   simulation widths (B = 16,384 / 65,536, L = 256) on
+                   `chip_smoke.py`'s phase 8 states: the era's walks and
+                   the long paths (ptr drawn over 0..L); K13c (the walk
+                   capture) at the tight threshold, the loose one and on
+                   the fresh walks, with its kernels a call; each with
+                   its bound and its plain version's ms; and the kernel
+                   nodes of one captured simulation step;
   spill            K7s DRAIN and REFILL at phase 20's widths: 2,416,640
                    rows x 5 of a 2^22 ring from a head that wraps, and 8
                    rings of 2^15 with ragged counts; each also with its
@@ -93,8 +101,8 @@ miss a call's kernels; K2's and K7's appends also as the hand-written
 kernels' counted calls; K4 and K15a by graph only).
 `--rows` names the groups to time (default all: bfs, the rows of K2,
 K7 and K9b at the two BFS widths; insert; mesh_tail; compact_lanes;
-insert_lanes; exchange; spill; era; lane_era; capture_lanes;
-step_nodes). Prints one JSON line a tree with the
+insert_lanes; exchange; spill; era; lane_era; capture_lanes; dedup;
+mesh_commit; step_nodes; walk). Prints one JSON line a tree with the
 card's name and power limit.
 """
 
@@ -116,7 +124,7 @@ LANES = (1024, 151, 27)  # phase 12: the 2pc-5 sweep's lanes, chunk and actions
 # Phase 20's ragged rings: capacity, rows a ring, start positions.
 # The groups of rows, all timed unless --rows names some.
 ROWS = ("bfs", "insert", "mesh_tail", "compact_lanes", "insert_lanes", "exchange", "spill", "era",
-        "lane_era", "capture_lanes", "dedup", "mesh_commit", "step_nodes")
+        "lane_era", "capture_lanes", "dedup", "mesh_commit", "step_nodes", "walk")
 SPILL_RAGGED = (1 << 15, [0, 17, 1 << 15, 4_096, 1, 30_000, 12_345, 999],
                 [(1 << 15) - 5, 3, 0, (1 << 15) - 2_000, 77, 10, (1 << 15) - 1, 31_000])
 
@@ -332,6 +340,8 @@ def one_tree(tree: str, reps: int, groups=None) -> dict:
         out["mesh_commit"] = mesh_commit_times(torch, np, smoke)
     if "step_nodes" in groups:
         out["step_nodes"] = step_nodes()
+    if "walk" in groups:
+        out["walk"] = walk_times(torch, smoke)
     return out
 
 
@@ -800,6 +810,82 @@ def step_nodes() -> dict:
                                 mesh.quota_for(C, tm.max_actions, MESH_N), True, 64, 1, dev)
         out[f"{label} mesh (8 shards)"] = closed(prog, prog.x)
         del prog
+        torch.cuda.empty_cache()
+    return out
+
+
+def walk_times(torch, smoke) -> dict:
+    """K13a and K13c at the paxos-3 (B = 16,384) and 2pc-10 (B = 65,536)
+    simulation widths, L = 256, on `chip_smoke.walk_states` (built with
+    this tree's program): K13a on the era's walks and on the long paths;
+    K13c on K13a's output at the tight threshold (0x00400000, 0: the
+    common step), the loose one (MAX) and on the fresh walks, each into a
+    fresh slab, on a scratch of the program's where the tree's capture
+    takes one; each with its bound (`chip_smoke.bound_of`) and its plain
+    version's ms, and K13c's nodes a call; and the nodes of one captured simulation step
+    (sampled, coverage on)."""
+    from stateright_tpu_torch.engines import graph
+    from stateright_tpu_torch.models import PaxosTensor, TwoPhaseTensor
+    from stateright_tpu_torch.ops import walk as wk
+
+    dev = torch.device("cuda")
+    L = 256
+    takes_scratch = "scratch" in inspect.signature(wk.capture).parameters
+    if takes_scratch:
+        from stateright_tpu_torch.ops.slab import capture_scratch
+    out = {}
+    for label, tm, B in (("paxos-3", PaxosTensor(3), 16384), ("2pc-10", TwoPhaseTensor(10), 65536)):
+        S = tm.state_width
+        prog, states, _era = smoke.walk_states(torch, tm, B, L)
+        kw = dict(scratch=capture_scratch(1, B, dev)) if takes_scratch else {}
+        r = dict(shape=dict(B=B, L=L, S=S))
+        for name in ("era", "long"):
+            w0, p0, a1, a2 = states[name]
+
+            def prep(w0=w0, p0=p0):
+                return (w0.clone(), p0.clone(), torch.zeros(5, dtype=torch.int64, device=dev),
+                        torch.zeros(128, dtype=torch.int64, device=dev))
+
+            a = prep()
+            counted, _cycle = wk.record(a1, a2, *a)
+            live = w0[S + 1][w0[S + 3] == 0]
+            ptr_sum, n_counted = int(live.clamp(max=L).sum()), int(counted.sum())
+            r[f"record_{name}"] = smoke.time_device_ms(torch, lambda t, a1=a1, a2=a2: wk.record(a1, a2, *t),
+                                                       prep=prep)
+            r[f"record_{name}_plain"] = smoke.time_ms(
+                torch, lambda t, a1=a1, a2=a2: wk.record_plain(a1, a2, *t), prep=prep, reps=5)
+            r[f"record_{name}_bound"] = smoke.bound_of(B * 32 + ptr_sum * 8 + B * 2 + n_counted * 16 + 1024,
+                                                       ptr_sum + B * 4)[0]
+            r["shape"][f"{name}_path_slots"] = ptr_sum
+            if name == "era":
+                walk1, cnt = a[0], counted
+        fresh, _p, fh1, fh2 = states["fresh"]
+        h1, h2 = states["era"][2:]
+        scap = prog.s_high + B
+
+        def slab():
+            return wk.empty_walk_slab(S, scap, dev), torch.zeros(5, dtype=torch.int64, device=dev)
+
+        for name, args, t in (("tight", (cnt, h1, h2, walk1), (0x00400000, 0)),
+                              ("loose", (cnt, h1, h2, walk1), (0xFFFFFFFF, 0xFFFFFFFF)),
+                              ("fresh", (fresh[S + 3] == 0, fh1, fh2, fresh), (0xFFFFFFFF, 0xFFFFFFFF))):
+            th = torch.tensor(t, device=dev)
+            sb, st = slab()
+            wk.capture(sb, st, *args, th, **kw)
+            n_cap, n_sel = int(st[1]), int(args[0].sum())
+            r[f"capture_{name}"] = smoke.time_device_ms(
+                torch, lambda u, args=args, th=th: wk.capture(u[0], u[1], *args, th, **kw), prep=slab)
+            r[f"capture_{name}_plain"] = smoke.time_ms(
+                torch, lambda u, args=args, th=th: wk.capture_plain(u[0], u[1], *args, th), prep=slab, reps=5)
+            r[f"capture_{name}_bound"] = smoke.bound_of(B + n_sel * 16 + n_cap * (2 * S + 4) * 8 + 16,
+                                                        B + n_cap * (3 + S))[0]
+            r["shape"][f"{name}_captured"] = n_cap
+            if name == "tight":
+                spare = slab()
+                r["capture_kernels"] = call_kernels(torch, lambda: wk.capture(*spare, *args, th, **kw))
+        r["sim_step_kernels"] = dict(graph.captured_nodes(prog._step), by="graph")
+        out[label] = r
+        del prog, states, walk1, cnt, spare, kw
         torch.cuda.empty_cache()
     return out
 

@@ -16,7 +16,11 @@ Then the launcher runs each case on one rank (world size 1) on
 `cuda:0` or the CPU and checks that the results are equal: counts,
 discoveries, coverage, the bottom-k sample and the discovery paths.
 It prints one JSON line a case (walls, eras, steps, dispatches) and
-exits non-zero on any difference. It imports nothing of JAX.
+exits non-zero on any difference. A rank logs each case's start and end;
+15 s before the limit it dumps every thread's stack to its log, which
+the launcher prints when a rank fails or runs past the limit (with
+`NCCL_DEBUG=WARN` in the environment, NCCL's warnings too). It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -80,9 +84,13 @@ def run_case(name, shards, device, group=None):
 
 
 def rank_main(a) -> int:
+    import faulthandler
+
     import torch
     import torch.distributed as dist
 
+    # Past the launcher's limit the log shows where each rank waits.
+    faulthandler.dump_traceback_later(a.stack_after, exit=False)
     torch.set_num_threads(1)
     on_card = a.device == "cuda"
     if on_card:
@@ -92,8 +100,11 @@ def rank_main(a) -> int:
                             world_size=a.world, rank=a.rank, timeout=timedelta(seconds=120))
     try:
         out = {}
+        t0 = time.monotonic()
         for name in CASES:
+            print(f"rank {a.rank}: {name} starts at {time.monotonic() - t0:.1f} s", flush=True)
             out[name] = run_case(name, a.shards, device, dist.group.WORLD)
+            print(f"rank {a.rank}: {name} done at {time.monotonic() - t0:.1f} s", flush=True)
         if a.rank == 0:
             with open(a.out, "w") as f:
                 json.dump(out, f)
@@ -111,6 +122,7 @@ def main(argv) -> int:
     p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--init", default=None, help=argparse.SUPPRESS)
     p.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--stack-after", type=float, default=None, help=argparse.SUPPRESS)
     a = p.parse_args(argv)
     sys.path.insert(0, ROOT)
     if a.rank is not None:
@@ -133,7 +145,8 @@ def main(argv) -> int:
     t0 = time.monotonic()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--world", str(a.world), "--shards", str(a.shards),
-         "--device", a.device, "--rank", str(r), "--init", init, "--out", out],
+         "--device", a.device, "--rank", str(r), "--init", init, "--out", out,
+         "--stack-after", str(max(1.0, a.limit - 15))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     ) for r in range(a.world)]
     logs, failed = [], False

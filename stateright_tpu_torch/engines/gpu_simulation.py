@@ -58,6 +58,7 @@ from ..fingerprint import combine64, hash_lanes
 from ..obs.sample import slab_high_water
 from ..ops import walk as wk
 from ..ops.expand import build_walk_step
+from ..ops.slab import capture_scratch
 from ..ops import walk_era as we
 from ..path import Path
 from ..tensor import TensorModel, TensorModelAdapter
@@ -117,7 +118,7 @@ class SimProgram:
         self.sk2 = c.sk2
         self.state = torch.zeros(c.length, dtype=torch.int64, device=dev)
         self.stats = self.state[c.x:c.x + we.X_FROZEN + 1]
-        self.cov_words = self.dhist = self.thresh = self.slab = None
+        self.cov_words = self.dhist = self.thresh = self.slab = self.capture_scratch = None
         if cov:
             self.cov_words = self.state[c.cov_base:c.cov_base + c.n_cov]
             self.dhist = self.cov_words[A + P:]
@@ -125,6 +126,9 @@ class SimProgram:
             self.thresh = self.state[c.s_base:c.s_base + 2]
             # One more step always fits (tpu_simulation.py:102).
             self.slab = wk.empty_walk_slab(S, self.s_high + B, dev)
+            # K13c's scratch, zero and left as found by every launch, so
+            # the captured step allocates nothing and needs no reset.
+            self.capture_scratch = capture_scratch(1, B, dev)
             rows = c.s_base + 4
             self._sample_rows = self.state[rows:rows + (3 + S) * self.sk2].view(3 + S, self.sk2)
             self._sample_ok = self.state[rows + (3 + S) * self.sk2:rows + (4 + S) * self.sk2]
@@ -168,7 +172,7 @@ class SimProgram:
         h1, h2 = hash_lanes(rows)
         counted, cycle = wk.record(h1, h2, walk, path, self.stats, self.dhist)
         if self.sample_k:
-            wk.capture(self.slab, self.stats, counted, h1, h2, walk, self.thresh)
+            wk.capture(self.slab, self.stats, counted, h1, h2, walk, self.thresh, self.capture_scratch)
         # K11's WALK (or its plain version): a fresh copy of the successor
         # lanes, taken before K13b rewrites the walk lanes.
         checks, valid, succ = self.model_step(rows)

@@ -69,16 +69,16 @@ class StageProgram:
         self._round, self._after, self._reset = round_fn, after_fn, reset_fn
         # `eager`: the host runs the rounds, also on the card (a round
         # with a collective across ranks cannot be captured).
-        self._on_card = self.device.type == "cuda" and not eager
+        self.as_graph = self.device.type == "cuda" and not eager
         self._graph: Optional[gr.Graph] = None
-        if self._on_card:
+        if self.as_graph:
             self._acc = torch.zeros(1, dtype=torch.int64).pin_memory()
 
     def prepare(self, seed: int) -> None:
         """Before a dispatch, outside its timed window: on the card, the
         first time, capture the graph; then re-fork the stage's state and
         set the accumulator to `seed`."""
-        if self._on_card and self._graph is None:
+        if self.as_graph and self._graph is None:
             self._capture()
         if self._reset is not None:
             self._reset(seed)
@@ -109,7 +109,7 @@ class StageProgram:
         """One dispatch: on the card one graph launch (captured at the
         first) and the accumulator's copy queued behind it on the same
         stream; on the CPU the rounds themselves."""
-        if not self._on_card:
+        if not self.as_graph:
             self._start()
             while int(self.st[sg.ST_OPEN]):
                 self._round(0)
@@ -122,7 +122,7 @@ class StageProgram:
 
     def read(self) -> int:
         """The accumulator after the last launch (waits for it)."""
-        if not self._on_card:
+        if not self.as_graph:
             return int(self.st[sg.ST_ACC])
         torch.cuda.current_stream(self.device).synchronize()
         self._graph.count(dict(start=1, round=self.iters, after=1))

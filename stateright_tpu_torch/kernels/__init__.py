@@ -494,14 +494,7 @@ def add_launches(per_run: Dict[str, int], runs: int) -> None:
             k.launches += per_run.get(k.name, 0) * runs
 
 
-CAPTURE_TILE = 1024  # candidates a block in csrc/capture_scan.cuh (kTile)
 APPEND_TILE = 4096  # mask columns a block of K7's append (csrc/ring.cu kTile)
-
-
-def capture_scratch(n: int, device) -> torch.Tensor:
-    """The per-tile counts that K13c passes between its two launches over
-    n candidates, and the occupancy it starts from."""
-    return torch.empty(-(-n // CAPTURE_TILE) + 1, dtype=torch.int64, device=device)
 
 
 def ptr(t: torch.Tensor) -> int:

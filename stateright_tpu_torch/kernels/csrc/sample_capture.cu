@@ -36,8 +36,8 @@
 // lane for every slab). thresh: int64 [2] a lane at + l * thresh_stride
 // (0: one threshold) on the card. sfp1..sact: lane 0's slab lanes (scap +
 // 1 int64 rows), lane l's at + l * slab_stride. counts: int64 [lanes, 2].
-// scratch: lanes * (2 + ceil(n / 1024) * 65) zeroed int32, 8-byte
-// aligned (ops/slab.py capture_scratch), left as found.
+// scratch: lanes * (3 + ceil(n / 1024)) zeroed int32, 8-byte aligned
+// (ops/slab.py capture_scratch), left as found.
 extern "C" int srt_sample_capture(long long lanes, const void* is_new,
                                   const void* h1, const void* h2, const void* depth,
                                   const void* act, long long n, long long in_stride,
@@ -62,8 +62,11 @@ extern "C" int srt_sample_capture(long long lanes, const void* is_new,
     in.dst[k] = (long long*)dst[k];
   }
   in.dst_stride = slab_stride;
+  in.n_lanes = 4;
   in.scap = scap;
   in.step_cap = step_cap;
-  in.counts = (long long*)counts;
+  in.occ = (long long*)counts;
+  in.dropped = (long long*)counts + 1;
+  in.count_stride = 2;
   return capture::launch_one(in, lanes, (int*)scratch, scratch_len, (cudaStream_t)stream);
 }

@@ -60,13 +60,16 @@ SPIN_CYCLES_PER_S = 2e9  # torch.cuda._sleep's unit: SM clock cycles (the card's
 def time_dispatch(program) -> float:
     """Seconds of one dispatch of a stage program: its launch and the
     readback of its accumulator. Its state is forked afresh first, outside
-    the window. On the card the window is two CUDA events on the launch
-    stream, queued with the launch behind a spin kernel that outlasts the
-    host's queueing, so the window holds device time only (without it a
-    program whose fork leaves the card idle, the null program first,
-    would also pay the host's launch latency); on the CPU the host's
-    clock."""
-    if program.device.type == "cuda":
+    the window. For a program that runs as one graph on the card the
+    window is two CUDA events on the launch stream, queued with the launch
+    behind a spin kernel that outlasts the host's queueing, so the window
+    holds device time only (without it a program whose fork leaves the
+    card idle, the null program first, would also pay the host's launch
+    latency). A program whose host runs the rounds (on the CPU, or eager
+    on the card: a round with a collective across ranks) waits for the
+    card inside its launch, so a spin would only lengthen the launch, and
+    double, without end; it is timed on the host's clock."""
+    if program.as_graph:
         stream = torch.cuda.current_stream(program.device)
         spin_s = SPIN_S
         while True:
@@ -84,6 +87,8 @@ def time_dispatch(program) -> float:
                 return t0.elapsed_time(t1) / 1e3
             spin_s *= 2
     program.prepare(SEED)
+    if program.device.type == "cuda":
+        torch.cuda.synchronize(program.device)  # the fork stays out of the window
     t = time.perf_counter()
     program.launch()
     program.read()

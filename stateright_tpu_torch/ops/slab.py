@@ -71,20 +71,19 @@ def capture_plain(slab: Slab, is_new, h1, h2, depth, action, thresh, step_cap: i
     slab.counts[1] += n_c - fit
 
 
-CAPTURE_TILE = 1024  # candidates a block of K9a (csrc/capture_scan.cuh kTile)
-CAPTURE_WORDS = CAPTURE_TILE // 32  # a tile's capture bits, 32 candidates a word
+CAPTURE_TILE = 1024  # candidates a block of K9a and K13c (csrc/capture_scan.cuh kTile)
 
 
-def _capture_ints(lanes: int, n: int) -> int:
-    return lanes * (2 + -(-n // CAPTURE_TILE) * (1 + 2 * CAPTURE_WORDS))
+def capture_ints(lanes: int, n: int) -> int:
+    return lanes * (3 + -(-n // CAPTURE_TILE))
 
 
 def capture_scratch(lanes: int, n: int, device) -> torch.Tensor:
-    """K9a's scratch for `lanes` slabs of n candidates (int32, zero): each
-    lane's ticket, each tile's count, capture bits and words' first ranks.
-    Every launch leaves it as it found it, so a program keeps one for all
-    its steps."""
-    return torch.zeros(_capture_ints(lanes, n), dtype=torch.int32, device=device)
+    """The scratch of K9a and K13c (csrc/capture_scan.cuh) for `lanes`
+    slabs of n candidates (int32, zero): each lane's ticket, its tile
+    counter and its tiles' status words. Every launch leaves it as it found it, so a
+    program keeps one for all its steps."""
+    return torch.zeros(capture_ints(lanes, n), dtype=torch.int32, device=device)
 
 
 def _capture_launch(kernel, lanes: int, dst, slab_stride: int, counts, is_new, h1, h2, depth,
@@ -95,7 +94,7 @@ def _capture_launch(kernel, lanes: int, dst, slab_stride: int, counts, is_new, h
         raise ValueError("capture takes a bool is_new mask and contiguous [2] thresholds")
     if scratch is None:
         scratch = capture_scratch(lanes, n, is_new.device)
-    if scratch.dtype != torch.int32 or scratch.numel() < _capture_ints(lanes, n):
+    if scratch.dtype != torch.int32 or scratch.numel() < capture_ints(lanes, n):
         raise ValueError("the capture scratch is too small")
     p = kernels.ptr
     kernel.launch(

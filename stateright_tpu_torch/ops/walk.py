@@ -40,6 +40,7 @@ import torch
 from .. import kernels
 from ..core import Expectation
 from ..fingerprint import mul32
+from .slab import capture_ints
 from .visited_set import compact_ids, pack64
 
 M32 = 0xFFFFFFFF
@@ -47,6 +48,7 @@ CHOOSE_MUL = 0x9E3779B9
 RESTART_ADD = 0x6A09E667
 # stats slots
 GEN, OCC, REC, MAXD, FROZEN = range(5)
+DHIST_MAX = 1024  # depth bins K13a keeps in shared memory (csrc/walk_record.cu kMaxBins)
 
 
 def prng(x: torch.Tensor) -> torch.Tensor:
@@ -122,6 +124,8 @@ def record(h1, h2, walk, path, stats, dhist=None):
     tensors = [h1, h2, walk, path, stats] + ([dhist] if dhist is not None else [])
     if not kernels.on_card(*tensors):
         return record_plain(h1, h2, walk, path, stats, dhist)
+    if dhist is not None and not (0 < dhist.shape[0] <= DHIST_MAX and dhist.is_contiguous()):
+        raise ValueError(f"the record kernel bins at most {DHIST_MAX} depths into a contiguous dhist")
     B, L = path.shape
     S = walk.shape[0] - 4
     h1, h2 = h1.contiguous(), h2.contiguous()
@@ -276,13 +280,16 @@ def capture_plain(slab, stats, counted, h1, h2, walk, thresh):
     stats[OCC] += n_c
 
 
-def capture(slab, stats, counted, h1, h2, walk, thresh) -> None:
+def capture(slab, stats, counted, h1, h2, walk, thresh, scratch) -> None:
     """Append the counted walks whose fingerprint is below the threshold
     (t1, t2) = thresh[0..1] (int64 [2] on the walks' device: the era's
     state vector holds it), lexicographically and unsigned, to the slab
     at ``stats[OCC]``, in walk order, with their depth (``ptr``) and state
     lanes (tpu_simulation.py:219-252); ``stats[OCC]`` counts them.
-    Updates slab and stats in place."""
+    Updates slab and stats in place. `scratch` (`ops.slab.capture_scratch(1,
+    B)`, K9a's layout: the kernel is K9a's one launch) is the caller's,
+    left as found, so a captured step allocates nothing; the plain
+    version does not read it."""
     if not kernels.on_card(slab, stats, counted, h1, h2, walk, thresh):
         return capture_plain(slab, stats, counted, h1, h2, walk, thresh)
     S, B = walk.shape[0] - 4, walk.shape[1]
@@ -290,8 +297,11 @@ def capture(slab, stats, counted, h1, h2, walk, thresh) -> None:
         raise ValueError("capture: the slab must hold 3 + S lanes; counted is bool")
     if S + 3 > 40:
         raise ValueError("the capture kernel appends at most 40 lanes (S <= 37)")
+    if not thresh.is_contiguous() or thresh.numel() != 2:
+        raise ValueError("capture takes one contiguous [2] threshold")
     h1, h2 = h1.contiguous(), h2.contiguous()
-    scratch = kernels.capture_scratch(B, walk.device)
+    if scratch.dtype != torch.int32 or scratch.numel() < capture_ints(1, B):
+        raise ValueError("the capture scratch is too small")
     kernels.WALK_CAPTURE.launch(
         kernels.ptr(counted), kernels.ptr(h1), kernels.ptr(h2), kernels.ptr(walk),
         S, B, kernels.ptr(thresh), kernels.ptr(slab), slab.shape[1] - 1,

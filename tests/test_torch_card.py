@@ -118,13 +118,13 @@ def test_sample_capture_lanes_kernel(dev, N, n, step_cap):
     plain capture over the shards: one shared threshold or one a shard,
     an action lane shared or per shard, floods past step_cap, ties on the
     threshold's high word, a shard with nothing new; the scratch's
-    tickets and tile counts are left zero."""
+    tickets, tile counters and status words are left zero."""
     from stateright_tpu_torch.ops import slab as sl
 
     rng = np.random.default_rng(n)
     scap = 2 * n + 600
     scratch = sl.capture_scratch(N, n, dev)
-    kept = N * (2 + -(-n // sl.CAPTURE_TILE))  # the tickets and tile counts
+    kept = sl.capture_ints(N, n)  # the tickets, tile counters and status words
     slabs = torch.from_numpy(_u32(rng, 4, N, scap + 1)).to(dev)
     counts = torch.from_numpy(np.stack([rng.integers(0, 600, N), rng.integers(0, 5, N)], 1)).to(dev)
     for t, shared in (((0xFFFFFFFF, 0xFFFFFFFF), True), ((0x01000000, 0x80000000), False), ((0, 0), True)):
@@ -207,11 +207,15 @@ def _walks(rng, S, B, L):
     return walk, h, path
 
 
-def test_walk_record_kernel(dev):
+@pytest.mark.parametrize("S,B,L,seed", [(5, 20_000, 48, 10), (30, 16_384, 256, 266), (3, 65_536, 256, 266),
+                                         (3, 4_099, 33, 43)])
+def test_walk_record_kernel(dev, S, B, L, seed):
+    """Paths of every length up to L (blocks whose rows take several
+    rounds at the paxos-3 and 2pc-10 widths), an odd L (single-slot
+    loads)."""
     from stateright_tpu_torch.ops import walk as wk
 
-    rng = np.random.default_rng(10)
-    S, B, L = 5, 20_000, 48
+    rng = np.random.default_rng(seed)
     walk, h, path = _walks(rng, S, B, L)
     h1, h2 = (torch.from_numpy(x).to(dev) for x in h)
     outs = []
@@ -265,11 +269,15 @@ def test_walk_step_kernel(dev):
     assert torch.equal(a, b) and not bool(a[S + 3].any())
 
 
-def test_walk_capture_kernel(dev):
+@pytest.mark.parametrize("S,B,seed", [(3, 20_000, 12), (30, 16_384, 42), (3, 65_536, 15)])
+def test_walk_capture_kernel(dev, S, B, seed):
+    """The tight step (ties on the threshold's high word), an empty step,
+    the loose step, and the loose step near the slab's end (its trash
+    row), on one scratch the way the program owns it: left as found."""
     from stateright_tpu_torch.ops import walk as wk
+    from stateright_tpu_torch.ops.slab import capture_scratch
 
-    rng = np.random.default_rng(12)
-    S, B = 3, 20_000
+    rng = np.random.default_rng(seed)
     walk, h, _path = _walks(rng, S, B, 8)
     walk, h1, h2 = (torch.from_numpy(x).to(dev) for x in (walk, h[0], h[1]))
     h1[:50] = 0x01000000  # ties on the threshold's high word
@@ -277,13 +285,16 @@ def test_walk_capture_kernel(dev):
     scap = 512 + B
     slabs = [wk.empty_walk_slab(S, scap, dev) for _ in range(2)]
     stats = [torch.tensor([0, 100, 0, 0, 0], device=dev) for _ in range(2)]
-    for t1, t2 in ((0x01000000, 0x80000000), (0, 0), (0xFFFFFFFF, 0xFFFFFFFF)):
-        stats[0][1] = stats[1][1] = 100
+    scratch = capture_scratch(1, B, dev)
+    for (t1, t2), occ in (((0x01000000, 0x80000000), 100), ((0, 0), 100), ((0x00400000, 0), 100),
+                          ((0xFFFFFFFF, 0xFFFFFFFF), 100), ((0xFFFFFFFF, 0xFFFFFFFF), scap - 700)):
+        stats[0][1] = stats[1][1] = occ
         thresh = torch.tensor([t1, t2], device=dev)  # read on the card
-        wk.capture(slabs[0], stats[0], counted, h1, h2, walk, thresh)
+        wk.capture(slabs[0], stats[0], counted, h1, h2, walk, thresh, scratch)
         wk.capture_plain(slabs[1], stats[1], counted, h1, h2, walk, thresh)
         assert torch.equal(slabs[0][:, :scap], slabs[1][:, :scap])
         assert torch.equal(stats[0], stats[1])
+        assert not bool(scratch.any())
 
 
 @pytest.mark.parametrize("scap", [900, 20_512, 66_048])

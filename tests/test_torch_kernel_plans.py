@@ -679,7 +679,8 @@ def test_k4_phases_in_random_interleavings_equal_the_jax_insert(N, mode, seed):
 M32 = 0xFFFFFFFF
 COMMIT_TILE, COMMIT_RUN = 4096, 16  # era_step.cu kTile, kRun
 EPI_TILE = eo.EPILOGUE_TILE  # era_epilogue.cu kTile
-CAP_TILE, CAP_WORDS = sl.CAPTURE_TILE, sl.CAPTURE_WORDS  # capture_scan.cuh kTile, kWords
+CAP_TILE = sl.CAPTURE_TILE  # capture_scan.cuh kTile
+CAP_READY = 1 << 31  # capture_scan.cuh kReady
 
 
 def _era_cfg(C, A, P, m, N_cov=True):
@@ -880,86 +881,93 @@ def test_k8f_epilogue_blocks_in_random_orders_equal_the_plain_epilogue(N, C, P, 
     assert best == [(1 << 64) - 1] * (N * P) and ticket == [0] * N
 
 
-def _k9a_transcribed(slabs, counts, is_new, h1, h2, depth, action, thresh, step_cap, seed):
-    """capture_scan.cuh's one launch over (tile, lane), block by block in an
-    order drawn from `seed`: each block's count and, where it captured,
-    its capture bits and each 32-candidate word's first rank in the tile
-    (four candidates a thread, eight threads a word); every block adds its
-    arrival and its count to the lane's ticket; the last block returns at
-    once when the lane captured nothing, else scans the tile counts 256 a
-    round (zeroing them) and writes the captured rows of the tiles whose
-    first rank is below step_cap from their words, in an order drawn from
-    `seed`; then the counters. Returns the tickets and tile counts after
-    the launch."""
-    N, n = is_new.shape
-    scap = slabs.shape[2] - 1
+def capture_one_transcribed(sel, h1, h2, thresh, srcs, dst, occ, dropped, step_cap, status, ticket, seed):
+    """capture_scan.cuh's one launch over (tile, lane) on numpy arrays, its
+    blocks' two steps interleaved in an order drawn from `seed`. sel, h1,
+    h2 [N, n]; thresh [N, 2]; srcs, one [N, n] array a slab lane; dst [k,
+    N, scap + 1], occ [N] and dropped [N] (or None) updated in place; the
+    scratch: status [N, tiles] (kReady | a tile's count) and ticket, a list
+    of (arrived, captured, tiles taken) a lane, updated in place. A block's
+    first step takes its tile from its lane's counter, reads occupied,
+    tests and ranks its tile and publishes its count; its second, which a
+    capturing tile can take only once every earlier tile of its lane has
+    published, sums those counts (the look-back), takes a ticket (the
+    lane's last block advances the counters), writes its rows below
+    step_cap, and, in the last block, clears the status words and the
+    counter. Some block can always move: the blocks are started in any
+    order, and a started block's earlier tiles are all started."""
+    N, n = sel.shape
+    scap = dst.shape[2] - 1
     tiles = -(-n // CAP_TILE)
     rng = random.Random(seed)
-    t1, t2 = thresh[..., 0], thresh[..., 1]
-
-    def below(l, i):
-        a, b = (t1, t2) if thresh.ndim == 1 else (t1[l], t2[l])
-        return is_new[l, i] & ((h1[l, i] < a) | ((h1[l, i] == a) & (h2[l, i] < b)))
-
-    tile_cnt = np.zeros((N, tiles), dtype=np.int64)
-    bits = np.full((N, tiles, CAP_WORDS), -1, dtype=np.int64)  # unwritten words read as garbage
-    word_rank = np.full((N, tiles, CAP_WORDS), -1, dtype=np.int64)
-    ticket = [(0, 0)] * N  # (arrived, captured)
-    blocks = [(t, l) for l in range(N) for t in range(tiles)]
-    rng.shuffle(blocks)
-    srcs = (h1, h2, depth, action)
-    for tile, l in blocks:
-        i = tile * CAP_TILE + np.arange(CAP_TILE)
-        flags = np.zeros(CAP_TILE, dtype=bool)
-        flags[i < n] = below(l, i[i < n])
-        total = int(flags.sum())
-        if total:
-            nib = flags.reshape(256, 4)  # thread t's four candidates
-            rank = np.concatenate([[0], np.cumsum(nib.sum(1))[:-1]])  # each thread's first rank
-            for w in range(CAP_WORDS):
-                bits[l, tile, w] = int(sum(int(b) << k for k, b in enumerate(flags[w * 32:(w + 1) * 32])))
-                word_rank[l, tile, w] = rank[8 * w]
-            tile_cnt[l, tile] = total
-        arrived, captured = ticket[l]
-        ticket[l] = (arrived + 1, captured + total)
-        if ticket[l][0] != tiles:
+    tested = {}  # a block after its first step: (the occupied it read, its captures by rank)
+    published = [0] * N  # a lane's leading tiles whose status is ready
+    unstarted = [tiles] * N
+    while any(unstarted) or tested:
+        moves = [(None, l) for l in range(N) if unstarted[l]]
+        moves += [b for b in tested if not len(tested[b][1]) or published[b[1]] >= b[0]]
+        assert moves, "every started block waits"
+        tile, l = b = moves[rng.randrange(len(moves))]
+        if tile is None:
+            unstarted[l] -= 1
+            arrived, captured, tile = ticket[l]
+            ticket[l] = (arrived, captured, tile + 1)
+            assert tile < tiles
+            i = tile * CAP_TILE + np.arange(CAP_TILE)
+            i = i[i < n]
+            t1, t2 = int(thresh[l, 0]) & M32, int(thresh[l, 1]) & M32
+            a, c = h1[l, i] & M32, h2[l, i] & M32
+            flags = sel[l, i] & ((a < t1) | ((a == t1) & (c < t2)))
+            order = np.nonzero(flags)[0]  # the ranks: candidate order in the tile
+            tested[(tile, l)] = (int(occ[l]), order)
+            status[l, tile] = CAP_READY | len(order)
+            while published[l] < tiles and status[l, published[l]] & CAP_READY:
+                published[l] += 1
             continue
-        if ticket[l][1] == 0:  # nothing captured: nothing to write or advance
-            ticket[l] = (0, 0)
-            continue
-        occupied, carry = int(counts[l, 0]), 0
-        for r0 in range(0, tiles, 256):
-            v = tile_cnt[l, r0:r0 + 256].copy()
-            tile_cnt[l, r0:r0 + 256] = 0
-            first_rank = carry + np.cumsum(v) - v
-            work = [(r0 + j, int(first_rank[j])) for j in range(len(v)) if v[j] > 0 and first_rank[j] < step_cap]
-            pairs = [(j, rank0, w) for j, rank0 in work for w in range(CAP_WORDS)]
-            rng.shuffle(pairs)
-            for j, rank0, w in pairs:
-                m = int(bits[l, j, w])
-                for k in range(32):
-                    if not (m >> k) & 1:
-                        continue
-                    rank = rank0 + int(word_rank[l, j, w]) + bin(m & ((1 << k) - 1)).count("1")
-                    if rank >= step_cap:
-                        break
-                    row = min(occupied + rank, scap)
-                    cand = j * CAP_TILE + w * 32 + k
-                    for q, src in enumerate(srcs):
-                        slabs[q, l, row] = src[cand] if src.ndim == 1 else src[l, cand]
-            carry += int(v.sum())
-        fit = min(carry, step_cap)
-        counts[l, 0] = occupied + fit
-        counts[l, 1] += carry - fit
-        ticket[l] = (0, 0)
-    return ticket, tile_cnt
+        occupied, order = tested.pop(b)
+        total = len(order)
+        base = sum(int(status[l, j]) & ~CAP_READY for j in range(tile)) if total else 0
+        arrived, captured, taken = ticket[l]
+        ticket[l] = (arrived + 1, captured + total, taken)
+        last = ticket[l][0] == tiles
+        if last:
+            n_c = ticket[l][1]
+            fit = min(n_c, step_cap)
+            if n_c:
+                occ[l] = occupied + fit
+                if dropped is not None:
+                    dropped[l] += n_c - fit
+            ticket[l] = (0, 0, 0)
+        rows = max(0, min(total, step_cap - base))
+        pos = np.minimum(occupied + base + np.arange(rows), scap)
+        lanes = list(range(len(srcs)))
+        rng.shuffle(lanes)
+        for q in lanes:
+            dst[q, l, pos] = srcs[q][l, tile * CAP_TILE + order[:rows]]
+        if last:
+            status[l] = 0
+
+
+def _k9a_transcribed(slabs, counts, is_new, h1, h2, depth, action, thresh, step_cap, seed):
+    """K9a's operands (sample_capture.cu: four slab lanes, a dropped
+    counter) through `capture_one_transcribed`, on a zero scratch; returns
+    the tickets and status words after the launch."""
+    N, n = is_new.shape
+    th = np.broadcast_to(thresh, (N, 2))
+    srcs = [h1, h2, depth, np.broadcast_to(action, (N, n))]
+    status = np.zeros((N, -(-n // CAP_TILE)), dtype=np.int64)
+    ticket = [(0, 0, 0)] * N
+    occ, dropped = counts[:, 0].copy(), counts[:, 1].copy()
+    capture_one_transcribed(is_new, h1, h2, th, srcs, slabs, occ, dropped, step_cap, status, ticket, seed)
+    counts[:, 0], counts[:, 1] = occ, dropped
+    return ticket, status
 
 
 @pytest.mark.parametrize("N,n,density,thresh,step_cap,shared", [
     (1, 30_310, 0.5, (M32, M32), 512, True),                     # a flood past 512, rcap off the tile
     (1, 30_310, 0.5, (0x00800000, 0x40000000), 512, True),       # ties on the threshold's high word
     (1, 5_000, 0.5, (0, 0), 512, True),                          # nothing below the threshold
-    (1, 300 * CAP_TILE + 7, 0.0005, (M32, M32), 512, True),     # over 256 tiles: two rounds
+    (1, 300 * CAP_TILE + 7, 0.0005, (M32, M32), 512, True),     # over 256 tiles: a look-back past kThreads
     (8, 12_629, 0.7, (0x10000000, 0), 12_629, True),             # every shard, the receive width
     (3, 2_100, 0.6, (0x80000000, 0x1), 300, False),              # a threshold and an action lane a shard
 ])
@@ -977,7 +985,7 @@ def test_k9a_blocks_in_random_orders_equal_the_plain_capture(N, n, density, thre
     want_slabs, want_counts = torch.from_numpy(slabs.copy()), torch.from_numpy(counts.copy())
     sl.capture_lanes_plain(want_slabs, want_counts, torch.from_numpy(is_new), *(torch.from_numpy(x) for x in h[:3]),
                            torch.from_numpy(act), torch.from_numpy(th), step_cap)
-    ticket, tile_cnt = _k9a_transcribed(slabs, counts, is_new, h[0], h[1], h[2], act, th, step_cap, seed)
+    ticket, status = _k9a_transcribed(slabs, counts, is_new, h[0], h[1], h[2], act, th, step_cap, seed)
     assert np.array_equal(slabs[:, :, :scap], want_slabs.numpy()[:, :, :scap])
     assert np.array_equal(counts, want_counts.numpy())
-    assert ticket == [(0, 0)] * N and not tile_cnt.any()
+    assert ticket == [(0, 0, 0)] * N and not status.any()

@@ -125,3 +125,33 @@ def test_ranks_checkpoint_and_resume(tmp_path):
     assert ma == mb
     assert resumed["parity"]["unique"] == 8_832
     assert resumed["parity"] == _normal(parity(one_res))
+
+
+def test_an_eager_stage_program_on_the_card_is_timed_on_the_host(monkeypatch):
+    """Across ranks the mesh's stage programs run their rounds from the
+    host (the exchange's all_to_all cannot be captured), and the host
+    waits for the card inside such a launch. Queued behind the stage
+    timer's spin kernel, that launch outlasted the spin every time, so
+    the timer doubled the spin without end: the stall of
+    `scripts/mesh_ranks.py --world 4` in its profiled case. Such a program
+    is timed on the host's clock, with no spin. It runs on the CPU here
+    with its device named the card; the spin, the events and the streams
+    are stand-ins that fail when used."""
+    import torch
+
+    from stateright_tpu_torch.engines import stages
+    from stateright_tpu_torch.obs import stageprof
+
+    def refuse(*_a, **_k):
+        raise AssertionError("an eager program was queued behind the spin kernel")
+
+    progs = stages._Programs("cpu", 4, eager=True)
+    null = progs.null
+    null.device = torch.device("cuda")
+    assert not null.as_graph
+    monkeypatch.setattr(torch.cuda, "_sleep", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.cuda, "current_stream", refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *_a: None)
+    secs = stageprof.time_dispatch(null)
+    assert secs > 0 and null.read() == stageprof.SEED + 4
